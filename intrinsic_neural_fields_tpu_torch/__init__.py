@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of intrinsic_neural_fields_tpu (render/eval path).
+"""PyTorch + CUDA port of intrinsic_neural_fields_tpu (training, render, eval).
 
 The JAX package beside this one is the reference; this package imports
 nothing of it (and no jax/flax/optax). Entry points run on the GPU unless

@@ -26,6 +26,12 @@ def psnr(fake_img, real_img, obj_mask_1d=None):
     return 20.0 * np.log10(1.0 / np.sqrt(mse))
 
 
+def epoch_psnr(epoch_mse):
+    """-10 log10(MSE) over the accumulated per-sample MSE
+    (reference evaluation_metrics.py:25-26)."""
+    return -10.0 * np.log10(epoch_mse)
+
+
 def _ssim_channel(X, Y, win_size, data_range, K1=0.01, K2=0.03):
     X = X.astype(np.float64)
     Y = Y.astype(np.float64)

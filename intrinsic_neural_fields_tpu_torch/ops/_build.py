@@ -19,12 +19,15 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = {
-    "fused_mlp_fwd": os.path.join(_PKG_DIR, "csrc", "fused_mlp_fwd.cu"),
+    name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
+    for name in ("fused_mlp_fwd", "fused_mlp_train", "fused_adam")
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# Adam rounds every product and sum separately, like its plain twin.
+EXTRA_FLAGS = {"fused_adam": ["-fmad=false"]}
 
 _loaded = {}
 
@@ -39,9 +42,13 @@ def _nvcc():
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def library_path(name):
     with open(SOURCES[name], "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        digest = hashlib.sha256(f.read() + " ".join(_flags(name)).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
 
 
@@ -58,7 +65,7 @@ def build_all(names=None):
     procs = {}
     for n in todo:
         tmp = f"{library_path(n)}.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[n]]
+        cmd = [nvcc, *_flags(n), "-o", tmp, SOURCES[n]]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     built, failed = {}, []

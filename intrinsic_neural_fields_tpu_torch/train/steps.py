@@ -1,0 +1,244 @@
+"""Training and validation epochs.
+
+The train state is the network's parameters and optax-Adam moments as flat
+f32 buffers in the kernels' padded layout (``ops/fused_mlp.ParamLayout``),
+updated in place, plus the step count and the hyperparameters. An epoch:
+
+  - blocks shuffle + ``fused`` (the HQ recipe): each step streams one
+    shuffled batch-sized block of the precomputed hit-feature table through
+    the train kernels and the Adam kernel (``fused_train_adam``; with
+    ``fused_adam=False`` the gradients leave the kernel and the Adam kernel
+    runs as its own call, the same numbers);
+  - full shuffle + ``fused``: the batch rows are gathered, then the same
+    kernels run on the gathered batch;
+  - anything else, and every epoch with a ragged tail batch
+    (``train_drop_last: false``): the eager step — an f32 forward with
+    autograd and the weighted mean loss of the reference, then the Adam
+    kernel. On the CPU every kernel call runs its plain twin.
+
+Adam numerics are ``optax.inject_hyperparams(optax.adam)``'s: per-step
+hyper rows (lr, bias corrections) come from ``adam_hyper_rows``, the lr is
+read from the state every epoch (the plateau scheduler writes it there).
+The shuffle order is an argument: a ``torch.Generator`` (the Trainer's,
+seeded from the config seed and the epoch) or an explicit permutation, so a
+test can replay the reference's ``jax.random.permutation``.
+
+Validation runs the f32 forward over every record (the last batch ragged)
+and reports the reference's per-sample metrics (its "epoch PSNR" uses the
+per-sample MSE summed over the 3 channels).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..data.sampler import gather_batch, slice_batch
+from ..ops.fused_mlp import (
+    ParamLayout,
+    adam_hyper_rows,
+    fused_adam_apply,
+    fused_train_adam,
+    fused_train_grads,
+    make_train_scratch,
+    spec_for_model,
+)
+from .losses import elementwise_loss
+
+
+@dataclass
+class AdamHyper:
+    """Hyperparameters of ``optax.inject_hyperparams(optax.adam)``; each
+    value is held as the f32 number optax holds."""
+
+    learning_rate: float
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    eps_root: float = 0.0
+
+    def __post_init__(self):
+        for name in ("learning_rate", "b1", "b2", "eps", "eps_root"):
+            setattr(self, name, float(np.float32(getattr(self, name))))
+
+
+@dataclass
+class TrainState:
+    layout: ParamLayout
+    params: torch.Tensor   # flat f32, padded layout
+    mu: torch.Tensor       # Adam first moment, same layout
+    nu: torch.Tensor       # Adam second moment
+    count: int             # Adam steps taken
+    hyper: AdamHyper
+
+    def state_dict(self, device=None):
+        """The parameters as a torch-layout state dict (contiguous copies)."""
+        return self.layout.state_dict(self.params, device)
+
+    def set_lr(self, lr):
+        self.hyper.learning_rate = float(np.float32(lr))
+
+    @classmethod
+    def from_torch(cls, layout, model_state_dict, adam, device):
+        """From a torch-layout state dict and an Adam dict {count, mu, nu
+        (torch-layout state dicts), lr, b1, b2, eps[, eps_root]}."""
+        flat = lambda sd: layout.flat_from_state_dict(sd, device)  # noqa: E731
+        hyper = AdamHyper(adam["lr"], adam["b1"], adam["b2"], adam["eps"],
+                          adam.get("eps_root", 0.0))
+        return cls(layout, flat(model_state_dict), flat(adam["mu"]), flat(adam["nu"]),
+                   int(adam["count"]), hyper)
+
+
+def create_train_state(model, optimizer, device=None):
+    """Fresh state: the model's weights, zero moments, count 0."""
+    layout = ParamLayout(spec_for_model(model))
+    params = layout.flat_from_state_dict(model.state_dict(), device)
+    return TrainState(layout, params, torch.zeros_like(params), torch.zeros_like(params),
+                      0, AdamHyper(**vars(optimizer)))
+
+
+def forward_f32(layout, params, x):
+    """The TextureField forward in full f32 on the flat parameters (views,
+    so autograd gives the flat gradient with zeros at the pads)."""
+    spec = layout.spec
+    mats, biases = layout.mats(params), layout.biases(params)
+    ents = iter(range(len(layout.entries)))
+    h = x
+    for i in range(spec.num_layers - 1):
+        j = next(ents)
+        if i == spec.skip_idx:
+            jx = next(ents)
+            h = torch.relu((h @ mats[j] + biases[j])
+                           + (x @ mats[jx][:spec.k_in] + biases[jx]))
+        else:
+            W = mats[j][:spec.k_in] if i == 0 else mats[j]
+            h = torch.relu(h @ W + biases[j])
+    j = next(ents)
+    return torch.sigmoid(h @ mats[j][:, :spec.out_dim] + biases[j][:spec.out_dim])
+
+
+def eager_step(state, hyper_row, x, gt, w, loss_elem):
+    """One autograd step on a gathered batch: weighted mean loss (w masks
+    the duplicated rows of a ragged tail), grads, Adam in place. Returns
+    (loss, sum over rows of the per-sample squared error, sum of w)."""
+    p = state.params.detach().requires_grad_()
+    pred = forward_f32(state.layout, p, x.to(torch.float32))
+    n_b = w.sum()
+    loss = (loss_elem(pred, gt).mean(-1) * w).sum() / n_b
+    loss.backward()
+    fused_adam_apply(state.params, state.mu, state.nu, hyper_row, p.grad)
+    eager_step.launches += 1
+    sq = (((pred.detach() - gt) ** 2).sum(-1) * w).sum()
+    return loss.detach(), sq, n_b
+
+
+eager_step.launches = 0  # eager steps since the last reset
+
+
+def _order(order, size):
+    if isinstance(order, torch.Generator):
+        return torch.randperm(size, generator=order)
+    t = torch.as_tensor(np.array(order), dtype=torch.int64)
+    if t.shape != (size,):
+        raise ValueError(f"the shuffle order must have shape ({size},), got {tuple(t.shape)}")
+    return t
+
+
+def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=True):
+    """(train_epoch, val_epoch) for a TextureField.
+
+    train_epoch(state, generator_or_order, data, num_batches, batch_size)
+        -> (state, {"loss", "sq_err_per_sample"}: 0-dim device tensors)
+      updates `state` in place. generator_or_order: a torch.Generator, or
+      the permutation itself — of the num_batches blocks when the epoch
+      streams blocks, else of the n records.
+    val_epoch(state, data, batch_size) -> {"loss", "sq_err_per_sample"}
+    """
+    if shuffle not in ("full", "blocks"):
+        raise ValueError(f"shuffle must be 'full' or 'blocks', got {shuffle!r}")
+    loss_elem = elementwise_loss(loss_type)
+    layout = ParamLayout(spec_for_model(model))
+
+    def train_epoch(state, order, data, num_batches, batch_size):
+        n, B = data.n, batch_size
+        if not (0 < num_batches and (num_batches * B <= n or num_batches == -(-n // B))):
+            raise ValueError(f"num_batches {num_batches} inconsistent with n={n}, batch={B}")
+        if state.layout.spec != layout.spec:
+            raise ValueError("the state's layout is not this model's")
+        has_tail = num_batches * B > n
+        use_blocks = shuffle == "blocks" and data.hit_features is not None and not has_tail
+        perm = _order(order, num_batches if use_blocks else n)
+        use_fused = fused and not has_tail
+        dev = state.params.device
+        h = state.hyper
+        hyper_all = adam_hyper_rows(state.count + 1 + torch.arange(num_batches),
+                                    h.learning_rate, h.b1, h.b2, h.eps, h.eps_root,
+                                    device=dev)
+        acc_loss = torch.zeros((), dtype=torch.float32, device=dev)
+        acc_sq = torch.zeros((), dtype=torch.float32, device=dev)
+        acc_n = torch.zeros((), dtype=torch.float32, device=dev)
+        blocks = perm.tolist() if use_blocks else None
+        perm_dev = None if use_blocks else perm.to(dev)
+        scratch = make_train_scratch(layout, B, dev) if (use_fused and dev.type == "cuda") else None
+        for i in range(num_batches):
+            if use_fused and use_blocks:
+                # stream block blocks[i] of the table through the kernels
+                blk = blocks[i]
+                gt = data.expected_rgbs[blk * B:(blk + 1) * B]
+                if fused_adam:
+                    loss_sum, sq_sum = fused_train_adam(
+                        layout, state.params, state.mu, state.nu, hyper_all[i],
+                        data.hit_features, gt, blk, B, loss_type, scratch)
+                else:
+                    grads, loss_sum, sq_sum = fused_train_grads(
+                        layout, state.params, data.hit_features, gt, blk, B, loss_type,
+                        scratch)
+                    fused_adam_apply(state.params, state.mu, state.nu, hyper_all[i], grads)
+                acc_loss = acc_loss + loss_sum / 3.0   # loss_sum/(B*3) * B
+                acc_sq = acc_sq + sq_sum
+                acc_n = acc_n + float(B)
+                continue
+            if use_blocks:
+                batch = slice_batch(data, blocks[i] * B, B)
+                w = torch.ones(B, dtype=torch.float32, device=dev)
+            else:
+                pos = i * B + torch.arange(B, device=dev)
+                w = (pos < n).to(torch.float32)
+                batch = gather_batch(data, perm_dev[torch.clamp(pos, max=n - 1)])
+            gt = batch["expected_rgbs"]
+            if use_fused:
+                x = batch["eigenfunctions"]
+                if x.dtype not in (torch.bfloat16, torch.float32):
+                    x = x.to(torch.float32)
+                grads, loss_sum, sq_sum = fused_train_grads(
+                    layout, state.params, x.contiguous(), gt, 0, B, loss_type, scratch)
+                fused_adam_apply(state.params, state.mu, state.nu, hyper_all[i], grads)
+                acc_loss = acc_loss + loss_sum / 3.0
+                acc_sq = acc_sq + sq_sum
+                acc_n = acc_n + float(B)
+            else:
+                loss, sq, n_b = eager_step(state, hyper_all[i], batch["eigenfunctions"], gt,
+                                           w, loss_elem)
+                acc_loss = acc_loss + loss * n_b
+                acc_sq = acc_sq + sq
+                acc_n = acc_n + n_b
+        state.count += num_batches
+        return state, {"loss": acc_loss / acc_n, "sq_err_per_sample": acc_sq / acc_n}
+
+    @torch.no_grad()
+    def val_epoch(state, data, batch_size):
+        n = data.n
+        dev = state.params.device
+        acc_loss = torch.zeros((), dtype=torch.float32, device=dev)
+        acc_sq = torch.zeros((), dtype=torch.float32, device=dev)
+        for s in range(0, n, batch_size):
+            batch = gather_batch(data, torch.arange(s, min(s + batch_size, n), device=dev))
+            gt = batch["expected_rgbs"]
+            pred = forward_f32(layout, state.params, batch["eigenfunctions"].to(torch.float32))
+            # per-sample loss = channel mean (the reference's accounting)
+            acc_loss = acc_loss + loss_elem(pred, gt).mean(-1).sum()
+            acc_sq = acc_sq + ((pred - gt) ** 2).sum(-1).sum()
+        return {"loss": acc_loss / n, "sq_err_per_sample": acc_sq / n}
+
+    return train_epoch, val_epoch

@@ -1,0 +1,219 @@
+"""Training orchestration (reference trainer.py:18-337), the JAX package's
+loop on one GPU: one ``train_epoch`` and one ``val_epoch`` per epoch (see
+steps.py), TensorBoard scalars under the reference's tags, periodic vis
+renders, best / interval / last / epoch-200 checkpoints and resume.
+
+As in the JAX package, min_val_loss starts at +inf, not 1.0 (reference
+trainer.py:237). The batch order of epoch e comes from a generator seeded
+with (config seed, e), so a resumed run replays the uninterrupted run's
+order; the checkpoint needs no RNG state.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+
+from .. import resolve_device
+from ..data.sampler import num_train_batches
+from ..evaluation.metrics import epoch_psnr, psnr
+from ..utils.checkpoint import load_train_checkpoint, save_model, save_train_checkpoint
+from .config import check_training_config
+from .plateau import ReduceLROnPlateau
+from .steps import TrainState, create_train_state, make_epoch_fns
+
+
+def epoch_generator(seed, epoch):
+    """The torch.Generator that shuffles epoch `epoch` of a run seeded `seed`."""
+    import torch
+
+    return torch.Generator().manual_seed((int(seed) * 0x9E3779B97F4A7C15 + int(epoch)) % 2**64)
+
+
+class Trainer:
+    def __init__(self, model, optimizer, loss_type, renderer, data, mesh, config,
+                 writer=None, device="cuda"):
+        """model: the TextureField (its weights start the run); optimizer:
+        train.steps.AdamHyper; data: {"train", "val"[, "test"]} RayData on
+        `device`; writer: anything with add_scalar/add_image (default: a
+        tensorboardX SummaryWriter on <out_dir>/logs)."""
+        check_training_config(config)
+        self.device = resolve_device(device)
+        self.model = model
+        self.loss_type = loss_type
+        self.renderer = renderer
+        self.mesh = mesh
+        self.config = config
+        self.state = create_train_state(model, optimizer, self.device)
+        self.shuffle = config["training"].get("shuffle", "full")
+        self.fused_mlp = config["training"].get("fused_mlp", False)
+        self.train_data = data["train"]
+        self.val_data = data["val"]
+        self.test_data = data.get("test")
+        self.train_epoch_fn, self.val_epoch_fn = make_epoch_fns(
+            model, loss_type, shuffle=self.shuffle, fused=self.fused_mlp,
+            fused_adam=config["training"].get("fused_adam", True))
+
+        self.use_lr_scheduler = config["training"].get("use_lr_scheduler", False)
+        self.lr_scheduler = ReduceLROnPlateau(factor=0.2)
+        self.dataset_type = config["data"].get("type")
+        if self.dataset_type is not None:
+            raise NotImplementedError(f"dataset type {self.dataset_type!r} is not ported yet")
+        self.H = config["data"]["img_height"]
+        self.W = config["data"]["img_width"]
+        self.val_render_infos = list(zip(config["data"].get("eval_render_input_paths", []),
+                                         config["data"].get("eval_render_img_names", [])))
+
+        self.out_dir = config["training"]["out_dir"]
+        log_dir = os.path.join(self.out_dir, "logs")
+        os.makedirs(log_dir, exist_ok=True)
+        if writer is None:
+            from tensorboardX import SummaryWriter
+
+            writer = SummaryWriter(log_dir)
+        self.writer = writer
+
+        self.batch_size = config["training"]["batch_size"]
+        self.drop_last = config["data"].get("train_drop_last", True)
+        self.render_every = config["training"]["render_every"]
+        self.print_every = config["training"]["print_every"]
+        self.epochs = config["training"]["epochs"]
+        self.checkpoint_every = config["training"].get("checkpoint_every")
+        self.checkpoint_path = os.path.join(self.out_dir, "checkpoint.pt")
+        self.best_model_weights_path = os.path.join(self.out_dir, "model.pt")
+        self.model_last_epoch_path = os.path.join(self.out_dir, "model_last_epoch.pt")
+        self.best_state_dict = self.state.state_dict()
+        self.seed = config.get("seed", 0)
+
+    # ------------------------------------------------------------ checkpoints
+
+    def _init_or_load_checkpoint(self):
+        """Resume from out_dir/checkpoint.pt when present (reference
+        trainer.py:214-230). Returns the epoch to start from."""
+        if self.checkpoint_every is None or not os.path.exists(self.checkpoint_path):
+            return 0
+        print("Restoring from checkpoint...")
+        ckpt = load_train_checkpoint(self.checkpoint_path)
+        self.state = TrainState.from_torch(self.state.layout, ckpt["model_state_dict"],
+                                           ckpt["adam"], self.device)
+        print("Done.")
+        return ckpt["epoch"] + 1
+
+    # ------------------------------------------------------------ phases
+
+    def evaluate(self, epoch=None):
+        metrics = self.val_epoch_fn(self.state, self.val_data, self.batch_size)
+        val_loss = float(metrics["loss"])
+        val_psnr = float(epoch_psnr(float(metrics["sq_err_per_sample"])))
+        self.writer.add_scalar("Val_Loss", val_loss, epoch)
+        self.writer.add_scalar("Val Epoch-PSNR", val_psnr, epoch)
+        return val_loss, val_psnr
+
+    def test(self):
+        """Evaluate the best model on the test split."""
+        if self.test_data is None:
+            return None
+        best = TrainState(self.state.layout,
+                          self.state.layout.flat_from_state_dict(self.best_state_dict, self.device),
+                          self.state.mu, self.state.nu, self.state.count, self.state.hyper)
+        test_loss = float(self.val_epoch_fn(best, self.test_data, self.batch_size)["loss"])
+        self.writer.add_scalar("Test Loss", test_loss)
+        print(f"Test Loss: {test_loss}")
+        return test_loss
+
+    def write_vis_metrics_to_tensorboard(self, img_name, rendered_img, gt_img, obj_mask_1d, epoch):
+        self.writer.add_image(img_name, rendered_img.transpose(2, 0, 1), global_step=epoch)
+        self.writer.add_scalar(f"{img_name}_psnr", psnr(rendered_img, gt_img, obj_mask_1d), epoch)
+        mean_distance_2d = 1.0 - np.mean(np.abs(rendered_img - gt_img), -1)
+        mean_distance_2d = np.repeat(mean_distance_2d[None, ...], 3, axis=0)
+        self.writer.add_image(f"{img_name}_2d_mean_distance", mean_distance_2d, global_step=epoch)
+        fake = rendered_img.reshape(-1, 3)[obj_mask_1d]
+        real = gt_img.reshape(-1, 3)[obj_mask_1d]
+        self.writer.add_scalar(f"{img_name}_dist", np.abs(real - fake).sum(), epoch)
+
+    def _render_view_for_tensorboard(self, input_path, img_name, epoch):
+        from ..data.datasets import imread, load_cameras, load_obj_mask
+
+        obj_mask_1d = load_obj_mask(input_path).reshape(-1)
+        camCv2world, K = load_cameras(input_path)
+        # the trace of a fixed vis view is the same every epoch: cached
+        rendered_img = self.renderer.render(camCv2world, K, obj_mask_1d=obj_mask_1d,
+                                            cache_key=input_path)
+        gt_img = imread(os.path.join(input_path, "image", "000.png")).astype(np.float32) / 255.0
+        shape = gt_img.shape
+        gt_img = gt_img.reshape(-1, 3)
+        gt_img[~obj_mask_1d] = 1.0
+        self.write_vis_metrics_to_tensorboard(img_name, rendered_img, gt_img.reshape(shape),
+                                              obj_mask_1d, epoch)
+
+    def _visualize(self, epoch):
+        self.renderer.update_variables(self.state.state_dict())
+        print("Visualizing...")
+        vis_start = time.time()
+        for i, (input_path, _img_name) in enumerate(self.val_render_infos):
+            self._render_view_for_tensorboard(input_path, f"img{i:03d}", epoch)
+        print(f"Done with visualizations after {time.time() - vis_start} seconds.")
+
+    # ------------------------------------------------------------ train
+
+    def train(self):
+        print("Starting training...")
+        epoch_start_idx = self._init_or_load_checkpoint()
+        n = self.train_data.n
+        num_batches = num_train_batches(n, self.batch_size, self.drop_last)
+        if num_batches <= 0:
+            raise ValueError("training set smaller than one batch")
+        min_val_loss = float("inf")
+
+        for epoch in range(epoch_start_idx, self.epochs):
+            t0 = time.time()
+            self.state, metrics = self.train_epoch_fn(
+                self.state, epoch_generator(self.seed, epoch), self.train_data, num_batches,
+                self.batch_size)
+            train_loss = float(metrics["loss"])  # waits for the epoch's device work
+            train_mse = float(metrics["sq_err_per_sample"])
+            t1 = time.time()
+
+            rays_per_sec = num_batches * self.batch_size / max(t1 - t0, 1e-9)
+            self.writer.add_scalar("Train Rays-per-sec", rays_per_sec, epoch)
+            train_psnr = float(epoch_psnr(train_mse))
+            self.writer.add_scalar("Train_Loss", train_loss, epoch)
+            self.writer.add_scalar("Train Epoch-PSNR", train_psnr, epoch)
+
+            val_loss, val_psnr = self.evaluate(epoch)
+            if val_loss < min_val_loss:
+                min_val_loss = val_loss
+                self.best_state_dict = self.state.state_dict()
+                save_model(self.best_model_weights_path, self.best_state_dict)
+
+            if self.use_lr_scheduler:
+                self.state.set_lr(self.lr_scheduler.step(val_loss, self.state.hyper.learning_rate))
+
+            if epoch == 0 or (epoch + 1) % self.print_every == 0:
+                print(
+                    f"Epoch: {epoch + 1} / {self.epochs}, Train Loss: {train_loss}, "
+                    f"Train PSNR: {train_psnr}, Val Loss: {val_loss}, Val PSNR: {val_psnr} "
+                    f"Epoch Time: {t1 - t0}s ({rays_per_sec / 1e6:.2f}M rays/s)"
+                )
+
+            if epoch == 0 or (epoch + 1) % self.render_every == 0:
+                self._visualize(epoch)
+
+            if self.checkpoint_every is not None and epoch % self.checkpoint_every == 0:
+                print("Saving checkpoint...")
+                save_train_checkpoint(self.checkpoint_path, epoch, self.state)
+                print("Done.")
+
+            if epoch > 0 and (epoch + 1) == 200:
+                # persistent snapshot at epoch 200 (reference trainer.py:315-331)
+                print(f"Persisting checkpoint at {epoch}...")
+                save_train_checkpoint(os.path.join(self.out_dir, f"checkpoint_{epoch}.pt"),
+                                      epoch, self.state)
+                save_model(os.path.join(self.out_dir, f"best_model_checkpoint_{epoch}.pt"),
+                           self.best_state_dict)
+                print("Done.")
+
+        self.test()
+        print("Done.")
+        save_model(self.model_last_epoch_path, self.state.state_dict())

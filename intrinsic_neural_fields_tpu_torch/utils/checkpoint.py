@@ -1,0 +1,98 @@
+"""Checkpoints in the upstream torch layout, written atomically.
+
+  model.pt, model_last_epoch.pt, best_model_checkpoint_<e>.pt
+      a raw state dict (Linear weights [out, in]);
+  checkpoint.pt, checkpoint_<e>.pt
+      {"epoch", "model_state_dict", "optimizer_state_dict"}, the optimizer
+      state in torch.optim.Adam's layout: state[i] = {step, exp_avg,
+      exp_avg_sq} per parameter in module order, one param group
+      {lr, betas, eps, ...}.
+
+The reference package's ``load_reference_train_checkpoint`` reads these
+files, and this module reads its exports, so training moves between the
+two packages in both directions. Adam's eps_root is not part of torch's
+state: the port's optimizer keeps it at 0, as optax.adam does by default.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+
+def _atomic_save(obj, path):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)  # readers never see a partial file
+
+
+def save_model(path, state_dict):
+    _atomic_save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+
+
+def _param_names(state_dict):
+    # parameters in module order: every tensor ending in .weight/.bias
+    return [k for k in state_dict if k.endswith(".weight") or k.endswith(".bias")]
+
+
+def save_train_checkpoint(path, epoch, state):
+    """`state`: a train/steps.TrainState."""
+    if state.hyper.eps_root != 0.0:
+        raise ValueError("torch's Adam layout cannot hold eps_root != 0")
+    sd = state.state_dict("cpu")
+    mu, nu = state.layout.state_dict(state.mu, "cpu"), state.layout.state_dict(state.nu, "cpu")
+    names = _param_names(sd)
+    h = state.hyper
+    step = torch.tensor(float(state.count))
+    _atomic_save({
+        "epoch": int(epoch),
+        "model_state_dict": sd,
+        "optimizer_state_dict": {
+            "state": {i: {"step": step.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+                      for i, name in enumerate(names)},
+            "param_groups": [{
+                "lr": h.learning_rate, "betas": (h.b1, h.b2), "eps": h.eps,
+                "weight_decay": 0, "amsgrad": False, "maximize": False, "foreach": None,
+                "capturable": False, "differentiable": False, "fused": None,
+                "params": list(range(len(names))),
+            }],
+        },
+    }, path)
+
+
+def load_train_checkpoint(path):
+    """{"epoch", "model_state_dict", "adam": {count, mu, nu, lr, b1, b2,
+    eps}} from a checkpoint.pt of either package (or of the upstream torch
+    trainer; its DataParallel ``module.`` prefix is stripped)."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(obj, dict) and "optimizer_state_dict" in obj):
+        raise ValueError(f"{path}: not a training checkpoint (no optimizer_state_dict)")
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in obj["model_state_dict"].items()}
+    names = _param_names(sd)
+    osd = obj["optimizer_state_dict"]
+    if len(osd["param_groups"]) != 1:
+        raise ValueError(f"{path}: expected one Adam param group")
+    group = osd["param_groups"][0]
+    if float(group.get("weight_decay", 0.0) or 0.0) != 0.0 or group.get("amsgrad") \
+            or group.get("maximize"):
+        raise ValueError(f"{path}: only plain Adam (no weight decay, amsgrad, maximize)")
+    if len(group["params"]) != len(names):
+        raise ValueError(f"{path}: optimizer covers {len(group['params'])} params, "
+                         f"the model has {len(names)}")
+    mu, nu, steps = {}, {}, set()
+    for i, name in zip(group["params"], names):
+        st = osd["state"].get(i, osd["state"].get(str(i)))
+        if st is None:  # torch creates Adam state lazily: 0 steps taken
+            mu[name], nu[name] = torch.zeros_like(sd[name]), torch.zeros_like(sd[name])
+            steps.add(0)
+            continue
+        mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+        steps.add(int(st["step"]))
+    if len(steps) != 1:
+        raise ValueError(f"{path}: per-parameter Adam step counts disagree: {sorted(steps)}")
+    b1, b2 = group["betas"]
+    return {"epoch": int(obj["epoch"]), "model_state_dict": sd,
+            "adam": {"count": steps.pop(), "mu": mu, "nu": nu, "lr": float(group["lr"]),
+                     "b1": float(b1), "b2": float(b2), "eps": float(group["eps"])}}

@@ -6,7 +6,8 @@ is exported to that layout by the reference package's own exporter
 (``tools/export_reference_checkpoint.py``, i.e. its
 ``export_reference_state_dict``) into a ``model.pt`` that
 ``load_reference_weights`` reads; ``state_dict_from_flax`` performs the same
-mapping in-process from flax parameters already converted to numpy.
+mapping in-process from flax parameters already converted to numpy, and
+``adam_state_from_optax`` carries the optimizer state with them.
 """
 from __future__ import annotations
 
@@ -63,4 +64,23 @@ def load_reference_weights(path):
     return {
         (k[len("module."):] if k.startswith("module.") else k): torch.as_tensor(v)
         for k, v in obj.items()
+    }
+
+
+def adam_state_from_optax(opt_state, model_config):
+    """An ``optax.inject_hyperparams(optax.adam)`` state, converted to numpy
+    (``jax.device_get``), -> the port's Adam dict {count, mu, nu (state
+    dicts in the upstream torch layout), lr, b1, b2, eps, eps_root} that
+    ``train.steps.TrainState.from_torch`` takes. Read by structure: the
+    hyperparams dict and the ScaleByAdamState (mu, nu, count) first in the
+    inner state."""
+    hp = dict(opt_state.hyperparams)
+    adam = opt_state.inner_state[0]
+    return {
+        "count": int(np.asarray(adam.count)),
+        "mu": state_dict_from_flax(adam.mu, model_config),
+        "nu": state_dict_from_flax(adam.nu, model_config),
+        **{ours: float(np.asarray(hp[theirs])) for ours, theirs in (
+            ("lr", "learning_rate"), ("b1", "b1"), ("b2", "b2"), ("eps", "eps"),
+            ("eps_root", "eps_root"))},
     }
