@@ -39,9 +39,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       the batches each train leg feeds them (k=512 and k=1023, B=4096), the
       autograd backward of fused_apply against torch.autograd of the plain
       forward; CUDA-event times beside bounds, plain and library times;
-  (h) profile: torch.profiler over 4 pipelined render frames and one
-      train-throughput epoch;
-  (i) the kernels summary line, the nvidia-smi line, and the result line.
+  (h) view-dependent train leg, the slice's path: the same ray caches (they
+      carry the unit ray directions and original face ids), the Trainer on
+      configs/synthetic/viewdep_intrinsic_blob.yaml's model and training
+      sections (k=512, 6x128 skip 3, bottleneck 128, intrinsic view angle,
+      embed 4, directional 128; L1, Adam lr 1e-4, batch 4096, shuffle
+      blocks) with fused_mlp and a bf16 table, 5 epochs, counters set to 0
+      just before and read just after: the tail kernels once per step, the
+      plain train kernels and the eager step never; loss falls, tags, finite
+      state, bit-exact resume; evaluate_views of the val views through the
+      view-dependent forward kernel before and after, each held to the
+      plain twin's render (equal masks, PSNR >= 50 dB);
+  (i) view-dependent kernels: each tail kernel against its plain twin on
+      the batches the leg feeds it (B=4096 train blocks, B=8192 render
+      chunks, a ragged B), one extrinsic batch (27 view lanes), Adam on
+      the view-dependent buffer; times beside bounds;
+  (j) profile: torch.profiler over 4 pipelined render frames, one
+      train-throughput epoch and one view-dependent train epoch;
+  (k) the kernels summary line, the nvidia-smi line, and the result line.
+      The train kernels' bound_ms counts the activations and deltas their
+      two-launch split writes; their fused_step_bound_ms is the bound of
+      the whole step as the TPU kernel computes it, intermediates on chip.
 
 Imports nothing of JAX. Needs one CUDA card; exits non-zero without one.
 """
@@ -54,6 +72,13 @@ import time
 import numpy as np
 
 TOL = 2e-3            # kernel vs plain twin, max abs error
+# The view-dependent forward on trained weights: a one-bf16-step flip of a
+# directional hidden value (the kernel and its twin sum the same bf16
+# operands in another order) moves a logit by |W2| * 2^-8 * |h1| and an
+# output by a quarter of that: measured 1.9e-3 at k=512 after 5 epochs (H100
+# at 700 W), against 2.4e-4 for the plain forward; the mean stays at
+# rounding noise.
+TOL_VD, MEAN_TOL_VD = 5e-3, 1e-4
 PSNR_MIN = 50.0       # kernel render vs plain-twin render, dB
 H100_BF16_FLOPS = 989e12
 H100_F32_FLOPS = 67e12
@@ -88,6 +113,9 @@ VJP_NORM_TOL = 5e-2
 # (intrinsic_neural_fields_tpu/train/trainer.py: evaluate, test, train).
 JAX_TRAINER_TAGS = sorted(["Train Rays-per-sec", "Train_Loss", "Train Epoch-PSNR",
                            "Val_Loss", "Val Epoch-PSNR", "Test Loss"])
+# configs/synthetic/viewdep_intrinsic_blob.yaml's view_dependence section
+VIEWDEP = {"bottleneck_vec_dim": 128, "include_view_dir": True, "embed_size": 4,
+           "directional_hidden_dim": 128, "in_dim_view_dir": 1, "strategy": "intrinsic"}
 
 
 def emit(phase, **fields):
@@ -119,18 +147,36 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
+def _macs(layout):
+    """Per row, real widths: (forward MACs, delta-walk MACs). The forward
+    counts every layer's h and table rows (k_in features, venc_in view
+    lanes) and the 3 RGB columns; the delta walk the RGB head's transpose
+    and every layer's h-matrix but the first's."""
+    H = layout.spec.hidden
+    fwd = bwd = 0
+    for lay in layout.layers:
+        if lay.h is not None:
+            fwd += lay.h[2] * H
+            bwd += lay.h[2] * H
+        if lay.ext is not None:
+            fwd += lay.ext[2] * H
+    return fwd + 3 * H, bwd + 3 * H
+
+
+def _bound(flops, nbytes, flops_rate=H100_BF16_FLOPS):
+    t_ops, t_bytes = flops / flops_rate, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
 def mlp_bound_ms(fw, B):
     """Least time for the fused forward on this card: max of the FLOPs at
-    the bf16 tensor-core peak and the bytes (x, packed weights and biases
-    read once, [B,3] written once) at the HBM rate."""
-    s = fw.spec
-    plain_layers = s.num_layers - 3  # hidden layers other than input and skip
-    macs = s.k_in * s.hidden + plain_layers * s.hidden ** 2 \
-        + (s.hidden + s.k_in) * s.hidden + s.hidden * s.out_dim
-    flops = 2.0 * B * macs
-    nbytes = B * s.k_in * 4 + fw.w.numel() * 2 + fw.b.numel() * 4 + B * s.out_dim * 4
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+    the bf16 tensor-core peak and the bytes (x and the view encoding, packed
+    weights and biases read once, [B,3] written once) at the HBM rate."""
+    layout = fw.layout
+    venc_in = 0 if layout.tail is None else layout.tail.venc_in
+    nbytes = (B * (layout.spec.k_in + venc_in) * 4 + fw.w.numel() * 2 + fw.b.numel() * 4
+              + B * 3 * 4)
+    return _bound(2.0 * B * _macs(layout)[0], nbytes)
 
 
 def phase_device():
@@ -162,7 +208,7 @@ def _feature_batches(renderer, cams, K, B_full, B_ragged):
 
     xs, n = [], 0
     for cam in cams:
-        vids, bary, valid, _ = renderer.trace_view(cam, K)
+        vids, bary, valid = renderer.trace_view(cam, K)[:3]
         xs.append(interpolate_vertex_features(renderer.features, vids[valid], bary[valid]))
         n += xs[-1].shape[0]
         if n >= B_full:
@@ -234,7 +280,7 @@ def _gt_views(renderer, cams, K):
     verts = torch.as_tensor(renderer.mesh.vertices, dtype=torch.float32, device="cuda")
     views = []
     for cam in cams:
-        vids, bary, valid, pix = renderer.trace_view(cam, K)
+        vids, bary, valid, pix = renderer.trace_view(cam, K)[:4]
         pts = interpolate_vertex_features(verts, vids[valid], bary[valid])
         pix = pix[valid].cpu().numpy()
         img = np.ones((H * W, 3), np.float32)
@@ -255,7 +301,8 @@ def phase_hq_eval():
     from intrinsic_neural_fields_tpu_torch.geometry.synthetic import (
         blob_mesh, pinhole_K, ring_cameras)
     from intrinsic_neural_fields_tpu_torch.models import make_model
-    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import fused_apply
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
     from intrinsic_neural_fields_tpu_torch.render.renderer import Renderer
     from intrinsic_neural_fields_tpu_torch.spectral.features import postprocess_eigenfunctions
 
@@ -278,12 +325,12 @@ def phase_hq_eval():
     views = _gt_views(r_kernel, cams, K)
     torch.cuda.synchronize()
 
-    fused_apply.launches = 0
+    reset_kernel_launches()
     t1 = time.perf_counter()
     means, per_view = evaluate_views(None, config, views, renderer=r_kernel)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t1
-    launches = fused_apply.launches
+    launches = kernel_launches()["fused_mlp_fwd"]
     check(launches > 0, "the HQ eval leg launched the fused kernel 0 times")
     check(all(np.isfinite(v["psnr"]) and np.isfinite(v["dssim_rescaled"])
               for v in per_view.values()), "non-finite metrics")
@@ -312,7 +359,8 @@ def phase_throughput():
     from intrinsic_neural_fields_tpu_torch.geometry.synthetic import (
         blob_mesh, pinhole_K, ring_cameras)
     from intrinsic_neural_fields_tpu_torch.models import make_model
-    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import fused_apply
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
     from intrinsic_neural_fields_tpu_torch.render.renderer import Renderer
     from intrinsic_neural_fields_tpu_torch.spectral.features import postprocess_eigenfunctions
     from intrinsic_neural_fields_tpu_torch.utils.pipeline import pipelined_foreach
@@ -335,12 +383,12 @@ def phase_throughput():
     times = []
     launches = None
     for _ in range(3):
-        fused_apply.launches = 0
+        reset_kernel_launches()
         t0 = time.perf_counter()
         pipelined_foreach(cams, lambda c: r.render_async(c, K),
                           lambda _c, h: r.render_fetch(h), depth=2)
         times.append(time.perf_counter() - t0)
-        launches = fused_apply.launches
+        launches = kernel_launches()["fused_mlp_fwd"]
 
     # One frame split into its stages (host clock around synchronized
     # work): the trace alone, then a render whose trace is cached
@@ -385,27 +433,39 @@ class Recorder:
 
 
 def _write_ray_cache(path, renderer, cams, K):
-    """A 5-npy ray cache of the views: hit vertex ids, barycentrics and
-    procedural_texture at the hit points (the render leg's GT colors)."""
+    """A 5-npy ray cache of the views: hit vertex ids, barycentrics,
+    procedural_texture at the hit points (the render leg's GT colors), the
+    unit ray directions and the original mesh face id of each hit."""
     import torch
 
     from intrinsic_neural_fields_tpu_torch.geometry.synthetic import procedural_texture
     from intrinsic_neural_fields_tpu_torch.ops.interpolate import interpolate_vertex_features
 
     verts = torch.as_tensor(renderer.mesh.vertices, dtype=torch.float32, device="cuda")
-    vids_all, bary_all, rgb_all = [], [], []
+    cols = {"vids_of_hit_faces": [], "barycentric_coords": [], "expected_rgbs": [],
+            "unit_ray_dirs": [], "face_idxs": []}
     for cam in cams:
-        vids, bary, valid, _ = renderer.trace_view(cam, K)
-        v, b = vids[valid], bary[valid]
+        t = renderer.trace_view(cam, K)
+        v, b = t.vids[t.valid], t.bary[t.valid]
         pts = interpolate_vertex_features(verts, v, b).cpu().numpy().astype(np.float64)
-        vids_all.append(v.cpu().numpy().astype(np.int32))
-        bary_all.append(b.cpu().numpy().astype(np.float32))
-        rgb_all.append(procedural_texture(pts).astype(np.float32))
+        cols["vids_of_hit_faces"].append(v.cpu().numpy().astype(np.int32))
+        cols["barycentric_coords"].append(b.cpu().numpy().astype(np.float32))
+        cols["expected_rgbs"].append(procedural_texture(pts).astype(np.float32))
+        cols["unit_ray_dirs"].append(t.dirs[t.valid].cpu().numpy().astype(np.float32))
+        cols["face_idxs"].append(t.face_idxs[t.valid].cpu().numpy().astype(np.int32))
     os.makedirs(path, exist_ok=True)
-    for name, parts in (("vids_of_hit_faces", vids_all), ("barycentric_coords", bary_all),
-                        ("expected_rgbs", rgb_all)):
+    for name, parts in cols.items():
         np.save(os.path.join(path, f"{name}.npy"), np.concatenate(parts))
-    return sum(len(p) for p in vids_all)
+    return sum(len(p) for p in cols["face_idxs"])
+
+
+def _hq_splits():
+    """The HQ leg's views: 20 train and 4 val from a ring of 24, 4 test."""
+    from intrinsic_neural_fields_tpu_torch.geometry.synthetic import ring_cameras
+
+    ring = ring_cameras(24)
+    return {"train": [c for i, c in enumerate(ring) if i % 6 != 3],
+            "val": ring[3::6], "test": ring_cameras(4, height=-0.2)}
 
 
 def _hq_train_config(root, out_name, epochs):
@@ -443,7 +503,7 @@ def phase_hq_train(scene):
     from intrinsic_neural_fields_tpu_torch.evaluation.eval_cli import evaluate_views
     from intrinsic_neural_fields_tpu_torch.geometry.mesh import load_mesh
     from intrinsic_neural_fields_tpu_torch.geometry.mesh_io import write_obj
-    from intrinsic_neural_fields_tpu_torch.geometry.synthetic import pinhole_K, ring_cameras
+    from intrinsic_neural_fields_tpu_torch.geometry.synthetic import pinhole_K
     from intrinsic_neural_fields_tpu_torch.ops._build import BUILD_DIR
     from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
                                                                  reset_kernel_launches)
@@ -463,9 +523,7 @@ def phase_hq_train(scene):
     renderer = get_renderer(config, model, mesh)
     H, W = config["data"]["img_height"], config["data"]["img_width"]
     K = pinhole_K(H, W)
-    ring = ring_cameras(24)
-    splits = {"train": [c for i, c in enumerate(ring) if i % 6 != 3],
-              "val": ring[3::6], "test": ring_cameras(4, height=-0.2)}
+    splits = _hq_splits()
     t0 = time.perf_counter()
     n_rays = {s: _write_ray_cache(os.path.join(root, s), renderer, cams, K)
               for s, cams in splits.items()}
@@ -488,7 +546,10 @@ def phase_hq_train(scene):
     path_s = time.perf_counter() - t1
     launches, eager = kernel_launches(), eager_step.launches
 
-    check(all(launches[k] > 0 for k in launches), f"a kernel did not launch on the path: {launches}")
+    plain_kernels = ("fused_mlp_fwd", "fused_mlp_fwd_bwd", "fused_mlp_wgrad", "fused_adam")
+    check(all(launches[k] > 0 for k in plain_kernels)
+          and not any(launches[k] for k in launches if k not in plain_kernels),
+          f"the HQ path's kernels did not launch, or others did: {launches}")
     check(eager == 0, f"the eager step ran {eager} times on the HQ recipe")
     losses = rec.values("Train_Loss")
     check(len(losses) == 5 and losses[-1] < losses[0], f"train loss did not fall: {losses}")
@@ -522,7 +583,7 @@ def phase_hq_train(scene):
          launches=launches, eager_steps=eager, resumed_bit_equal=True)
     state = trainer.state
     return launches, (state.layout, state.params.clone(), state.mu.clone(), state.nu.clone(),
-                      data["train"].hit_features, data["train"].expected_rgbs)
+                      data["train"].hit_features, data["train"].expected_rgbs), root
 
 
 def phase_train_throughput():
@@ -579,30 +640,32 @@ def phase_train_throughput():
 def _train_bounds(layout, B, x_bytes):
     """Least times of the three train kernels on this card at batch B:
     max(FLOPs at the bf16 peak, bytes at the HBM rate), each input read once
-    and each output written once; real widths (k_in, 3 outputs)."""
+    and each output written once; real widths (k_in, venc_in, 3 outputs).
+    Keys: the plain layout's kernel names (a tail's kernels add _viewdep),
+    and "fused_step": the whole step the TPU kernel computes in one call
+    (forward, loss, deltas, weight gradients, Adam), whose activations and
+    deltas stay on chip; fwd_bwd's and wgrad's own bounds count those
+    intermediates, which only the port's two-launch split writes."""
     s = layout.spec
-    k, H, L = s.k_in, s.hidden, s.num_layers
-    fwd_macs = k * H + (L - 3) * H * H + (H + k) * H + H * s.out_dim
-    dgrad_macs = s.out_dim * H + (L - 2) * H * H
+    H, nh = s.hidden, len(layout.layers)
+    in_bytes = B * (s.k_in + (0 if layout.tail is None else layout.tail.venc_in)) * x_bytes
+    fwd_macs, dgrad_macs = _macs(layout)
     nblk = -(-B // 64)
-    nbp = H * (L - 1) + 16
-    act_bytes = (L - 1) * B * H * 2
+    act_bytes = nh * B * H * 2
     delta_bytes = act_bytes + B * 16 * 2
-    part_bytes = nblk * (nbp + 2) * 4
-
-    def bound(flops, nbytes, flops_rate=H100_BF16_FLOPS):
-        t_ops, t_bytes = flops / flops_rate, nbytes / H100_BYTES_PER_S
-        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
-
+    part_bytes = nblk * (H * nh + 16 + 2) * 4
     return {
-        "fused_mlp_fwd_bwd": bound(2.0 * B * (fwd_macs + dgrad_macs),
-                                   B * k * x_bytes + layout.n * 4 + B * 3 * 4
-                                   + act_bytes + delta_bytes + part_bytes),
-        "fused_mlp_wgrad": bound(2.0 * B * fwd_macs,
-                                 B * k * x_bytes + act_bytes + delta_bytes + part_bytes
-                                 + layout.n * 4 + 8),
+        "fused_mlp_fwd_bwd": _bound(2.0 * B * (fwd_macs + dgrad_macs),
+                                    in_bytes + layout.n * 4 + B * 3 * 4
+                                    + act_bytes + delta_bytes + part_bytes),
+        "fused_mlp_wgrad": _bound(2.0 * B * fwd_macs,
+                                  in_bytes + act_bytes + delta_bytes + part_bytes
+                                  + layout.n * 4 + 8),
         # 4 f32 reads, 3 writes, ~12 f32 operations per parameter (no tensor cores)
-        "fused_adam": bound(12.0 * layout.n, 7 * layout.n * 4 + 7 * 4, H100_F32_FLOPS),
+        "fused_adam": _bound(12.0 * layout.n, 7 * layout.n * 4 + 7 * 4, H100_F32_FLOPS),
+        # x (and venc) and the targets read once; params, m, v read and written
+        "fused_step": _bound(2.0 * B * (2 * fwd_macs + dgrad_macs),
+                             in_bytes + B * 3 * 4 + 6 * layout.n * 4),
     }
 
 
@@ -735,7 +798,7 @@ def phase_train_kernels(legs):
         # autograd backward of fused_apply vs torch.autograd of the plain forward
         pp = params.clone().requires_grad_()
         fw_diff = F.FusedWeights(spec, None, None, [F._bf16(m) for m in layout.mats(pp)],
-                                 layout.biases(pp))
+                                 layout.biases(pp), layout)
         (F.fused_apply_plain(fw_diff, xf) * cot).sum().backward()
         mx, nr, ab = _per_tensor(layout, pk.grad, pp.grad)
         vjp = {"max_rel": mx, "norm_rel": nr, "max_abs_err": ab}
@@ -768,6 +831,8 @@ def phase_train_kernels(legs):
         ad["library_ms"] = cuda_ms(opt.step)
         for name, r in (("fused_mlp_fwd_bwd", fb), ("fused_mlp_wgrad", wg), ("fused_adam", ad)):
             r["bound_ms"], r["bound_by"] = bounds[name]
+            if name != "fused_adam":
+                r["fused_step_bound_ms"] = bounds["fused_step"][0]
             emit("kernel_check", name=name, leg=leg, k=spec.k_in, B=B, **r)
         emit("train_grads_check", leg=leg, k=spec.k_in, B=B, **e2e)
         emit("apply_vjp_check", leg=leg, k=spec.k_in, B=B, tol_norm=VJP_NORM_TOL, **vjp)
@@ -775,8 +840,342 @@ def phase_train_kernels(legs):
     return rows
 
 
-def profile_train_epoch(train_leg):
-    """Device time by kernel and busy share over one train-throughput epoch."""
+def _vd_train_config(root, out_name, epochs):
+    """configs/synthetic/viewdep_intrinsic_blob.yaml on the HQ leg's ray
+    caches: its model and training sections (the HQ recipe's, plus the
+    view_dependence section) with fused_mlp: true and a bf16 table, cut to
+    `epochs` epochs, checkpoints every 3 epochs, no vis views."""
+    config = _hq_train_config(root, out_name, epochs)
+    config["model"]["view_dependence"] = dict(VIEWDEP)
+    return config
+
+
+def _render_vs_plain(r_kernel, r_plain, views):
+    """Min over views of the kernel-vs-plain render PSNR on the hit pixels;
+    the hit masks must be equal."""
+    from intrinsic_neural_fields_tpu_torch.evaluation.metrics import psnr
+
+    H, W = r_kernel.H, r_kernel.W
+    out = []
+    for v in views:
+        img_k, hit_k = r_kernel.render(v["camCv2world"], v["K"], eval_render=True)
+        img_p, hit_p = r_plain.render(v["camCv2world"], v["K"], eval_render=True)
+        check(np.array_equal(hit_k, hit_p), "kernel and plain renders disagree on the valid mask")
+        check(np.isfinite(img_k).all() and img_k.shape == (H, W, 3), "bad kernel render")
+        mask = np.zeros(H * W, bool)
+        mask[hit_k] = True
+        out.append(psnr(img_k, img_p, mask))
+    return min(out)
+
+
+def phase_viewdep_train(root):
+    """The slice's path: the view-dependent field through the port's
+    Trainer on the tail kernels, resume, and its eval through the
+    view-dependent forward kernel before and after, held to the plain twin."""
+    import shutil
+
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch.evaluation.eval_cli import evaluate_views
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh import load_mesh
+    from intrinsic_neural_fields_tpu_torch.geometry.synthetic import pinhole_K
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.render.renderer import Renderer
+    from intrinsic_neural_fields_tpu_torch.spectral.features import load_first_k_eigenfunctions
+    from intrinsic_neural_fields_tpu_torch.train import (Trainer, get_data, get_model_and_optim,
+                                                         get_renderer)
+    from intrinsic_neural_fields_tpu_torch.train.steps import eager_step
+
+    config = _vd_train_config(root, "vd_out", 5)
+    mesh = load_mesh(config["data"]["mesh_path"])
+    model, optimizer = get_model_and_optim(config, mesh)
+    renderer = get_renderer(config, model, mesh)
+    efuncs = load_first_k_eigenfunctions(config["data"]["eigenfunctions_path"], 512)
+    r_plain = Renderer(model, mesh, efuncs, H=renderer.H, W=renderer.W,
+                       feature_dtype="bfloat16", infer="plain")
+    check(renderer.viewdep and renderer.infer_mode == "kernel", "not a view-dependent kernel renderer")
+    K = pinhole_K(renderer.H, renderer.W)
+    t0 = time.perf_counter()
+    data = get_data(config, mesh)
+    val_views = _gt_views(renderer, _hq_splits()["val"], K)
+    setup_s = time.perf_counter() - t0
+    check(data["train"].unit_ray_dirs is not None, "the ray caches carry no ray directions")
+    before, _ = evaluate_views(None, config, val_views, renderer=renderer)
+    psnr_kp_before = _render_vs_plain(renderer, r_plain, val_views)
+
+    # the path: counters to 0 just before, read just after
+    rec = Recorder()
+    trainer = Trainer(model, optimizer, "L1", renderer, data, mesh, config, writer=rec)
+    check(trainer.train_data.hit_vencs is not None
+          and trainer.train_data.hit_vencs.dtype == torch.bfloat16, "no bf16 hit_vencs table")
+    reset_kernel_launches()
+    eager_step.launches = 0
+    t1 = time.perf_counter()
+    trainer.train()
+    renderer.update_variables(trainer.state.state_dict())
+    after, _ = evaluate_views(None, config, val_views, renderer=renderer)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t1
+    launches, eager = kernel_launches(), eager_step.launches
+
+    nb = data["train"].n // 4096
+    check(launches["fused_mlp_fwd_bwd_viewdep"] == launches["fused_mlp_wgrad_viewdep"]
+          == launches["fused_adam"] == 5 * nb, f"not one of each tail kernel per step: {launches}")
+    check(launches["fused_mlp_fwd_viewdep"] > 0, f"the eval did not launch the forward: {launches}")
+    check(launches["fused_mlp_fwd_bwd"] == launches["fused_mlp_wgrad"]
+          == launches["fused_mlp_fwd"] == 0, f"plain-mode kernels ran on this path: {launches}")
+    check(eager == 0, f"the eager step ran {eager} times on the view-dependent recipe")
+    losses = rec.values("Train_Loss")
+    check(len(losses) == 5 and losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(sorted({t for t, _, _ in rec.scalars}) == JAX_TRAINER_TAGS and not rec.images,
+          f"tags differ from the JAX Trainer's: {sorted({t for t, _, _ in rec.scalars})}")
+    check(all(torch.isfinite(t).all().item() for t in (trainer.state.params, trainer.state.mu,
+                                                       trainer.state.nu)), "non-finite state")
+    r_plain.update_variables(trainer.state.state_dict())
+    psnr_kp_after = _render_vs_plain(renderer, r_plain, val_views)
+    check(min(psnr_kp_before, psnr_kp_after) >= PSNR_MIN,
+          f"kernel vs plain render PSNR {psnr_kp_before}, {psnr_kp_after} < {PSNR_MIN}")
+
+    # resume from checkpoint.pt (epoch 3) for the last epoch: bit-equal
+    shutil.copytree(config["training"]["out_dir"], os.path.join(root, "vd_resumed"))
+    cfg_r = _vd_train_config(root, "vd_resumed", 5)
+    model_r, opt_r = get_model_and_optim(cfg_r, mesh)
+    resumed = Trainer(model_r, opt_r, "L1", renderer, data, mesh, cfg_r, writer=Recorder())
+    resumed.train()
+    for name in ("params", "mu", "nu"):
+        check(torch.equal(getattr(resumed.state, name), getattr(trainer.state, name)),
+              f"resumed {name} differs from the uninterrupted run")
+    check(resumed.state.count == trainer.state.count == 5 * nb, "Adam counts differ")
+
+    rays = rec.values("Train Rays-per-sec")
+    emit("viewdep_train", n_train=data["train"].n, steps_per_epoch=nb, setup_s=setup_s,
+         path_s=path_s, epochs=5, venc_in=trainer.state.layout.tail.venc_in,
+         venc_w=trainer.state.layout.tail.venc_w, n_params=trainer.state.layout.n,
+         train_rays_per_s_best=max(rays), train_rays_per_s_median=float(np.median(rays)),
+         train_loss=losses, val_psnr=rec.values("Val Epoch-PSNR"),
+         test_loss=rec.values("Test Loss"), psnr_before=before["psnr"],
+         dssim_before=before["dssim_rescaled"], psnr_after=after["psnr"],
+         dssim_after=after["dssim_rescaled"], psnr_kernel_vs_plain_before=psnr_kp_before,
+         psnr_kernel_vs_plain_after=psnr_kp_after, launches=launches, eager_steps=eager,
+         resumed_bit_equal=True)
+    state = trainer.state
+    leg = (state.layout, state.params.clone(), state.mu.clone(), state.nu.clone(),
+           trainer.train_data.hit_features, trainer.train_data.hit_vencs,
+           trainer.train_data.expected_rgbs, trainer.train_data.unit_ray_dirs)
+    run = (trainer.train_epoch_fn, trainer.state, trainer.train_data, nb, 4096)
+    return launches, leg, (renderer, val_views), run
+
+
+def _vd_check_train(F, layout, params, table, vtable, gt, B, leg):
+    """fwd_bwd_viewdep and wgrad_viewdep against their plain twins on block
+    0 of the leg's tables, in the path's mode (L1) and on a continuous
+    cotangent seed; returns the rows and the scratch for the timings."""
+    import torch
+
+    spec = layout.spec
+    nh, H = len(layout.layers), spec.hidden
+    nblk, nbp = -(-B // F.BLOCK_ROWS), H * nh + F.OUT_PAD
+    sc = F.make_train_scratch(layout, B, "cuda")
+    x, v = table[:B], vtable[:B]
+    inv_n = 1.0 / (B * 3)
+
+    def norm_rel(a, b):
+        a, b = a.float().view(a.shape[0], -1), b.float().view(b.shape[0], -1)
+        return ((a - b).norm(dim=1) / b.norm(dim=1).clamp_min(1e-30)).max().item()
+
+    def run(mode, target, loss_type):
+        F._launch_fwd_bwd(layout, params, table, 0, B, target, mode, inv_n, sc, vtable)
+        acts_p, deltas_p, bsum_p, l_p, s_p = F.fwd_bwd_viewdep_plain(layout, params, x, v, target,
+                                                                     loss_type)
+        torch.cuda.synchronize()
+        lsum = sc.loss_part.view(nblk, 2).sum(0)
+        bsum = sc.bias_part.view(nblk, nbp).sum(0)
+        HB = B * H
+        r = {"act_norm_rel": norm_rel(sc.acts.view(nh, HB), acts_p.view(nh, HB)),
+             "act_mismatch_share": (sc.acts != acts_p).float().mean().item(),
+             "delta_norm_rel": max(norm_rel(sc.deltas[:nh * HB].view(nh, HB),
+                                            deltas_p[:nh * HB].view(nh, HB)),
+                                   norm_rel(sc.deltas[nh * HB:].view(1, -1),
+                                            deltas_p[nh * HB:].view(1, -1))),
+             "bias_sum_norm_rel": ((bsum - bsum_p).norm() / bsum_p.norm()).item(),
+             "max_abs_err": max((sc.acts.float() - acts_p.float()).abs().max().item(),
+                                (sc.deltas.float() - deltas_p.float()).abs().max().item(),
+                                (bsum - bsum_p).abs().max().item())}
+        if loss_type is not None:
+            r["loss_diff_per_elem"] = abs(lsum[0].item() - l_p.item()) / (B * 3)
+            r["sq_diff_per_elem"] = abs(lsum[1].item() - s_p.item()) / (B * 3)
+        return lsum, bsum, r
+
+    _, _, fb = run(F.LOSS_MODES["L1"], gt, "L1")
+    check(fb["loss_diff_per_elem"] <= LOSS_ELEM_TOL and fb["sq_diff_per_elem"] <= LOSS_ELEM_TOL
+          and fb["act_norm_rel"] <= ACT_TOL, f"{leg}: fwd_bwd_viewdep (L1) disagrees {fb}")
+    cot = torch.randn(B, 3, generator=torch.Generator(device="cuda").manual_seed(1),
+                      device="cuda")
+    lsum, bsum, fbc = run(F.COTANGENT_MODE, cot, None)
+    check(fbc["act_norm_rel"] <= ACT_TOL and fbc["delta_norm_rel"] <= DELTA_TOL
+          and fbc["bias_sum_norm_rel"] <= BIAS_TOL,
+          f"{leg}: fwd_bwd_viewdep (cotangent) disagrees with its plain twin {fbc}")
+    fb["cotangent"] = fbc
+    fb["max_abs_err"] = max(fb["max_abs_err"], fbc["max_abs_err"])
+
+    grads, sums = torch.empty(layout.n, device="cuda"), torch.empty(2, device="cuda")
+    F._launch_wgrad(layout, table, 0, B, sc, grads, sums, vtable)
+    want = F.wgrad_viewdep_plain(layout, x, v, sc.acts, sc.deltas, bsum)
+    torch.cuda.synchronize()
+    mx, nr, ab = _per_tensor(layout, grads, want)
+    wg = {"max_rel": mx, "norm_rel": nr, "max_abs_err": ab, "sums_equal": torch.equal(sums, lsum)}
+    check(mx <= WGRAD_TOL, f"{leg}: wgrad_viewdep disagrees with its plain twin {wg}")
+
+    # the whole tail backward on the cotangent seed vs the whole twin
+    g_k = torch.empty(layout.n, device="cuda")
+    F._train_kernels(layout, params, table, 0, B, cot, F.COTANGENT_MODE, None, g_k, vtable)
+    g_p = F.train_grads_plain(layout, params, x, cot, None, v)[0]
+    torch.cuda.synchronize()
+    mx, nr, ab = _per_tensor(layout, g_k, g_p)
+    e2e = {"vjp_max_rel": mx, "vjp_norm_rel": nr, "vjp_max_abs_err": ab}
+    check(mx <= GRAD_MAX_REL and nr <= E2E_NORM_TOL,
+          f"{leg}: tail train grads disagree with the plain twin {e2e}")
+    g_l1, _, _ = F.fused_train_grads(layout, params, table, gt, 0, B, "L1", vencs=vtable)
+    return fb, wg, e2e, sc, grads, sums, bsum, g_l1
+
+
+def phase_viewdep_kernels(vd_leg, vd_render):
+    """Each tail kernel against its plain twin on the batches the
+    view-dependent leg feeds it, plus one extrinsic batch; Adam on the
+    view-dependent buffer; CUDA-event times beside bounds."""
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch.models import make_model, view_encoder_apply
+    from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
+    from intrinsic_neural_fields_tpu_torch.ops.interpolate import interpolate_vertex_features
+
+    layout, params, mu, nu, table, vtable, gt_table, dirs = vd_leg
+    renderer, views = vd_render
+    B = 4096
+    gt = gt_table[:B].contiguous()
+    rows = {}
+
+    # forward: the renderer's 8192-ray chunks of hit rays and a ragged B
+    fw = renderer.weights
+    xs, vs, n = [], [], 0
+    for v in views:
+        t = renderer.trace_view(v["camCv2world"], v["K"])
+        xs.append(interpolate_vertex_features(renderer.features, t.vids[t.valid], t.bary[t.valid]))
+        vs.append(renderer._view_fn(t.dirs[t.valid], t.face_idxs[t.valid]))
+        n += xs[-1].shape[0]
+    check(n >= 8192, f"only {n} hit rays in the val views")
+    X, V = torch.cat(xs), torch.cat(vs)
+    fwd_rows = []
+    for Bf in (8192, 1000):
+        x, v = X[:Bf].contiguous(), V[:Bf].contiguous()
+        got = F.fused_apply_viewdep(fw, x, v)
+        torch.cuda.synchronize()
+        want = F.fused_apply_viewdep_plain(fw, x, v)
+        check(torch.isfinite(got).all().item(), "non-finite view-dependent forward")
+        bound, bound_by = mlp_bound_ms(fw, Bf)
+        r = {"B": Bf, "venc_in": layout.tail.venc_in,
+             "max_abs_err": (got - want).abs().max().item(),
+             "mean_abs_err": (got - want).abs().mean().item(),
+             "ms": cuda_ms(lambda: F.fused_apply_viewdep(fw, x, v)),
+             "plain_ms": cuda_ms(lambda: F.fused_apply_viewdep_plain(fw, x, v)),
+             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        emit("kernel_check", name="fused_mlp_fwd_viewdep", leg="viewdep_eval", k=512,
+             tol=TOL_VD, mean_tol=MEAN_TOL_VD, **r)
+        check(r["max_abs_err"] <= TOL_VD and r["mean_abs_err"] <= MEAN_TOL_VD,
+              f"fused_mlp_fwd_viewdep disagrees: {r}")
+        fwd_rows.append(r)
+    rows["fused_mlp_fwd_viewdep"] = fwd_rows[0]
+    rows["fused_mlp_fwd_viewdep"]["max_abs_err"] = max(r["max_abs_err"] for r in fwd_rows)
+
+    # train kernels on the leg's tables (bf16, block 0, B=4096), trained weights
+    fb, wg, e2e, sc, grads, sums, bsum, g_l1 = _vd_check_train(
+        F, layout, params, table, vtable, gt, B, "viewdep_train")
+    emit("train_grads_check", leg="viewdep_train", k=512, B=B, **e2e)
+
+    # one extrinsic batch (27 view lanes): a seeded extrinsic field, the
+    # same feature rows, the rows' own ray directions encoded extrinsically
+    cfg_x = {"k": 512, **HQ, "view_dependence": dict(VIEWDEP, in_dim_view_dir=3,
+                                                     strategy="extrinsic")}
+    model_x = make_model(cfg_x, seed=3)
+    lay_x = F.layout_for_model(model_x)
+    p_x = lay_x.flat_from_state_dict(model_x.state_dict())
+    venc_x = view_encoder_apply(model_x)(dirs[:2 * B], None)
+    vt_x = torch.zeros(2 * B, lay_x.tail.venc_w, device="cuda", dtype=table.dtype)
+    vt_x[:, :lay_x.tail.venc_in] = venc_x.to(table.dtype)
+    fbx, wgx, e2ex, _, _, _, _, _ = _vd_check_train(F, lay_x, p_x, table[:2 * B].contiguous(),
+                                                    vt_x, gt, B, "extrinsic")
+    fw_x = lay_x.pack(p_x)
+    xf = table[:B].float().contiguous()
+    vx = venc_x[:B].contiguous()
+    got = F.fused_apply_viewdep(fw_x, xf, vx)
+    torch.cuda.synchronize()
+    err_x = (got - F.fused_apply_viewdep_plain(fw_x, xf, vx)).abs().max().item()
+    check(err_x <= TOL_VD, f"extrinsic fused_mlp_fwd_viewdep disagrees: {err_x}")
+    emit("extrinsic_check", venc_in=lay_x.tail.venc_in, fwd_max_abs_err=err_x,
+         fwd_bwd=fbx, wgrad=wgx, grads=e2ex)
+
+    # Adam on the view-dependent buffer: bit-equal to its twin (-fmad=false)
+    hyper = F.adam_hyper_rows(torch.tensor([1000]), 1e-4, device="cuda")[0]
+    want_p, want_m, want_v = F.adam_apply_plain(params, mu, nu, hyper, g_l1)
+    p2, m2, v2 = params.clone(), mu.clone(), nu.clone()
+    F.fused_adam_apply(p2, m2, v2, hyper, g_l1)
+    torch.cuda.synchronize()
+    ad = {"n": layout.n,
+          "max_abs_err": max((p2 - want_p).abs().max().item(), (m2 - want_m).abs().max().item(),
+                             (v2 - want_v).abs().max().item()),
+          "bit_equal": all(torch.equal(a, b) for a, b in
+                           ((p2, want_p), (m2, want_m), (v2, want_v)))}
+    check(ad["bit_equal"], f"Adam on the view-dependent buffer differs from its twin: {ad}")
+
+    # times: CUDA events; plain twins on the same tensors; library calls
+    x, v = table[:B], vtable[:B]
+    bounds = _train_bounds(layout, B, table.element_size())
+    mode, inv_n = F.LOSS_MODES["L1"], 1.0 / (B * 3)
+    fb["ms"] = cuda_ms(lambda: F._launch_fwd_bwd(layout, params, table, 0, B, gt, mode, inv_n, sc,
+                                                 vtable))
+    fb["plain_ms"] = cuda_ms(lambda: F.fwd_bwd_viewdep_plain(layout, params, x, v, gt, "L1"))
+    fb["library_ms"] = None  # no single PyTorch call computes forward+loss+deltas
+    wg["ms"] = cuda_ms(lambda: F._launch_wgrad(layout, table, 0, B, sc, grads, sums, vtable))
+    wg["plain_ms"] = cuda_ms(lambda: F.wgrad_viewdep_plain(layout, x, v, sc.acts, sc.deltas, bsum))
+    nh, H = len(layout.layers), layout.spec.hidden
+    A = sc.acts.view(nh, B, H)
+    D = sc.deltas[:nh * B * H].view(nh, B, H)
+    Dout = sc.deltas[nh * B * H:].view(B, F.OUT_PAD)
+    pairs = []
+    for i, lay in enumerate(layout.layers):
+        if lay.h is not None:
+            pairs.append((A[i - 1], D[i]))
+        if lay.ext is not None:
+            pairs.append((x if lay.ext[3] == "x" else v, D[i]))
+    pairs.append((A[nh - 1], Dout))
+
+    def wgrad_library():  # torch.matmul per weight matrix, bf16 in, f32 accumulate
+        for a, d in pairs:
+            torch.matmul(a.t(), d)
+    wg["library_ms"] = cuda_ms(wgrad_library)
+    ad["ms"] = cuda_ms(lambda: F.fused_adam_apply(p2, m2, v2, hyper, g_l1))
+    ad["plain_ms"] = cuda_ms(lambda: F.adam_apply_plain(p2, m2, v2, hyper, g_l1))
+    p_lib = torch.nn.Parameter(params.clone())
+    p_lib.grad = g_l1.clone()
+    opt = torch.optim.Adam([p_lib], lr=1e-4, fused=True)
+    ad["library_ms"] = cuda_ms(opt.step)
+    for name, r in (("fused_mlp_fwd_bwd", fb), ("fused_mlp_wgrad", wg), ("fused_adam", ad)):
+        r["bound_ms"], r["bound_by"] = bounds[name]
+        if name != "fused_adam":
+            r["fused_step_bound_ms"] = bounds["fused_step"][0]
+    for name, r in (("fused_mlp_fwd_bwd_viewdep", fb), ("fused_mlp_wgrad_viewdep", wg),
+                    ("fused_adam", ad)):
+        emit("kernel_check", name=name, leg="viewdep_train", k=512, B=B, **r)
+    rows.update({"fused_mlp_fwd_bwd_viewdep": fb, "fused_mlp_wgrad_viewdep": wg,
+                 "fused_adam": ad})
+    rows["extrinsic"] = {"fused_mlp_fwd_viewdep": err_x, "fused_mlp_fwd_bwd_viewdep":
+                         fbx["max_abs_err"], "fused_mlp_wgrad_viewdep": wgx["max_abs_err"]}
+    return rows
+
+
+def profile_train_epoch(train_leg, leg):
+    """Device time by kernel and busy share over one epoch of a train leg."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -792,7 +1191,7 @@ def profile_train_epoch(train_leg):
     by_kernel = _device_us_by_kernel(prof)
     device_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    emit("profile_train", steps=nb, wall_ms_per_step=wall_us / 1e3 / nb,
+    emit("profile_train", leg=leg, steps=nb, wall_ms_per_step=wall_us / 1e3 / nb,
          device_ms_per_step=device_us / 1e3 / nb, device_busy_share=device_us / wall_us,
          top_kernels_ms_per_step=[[name[:70], us / 1e3 / nb] for name, us in top])
 
@@ -857,13 +1256,18 @@ def main():
     eval_launches, hq_leg, hq_scene = timed("hq_eval", phase_hq_eval)
     tp_leg = timed("throughput", phase_throughput)
     rows = timed("kernels", lambda: phase_kernels({"hq_eval": hq_leg, "throughput": tp_leg}))
-    train_launches, hq_train_leg = timed("hq_train", lambda: phase_hq_train(hq_scene))
+    train_launches, hq_train_leg, hq_root = timed("hq_train", lambda: phase_hq_train(hq_scene))
     tput_leg, tput_run = timed("train_throughput", phase_train_throughput)
     trows = timed("train_kernels", lambda: phase_train_kernels(
         {"hq_train": hq_train_leg, "train_throughput": tput_leg}))
+    vd_launches, vd_leg, vd_render, vd_run = timed("viewdep_train",
+                                                   lambda: phase_viewdep_train(hq_root))
+    vrows = timed("viewdep_kernels", lambda: phase_viewdep_kernels(vd_leg, vd_render))
     # Last: the profiler's hooks may slow host-bound torch code run after it.
     r, cams, K = tp_leg
-    timed("profile", lambda: (profile_frames(r, cams[:4], K), profile_train_epoch(tput_run)))
+    timed("profile", lambda: (profile_frames(r, cams[:4], K),
+                              profile_train_epoch(tput_run, "train_throughput"),
+                              profile_train_epoch(vd_run, "viewdep_train")))
     check(not any(m.startswith(("jax", "flax", "optax", "intrinsic_neural_fields_tpu."))
                   or m in ("jax", "intrinsic_neural_fields_tpu") for m in sys.modules),
           "the port imported JAX or the JAX package")
@@ -882,9 +1286,10 @@ def main():
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the whole MLP
     }]
+    tail = " (tail=ViewDepTailSpec)"
     sources = {"fused_mlp_fwd_bwd": ("fused_mlp_train.cu", "961", ["634", "700", "1305"]),
                "fused_mlp_wgrad": ("fused_mlp_train.cu", "961", ["634", "700", "1305"]),
-               "fused_adam": ("fused_adam.cu", "1068", ["961"])}
+               "fused_adam": ("fused_adam.cu", "1068", ["961", "961" + tail, "1068" + tail])}
     for name, (src, site, also) in sources.items():
         main = trows["hq_train"][name]  # the HQ recipe's shape: k=512, B=4096
         kernels.append({
@@ -895,6 +1300,32 @@ def main():
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         })
+        if "fused_step_bound_ms" in main:
+            kernels[-1]["fused_step_bound_ms"] = main["fused_step_bound_ms"]
+    kernels[-1]["launches_by_path"] = {"hq_train": train_launches["fused_adam"],
+                                       "viewdep_train": vd_launches["fused_adam"]}
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                     vrows["fused_adam"]["max_abs_err"])
+    kernels[-1]["viewdep"] = {k: vrows["fused_adam"][k] for k in
+                              ("ms", "plain_ms", "bound_ms", "library_ms", "n")}
+    # the slice's kernels: the view-dependent path's shapes (k=512; B=8192
+    # render chunks for the forward, B=4096 train blocks)
+    vd_sources = {"fused_mlp_fwd_viewdep": ("fused_mlp_fwd.cu", "1240", []),
+                  "fused_mlp_fwd_bwd_viewdep": ("fused_mlp_train.cu", "961" + tail,
+                                                ["655", "729"]),
+                  "fused_mlp_wgrad_viewdep": ("fused_mlp_train.cu", "961" + tail,
+                                              ["655", "729"])}
+    for name, (src, site, also) in vd_sources.items():
+        main = vrows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": pkg + src, "replaces": ref + site,
+            "also_replaces": [ref + a for a in also], "launches": vd_launches[name],
+            "max_abs_err": max(main["max_abs_err"], vrows["extrinsic"][name]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        })
+        if "fused_step_bound_ms" in main:
+            kernels[-1]["fused_step_bound_ms"] = main["fused_step_bound_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_all, phase_s=phase_s)
     print(smi, flush=True)

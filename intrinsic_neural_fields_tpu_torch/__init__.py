@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of intrinsic_neural_fields_tpu (training, render, eval).
+"""PyTorch + CUDA port of intrinsic_neural_fields_tpu (training, render, eval)
+of the plain and the view-dependent texture field.
 
 The JAX package beside this one is the reference; this package imports
 nothing of it (and no jax/flax/optax). Entry points run on the GPU unless
@@ -34,12 +35,21 @@ def resolve_device(device="cuda"):
 
 # Public API (imported after resolve_device, which these modules use).
 from .evaluation.eval_cli import evaluate_views  # noqa: E402
-from .models import TextureField, make_model  # noqa: E402
-from .ops.fused_mlp import FusedMLPSpec, fused_apply, fused_apply_plain, pack_weights  # noqa: E402
+from .models import TextureField, TextureFieldWithViewDependency, make_model  # noqa: E402
+from .ops.fused_mlp import (  # noqa: E402
+    FusedMLPSpec,
+    ViewDepTailSpec,
+    fused_apply,
+    fused_apply_plain,
+    fused_apply_viewdep,
+    fused_apply_viewdep_plain,
+    pack_weights,
+)
 from .render.renderer import Renderer, make_renderer_from_config  # noqa: E402
 
 __all__ = [
     "resolve_device", "Renderer", "make_renderer_from_config", "TextureField",
-    "make_model", "evaluate_views", "FusedMLPSpec", "fused_apply",
-    "fused_apply_plain", "pack_weights",
+    "TextureFieldWithViewDependency", "make_model", "evaluate_views", "FusedMLPSpec",
+    "ViewDepTailSpec", "fused_apply", "fused_apply_plain", "fused_apply_viewdep",
+    "fused_apply_viewdep_plain", "pack_weights",
 ]

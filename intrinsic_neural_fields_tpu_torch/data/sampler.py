@@ -39,6 +39,10 @@ class RayData:
     face_idxs: Optional[torch.Tensor] = None      # [N] int64
     # Optional [N,k] features interpolated at every hit (bf16 or f32 storage)
     hit_features: Optional[torch.Tensor] = None
+    # Optional [N, venc_w] encoded view directions of every hit (see
+    # precompute_hit_vencs): the view-dependent field's train kernels read
+    # them beside hit_features, at the same rows
+    hit_vencs: Optional[torch.Tensor] = None
 
     @property
     def n(self):
@@ -67,6 +71,24 @@ def precompute_hit_features(data, chunk=1 << 16, dtype=None):
             data.features, data.vertex_idxs_of_hit_faces[s:s + chunk],
             data.barycentric_coords[s:s + chunk]).to(dtype)
     return replace(data, hit_features=table)
+
+
+@torch.no_grad()
+def precompute_hit_vencs(view_encoder, data, venc_w, chunk=1 << 16, dtype=None):
+    """RayData with hit_vencs = the view-dependent field's view encoding of
+    every cached hit, zero-padded to `venc_w` lanes and stored as `dtype`
+    (None: f32), in chunks. view_encoder: models.view_encoder_apply(model),
+    a fixed function of the cached ray direction and original face id, so
+    encoding once per hit is exact."""
+    if data.unit_ray_dirs is None or data.face_idxs is None:
+        raise ValueError("view-dependent pre-encoding needs the cached ray directions and "
+                         "hit face ids (unit_ray_dirs.npy, face_idxs.npy)")
+    dtype = torch.float32 if dtype is None else dtype
+    table = torch.zeros((data.n, venc_w), dtype=dtype, device=data.unit_ray_dirs.device)
+    for s in range(0, data.n, chunk):
+        enc = view_encoder(data.unit_ray_dirs[s:s + chunk], data.face_idxs[s:s + chunk])
+        table[s:s + chunk, :enc.shape[1]] = enc.to(dtype)
+    return replace(data, hit_vencs=table)
 
 
 def create_ray_data(preproc_data_path, eigenfunctions_path, k, feature_strategy="efuncs",

@@ -2,11 +2,15 @@
 
 Inference: ``fused_apply(weights, x)`` runs the whole network (relu hidden
 layers, one input re-injection, sigmoid RGB head) on a [B, k_in] f32
-feature batch.
+feature batch; ``fused_apply_viewdep(weights, x, venc)`` runs the
+view-dependent field (the spatial network with a relu bottleneck head, then
+[bottleneck | encoded view direction] -> relu -> sigmoid RGB).
 
-Training (flat f32 parameters in the kernels' padded layout, ``ParamLayout``):
+Training (flat f32 parameters in the kernels' padded layout, ``ParamLayout``,
+with the directional tail when a ``ViewDepTailSpec`` is given):
   - ``fused_train_grads``: forward, L1/L2/cauchy loss sums and the weight
-    and bias gradients of the mean loss over one batch;
+    and bias gradients of the mean loss over one batch (``vencs=``: the
+    encoded view directions beside the features, for the tail);
   - ``fused_adam_apply``: the optax Adam update, in place on params, m, v;
   - ``fused_train_adam``: the two composed, one training step;
   - ``fused_apply_trainable``: the forward as a ``torch.autograd.Function``
@@ -14,9 +18,17 @@ Training (flat f32 parameters in the kernels' padded layout, ``ParamLayout``):
 
 On a CUDA tensor every wrapper launches its hand-written sm_90a kernels
 (``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_train.cu``,
-``csrc/fused_adam.cu``) or raises; on a CPU tensor it runs the plain torch
-twin beside it (the same arithmetic: bf16-rounded matmul operands, f32
-products and sums). Each kernel's Python launcher counts its launches.
+``csrc/fused_adam.cu``; the tail has its own entry points in the first
+two) or raises; on a CPU tensor it runs the plain torch twin beside it (the
+same arithmetic: bf16-rounded matmul operands, f32 products and sums).
+Each kernel's Python launcher counts its launches (``kernel_launches``).
+
+The kernels see every network as a chain of 128-wide relu layers and one
+16-wide sigmoid head. A layer applies its matrix to the previous layer's
+output and, at the input layer, the skip layer and the tail's concat layer,
+a second matrix to rows read straight from a table (the features, or the
+encoded view directions); the tail adds the bottleneck and concat layers
+to the chain (``ParamLayout.layers``).
 
 The numerics are the reference Pallas kernels': every matmul operand is
 rounded to bf16, sums are f32, saved activations and the deltas fed to the
@@ -39,6 +51,11 @@ WGRAD_SPLIT = 8  # wgrad blocks sharing one gradient tile's batch
 LOSS_MODES = {"L1": 0, "L2": 1, "cauchy": 2}
 COTANGENT_MODE = 3
 CAUCHY_C2 = (20.0 / 255.0) ** 2
+VENC_K = 16     # the concat layer's view rows are padded to this (one wmma k-step)
+VENC_MAX = 64   # most encoded view lanes the kernels take (one chunk of their x tile)
+KERNELS = ("fused_mlp_fwd", "fused_mlp_fwd_bwd", "fused_mlp_wgrad", "fused_adam",
+           "fused_mlp_fwd_viewdep", "fused_mlp_fwd_bwd_viewdep", "fused_mlp_wgrad_viewdep")
+_launches = dict.fromkeys(KERNELS, 0)  # kernel launches since the last reset
 
 
 def _round_up(x, m):
@@ -79,10 +96,37 @@ class FusedMLPSpec:
         return names
 
 
+@dataclass(frozen=True)
+class ViewDepTailSpec:
+    """Directional tail of TextureFieldWithViewDependency: [bottleneck |
+    encoded view direction] -> Linear(d_hidden), relu -> Linear(3),
+    sigmoid. The spatial FusedMLPSpec's out_dim is the bottleneck width."""
+    venc_in: int     # encoded view-direction width (unpadded)
+    d_hidden: int    # directional hidden width
+    rgb_dim: int = 3
+
+    @property
+    def venc_w(self):
+        """Rows of the concat matrix's view part (zero-padded)."""
+        return _round_up(self.venc_in, VENC_K)
+
+
 def spec_for_model(model):
-    return FusedMLPSpec(num_layers=model.num_layers, k_in=model.in_dim,
-                        hidden=model.hidden_dim, skip_idx=model.skip_layer_idx,
-                        out_dim=model.out_dim)
+    """FusedMLPSpec of a TextureField, or of the spatial field of a
+    view-dependent one (out_dim = its bottleneck)."""
+    m = getattr(model, "spatial_mlp", model)
+    return FusedMLPSpec(num_layers=m.num_layers, k_in=m.in_dim, hidden=m.hidden_dim,
+                        skip_idx=m.skip_layer_idx, out_dim=m.out_dim)
+
+
+def tail_for_model(model):
+    if not hasattr(model, "spatial_mlp"):
+        return None
+    return ViewDepTailSpec(venc_in=model.venc_dim, d_hidden=model.directional_hidden_dim)
+
+
+def layout_for_model(model):
+    return ParamLayout(spec_for_model(model), tail_for_model(model))
 
 
 class _Entry(NamedTuple):
@@ -96,25 +140,49 @@ class _Entry(NamedTuple):
     b_off: int    # offset of the bias (cols_pad long) in the flat buffer
 
 
+class _Layer(NamedTuple):
+    """One relu layer of the kernels' chain: ``h`` = (entry, row0, rows) of
+    the matrix applied to the previous layer's output (None at layer 0),
+    ``ext`` = (entry, row0, rows, "x" | "v") of the matrix applied to table
+    rows (the features or the encoded view directions), ``biases`` the
+    entries whose biases are added, in this order."""
+    h: tuple
+    ext: tuple
+    biases: tuple
+
+
 class ParamLayout:
     """The flat f32 parameter layout of the train kernels.
 
-    Matrices come first, in ``weight_names`` order, each [in_pad, out_pad]
-    row-major (the transpose of torch's Linear weight): the input and skip-x
-    matrices zero-padded to ``k_w`` rows, the head to 16 columns. The
-    biases follow in the same order (the head's padded to 16). The forward
+    Matrices come first, in ``weight_names`` order (then, with a tail, the
+    concat matrix ``directional_mlp.0`` and the RGB head
+    ``directional_mlp.2``), each [in_pad, out_pad] row-major (the transpose
+    of torch's Linear weight): the input and skip-x matrices zero-padded to
+    ``k_w`` rows, the RGB head to 16 columns, the concat matrix as
+    [bottleneck rows ; view rows zero-padded to ``venc_w``]. The biases
+    follow in the same order (the RGB head's padded to 16). The forward
     kernel's packed operands are the bf16 cast of the matrix region and the
     bias region as it is. Pads are zero, get zero gradients and stay zero
     under Adam."""
 
-    def __init__(self, spec):
-        self.spec = spec
+    def __init__(self, spec, tail=None):
+        self.spec, self.tail = spec, tail
         h, kw = spec.hidden, spec.k_w
+        pfx = "" if tail is None else "spatial_mlp."
         shapes = []
         for prefix, role in spec.weight_names():
             rows, rows_pad = (spec.k_in, kw) if role in ("input", "skip_x") else (h, h)
-            cols, cols_pad = (spec.out_dim, OUT_PAD) if role == "out" else (h, h)
-            shapes.append((prefix, role, rows_pad, cols_pad, rows, cols))
+            if role == "out" and tail is not None:
+                role, cols, cols_pad = "bneck", spec.out_dim, spec.out_dim
+            elif role == "out":
+                cols, cols_pad = spec.out_dim, OUT_PAD
+            else:
+                cols, cols_pad = h, h
+            shapes.append((pfx + prefix, role, rows_pad, cols_pad, rows, cols))
+        if tail is not None:
+            bn, d = spec.out_dim, tail.d_hidden
+            shapes.append(("directional_mlp.0", "cat", bn + tail.venc_w, d, bn + tail.venc_in, d))
+            shapes.append(("directional_mlp.2", "rgb", d, OUT_PAD, d, tail.rgb_dim))
         self.n_w = sum(r * c for _, _, r, c, _, _ in shapes)
         entries, wo, bo = [], 0, self.n_w
         for prefix, role, rows_pad, cols_pad, rows, cols in shapes:
@@ -123,6 +191,22 @@ class ParamLayout:
             bo += cols_pad
         self.entries = entries
         self.n = bo
+        # the kernels' chain of relu layers, then the sigmoid head
+        layers, j = [], 0
+        for i in range(spec.num_layers - 1):
+            if i == spec.skip_idx:
+                layers.append(_Layer((j, 0, h), (j + 1, 0, spec.k_in, "x"), (j, j + 1)))
+                j += 2
+            else:
+                layers.append(_Layer((j, 0, h) if i else None,
+                                     None if i else (j, 0, spec.k_in, "x"), (j,)))
+                j += 1
+        if tail is not None:
+            layers.append(_Layer((j, 0, h), None, (j,)))                       # bottleneck
+            layers.append(_Layer((j + 1, 0, spec.out_dim),
+                                 (j + 1, spec.out_dim, tail.venc_in, "v"), (j + 1,)))  # concat
+            j += 2
+        self.layers, self.head = layers, j
 
     def mats(self, flat):
         """[rows_pad, cols_pad] views of the matrices, in entry order."""
@@ -139,8 +223,9 @@ class ParamLayout:
         device = first.device if device is None else torch.device(device)
         flat = torch.zeros(self.n, dtype=torch.float32, device=device)
         for e, W, b in zip(self.entries, self.mats(flat), self.biases(flat)):
-            W[:e.rows, :e.cols] = state_dict[e.prefix + ".weight"].detach().t().to(
-                device=device, dtype=torch.float32)
+            w = state_dict[e.prefix + ".weight"].detach().t().to(device=device,
+                                                                 dtype=torch.float32)
+            W[:e.rows, :e.cols] = w
             b[:e.cols] = state_dict[e.prefix + ".bias"].detach().to(
                 device=device, dtype=torch.float32)
         return flat
@@ -150,7 +235,8 @@ class ParamLayout:
         """Flat buffer -> torch-layout state dict of contiguous copies."""
         sd = {}
         for e, W, b in zip(self.entries, self.mats(flat), self.biases(flat)):
-            sd[e.prefix + ".weight"] = W[:e.rows, :e.cols].t().contiguous().to(device)
+            w = W[:e.rows, :e.cols]
+            sd[e.prefix + ".weight"] = w.t().contiguous().to(device)
             sd[e.prefix + ".bias"] = b[:e.cols].clone().to(device)
         return sd
 
@@ -161,7 +247,7 @@ class ParamLayout:
         mats = [w[e.w_off:e.w_off + e.rows_pad * e.cols_pad].view(e.rows_pad, e.cols_pad)
                 for e in self.entries]
         biases = [b[e.b_off - self.n_w:e.b_off - self.n_w + e.cols_pad] for e in self.entries]
-        return FusedWeights(self.spec, w, b, mats, biases)
+        return FusedWeights(self.spec, w, b, mats, biases, self)
 
 
 class FusedWeights(NamedTuple):
@@ -170,6 +256,7 @@ class FusedWeights(NamedTuple):
     b: torch.Tensor        # packed f32 biases (kernel operand)
     mats: list             # views of w: [in_padded, out_padded] bf16
     biases: list           # views of b
+    layout: ParamLayout    # the flat layout the pack was cut from
 
 
 @torch.no_grad()
@@ -186,55 +273,110 @@ def _bf16(t):
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+def _forward_plain(layout, mats, biases, x, venc):
+    """The kernels' chain on bf16-valued f32 matrices: (post-relu bf16-valued
+    activations of every layer, head pre-activation [B, 16])."""
+    spec = layout.spec
+    xb = _bf16(x[:, :spec.k_in].to(torch.float32))
+    vb = None if venc is None else _bf16(venc[:, :layout.tail.venc_in].to(torch.float32))
+    h, acts = None, []
+    for lay in layout.layers:
+        ins, ws = [], []
+        if lay.h is not None:
+            e, r0, n = lay.h
+            ins.append(h)
+            ws.append(mats[e][r0:r0 + n])
+        if lay.ext is not None:
+            e, r0, n, src = lay.ext
+            ins.append(xb if src == "x" else vb)
+            ws.append(mats[e][r0:r0 + n])
+        # one [h | rows] . [Wh ; Wrows] contraction, as the reference kernels
+        pre = ins[0] @ ws[0] if len(ins) == 1 else torch.cat(ins, 1) @ torch.cat(ws, 0)
+        for bi in lay.biases:
+            pre = pre + biases[bi]
+        h = _bf16(torch.relu(pre))
+        acts.append(h)
+    return acts, h @ mats[layout.head] + biases[layout.head]
+
+
 def fused_apply_plain(fw, x):
     """Plain torch twin of the kernel (any device): [B, k_in] f32 -> [B, 3]."""
-    spec = fw.spec
-    xb = _bf16(x.to(torch.float32))
+    layout = fw.layout
+    if layout.tail is not None:
+        raise ValueError("fused_apply_plain: view-dependent weights need "
+                         "fused_apply_viewdep_plain")
     mats = [m.to(torch.float32) for m in fw.mats]
-    it = iter(zip(spec.weight_names(), mats, fw.biases))
-    h = xb
-    for i in range(spec.num_layers - 1):
-        (_, role), W, b = next(it)
-        if i == spec.skip_idx:
-            _, Wx, bx = next(it)
-            # one [h | x] . [Wh ; Wx] contraction, as the reference kernel
-            hx = torch.cat([_bf16(h), xb], dim=1)
-            Wcat = torch.cat([W, Wx[:spec.k_in]], dim=0)
-            h = torch.relu(hx @ Wcat + b + bx)
-        else:
-            if role == "input":
-                W = W[:spec.k_in]
-            h = torch.relu(_bf16(h) @ W + b)
-    _, Wo, bo = next(it)
-    z = _bf16(h) @ Wo + bo
-    return torch.sigmoid(z)[:, :spec.out_dim]
+    _, z = _forward_plain(layout, mats, fw.biases, x, None)
+    return torch.sigmoid(z)[:, :fw.spec.out_dim]
 
 
-def _check_kernel_spec(spec, what):
-    if spec.hidden != KERNEL_HIDDEN or spec.out_dim != 3:
+def fused_apply_viewdep_plain(fw, x, venc):
+    """Plain torch twin of the view-dependent kernel (any device): x [B,
+    k_in] f32 features, venc [B, venc_in] f32 encoded view directions ->
+    [B, 3]."""
+    layout = fw.layout
+    if layout.tail is None:
+        raise ValueError("fused_apply_viewdep_plain: weights have no view-dependent tail")
+    if venc.dim() != 2 or venc.shape[1] != layout.tail.venc_in:
+        raise ValueError(f"fused_apply_viewdep_plain: venc must be [B, {layout.tail.venc_in}], "
+                         f"got {tuple(venc.shape)}")
+    mats = [m.to(torch.float32) for m in fw.mats]
+    _, z = _forward_plain(layout, mats, fw.biases, x, venc)
+    return torch.sigmoid(z)[:, :layout.tail.rgb_dim]
+
+
+def _check_kernel_spec(layout, what):
+    spec, tail = layout.spec, layout.tail
+    if tail is None:
+        ok = spec.hidden == KERNEL_HIDDEN and spec.out_dim == 3
+    else:
+        ok = (spec.hidden == spec.out_dim == tail.d_hidden == KERNEL_HIDDEN
+              and tail.rgb_dim == 3 and 0 < tail.venc_in <= VENC_MAX)
+    if not ok:
         raise ValueError(
-            f"{what}: the kernels take hidden={KERNEL_HIDDEN}, out_dim=3; got "
-            f"hidden={spec.hidden}, out_dim={spec.out_dim}"
-        )
+            f"{what}: the kernels take hidden={KERNEL_HIDDEN} and out_dim=3 (a tail: "
+            f"bottleneck and directional width {KERNEL_HIDDEN}, at most {VENC_MAX} view "
+            f"lanes); got {spec}, {tail}")
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fwd_kernel():
+def _check_consts(lib, consts):
+    for const, want in consts:
+        getattr(lib, const).restype = ctypes.c_int
+        if getattr(lib, const)() != want:
+            raise RuntimeError(f"{const} disagrees with the Python layout")
+
+
+def _fwd_lib():
     from ._build import load
 
     lib = load("fused_mlp_fwd")
-    fn = lib.fused_mlp_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        for const, want in (("fused_mlp_fwd_kc", KC), ("fused_mlp_fwd_out_pad", OUT_PAD)):
-            getattr(lib, const).restype = ctypes.c_int
-            if getattr(lib, const)() != want:
-                raise RuntimeError(f"{const} disagrees with the Python packing")
-    return fn
+    if lib.fused_mlp_fwd.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.fused_mlp_fwd.argtypes = [P] * 4 + [I] * 5 + [P]
+        lib.fused_mlp_fwd_viewdep.argtypes = [P] * 5 + [I] * 7 + [P]
+        lib.fused_mlp_fwd.restype = lib.fused_mlp_fwd_viewdep.restype = I
+        _check_consts(lib, (("fused_mlp_fwd_kc", KC), ("fused_mlp_fwd_out_pad", OUT_PAD),
+                            ("fused_mlp_fwd_venc_max", VENC_MAX)))
+    return lib
+
+
+def _check_rows(name, t, B, widths, dev, what):
+    if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != B
+            or t.shape[1] not in widths or t.device != dev):
+        raise ValueError(f"{what}: {name} must be [B, {' or '.join(map(str, widths))}] "
+                         f"float32 on {dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _check_packed(fw, dev, what):
+    for name, t, dt in (("w", fw.w, torch.bfloat16), ("b", fw.b, torch.float32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what}: packed {name} must be contiguous {dt} on {dev}")
 
 
 def fused_apply(fw, x):
@@ -246,32 +388,56 @@ def fused_apply(fw, x):
         return fused_apply_plain(fw, x)
     if x.device.type != "cuda":
         raise ValueError(f"fused_apply: unsupported device {x.device}")
-    spec = fw.spec
-    _check_kernel_spec(spec, "fused_apply")
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != spec.k_in:
-        raise ValueError(
-            f"fused_apply: x must be [B, {spec.k_in}] float32, got "
-            f"{tuple(x.shape)} {x.dtype}"
-        )
-    if not x.is_contiguous():
-        raise ValueError("fused_apply: x must be contiguous")
-    for name, t, dt in (("w", fw.w, torch.bfloat16), ("b", fw.b, torch.float32)):
-        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"fused_apply: packed {name} must be contiguous {dt} on {x.device}")
+    spec, layout = fw.spec, fw.layout
+    if layout.tail is not None:
+        raise ValueError("fused_apply: view-dependent weights need fused_apply_viewdep")
+    _check_kernel_spec(layout, "fused_apply")
+    _check_rows("x", x, x.shape[0] if x.dim() else -1, (spec.k_in,), x.device, "fused_apply")
+    _check_packed(fw, x.device, "fused_apply")
     B = x.shape[0]
     out = torch.empty((B, spec.out_dim), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
-    fn = _fwd_kernel()
-    rc = fn(x.data_ptr(), fw.w.data_ptr(), fw.b.data_ptr(), out.data_ptr(),
-            B, spec.k_in, spec.k_w, spec.num_layers, spec.skip_idx, _stream(x))
+    rc = _fwd_lib().fused_mlp_fwd(x.data_ptr(), fw.w.data_ptr(), fw.b.data_ptr(),
+                                  out.data_ptr(), B, spec.k_in, spec.k_w, spec.num_layers,
+                                  spec.skip_idx, _stream(x))
     if rc != 0:
         raise RuntimeError(f"fused_mlp_fwd launch failed: cudaError {rc}")
-    fused_apply.launches += 1
+    _launches["fused_mlp_fwd"] += 1
     return out
 
 
-fused_apply.launches = 0  # kernel launches since the last reset
+def fused_apply_viewdep(fw, x, venc):
+    """View-dependent field: [B, k_in] f32 features and [B, venc_in] f32
+    encoded view directions -> [B, 3] f32 RGB.
+
+    CPU tensor: the plain twin. CUDA tensor: the sm_90a kernel
+    ``fused_mlp_fwd_viewdep`` on the current stream, or an error."""
+    if x.device.type == "cpu":
+        return fused_apply_viewdep_plain(fw, x, venc)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_apply_viewdep: unsupported device {x.device}")
+    spec, layout = fw.spec, fw.layout
+    tail = layout.tail
+    if tail is None:
+        raise ValueError("fused_apply_viewdep: weights have no view-dependent tail")
+    what = "fused_apply_viewdep"
+    _check_kernel_spec(layout, what)
+    B = x.shape[0] if x.dim() else -1
+    _check_rows("x", x, B, (spec.k_in,), x.device, what)
+    _check_rows("venc", venc, B, (tail.venc_in,), x.device, what)
+    _check_packed(fw, x.device, what)
+    out = torch.empty((B, tail.rgb_dim), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    rc = _fwd_lib().fused_mlp_fwd_viewdep(
+        x.data_ptr(), venc.data_ptr(), fw.w.data_ptr(), fw.b.data_ptr(), out.data_ptr(), B,
+        spec.k_in, spec.k_w, spec.num_layers, spec.skip_idx, tail.venc_in, tail.venc_w,
+        _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"fused_mlp_fwd_viewdep launch failed: cudaError {rc}")
+    _launches["fused_mlp_fwd_viewdep"] += 1
+    return out
 
 
 # ----------------------------------------------------------------- training
@@ -291,87 +457,106 @@ def _loss_and_grad(loss_type, pred, gt, inv_n):
     raise ValueError(f"unknown loss_type {loss_type!r}")
 
 
-def fwd_bwd_plain(layout, params, x, target, loss_type):
-    """Plain twin of the fwd_bwd kernel. x: [B, >=k_in] rows (bf16 or f32);
-    target: [B, 3] ground truth, or the output cotangent when loss_type is
-    None. Returns what the kernel leaves for wgrad, in its scratch layout:
-    (acts [(L-1)*B*H] bf16 post-relu activations, deltas [(L-1)*B*H + B*16]
-    bf16 deltas of every layer then the head, bias_sums [H*(L-1)+16] f32
-    column sums of the f32 deltas, loss_sum, sq_sum)."""
-    spec = layout.spec
-    L, skip, k = spec.num_layers, spec.skip_idx, spec.k_in
+def _check_uniform(layout):
+    spec, tail = layout.spec, layout.tail
+    if tail is not None and not spec.hidden == spec.out_dim == tail.d_hidden:
+        raise ValueError("the train kernels' scratch needs bottleneck and directional "
+                         f"widths equal to the hidden width, got {spec}, {tail}")
+
+
+def _fwd_bwd(layout, params, x, venc, target, loss_type):
+    _check_uniform(layout)
+    out_dim = 3 if layout.tail is None else layout.tail.rgb_dim
     B = x.shape[0]
-    xb = _bf16(x[:, :k].to(torch.float32))
     mats = [_bf16(m) for m in layout.mats(params.detach())]
     biases = layout.biases(params.detach())
-    acts, hmats, j, h = [], [], 0, xb
-    for i in range(L - 1):
-        if i == skip:
-            pre = torch.cat([h, xb], 1) @ torch.cat([mats[j], mats[j + 1][:k]], 0)
-            h = _bf16(torch.relu(pre + biases[j] + biases[j + 1]))
-            hmats.append(mats[j])
-            j += 2
-        else:
-            W = mats[j][:k] if i == 0 else mats[j]
-            h = _bf16(torch.relu(h @ W + biases[j]))
-            hmats.append(mats[j])
-            j += 1
-        acts.append(h)
-    z = h @ mats[j] + biases[j]
-    p = torch.sigmoid(z[:, :spec.out_dim])
+    acts, z = _forward_plain(layout, mats, biases, x, venc)
+    p = torch.sigmoid(z[:, :out_dim])
     target = target.to(torch.float32)
     if loss_type is None:
         loss_sum = sq_sum = None
         g = target
     else:
-        loss, sq, g = _loss_and_grad(loss_type, p, target, 1.0 / (B * spec.out_dim))
+        loss, sq, g = _loss_and_grad(loss_type, p, target, 1.0 / (B * out_dim))
         loss_sum, sq_sum = loss.sum(), sq.sum()
-    d = torch.nn.functional.pad(g * p * (1.0 - p), (0, OUT_PAD - spec.out_dim))
-    deltas, sums = [None] * (L - 1), [None] * (L - 1)
+    d = torch.nn.functional.pad(g * p * (1.0 - p), (0, OUT_PAD - out_dim))
+    nh = len(layout.layers)
+    deltas, sums = [None] * nh, [None] * nh
     dout, dsum = _bf16(d), d.sum(0)
-    dh = dout @ mats[j].t()
-    for i in range(L - 2, -1, -1):
+    dh = dout @ mats[layout.head].t()
+    for i in range(nh - 1, -1, -1):
         dl = dh * (acts[i] > 0)
         deltas[i], sums[i] = _bf16(dl), dl.sum(0)
         if i > 0:
-            dh = deltas[i] @ hmats[i].t()
+            e, r0, n = layout.layers[i].h
+            dh = deltas[i] @ mats[e][r0:r0 + n].t()
     to_bf16 = lambda ts: torch.cat([t.reshape(-1) for t in ts]).to(torch.bfloat16)  # noqa: E731
     return (to_bf16(acts), to_bf16(deltas + [dout]), torch.cat(sums + [dsum]),
             loss_sum, sq_sum)
 
 
-def wgrad_plain(layout, x, acts, deltas, bias_sums):
-    """Plain twin of the wgrad kernel on fwd_bwd's outputs (either twin's):
-    the flat gradient, dW = A^T . D over the batch, biases from bias_sums."""
-    spec = layout.spec
-    L, skip, k, H = spec.num_layers, spec.skip_idx, spec.k_in, spec.hidden
-    B = x.shape[0]
-    xb = _bf16(x[:, :k].to(torch.float32))
-    A = acts.to(torch.float32).view(L - 1, B, H)
-    D = deltas[:(L - 1) * B * H].to(torch.float32).view(L - 1, B, H)
-    Dout = deltas[(L - 1) * B * H:].to(torch.float32).view(B, OUT_PAD)
+def fwd_bwd_plain(layout, params, x, target, loss_type):
+    """Plain twin of the fwd_bwd kernel. x: [B, >=k_in] rows (bf16 or f32);
+    target: [B, 3] ground truth, or the output cotangent when loss_type is
+    None. Returns what the kernel leaves for wgrad, in its scratch layout:
+    (acts [nh*B*H] bf16 post-relu activations of the nh relu layers, deltas
+    [nh*B*H + B*16] bf16 deltas of every layer then the head, bias_sums
+    [H*nh+16] f32 column sums of the f32 deltas, loss_sum, sq_sum)."""
+    return _fwd_bwd(layout, params, x, None, target, loss_type)
+
+
+def fwd_bwd_viewdep_plain(layout, params, x, venc, target, loss_type):
+    """Plain twin of the view-dependent fwd_bwd kernel: as fwd_bwd_plain,
+    with venc [B, venc_w] the encoded view directions beside x (lanes past
+    venc_in are not read); the nh relu layers include the bottleneck and
+    the concat layer."""
+    return _fwd_bwd(layout, params, x, venc, target, loss_type)
+
+
+def _wgrad(layout, x, venc, acts, deltas, bias_sums):
+    _check_uniform(layout)
+    spec, H = layout.spec, layout.spec.hidden
+    nh, B = len(layout.layers), x.shape[0]
+    src = {"x": _bf16(x[:, :spec.k_in].to(torch.float32))}
+    if venc is not None:
+        src["v"] = _bf16(venc[:, :layout.tail.venc_in].to(torch.float32))
+    A = acts.to(torch.float32).view(nh, B, H)
+    D = deltas[:nh * B * H].to(torch.float32).view(nh, B, H)
+    Dout = deltas[nh * B * H:].to(torch.float32).view(B, OUT_PAD)
     grads = torch.zeros(layout.n, dtype=torch.float32, device=acts.device)
     gm, gb = layout.mats(grads), layout.biases(grads)
-    j = 0
-    for i in range(L - 1):
-        a_in = xb if i == 0 else A[i - 1]
-        gm[j][:a_in.shape[1]] = a_in.t() @ D[i]
-        gb[j][:] = bias_sums[H * i:H * (i + 1)]
-        j += 1
-        if i == skip:
-            gm[j][:k] = xb.t() @ D[i]
-            gb[j][:] = bias_sums[H * i:H * (i + 1)]
-            j += 1
-    gm[j][:] = A[L - 2].t() @ Dout
-    gb[j][:] = bias_sums[H * (L - 1):]
+    for i, lay in enumerate(layout.layers):
+        if lay.h is not None:
+            e, r0, n = lay.h
+            gm[e][r0:r0 + n] = A[i - 1].t() @ D[i]
+        if lay.ext is not None:
+            e, r0, n, s = lay.ext
+            gm[e][r0:r0 + n] = src[s].t() @ D[i]
+        for bi in lay.biases:
+            gb[bi][:] = bias_sums[H * i:H * (i + 1)]
+    gm[layout.head][:] = A[nh - 1].t() @ Dout
+    gb[layout.head][:] = bias_sums[H * nh:]
     return grads
 
 
-def train_grads_plain(layout, params, x, gt, loss_type="L1"):
-    """Plain twin of ``fused_train_grads`` on a gathered [B, k_in] batch:
-    fwd_bwd_plain then wgrad_plain, (flat grads, loss_sum, sq_sum)."""
-    acts, deltas, bias_sums, loss_sum, sq_sum = fwd_bwd_plain(layout, params, x, gt, loss_type)
-    return wgrad_plain(layout, x, acts, deltas, bias_sums), loss_sum, sq_sum
+def wgrad_plain(layout, x, acts, deltas, bias_sums):
+    """Plain twin of the wgrad kernel on fwd_bwd's outputs (either twin's):
+    the flat gradient, dW = A^T . D over the batch, biases from bias_sums."""
+    return _wgrad(layout, x, None, acts, deltas, bias_sums)
+
+
+def wgrad_viewdep_plain(layout, x, venc, acts, deltas, bias_sums):
+    """Plain twin of the view-dependent wgrad kernel: as wgrad_plain, the
+    concat matrix's view rows contracted with venc."""
+    return _wgrad(layout, x, venc, acts, deltas, bias_sums)
+
+
+def train_grads_plain(layout, params, x, gt, loss_type="L1", venc=None):
+    """Plain twin of ``fused_train_grads`` on a gathered [B, k_in] batch
+    (and its [B, venc_w] view encodings with a tail): fwd_bwd then
+    wgrad, (flat grads, loss_sum, sq_sum)."""
+    acts, deltas, bias_sums, loss_sum, sq_sum = _fwd_bwd(layout, params, x, venc, gt, loss_type)
+    return _wgrad(layout, x, venc, acts, deltas, bias_sums), loss_sum, sq_sum
 
 
 def apply_vjp_plain(layout, params, x, g):
@@ -397,7 +582,7 @@ class TrainScratch(NamedTuple):
 
 def make_train_scratch(layout, B, device):
     spec = layout.spec
-    n_hid = spec.num_layers - 1
+    n_hid = len(layout.layers)
     nblk = -(-B // BLOCK_ROWS)
     nbp = spec.hidden * n_hid + OUT_PAD
     kw = dict(device=device)
@@ -409,6 +594,7 @@ def make_train_scratch(layout, B, device):
         loss_part=torch.empty(nblk * 2, dtype=torch.float32, **kw),
         grads=torch.empty(layout.n, dtype=torch.float32, **kw),
         wpart=torch.empty(WGRAD_SPLIT * layout.n_w, dtype=torch.float32, **kw),
+        # one per gradient tile: every tile holds at least 64 x 16 entries
         counters=torch.zeros(layout.n_w // (BLOCK_ROWS * OUT_PAD), dtype=torch.int32, **kw),
     )
 
@@ -421,19 +607,23 @@ def _train_lib():
         P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.fused_mlp_fwd_bwd.argtypes = [P, I, LL, I, I, P, I, I, I, P, I, F, P, P, P, P, P]
         lib.fused_mlp_wgrad.argtypes = [P, I, LL, I, I, I, I, I, P, P, P, P, P, P, P, P, P]
-        lib.fused_mlp_fwd_bwd.restype = lib.fused_mlp_wgrad.restype = I
-        for const, want in (("fused_mlp_train_kc", KC), ("fused_mlp_train_out_pad", OUT_PAD),
+        lib.fused_mlp_fwd_bwd_viewdep.argtypes = (
+            [P, I, LL, I, I, P, I, I, I, P, I, I, P, I, F, P, P, P, P, P])
+        lib.fused_mlp_wgrad_viewdep.argtypes = (
+            [P, I, LL, I, I, I, I, I, P, I, I, P, P, P, P, P, P, P, P, P])
+        for fn in (lib.fused_mlp_fwd_bwd, lib.fused_mlp_wgrad, lib.fused_mlp_fwd_bwd_viewdep,
+                   lib.fused_mlp_wgrad_viewdep):
+            fn.restype = I
+        _check_consts(lib, (("fused_mlp_train_kc", KC), ("fused_mlp_train_out_pad", OUT_PAD),
                             ("fused_mlp_train_block_rows", BLOCK_ROWS),
-                            ("fused_mlp_train_nsplit", WGRAD_SPLIT)):
-            getattr(lib, const).restype = I
-            if getattr(lib, const)() != want:
-                raise RuntimeError(f"{const} disagrees with the Python layout")
+                            ("fused_mlp_train_nsplit", WGRAD_SPLIT),
+                            ("fused_mlp_train_venc_max", VENC_MAX)))
     return lib
 
 
-def _check_train_operands(layout, params, feats, target, row0, B, what):
-    spec = layout.spec
-    _check_kernel_spec(spec, what)
+def _check_train_operands(layout, params, feats, target, row0, B, what, vencs=None):
+    spec, tail = layout.spec, layout.tail
+    _check_kernel_spec(layout, what)
     dev = params.device
     if (params.dtype != torch.float32 or params.shape != (layout.n,)
             or not params.is_contiguous() or params.data_ptr() % 16):
@@ -445,78 +635,108 @@ def _check_train_operands(layout, params, feats, target, row0, B, what):
             f"{what}: feats must be a contiguous bf16/f32 [N, {spec.k_in}] tensor on "
             f"{dev}, got {tuple(feats.shape)} {feats.dtype} on {feats.device}")
     if (target.device != dev or target.dtype != torch.float32
-            or target.shape != (B, spec.out_dim) or not target.is_contiguous()):
+            or target.shape != (B, 3) or not target.is_contiguous()):
         raise ValueError(f"{what}: target must be contiguous float32 [{B}, 3] on {dev}")
     if B <= 0 or row0 < 0 or row0 + B > feats.shape[0]:
         raise ValueError(f"{what}: rows [{row0}, {row0 + B}) outside feats [0, {feats.shape[0]})")
+    if (tail is None) != (vencs is None):
+        raise ValueError(f"{what}: vencs must be given exactly when the layout has a tail")
+    if vencs is not None and (
+            vencs.device != dev or vencs.dtype != feats.dtype or vencs.dim() != 2
+            or vencs.shape[0] != feats.shape[0]
+            or vencs.shape[1] != tail.venc_w or not vencs.is_contiguous()):
+        raise ValueError(
+            f"{what}: vencs must be a contiguous [{feats.shape[0]}, {tail.venc_w}] "
+            f"{feats.dtype} tensor on {dev} (the feature table's rows and dtype, lanes "
+            f"past {tail.venc_in} zero), got {tuple(vencs.shape)} {vencs.dtype} on "
+            f"{vencs.device}")
 
 
-def _launch_fwd_bwd(layout, params, feats, row0, B, target, mode, inv_n, scratch):
-    """One launch of csrc/fused_mlp_train.cu:fused_mlp_fwd_bwd."""
+def _venc_args(layout, vencs):
+    """The tail's C arguments: (venc pointer, venc_in, venc_w = its row stride)."""
+    t = layout.tail
+    return (vencs.data_ptr(), t.venc_in, t.venc_w)
+
+
+def _launch_fwd_bwd(layout, params, feats, row0, B, target, mode, inv_n, scratch, vencs=None):
+    """One launch of csrc/fused_mlp_train.cu:fused_mlp_fwd_bwd[_viewdep]."""
     spec = layout.spec
     lib = _train_lib()
-    rc = lib.fused_mlp_fwd_bwd(
-        feats.data_ptr(), int(feats.dtype == torch.bfloat16), row0, B, spec.k_in,
-        params.data_ptr(), spec.k_w, spec.num_layers, spec.skip_idx,
-        target.data_ptr(), mode, inv_n, scratch.acts.data_ptr(), scratch.deltas.data_ptr(),
-        scratch.bias_part.data_ptr(), scratch.loss_part.data_ptr(), _stream(params))
+    head = (feats.data_ptr(), int(feats.dtype == torch.bfloat16), row0, B, spec.k_in,
+            params.data_ptr(), spec.k_w, spec.num_layers, spec.skip_idx)
+    rest = (target.data_ptr(), mode, inv_n, scratch.acts.data_ptr(), scratch.deltas.data_ptr(),
+            scratch.bias_part.data_ptr(), scratch.loss_part.data_ptr(), _stream(params))
+    if layout.tail is None:
+        name, rc = "fused_mlp_fwd_bwd", lib.fused_mlp_fwd_bwd(*head, *rest)
+    else:
+        name = "fused_mlp_fwd_bwd_viewdep"
+        rc = lib.fused_mlp_fwd_bwd_viewdep(*head, *_venc_args(layout, vencs), *rest)
     if rc != 0:
-        raise RuntimeError(f"fused_mlp_fwd_bwd launch failed: cudaError {rc}")
-    _launch_fwd_bwd.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    _launches[name] += 1
 
 
-def _launch_wgrad(layout, feats, row0, B, scratch, grads, sums):
-    """One launch of csrc/fused_mlp_train.cu:fused_mlp_wgrad."""
+def _launch_wgrad(layout, feats, row0, B, scratch, grads, sums, vencs=None):
+    """One launch of csrc/fused_mlp_train.cu:fused_mlp_wgrad[_viewdep]."""
     spec = layout.spec
     lib = _train_lib()
-    rc = lib.fused_mlp_wgrad(
-        feats.data_ptr(), int(feats.dtype == torch.bfloat16), row0, B, spec.k_in,
-        spec.k_w, spec.num_layers, spec.skip_idx, scratch.acts.data_ptr(),
-        scratch.deltas.data_ptr(), scratch.bias_part.data_ptr(),
-        scratch.loss_part.data_ptr(), grads.data_ptr(), sums.data_ptr(),
-        scratch.wpart.data_ptr(), scratch.counters.data_ptr(), _stream(grads))
+    head = (feats.data_ptr(), int(feats.dtype == torch.bfloat16), row0, B, spec.k_in,
+            spec.k_w, spec.num_layers, spec.skip_idx)
+    rest = (scratch.acts.data_ptr(), scratch.deltas.data_ptr(), scratch.bias_part.data_ptr(),
+            scratch.loss_part.data_ptr(), grads.data_ptr(), sums.data_ptr(),
+            scratch.wpart.data_ptr(), scratch.counters.data_ptr(), _stream(grads))
+    if layout.tail is None:
+        name, rc = "fused_mlp_wgrad", lib.fused_mlp_wgrad(*head, *rest)
+    else:
+        name = "fused_mlp_wgrad_viewdep"
+        rc = lib.fused_mlp_wgrad_viewdep(*head, *_venc_args(layout, vencs), *rest)
     if rc != 0:
-        raise RuntimeError(f"fused_mlp_wgrad launch failed: cudaError {rc}")
-    _launch_wgrad.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    _launches[name] += 1
 
 
-_launch_fwd_bwd.launches = 0
-_launch_wgrad.launches = 0
-
-
-def _train_kernels(layout, params, feats, row0, B, target, mode, scratch, grads):
+def _train_kernels(layout, params, feats, row0, B, target, mode, scratch, grads, vencs=None):
     if scratch is None:
         scratch = make_train_scratch(layout, B, params.device)
     elif scratch.B != B:
         raise ValueError(f"scratch was made for B={scratch.B}, not {B}")
     sums = torch.empty(2, dtype=torch.float32, device=params.device)
-    inv_n = 1.0 / (B * layout.spec.out_dim)
-    _launch_fwd_bwd(layout, params, feats, row0, B, target, mode, inv_n, scratch)
-    _launch_wgrad(layout, feats, row0, B, scratch, grads, sums)
+    inv_n = 1.0 / (B * 3)
+    _launch_fwd_bwd(layout, params, feats, row0, B, target, mode, inv_n, scratch, vencs)
+    _launch_wgrad(layout, feats, row0, B, scratch, grads, sums, vencs)
     return sums
 
 
 def fused_train_grads(layout, params, feats, gt, block=0, batch_size=None,
-                      loss_type="L1", scratch=None):
+                      loss_type="L1", scratch=None, vencs=None):
     """Gradients of the mean loss over one batch, plus the loss and
     squared-error SUMS over its B*3 elements.
 
     feats: a [N, k_in] bf16/f32 hit-feature table, of which the batch is
     rows [block*B, (block+1)*B) (the streaming path: the offset is given in
     batch units, so a misaligned row cannot be expressed), or a gathered
-    [B, k_in] batch (block 0). gt: [B, 3] f32. Returns (grads [layout.n]
-    f32, loss_sum, sq_sum) with 0-dim sums.
+    [B, k_in] batch (block 0). vencs (layouts with a tail only): the
+    [N, venc_w] encoded view directions of the same rows (lanes past
+    venc_in zero), same dtype, read at the same offset. gt: [B, 3] f32. Returns (grads
+    [layout.n] f32, loss_sum, sq_sum) with 0-dim sums.
     CPU: the plain twin. CUDA: fwd_bwd + wgrad kernels, or an error."""
     B = feats.shape[0] if batch_size is None else int(batch_size)
     row0 = int(block) * B
     if params.device.type == "cpu":
-        return train_grads_plain(layout, params, feats[row0:row0 + B], gt, loss_type)
+        if (layout.tail is None) != (vencs is None):
+            raise ValueError("fused_train_grads: vencs must be given exactly when the "
+                             "layout has a tail")
+        if vencs is not None and (vencs.dim() != 2 or vencs.shape[1] != layout.tail.venc_w):
+            raise ValueError(f"fused_train_grads: vencs must be [N, {layout.tail.venc_w}], "
+                             f"got {tuple(vencs.shape)}")
+        venc = None if vencs is None else vencs[row0:row0 + B]
+        return train_grads_plain(layout, params, feats[row0:row0 + B], gt, loss_type, venc)
     if loss_type not in LOSS_MODES:
         raise ValueError(f"unknown loss_type {loss_type!r}")
-    _check_train_operands(layout, params, feats, gt, row0, B, "fused_train_grads")
+    _check_train_operands(layout, params, feats, gt, row0, B, "fused_train_grads", vencs)
     grads = torch.empty(layout.n, dtype=torch.float32, device=params.device)
     sums = _train_kernels(layout, params, feats, row0, B, gt, LOSS_MODES[loss_type],
-                          scratch, grads)
+                          scratch, grads, vencs)
     return grads, sums[0], sums[1]
 
 
@@ -581,30 +801,30 @@ def fused_adam_apply(params, m, v, hyper, grads):
                     hyper.data_ptr(), n, _stream(params))
     if rc != 0:
         raise RuntimeError(f"fused_adam launch failed: cudaError {rc}")
-    fused_adam_apply.launches += 1
-
-
-fused_adam_apply.launches = 0
+    _launches["fused_adam"] += 1
 
 
 def fused_train_adam(layout, params, m, v, hyper, feats, gt, block, batch_size,
-                     loss_type="L1", scratch=None):
+                     loss_type="L1", scratch=None, vencs=None):
     """One training step: ``fused_train_grads`` on the streamed batch, then
     ``fused_adam_apply`` in place. Returns (loss_sum, sq_sum), 0-dim.
-    On the card: fwd_bwd, wgrad, adam — three launches, no host sync."""
+    On the card: fwd_bwd, wgrad, adam — three launches, no host sync (the
+    tail's fwd_bwd and wgrad entry points with a tail; Adam is elementwise
+    over the flat buffer, the same kernel for both layouts)."""
     if params.device.type == "cpu":
         grads, loss_sum, sq_sum = fused_train_grads(
-            layout, params, feats, gt, block, batch_size, loss_type)
+            layout, params, feats, gt, block, batch_size, loss_type, vencs=vencs)
         fused_adam_apply(params, m, v, hyper, grads)
         return loss_sum, sq_sum
     B = int(batch_size)
     if loss_type not in LOSS_MODES:
         raise ValueError(f"unknown loss_type {loss_type!r}")
-    _check_train_operands(layout, params, feats, gt, int(block) * B, B, "fused_train_adam")
+    _check_train_operands(layout, params, feats, gt, int(block) * B, B, "fused_train_adam",
+                          vencs)
     if scratch is None:
         scratch = make_train_scratch(layout, B, params.device)
     sums = _train_kernels(layout, params, feats, int(block) * B, B, gt,
-                          LOSS_MODES[loss_type], scratch, scratch.grads)
+                          LOSS_MODES[loss_type], scratch, scratch.grads, vencs)
     fused_adam_apply(params, m, v, hyper, scratch.grads)
     return sums[0], sums[1]
 
@@ -638,7 +858,10 @@ class _FusedApply(torch.autograd.Function):
 
 def fused_apply_trainable(layout, params, x):
     """[B, k_in] f32 -> [B, 3] through the forward kernel, differentiable in
-    the flat params (``params.requires_grad``)."""
+    the flat params (``params.requires_grad``); plain layouts only (the
+    view-dependent forward has no VJP in the reference either)."""
+    if layout.tail is not None:
+        raise ValueError("fused_apply_trainable: the view-dependent forward has no VJP")
     return _FusedApply.apply(params, x, layout)
 
 
@@ -646,12 +869,9 @@ def fused_apply_trainable(layout, params, x):
 
 def kernel_launches():
     """{kernel: launches since the last reset} for every kernel of the module."""
-    return {"fused_mlp_fwd": fused_apply.launches,
-            "fused_mlp_fwd_bwd": _launch_fwd_bwd.launches,
-            "fused_mlp_wgrad": _launch_wgrad.launches,
-            "fused_adam": fused_adam_apply.launches}
+    return dict(_launches)
 
 
 def reset_kernel_launches():
-    for fn in (fused_apply, _launch_fwd_bwd, _launch_wgrad, fused_adam_apply):
-        fn.launches = 0
+    for name in _launches:
+        _launches[name] = 0

@@ -360,11 +360,13 @@ def traverse(tables, origins, dirs, coords, *, Tx, Ty):
 
 
 def intersect_coords_pinhole_core(vertices, faces, camCv2world, K, coords, *, W, H,
-                                  coord_hull=None):
+                                  coord_hull=None, return_dirs=False):
     """Trace body. vertices [V,3] f32 and faces [F,3] int tensors and coords
     [L,2] f32 on one device; camCv2world and K host arrays (numpy).
     coord_hull: optional [2,2] (cmin; cmax) pixel hull override for the
-    conservative face cull (default: from `coords`)."""
+    conservative face cull (default: from `coords`). return_dirs: return
+    (hits, the re-normalised unit ray directions [L,3]), which the
+    view-dependent field needs."""
     dev = coords.device
     origins, dirs = ray_origins_and_directions(camCv2world, K, coords)
     # The reference tracer re-normalizes its (already unit) dirs and
@@ -399,8 +401,8 @@ def intersect_coords_pinhole_core(vertices, faces, camCv2world, K, coords, *, W,
     best_v = torch.where(valid, G[:, 11] + tsafe * dB, zero).clamp(0.0, 1.0)
     bary = torch.stack([1.0 - best_u - best_v, best_u, best_v], dim=-1).clamp(0.0, 1.0)
     bary = bary / torch.clamp(bary.sum(-1, keepdim=True), min=1e-12)
-    return Hits(t=best_t / dir_norm.reshape(-1), face_idx=face_idx, bary=bary,
-                valid=valid)
+    hits = Hits(t=best_t / dir_norm.reshape(-1), face_idx=face_idx, bary=bary, valid=valid)
+    return (hits, dirs) if return_dirs else hits
 
 
 def intersect_coords_pinhole(vertices, faces, camCv2world, K, coords, *, W, H,

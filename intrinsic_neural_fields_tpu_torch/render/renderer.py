@@ -2,6 +2,11 @@
 feature interpolation and the fused MLP kernel, with the background
 composited on the device and f16 (or uint8) colors on the wire.
 
+The view-dependent field also needs each hit's unit ray direction and
+original face id (the tracer's faces are Morton-sorted; the id is mapped
+back before the face-normal lookup); its view encoding runs in plain torch
+beside the kernel, as in the reference renderer.
+
 The host selects masked pixels up front (Morton-ordered, cached per pixel
 set) and scatters the returned colors into the image. Dispatch is
 asynchronous (`render_async` / `render_fetch`), so an eval or video loop
@@ -17,7 +22,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.fused_mlp import FusedMLPSpec, fused_apply, fused_apply_plain, pack_weights
+from ..models.texture_field import view_encoder_apply
+from ..ops.fused_mlp import (
+    fused_apply,
+    fused_apply_plain,
+    fused_apply_viewdep,
+    fused_apply_viewdep_plain,
+    layout_for_model,
+)
 from ..ops.interpolate import interpolate_vertex_features
 from ..ops.morton import face_morton_order, pixel_morton_order
 from ..ops.raster import check_pinhole_K, intersect_coords_pinhole_core
@@ -35,6 +47,19 @@ class _PixelEntry(NamedTuple):
     L: int
     hull: object       # [2,2] f32 (cmin; cmax) pixel hull
     idx_dev: object    # [L] int64 masked pixel ids in Morton order, on device
+
+
+class ViewTrace(NamedTuple):
+    """One traced view, in trace order: hit vertex ids [L,3], barycentrics
+    [L,3], valid [L], the row-major pixel id of each ray [L], the unit ray
+    directions [L,3] and the original mesh face id of each hit [L] (0 where
+    nothing was hit)."""
+    vids: object
+    bary: object
+    valid: object
+    pix_idx: object
+    dirs: object
+    face_idxs: object
 
 
 class _PendingRender(NamedTuple):
@@ -69,7 +94,7 @@ def make_renderer_from_config(config, weights_path=None, device="cuda"):
         eigenvalues_path=data.get("eigenvalues_path"),
         ts=model_cfg.get("hks_timesteps", 128),
     )
-    model = make_model(model_cfg, device=device)
+    model = make_model(model_cfg, device=device, mesh=mesh)
     if weights_path is None:
         weights_path = os.path.join(config["training"]["out_dir"], "model.pt")
     model.load_state_dict(load_reference_weights(weights_path))
@@ -80,12 +105,13 @@ def make_renderer_from_config(config, weights_path=None, device="cuda"):
 
 
 class Renderer:
-    """Renders views of a trained plain texture field."""
+    """Renders views of a trained texture field (plain or view-dependent)."""
 
     def __init__(self, model, mesh, eigenfunctions, background="white", *, H, W,
                  feature_dtype=None, wire_u8=False, infer=None, device="cuda"):
-        """model: a TextureField (its weights are packed for the kernel
-        here and on every update_variables). eigenfunctions: [V, k] per-vertex
+        """model: a TextureField or TextureFieldWithViewDependency (its
+        weights are packed for the kernel here and on every
+        update_variables). eigenfunctions: [V, k] per-vertex
         features. feature_dtype: "bfloat16" stores the feature table in bf16
         (as a precompute_dtype: bfloat16 training run saw it); interpolation
         stays f32. wire_u8: ship uint8 colors instead of f16 (8-bit sinks).
@@ -98,7 +124,12 @@ class Renderer:
             raise ValueError(f"infer must be 'kernel' or 'plain', got {infer!r}")
         if infer == "kernel" and self.device.type != "cuda":
             raise ValueError("infer='kernel' needs a CUDA device")
-        self._apply = fused_apply if infer == "kernel" else fused_apply_plain
+        self.layout = layout_for_model(model)
+        self.spec = self.layout.spec
+        self.viewdep = self.layout.tail is not None
+        kernel, plain = ((fused_apply_viewdep, fused_apply_viewdep_plain) if self.viewdep
+                         else (fused_apply, fused_apply_plain))
+        self._apply = kernel if infer == "kernel" else plain
         self.infer_mode = infer
         self.model = model
         self.mesh = mesh
@@ -109,10 +140,6 @@ class Renderer:
             torch.bfloat16 if feature_dtype in ("bfloat16", torch.bfloat16)
             else torch.float32
         )
-        self.spec = FusedMLPSpec(
-            num_layers=model.num_layers, k_in=model.in_dim,
-            hidden=model.hidden_dim, skip_idx=model.skip_layer_idx,
-        )
         self.set_eigenfunctions(eigenfunctions)
         self.update_variables(model.state_dict())
         self._pixel_cache = OrderedDict()
@@ -121,9 +148,9 @@ class Renderer:
     # ------------------------------------------------------------ state
 
     def update_variables(self, state_dict):
-        """Point the renderer at new weights (a TextureField state dict);
+        """Point the renderer at new weights (the model's state dict);
         packs them for the kernel once."""
-        self.weights = pack_weights(self.spec, state_dict, self.device)
+        self.weights = self.layout.pack(self.layout.flat_from_state_dict(state_dict, self.device))
 
     def set_eigenfunctions(self, eigenfunctions):
         """Swap the per-vertex feature table (same k)."""
@@ -135,12 +162,21 @@ class Renderer:
         self.features = E.to(device=self.device, dtype=self._feature_dtype)
 
     def _refresh_geometry(self):
+        # The intrinsic view strategy reads the model's face normals: after a
+        # mesh transform they must follow the mesh, or every view angle (and
+        # so every colour) is computed against stale normals.
+        if getattr(self.model, "view_dir_strategy", None) == "intrinsic":
+            self.model.face_normals = torch.as_tensor(
+                np.asarray(self.mesh.face_normals, np.float32), device=self.device)
+        self._view_fn = view_encoder_apply(self.model) if self.viewdep else None
         self._verts = torch.as_tensor(
             np.asarray(self.mesh.vertices, np.float32), device=self.device)
-        # Faces sorted spatially (Morton) so tracer packets stay compact.
+        # Faces sorted spatially (Morton) so tracer packets stay compact;
+        # _face_orig_ids maps a sorted hit id back to the mesh's face id.
         order = face_morton_order(self.mesh.vertices, self.mesh.faces)
         self._faces_sorted = torch.as_tensor(
             self.mesh.faces[order].astype(np.int64), device=self.device)
+        self._face_orig_ids = torch.as_tensor(order.astype(np.int64), device=self.device)
         # Geometry-dependent per-view traces, keyed on (cache_key, H, W).
         self._trace_cache = OrderedDict()
 
@@ -173,28 +209,37 @@ class Renderer:
             self._pixel_cache.popitem(last=False)
         return key, entry
 
-    def _trace(self, px, camCv2world, K):
-        """Pixel bundle + camera -> (vids [L,3], bary [L,3], valid [L])."""
+    def _trace(self, px, camCv2world, K, with_dirs):
+        """Pixel bundle + camera -> (vids [L,3], bary [L,3], dirs [L,3],
+        original face ids [L], valid [L]); dirs and face ids are None
+        unless with_dirs (only the view-dependent field reads them)."""
         W = self.W
         x = (px.idx_dev % W).to(torch.float32)
         y = torch.div(px.idx_dev, W, rounding_mode="floor").to(torch.float32)
         coords = torch.stack([x, y], dim=-1)
-        hits = intersect_coords_pinhole_core(
+        out = intersect_coords_pinhole_core(
             self._verts, self._faces_sorted, np.asarray(camCv2world, np.float32),
             np.asarray(K, np.float32), coords, W=W, H=self.H, coord_hull=px.hull,
+            return_dirs=with_dirs,
         )
+        hits, dirs = out if with_dirs else (out, None)
         safe_face = torch.where(hits.valid, hits.face_idx, torch.zeros_like(hits.face_idx))
-        return self._faces_sorted[safe_face], hits.bary, hits.valid
+        faces = self._face_orig_ids[safe_face] if with_dirs else None
+        return self._faces_sorted[safe_face], hits.bary, dirs, faces, hits.valid
 
     def _infer(self, trace, bg):
         """Hit records -> ([L,3] bg-composited f16 (or uint8) rgb, [L] valid)."""
-        vids, bary, valid = trace
+        vids, bary, dirs, faces, valid = trace
         L = vids.shape[0]
         preds = torch.empty((L, 3), dtype=torch.float32, device=self.device)
         for s in range(0, L, _INFER_CHUNK):
-            feats = interpolate_vertex_features(
-                self.features, vids[s:s + _INFER_CHUNK], bary[s:s + _INFER_CHUNK])
-            preds[s:s + _INFER_CHUNK] = self._apply(self.weights, feats)
+            sl = slice(s, s + _INFER_CHUNK)
+            feats = interpolate_vertex_features(self.features, vids[sl], bary[sl])
+            if self.viewdep:
+                venc = self._view_fn(dirs[sl], faces[sl]).contiguous()
+                preds[sl] = self._apply(self.weights, feats, venc)
+            else:
+                preds[sl] = self._apply(self.weights, feats)
         # Composite the background on the device: the wire carries one
         # ready-to-scatter array. f16 quantization (~5e-4 in [0,1]) is far
         # below the 8-bit image grid.
@@ -208,13 +253,18 @@ class Renderer:
 
     def trace_view(self, camCv2world, K):
         """Trace every pixel of one view on the device, for callers that
-        shade the hits themselves: (vids [L,3] vertex ids, bary [L,3],
-        valid [L], pix_idx [L] row-major pixel id of each ray), in trace
-        order."""
+        shade the hits themselves (a ViewTrace, in trace order)."""
         check_pinhole_K(K)
         _, px = self._pixels_for_view(None)
-        vids, bary, valid = self._trace(px, camCv2world, K)
-        return vids, bary, valid, px.idx_dev
+        vids, bary, dirs, faces, valid = self._trace(px, camCv2world, K, with_dirs=True)
+        return ViewTrace(vids, bary, valid, px.idx_dev, dirs, faces)
+
+    def apply_mesh_transform(self, transform):
+        """Transform the mesh in place (4x4) and refresh everything derived
+        from it: vertices, the face order and, for the intrinsic view
+        strategy, the model's face normals; cached traces are dropped."""
+        self.mesh.apply_transform(transform)
+        self._refresh_geometry()
 
     def render(self, camCv2world, K, obj_mask_1d=None, eval_render=False,
                distortion_coeffs=None, distortion_type=None, cache_key=None):
@@ -269,7 +319,7 @@ class Renderer:
                 )
             self._trace_cache.move_to_end(full_key)
         if trace is None:
-            trace = self._trace(px, camCv2world, K)
+            trace = self._trace(px, camCv2world, K, with_dirs=self.viewdep)
             if full_key is not None:
                 self._trace_cache[full_key] = (pix_key, px.mask_bits, trace)
                 while len(self._trace_cache) > _TRACE_CACHE_MAX:

@@ -106,8 +106,9 @@ def get_data(config, mesh=None, device="cuda"):
 
 
 def get_model_and_optim(config, mesh=None, device="cuda"):
-    """(TextureField seeded from the config seed, AdamHyper at training.lr)."""
-    model = make_model(config["model"], seed=get_seed(config), device=device)
+    """(the configured model seeded from the config seed, AdamHyper at
+    training.lr); `mesh` gives the view-dependent field its face normals."""
+    model = make_model(config["model"], seed=get_seed(config), device=device, mesh=mesh)
     return model, AdamHyper(learning_rate=config["training"]["lr"])
 
 

@@ -10,11 +10,17 @@ updated in place, plus the step count and the hyperparameters. An epoch:
     ``fused_adam=False`` the gradients leave the kernel and the Adam kernel
     runs as its own call, the same numbers);
   - full shuffle + ``fused``: the batch rows are gathered, then the same
-    kernels run on the gathered batch;
+    kernels run on the gathered batch (the plain field only);
+  - the view-dependent field takes the kernels (in tail mode) on the
+    streaming blocks path when the data carries pre-encoded view
+    directions (``hit_vencs``, the Trainer precomputes them), streamed at
+    the same block offset as the features; otherwise the eager step;
   - anything else, and every epoch with a ragged tail batch
     (``train_drop_last: false``): the eager step — an f32 forward with
-    autograd and the weighted mean loss of the reference, then the Adam
-    kernel. On the CPU every kernel call runs its plain twin.
+    autograd and the weighted mean loss of the reference (the
+    view-dependent field encodes the batch's ray directions and face ids
+    itself, as its module does), then the Adam kernel. On the CPU every
+    kernel call runs its plain twin.
 
 Adam numerics are ``optax.inject_hyperparams(optax.adam)``'s: per-step
 hyper rows (lr, bias corrections) come from ``adam_hyper_rows``, the lr is
@@ -35,14 +41,15 @@ import numpy as np
 import torch
 
 from ..data.sampler import gather_batch, slice_batch
+from ..models.texture_field import view_encoder_apply
 from ..ops.fused_mlp import (
     ParamLayout,
     adam_hyper_rows,
     fused_adam_apply,
     fused_train_adam,
     fused_train_grads,
+    layout_for_model,
     make_train_scratch,
-    spec_for_model,
 )
 from .losses import elementwise_loss
 
@@ -92,38 +99,47 @@ class TrainState:
 
 def create_train_state(model, optimizer, device=None):
     """Fresh state: the model's weights, zero moments, count 0."""
-    layout = ParamLayout(spec_for_model(model))
+    layout = layout_for_model(model)
     params = layout.flat_from_state_dict(model.state_dict(), device)
     return TrainState(layout, params, torch.zeros_like(params), torch.zeros_like(params),
                       0, AdamHyper(**vars(optimizer)))
 
 
-def forward_f32(layout, params, x):
-    """The TextureField forward in full f32 on the flat parameters (views,
-    so autograd gives the flat gradient with zeros at the pads)."""
-    spec = layout.spec
+def forward_f32(layout, params, x, venc=None):
+    """The model's forward in full f32 on the flat parameters (views, so
+    autograd gives the flat gradient with zeros at the pads), in the
+    module's expression order: the skip layer is Lx(h) + Ly(x), the
+    view-dependent concat layer one Linear on [bottleneck | venc]."""
     mats, biases = layout.mats(params), layout.biases(params)
-    ents = iter(range(len(layout.entries)))
-    h = x
-    for i in range(spec.num_layers - 1):
-        j = next(ents)
-        if i == spec.skip_idx:
-            jx = next(ents)
-            h = torch.relu((h @ mats[j] + biases[j])
-                           + (x @ mats[jx][:spec.k_in] + biases[jx]))
-        else:
-            W = mats[j][:spec.k_in] if i == 0 else mats[j]
-            h = torch.relu(h @ W + biases[j])
-    j = next(ents)
-    return torch.sigmoid(h @ mats[j][:, :spec.out_dim] + biases[j][:spec.out_dim])
+    src = {"x": x, "v": venc}
+    h = None
+    for lay in layout.layers:
+        if lay.h is None:  # the input layer
+            e, r0, n, s = lay.ext
+            pre = src[s][:, :n] @ mats[e][r0:r0 + n] + biases[e]
+        elif lay.ext is None:
+            e, r0, n = lay.h
+            pre = h @ mats[e][r0:r0 + n] + biases[e]
+        elif len(lay.biases) == 2:  # the skip layer: two Linears
+            (e, r0, n), (ex, x0, nx, s) = lay.h, lay.ext
+            pre = (h @ mats[e][r0:r0 + n] + biases[e]) + (
+                src[s][:, :nx] @ mats[ex][x0:x0 + nx] + biases[ex])
+        else:  # the concat layer: one Linear on [h | venc]
+            (e, r0, n), (_, x0, nx, s) = lay.h, lay.ext
+            pre = torch.cat([h, src[s][:, :nx]], 1) @ torch.cat(
+                [mats[e][r0:r0 + n], mats[e][x0:x0 + nx]]) + biases[e]
+        h = torch.relu(pre)
+    e = layout.head
+    out = 3 if layout.tail is None else layout.tail.rgb_dim
+    return torch.sigmoid(h @ mats[e][:, :out] + biases[e][:out])
 
 
-def eager_step(state, hyper_row, x, gt, w, loss_elem):
+def eager_step(state, hyper_row, x, gt, w, loss_elem, venc=None):
     """One autograd step on a gathered batch: weighted mean loss (w masks
     the duplicated rows of a ragged tail), grads, Adam in place. Returns
     (loss, sum over rows of the per-sample squared error, sum of w)."""
     p = state.params.detach().requires_grad_()
-    pred = forward_f32(state.layout, p, x.to(torch.float32))
+    pred = forward_f32(state.layout, p, x.to(torch.float32), venc)
     n_b = w.sum()
     loss = (loss_elem(pred, gt).mean(-1) * w).sum() / n_b
     loss.backward()
@@ -146,7 +162,8 @@ def _order(order, size):
 
 
 def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=True):
-    """(train_epoch, val_epoch) for a TextureField.
+    """(train_epoch, val_epoch) for a TextureField or a
+    TextureFieldWithViewDependency.
 
     train_epoch(state, generator_or_order, data, num_batches, batch_size)
         -> (state, {"loss", "sq_err_per_sample"}: 0-dim device tensors)
@@ -158,7 +175,22 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
     if shuffle not in ("full", "blocks"):
         raise ValueError(f"shuffle must be 'full' or 'blocks', got {shuffle!r}")
     loss_elem = elementwise_loss(loss_type)
-    layout = ParamLayout(spec_for_model(model))
+    layout = layout_for_model(model)
+    viewdep = layout.tail is not None
+    view_fn = view_encoder_apply(model) if viewdep else None
+    if fused and viewdep:
+        sp = layout.spec
+        if not sp.hidden == sp.out_dim == layout.tail.d_hidden:
+            raise ValueError("training.fused_mlp on a view-dependent field needs its "
+                             "bottleneck and directional widths equal to the hidden width")
+
+    def venc_of(batch):
+        if not viewdep:
+            return None
+        if "unit_ray_dirs" not in batch:
+            raise ValueError("the view-dependent field needs the cached ray directions and "
+                             "face ids (unit_ray_dirs.npy, face_idxs.npy)")
+        return view_fn(batch["unit_ray_dirs"], batch["hit_face_idxs"])
 
     def train_epoch(state, order, data, num_batches, batch_size):
         n, B = data.n, batch_size
@@ -170,6 +202,9 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         use_blocks = shuffle == "blocks" and data.hit_features is not None and not has_tail
         perm = _order(order, num_batches if use_blocks else n)
         use_fused = fused and not has_tail
+        if viewdep:  # the tail kernels stream pre-encoded view directions
+            use_fused = use_fused and use_blocks and data.hit_vencs is not None
+        vencs = data.hit_vencs if viewdep else None
         dev = state.params.device
         h = state.hyper
         hyper_all = adam_hyper_rows(state.count + 1 + torch.arange(num_batches),
@@ -189,11 +224,11 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
                 if fused_adam:
                     loss_sum, sq_sum = fused_train_adam(
                         layout, state.params, state.mu, state.nu, hyper_all[i],
-                        data.hit_features, gt, blk, B, loss_type, scratch)
+                        data.hit_features, gt, blk, B, loss_type, scratch, vencs)
                 else:
                     grads, loss_sum, sq_sum = fused_train_grads(
                         layout, state.params, data.hit_features, gt, blk, B, loss_type,
-                        scratch)
+                        scratch, vencs)
                     fused_adam_apply(state.params, state.mu, state.nu, hyper_all[i], grads)
                 acc_loss = acc_loss + loss_sum / 3.0   # loss_sum/(B*3) * B
                 acc_sq = acc_sq + sq_sum
@@ -219,7 +254,7 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
                 acc_n = acc_n + float(B)
             else:
                 loss, sq, n_b = eager_step(state, hyper_all[i], batch["eigenfunctions"], gt,
-                                           w, loss_elem)
+                                           w, loss_elem, venc_of(batch))
                 acc_loss = acc_loss + loss * n_b
                 acc_sq = acc_sq + sq
                 acc_n = acc_n + n_b
@@ -235,7 +270,8 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         for s in range(0, n, batch_size):
             batch = gather_batch(data, torch.arange(s, min(s + batch_size, n), device=dev))
             gt = batch["expected_rgbs"]
-            pred = forward_f32(layout, state.params, batch["eigenfunctions"].to(torch.float32))
+            pred = forward_f32(layout, state.params, batch["eigenfunctions"].to(torch.float32),
+                               venc_of(batch))
             # per-sample loss = channel mean (the reference's accounting)
             acc_loss = acc_loss + loss_elem(pred, gt).mean(-1).sum()
             acc_sq = acc_sq + ((pred - gt) ** 2).sum(-1).sum()

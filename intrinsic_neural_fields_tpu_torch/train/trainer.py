@@ -16,8 +16,9 @@ import time
 import numpy as np
 
 from .. import resolve_device
-from ..data.sampler import num_train_batches
+from ..data.sampler import num_train_batches, parse_precompute_dtype, precompute_hit_vencs
 from ..evaluation.metrics import epoch_psnr, psnr
+from ..models.texture_field import view_encoder_apply
 from ..utils.checkpoint import load_train_checkpoint, save_model, save_train_checkpoint
 from .config import check_training_config
 from .plateau import ReduceLROnPlateau
@@ -34,7 +35,8 @@ def epoch_generator(seed, epoch):
 class Trainer:
     def __init__(self, model, optimizer, loss_type, renderer, data, mesh, config,
                  writer=None, device="cuda"):
-        """model: the TextureField (its weights start the run); optimizer:
+        """model: the TextureField[WithViewDependency] (its weights start
+        the run); optimizer:
         train.steps.AdamHyper; data: {"train", "val"[, "test"]} RayData on
         `device`; writer: anything with add_scalar/add_image (default: a
         tensorboardX SummaryWriter on <out_dir>/logs)."""
@@ -51,6 +53,13 @@ class Trainer:
         self.train_data = data["train"]
         self.val_data = data["val"]
         self.test_data = data.get("test")
+        if self.fused_mlp and hasattr(model, "spatial_mlp"):
+            # The view-dependent field's encoding is a fixed function of each
+            # cached hit: encode it once, so the train kernels stream it
+            # beside the hit features (reference trainer.py:122-150).
+            self.train_data = precompute_hit_vencs(
+                view_encoder_apply(model), self.train_data, self.state.layout.tail.venc_w,
+                dtype=parse_precompute_dtype(config["data"].get("precompute_dtype")))
         self.train_epoch_fn, self.val_epoch_fn = make_epoch_fns(
             model, loss_type, shuffle=self.shuffle, fused=self.fused_mlp,
             fused_adam=config["training"].get("fused_adam", True))

@@ -1,7 +1,8 @@
 """The weight carry between the JAX package and the port.
 
 Weights cross in the upstream torch layout (``layers.{i}.0.*``,
-``layers.{skip}.Lx/.Ly``; Linear weights [out, in]). A JAX-trained out_dir
+``layers.{skip}.Lx/.Ly``, and ``spatial_mlp.*`` + ``directional_mlp.{0,2}.*``
+for the view-dependent field; Linear weights [out, in]). A JAX-trained out_dir
 is exported to that layout by the reference package's own exporter
 (``tools/export_reference_checkpoint.py``, i.e. its
 ``export_reference_state_dict``) into a ``model.pt`` that
@@ -15,24 +16,20 @@ import numpy as np
 import torch
 
 
-def state_dict_from_flax(params, model_config):
-    """Flax TextureField params (nested dicts of numpy arrays: Dense_{c}
-    with kernel [in, out] and bias) -> the port's state dict (f32 tensors).
-
+def _texture_field_sd(params, model_config, prefix=""):
+    """Flax TextureField params -> {prefix + upstream key: f32 tensor}.
     Dense modules are numbered in creation order: one per layer, two at the
     skip layer (the h-projection Lx, then the input projection Ly)."""
-    if model_config.get("batchnorm") or model_config.get("view_dependence"):
-        raise NotImplementedError("only the plain TextureField family is ported")
-    params = params.get("params", params)
     num_layers = model_config["num_layers"]
     skip = model_config["skip_layer_idx"]
     sd = {}
 
     def put(torch_prefix, flax_name):
         p = params[flax_name]
-        sd[torch_prefix + ".weight"] = torch.from_numpy(
+        sd[prefix + torch_prefix + ".weight"] = torch.from_numpy(
             np.ascontiguousarray(np.asarray(p["kernel"], np.float32).T))
-        sd[torch_prefix + ".bias"] = torch.from_numpy(np.asarray(p["bias"], np.float32).copy())
+        sd[prefix + torch_prefix + ".bias"] = torch.from_numpy(
+            np.asarray(p["bias"], np.float32).copy())
 
     c = 0
     for i in range(num_layers):
@@ -49,6 +46,30 @@ def state_dict_from_flax(params, model_config):
             f"flax params {sorted(params)} do not match the config's layers "
             f"{sorted(expected)}"
         )
+    return sd
+
+
+def state_dict_from_flax(params, model_config):
+    """Flax TextureField[WithViewDependency] params (nested dicts of numpy
+    arrays: Dense_{c} with kernel [in, out] and bias) -> the port's state
+    dict (f32 tensors), in module registration order. The view-dependent
+    tree is {"spatial_mlp": {...}, "Dense_0", "Dense_1"}: the spatial field
+    under ``spatial_mlp.`` and the directional Linears as
+    ``directional_mlp.0`` and ``directional_mlp.2`` (the JAX package's
+    export_reference_state_dict)."""
+    if model_config.get("batchnorm"):
+        raise NotImplementedError("BatchNorm texture fields are not ported")
+    params = params.get("params", params)
+    if model_config.get("view_dependence") is None:
+        return _texture_field_sd(params, model_config)
+    if set(params) != {"spatial_mlp", "Dense_0", "Dense_1"}:
+        raise ValueError(f"flax params {sorted(params)} are not a view-dependent field's")
+    sd = _texture_field_sd(params["spatial_mlp"], model_config, prefix="spatial_mlp.")
+    for c, name in enumerate(("directional_mlp.0", "directional_mlp.2")):
+        p = params[f"Dense_{c}"]
+        sd[name + ".weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(p["kernel"], np.float32).T))
+        sd[name + ".bias"] = torch.from_numpy(np.asarray(p["bias"], np.float32).copy())
     return sd
 
 

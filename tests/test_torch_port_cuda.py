@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the sm_90a kernels (the fused
-MLP forward, the train forward/backward and weight gradients, Adam) against
-their plain twins, their launch counters and input checks, and the tracer,
+MLP forward, the train forward/backward and weight gradients, Adam, and the
+view-dependent field's tail kernels) against their plain twins, their launch counters and input checks, and the tracer,
 renderer and a training epoch on the card against the same code on the CPU.
 They skip without CUDA. This file imports only the
 port, so it also runs where JAX is not installed:
@@ -58,10 +58,10 @@ def test_kernel_matches_plain_twin(cuda, k, B):
                       device=cuda)
     x = torch.from_numpy(
         np.random.default_rng(5).uniform(-0.5, 0.5, size=(B, k)).astype(np.float32)).to(cuda)
-    before = fused_apply.launches
+    before = kernel_launches()["fused_mlp_fwd"]
     got = fused_apply(fw, x)
     torch.cuda.synchronize()
-    assert fused_apply.launches == before + 1
+    assert kernel_launches()["fused_mlp_fwd"] == before + 1
     want = fused_apply_plain(fw, x)
     assert got.shape == (B, 3)
     assert (got - want).abs().max().item() <= 2e-3
@@ -249,6 +249,173 @@ def test_train_epoch_on_card_tracks_cpu(cuda):
         data = precompute_hit_features(RayData(f, "efuncs", vids.long(), bary, rgbs),
                                        dtype=torch.bfloat16)
         model = make_model(cfg, seed=1, device=dev)
+        train_epoch, _ = make_epoch_fns(model, "L1", shuffle="blocks", fused=True)
+        state = create_train_state(model, AdamHyper(1e-3), dev)
+        before = eager_step.launches
+        state, m = train_epoch(state, np.arange(8)[::-1].copy(), data, 8, 1024)
+        assert eager_step.launches == before
+        results[dev] = (float(m["loss"]), state.params.cpu())
+    assert abs(results["cuda"][0] / results["cpu"][0] - 1) <= 1e-3
+    diff = (results["cuda"][1] - results["cpu"][1]).abs()
+    assert (diff > 2.5e-3).float().mean() <= 1e-3
+    assert diff.max() <= 2 * 1e-3 * 8
+
+
+# The view-dependent field's tail kernels vs their plain twins (the same
+# tolerances: forward 2e-3 max abs on seeded weights, train grads as above).
+
+def _vd_setup(cuda, strategy, k=512, N=8192, dtype=torch.bfloat16, seed=1):
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
+    from intrinsic_neural_fields_tpu_torch.models import view_encoder_apply
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import layout_for_model
+
+    mesh = icosphere(3)
+    cfg = {"k": k, "num_layers": 6, "mlp_hidden_dim": 128, "skip_layer_idx": 3,
+           "view_dependence": {"bottleneck_vec_dim": 128, "include_view_dir": True,
+                               "embed_size": 4, "directional_hidden_dim": 128,
+                               "in_dim_view_dir": 1 if strategy == "intrinsic" else 3,
+                               "strategy": strategy}}
+    model = make_model(cfg, seed=seed, device=cuda, mesh=mesh)
+    layout = layout_for_model(model)
+    params = layout.flat_from_state_dict(model.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    feats = (torch.rand(N, k, generator=g, device=cuda) - 0.5).to(dtype)
+    dirs = torch.randn(N, 3, generator=g, device=cuda)
+    dirs = dirs / dirs.norm(dim=1, keepdim=True)
+    fids = torch.randint(0, mesh.num_faces, (N,), generator=g, device=cuda)
+    venc = view_encoder_apply(model)(dirs, fids)
+    vtable = torch.zeros(N, layout.tail.venc_w, device=cuda, dtype=dtype)
+    vtable[:, :layout.tail.venc_in] = venc.to(dtype)
+    gt = torch.rand(N, 3, generator=g, device=cuda)
+    return layout, params, feats, venc.contiguous(), vtable, gt
+
+
+@pytest.mark.parametrize("strategy,B", [("intrinsic", 8192), ("intrinsic", 1000),
+                                        ("extrinsic", 8192)])
+def test_viewdep_forward_kernel_matches_plain_twin(cuda, strategy, B):
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (fused_apply_viewdep,
+                                                                 fused_apply_viewdep_plain)
+
+    layout, params, feats, venc, _, _ = _vd_setup(cuda, strategy, dtype=torch.float32)
+    fw = layout.pack(params)
+    x, v = feats[:B].contiguous(), venc[:B].contiguous()
+    before = kernel_launches()
+    got = fused_apply_viewdep(fw, x, v)
+    torch.cuda.synchronize()
+    after = kernel_launches()
+    assert after["fused_mlp_fwd_viewdep"] == before["fused_mlp_fwd_viewdep"] + 1
+    assert after["fused_mlp_fwd"] == before["fused_mlp_fwd"]
+    assert got.shape == (B, 3)
+    assert (got - fused_apply_viewdep_plain(fw, x, v)).abs().max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("strategy,loss_type", [("intrinsic", "L1"), ("extrinsic", "L2")])
+def test_viewdep_train_kernels_match_plain_twin(cuda, strategy, loss_type):
+    layout, params, feats, _, vtable, gt = _vd_setup(cuda, strategy)
+    B, blk = 4096, 1
+    gt_b = gt[blk * B:(blk + 1) * B].contiguous()
+    before = kernel_launches()
+    grads, loss_sum, sq_sum = fused_train_grads(layout, params, feats, gt_b, blk, B, loss_type,
+                                                vencs=vtable)
+    torch.cuda.synchronize()
+    after = kernel_launches()
+    for name in ("fused_mlp_fwd_bwd_viewdep", "fused_mlp_wgrad_viewdep"):
+        assert after[name] == before[name] + 1
+    for name in ("fused_mlp_fwd_bwd", "fused_mlp_wgrad"):
+        assert after[name] == before[name]
+    sl = slice(blk * B, (blk + 1) * B)
+    want, loss_w, sq_w = train_grads_plain(layout, params, feats[sl], gt_b, loss_type,
+                                           vtable[sl])
+    assert abs(loss_sum.item() / loss_w.item() - 1) <= 1e-5
+    assert abs(sq_sum.item() / sq_w.item() - 1) <= 1e-5
+    _assert_grads_close(layout, grads, want)
+    cat = layout.mats(grads)[-2]  # the concat matrix: its view-row pads stay zero
+    assert not cat[128 + layout.tail.venc_in:].any()
+    again, _, _ = fused_train_grads(layout, params, feats, gt_b, blk, B, loss_type,
+                                    vencs=vtable)
+    assert torch.equal(again, grads)
+
+
+def test_viewdep_train_adam_launches_three_kernels(cuda):
+    layout, params, feats, _, vtable, gt = _vd_setup(cuda, "intrinsic")
+    m, v = torch.zeros_like(params), torch.zeros_like(params)
+    p_ref = params.clone()
+    hyper = adam_hyper_rows(torch.tensor([1]), 1e-4, device=cuda)[0]
+    before = kernel_launches()
+    fused_train_adam(layout, params, m, v, hyper, feats, gt[:1024].contiguous(), 2, 1024,
+                     vencs=vtable)
+    torch.cuda.synchronize()
+    after = kernel_launches()
+    for name in ("fused_mlp_fwd_bwd_viewdep", "fused_mlp_wgrad_viewdep", "fused_adam"):
+        assert after[name] == before[name] + 1
+    assert 0 < (params - p_ref).abs().max().item() <= 1.01e-4
+
+
+def test_viewdep_wrappers_reject_bad_input(cuda):
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import fused_apply_viewdep
+
+    layout, params, feats, venc, vtable, gt = _vd_setup(cuda, "intrinsic", k=64, N=512)
+    gt256 = gt[:256].contiguous()
+    bad = [
+        (vtable.float(), "vencs"),                     # not the table's dtype
+        (vtable[:, :5].contiguous(), "vencs"),         # not venc_w wide
+        (vtable[:, :layout.tail.venc_in].contiguous(), "vencs"),  # venc_in: the forward's width
+        (vtable[:256].contiguous(), "vencs"),          # not the table's rows
+        (vtable.cpu(), "vencs"),
+        (None, "vencs"),                               # a tail needs its encodings
+    ]
+    for vt, match in bad:
+        with pytest.raises(ValueError, match=match):
+            fused_train_grads(layout, params, feats, gt256, 0, 256, vencs=vt)
+    plain_layout, plain_params, plain_feats, _ = _train_setup(cuda, 64, 512, torch.bfloat16,
+                                                              L=4, skip=2)
+    with pytest.raises(ValueError, match="vencs"):
+        fused_train_grads(plain_layout, plain_params, plain_feats, gt256, 0, 256, vencs=vtable)
+    fw = layout.pack(params)
+    x = feats.float()
+    with pytest.raises(ValueError, match="venc"):
+        fused_apply_viewdep(fw, x, venc[:100].contiguous())
+    with pytest.raises(ValueError, match="venc"):
+        fused_apply_viewdep(fw, x, venc.double())
+    with pytest.raises(ValueError, match="venc"):
+        fused_apply_viewdep(fw, x, vtable.float())  # venc_w: the train tables' width
+    with pytest.raises(ValueError, match="fused_apply_viewdep"):
+        fused_apply(fw, x)
+    with pytest.raises(ValueError, match="tail"):
+        fused_apply_viewdep(plain_layout.pack(plain_params), x, venc)
+
+
+def test_viewdep_epoch_on_card_tracks_cpu(cuda):
+    """One blocks epoch of the view-dependent field through the tail
+    kernels vs the same epoch on the CPU (plain twins), same block order;
+    the bounds of test_train_epoch_on_card_tracks_cpu."""
+    from intrinsic_neural_fields_tpu_torch.data.sampler import (RayData, precompute_hit_features,
+                                                                precompute_hit_vencs)
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
+    from intrinsic_neural_fields_tpu_torch.models import view_encoder_apply
+    from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, create_train_state,
+                                                               eager_step, make_epoch_fns)
+
+    rng = np.random.default_rng(0)
+    mesh = icosphere(3)
+    k, n, V = 128, 8192, mesh.num_vertices
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    arrays = (rng.normal(size=(V, k)).astype(np.float32), rng.integers(0, V, size=(n, 3)),
+              rng.dirichlet(np.ones(3), size=n).astype(np.float32),
+              rng.uniform(size=(n, 3)).astype(np.float32), dirs,
+              rng.integers(0, mesh.num_faces, size=n))
+    cfg = {"k": k, "num_layers": 6, "mlp_hidden_dim": 128, "skip_layer_idx": 3,
+           "view_dependence": {"bottleneck_vec_dim": 128, "include_view_dir": True,
+                               "embed_size": 4, "directional_hidden_dim": 128,
+                               "in_dim_view_dir": 1, "strategy": "intrinsic"}}
+    results = {}
+    for dev in ("cuda", "cpu"):
+        f, vids, bary, rgbs, d, fid = (torch.as_tensor(a).to(dev) for a in arrays)
+        model = make_model(cfg, seed=1, device=dev, mesh=mesh)
+        data = precompute_hit_features(RayData(f, "efuncs", vids.long(), bary, rgbs, d,
+                                               fid.long()), dtype=torch.bfloat16)
+        data = precompute_hit_vencs(view_encoder_apply(model), data, 16, dtype=torch.bfloat16)
         train_epoch, _ = make_epoch_fns(model, "L1", shuffle="blocks", fused=True)
         state = create_train_state(model, AdamHyper(1e-3), dev)
         before = eager_step.launches

@@ -189,7 +189,7 @@ def test_trace_view_matches_render_hits():
     r = _port_renderer()
     cam = _look_at_cam(np.array([0.4, -2.8, 0.7]))
     K = _simple_K(r.H, r.W)
-    vids, bary, valid, pix_idx = r.trace_view(cam, K)
+    vids, bary, valid, pix_idx, _, _ = r.trace_view(cam, K)
     assert vids.shape == (r.H * r.W, 3) and bary.shape == (r.H * r.W, 3)
     assert sorted(pix_idx.tolist()) == list(range(r.H * r.W))
     _, hit_idx = r.render(cam, K, eval_render=True)
