@@ -30,7 +30,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       torch.sort(stable=True), equal to the bit, on the tracer's own keys
       (entry and overflow sorts of a 512^2 view over 81,920 faces and of a
       256^2 view of the HQ blob, captured from bin_faces) and on random
-      keys with dense duplicates; times beside the bound and torch.sort;
+      keys with dense duplicates, its CUDA launches per call equal to its
+      plan's (one up to 2^18 keys); times beside the bound and torch.sort;
   (t) trace_methods: intersect_coords_pinhole at 512^2 over 81,920 faces
       with sort_method argsort, radix, bitonic and bitonic_vmem: t,
       face_idx, bary and valid bit-identical; the kernel's counts set to 0
@@ -55,9 +56,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       V=30k, k=1023, N=2^21 bf16 table, batch 4096, 6x128 skip 3, L1, Adam):
       3 timed epochs after 1 warm-up;
   (g) train kernels: fwd_bwd, wgrad and Adam each against its plain twin on
-      the batches each train leg feeds them (k=512 and k=1023, B=4096), the
-      autograd backward of fused_apply against torch.autograd of the plain
-      forward; CUDA-event times beside bounds, plain and library times;
+      the batches each train leg feeds them (k=512 and k=1023, B=4096;
+      fwd_bwd's launch shape: 2-CTA clusters, 128 CTAs; Adam with and
+      without its bf16 weight copy), the autograd backward of fused_apply
+      against torch.autograd of the plain forward, and its time; CUDA-event
+      times beside bounds, plain and library times;
   (h) view-dependent train leg: the same ray caches (they
       carry the unit ray directions and original face ids), the Trainer on
       configs/synthetic/viewdep_intrinsic_blob.yaml's model and training
@@ -142,6 +145,14 @@ SORT_SIZES = (1, 255, 1000, 5000, 1 << 18, (1 << 18) + 1, 1 << 20)
 # shared by two faces, where f32 and f64 round to different sides. A
 # gate at 0.999 allows four times that many.
 AGREE_MIN = 0.999
+# Not measured here: the redesigned kernels' times before their redesign
+# and the train legs' rays/s then, as PERF.md section 6 records them (H100
+# 80GB HBM3 at 700 W). The phase rows print them under "cited_" keys beside
+# this run's numbers; the kernels line carries none of them.
+CITED_BEFORE_REDESIGN = {"fused_mlp_fwd_bwd": 0.1348, "fused_mlp_fwd_bwd_viewdep": 0.1744,
+                         "bitonic_argsort": 0.1505, "hq_train": 18.85e6,
+                         "viewdep_train": 15.10e6}
+REDESIGNED = ("fused_mlp_fwd_bwd", "fused_mlp_fwd_bwd_viewdep", "bitonic_argsort")
 # configs/synthetic/viewdep_intrinsic_blob.yaml's view_dependence section
 VIEWDEP = {"bottleneck_vec_dim": 128, "include_view_dir": True, "embed_size": 4,
            "directional_hidden_dim": 128, "in_dim_view_dir": 1, "strategy": "intrinsic"}
@@ -522,17 +533,23 @@ def phase_sort_kernel(tp_leg, hq_leg):
         cuda_launches = S.bitonic_argsort_vmem.cuda_launches - c0
         twin = S.bitonic_argsort(keys, bits)
         E = keys.numel()
-        row = {"E": E, "padded": 1 << max(1, (E - 1).bit_length()), "key_bits": bits,
-               "cuda_launches_per_call": cuda_launches,
+        plan = S.sort_plan(E, S.device_max_ctas())
+        row = {"E": E, "padded": 1 << plan.n, "key_bits": bits,
+               "cuda_launches_per_call": cuda_launches, "plan_launches": len(plan.launches),
+               "ctas": plan.ctas, "cooperative": plan.cooperative,
                "max_abs_err": (got.long() - want).abs().max().item(),
                "equal_to_sort": torch.equal(got.long(), want),
                "equal_to_twin": torch.equal(got, twin)}
         check(row["equal_to_sort"] and row["equal_to_twin"],
               f"bitonic_argsort disagrees on {name}: {row}")
+        check(cuda_launches == len(plan.launches) and (E > 1 << 18 or cuda_launches == 1),
+              f"bitonic_argsort made {cuda_launches} CUDA launches on {name}, plan {plan}")
         row["ms"] = cuda_ms(lambda: S.bitonic_argsort_vmem(keys, bits))
         row["plain_ms"] = cuda_ms(lambda: S.bitonic_argsort(keys, bits), iters=5)
         row["library_ms"] = cuda_ms(lambda: torch.sort(keys, stable=True))
         row["bound_ms"], row["bound_by"] = _bound(0.0, 8.0 * E)
+        if name == "render512_entry":
+            row["cited_ms_before_redesign"] = CITED_BEFORE_REDESIGN["bitonic_argsort"]
         emit("kernel_check", name="bitonic_argsort", input=name, **row)
         rows[name] = row
     return rows
@@ -791,7 +808,9 @@ def phase_hq_train(p):
          test_psnr_eval_cli=test_psnr, steps_per_epoch=nb, setup_s=setup_s, path_s=path_s,
          epochs=5,
          epochs_per_s=5 / path_s, train_rays_per_s_best=max(rays),
-         train_rays_per_s_median=float(np.median(rays)), train_loss=losses,
+         train_rays_per_s_median=float(np.median(rays)),
+         cited_train_rays_per_s_best_before_redesign=CITED_BEFORE_REDESIGN["hq_train"],
+         train_loss=losses,
          val_psnr=rec.values("Val Epoch-PSNR"), test_loss=rec.values("Test Loss"),
          psnr_before=before["psnr"], dssim_before=before["dssim_rescaled"],
          psnr_after=after["psnr"], dssim_after=after["dssim_rescaled"],
@@ -908,7 +927,7 @@ def phase_train_kernels(legs):
         x, gt = table[:B], gt_table[:B].contiguous()
         spec = layout.spec
         nblk, nbp = -(-B // F.BLOCK_ROWS), spec.hidden * (spec.num_layers - 1) + F.OUT_PAD
-        sc = F.make_train_scratch(layout, B, "cuda")
+        sc = F.make_train_scratch(layout, B, params)
         mode, inv_n = F.LOSS_MODES["L1"], 1.0 / (B * 3)
         L, H = spec.num_layers, spec.hidden
 
@@ -1009,6 +1028,15 @@ def phase_train_kernels(legs):
         ulp = max(((a.view(torch.int32) - b.view(torch.int32)).abs().max().item())
                   for a, b in ((p2, want_p), (m2, want_m), (v2, want_v)))
         check(ulp <= 1, f"{leg}: Adam differs from its twin by {ulp} ulp")
+        # with the bf16 weight copy (what the train step runs): the same f32
+        # results, and the copy equals the twin's new params rounded to bf16
+        wb = torch.empty_like(params, dtype=torch.bfloat16)
+        p3, m3, v3 = params.clone(), mu.clone(), nu.clone()
+        F.fused_adam_apply(p3, m3, v3, hyper, g_k, wb)
+        torch.cuda.synchronize()
+        ad["bf16_copy_bit_equal"] = (torch.equal(wb, want_p.to(torch.bfloat16)) and all(
+            torch.equal(a, b) for a, b in ((p3, p2), (m3, m2), (v3, v2))))
+        check(ad["bf16_copy_bit_equal"], f"{leg}: Adam's bf16 copy differs from its twin's")
 
         # autograd backward of fused_apply vs torch.autograd of the plain forward
         pp = params.clone().requires_grad_()
@@ -1018,14 +1046,25 @@ def phase_train_kernels(legs):
         mx, nr, ab = _per_tensor(layout, pk.grad, pp.grad)
         vjp = {"max_rel": mx, "norm_rel": nr, "max_abs_err": ab}
         check(nr <= VJP_NORM_TOL, f"{leg}: fused_apply backward vs autograd {vjp}")
+        # its time: the train kernels on the f32 batch from the cotangent, as
+        # the autograd backward runs them (scratch and bf16 weight copy made
+        # per call)
+        g_v = torch.empty(layout.n, device="cuda")
+        vjp["ms"] = cuda_ms(lambda: F._train_kernels(layout, params, xf, 0, B, cot,
+                                                     F.COTANGENT_MODE, None, g_v))
 
         # times: CUDA events; plain twins on the same tensors; library calls
         x_bytes = table.element_size()
         bounds = _train_bounds(layout, B, x_bytes)
         fb["ms"] = cuda_ms(lambda: F._launch_fwd_bwd(layout, params, table, 0, B, gt, mode,
                                                      inv_n, sc))
+        fb["launch"] = F.last_fwd_bwd_launch()  # the shape the timed launches ran with
+        if leg == "hq_train":  # the cited time is the HQ recipe's shape (k=512)
+            fb["cited_ms_before_redesign"] = CITED_BEFORE_REDESIGN["fused_mlp_fwd_bwd"]
         fb["plain_ms"] = cuda_ms(lambda: F.fwd_bwd_plain(layout, params, x, gt, "L1"))
         fb["library_ms"] = None  # no single PyTorch call computes forward+loss+deltas
+        check(fb["launch"]["ctas"] == 2 * nblk == 128 and fb["launch"]["cluster"] == 2,
+              f"{leg}: fwd_bwd does not launch 2-CTA clusters per 64 rows: {fb['launch']}")
         wg["ms"] = cuda_ms(lambda: F._launch_wgrad(layout, table, 0, B, sc, grads, sums))
         wg["plain_ms"] = cuda_ms(lambda: F.wgrad_plain(layout, x, sc.acts, sc.deltas, bsum))
         A = sc.acts.view(L - 1, B, H)
@@ -1038,7 +1077,8 @@ def phase_train_kernels(legs):
             for a, d in pairs:
                 torch.matmul(a.t(), d)
         wg["library_ms"] = cuda_ms(wgrad_library)
-        ad["ms"] = cuda_ms(lambda: F.fused_adam_apply(p2, m2, v2, hyper, g_k))
+        ad["ms"] = cuda_ms(lambda: F.fused_adam_apply(p3, m3, v3, hyper, g_k, wb))
+        ad["ms_without_copy"] = cuda_ms(lambda: F.fused_adam_apply(p2, m2, v2, hyper, g_k))
         ad["plain_ms"] = cuda_ms(lambda: F.adam_apply_plain(p2, m2, v2, hyper, g_k))
         p_lib = torch.nn.Parameter(params.clone())
         p_lib.grad = g_k.clone()
@@ -1167,6 +1207,7 @@ def phase_viewdep_train(p):
          path_s=path_s, epochs=5, venc_in=trainer.state.layout.tail.venc_in,
          venc_w=trainer.state.layout.tail.venc_w, n_params=trainer.state.layout.n,
          train_rays_per_s_best=max(rays), train_rays_per_s_median=float(np.median(rays)),
+         cited_train_rays_per_s_best_before_redesign=CITED_BEFORE_REDESIGN["viewdep_train"],
          train_loss=losses, val_psnr=rec.values("Val Epoch-PSNR"),
          test_loss=rec.values("Test Loss"), psnr_before=before["psnr"],
          dssim_before=before["dssim_rescaled"], psnr_after=after["psnr"],
@@ -1190,7 +1231,7 @@ def _vd_check_train(F, layout, params, table, vtable, gt, B, leg):
     spec = layout.spec
     nh, H = len(layout.layers), spec.hidden
     nblk, nbp = -(-B // F.BLOCK_ROWS), H * nh + F.OUT_PAD
-    sc = F.make_train_scratch(layout, B, "cuda")
+    sc = F.make_train_scratch(layout, B, params)
     x, v = table[:B], vtable[:B]
     inv_n = 1.0 / (B * 3)
 
@@ -1348,8 +1389,12 @@ def phase_viewdep_kernels(vd_leg, vd_render):
     mode, inv_n = F.LOSS_MODES["L1"], 1.0 / (B * 3)
     fb["ms"] = cuda_ms(lambda: F._launch_fwd_bwd(layout, params, table, 0, B, gt, mode, inv_n, sc,
                                                  vtable))
+    fb["launch"] = F.last_fwd_bwd_launch()  # the shape the timed launches ran with
+    fb["cited_ms_before_redesign"] = CITED_BEFORE_REDESIGN["fused_mlp_fwd_bwd_viewdep"]
     fb["plain_ms"] = cuda_ms(lambda: F.fwd_bwd_viewdep_plain(layout, params, x, v, gt, "L1"))
     fb["library_ms"] = None  # no single PyTorch call computes forward+loss+deltas
+    check(fb["launch"]["ctas"] == 128 and fb["launch"]["cluster"] == 2,
+          f"fwd_bwd_viewdep does not launch 2-CTA clusters per 64 rows: {fb['launch']}")
     wg["ms"] = cuda_ms(lambda: F._launch_wgrad(layout, table, 0, B, sc, grads, sums, vtable))
     wg["plain_ms"] = cuda_ms(lambda: F.wgrad_viewdep_plain(layout, x, v, sc.acts, sc.deltas, bsum))
     nh, H = len(layout.layers), layout.spec.hidden
@@ -1520,6 +1565,8 @@ def main():
         })
         if "fused_step_bound_ms" in main:
             kernels[-1]["fused_step_bound_ms"] = main["fused_step_bound_ms"]
+        if name in REDESIGNED:
+            kernels[-1]["redesigned"] = True
     kernels[-1]["launches_by_path"] = {"hq_train": train_launches["fused_adam"],
                                        "viewdep_train": vd_launches["fused_adam"]}
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
@@ -1544,6 +1591,8 @@ def main():
         })
         if "fused_step_bound_ms" in main:
             kernels[-1]["fused_step_bound_ms"] = main["fused_step_bound_ms"]
+        if name in REDESIGNED:
+            kernels[-1]["redesigned"] = True
     # the sort: the 512^2 render leg's entry sort (2^18 padded) is the main
     # row; launches are the bitonic_vmem trace's (calls; CUDA launches beside)
     main = srows["render512_entry"]
@@ -1555,8 +1604,9 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in srows.values()),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-        "by_input": {name: {k: r[k] for k in ("E", "cuda_launches_per_call", "ms", "plain_ms",
-                                             "bound_ms", "library_ms")}
+        "redesigned": True,
+        "by_input": {name: {k: r[k] for k in ("E", "cuda_launches_per_call", "ctas", "ms",
+                                             "plain_ms", "bound_ms", "library_ms")}
                      for name, r in srows.items()},
     })
     print(json.dumps({"kernels": kernels}), flush=True)

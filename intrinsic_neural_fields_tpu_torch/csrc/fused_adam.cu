@@ -13,10 +13,16 @@
 // rounds separately and sqrtf and the division round correctly: the result
 // equals the plain torch twin's to the bit.
 //
-// Bound on this card: 4 f32 reads and 3 f32 writes per parameter and ~10
-// flops, far below the ridge, so bytes bound it (~5.5 MB at k=512, ~1.7 us
-// at 3.35 TB/s). One pass, coalesced, in place.
+// With `wb` it also writes the bf16 copy of the new parameters (round to
+// nearest even) that the train kernels read their weights from, so the
+// copy is made once per step, not once per block.
+//
+// Bound on this card: 4 f32 reads and 3 f32 writes per parameter (and 2
+// bytes with the copy) and ~10 flops, far below the ridge, so bytes bound
+// it (~5.5 MB at k=512, ~1.7 us at 3.35 TB/s). One pass, coalesced, in
+// place.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -25,7 +31,8 @@ constexpr int NTHREADS = 256;
 
 __global__ void __launch_bounds__(NTHREADS)
 fused_adam_kernel(float* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
-                  const float* __restrict__ g, const float* __restrict__ hyper, long long n) {
+                  const float* __restrict__ g, const float* __restrict__ hyper, long long n,
+                  __nv_bfloat16* __restrict__ wb) {
   const float lr = hyper[0], c1 = hyper[1], c2 = hyper[2];
   const float b1 = hyper[3], b2 = hyper[4], eps = hyper[5], eps_root = hyper[6];
   const float omb1 = 1.0f - b1, omb2 = 1.0f - b2;
@@ -35,7 +42,9 @@ fused_adam_kernel(float* __restrict__ p, float* __restrict__ m, float* __restric
     const float mn = omb1 * gi + b1 * m[i];
     const float vn = omb2 * (gi * gi) + b2 * v[i];
     const float upd = (lr * (mn * c1)) / (sqrtf(vn * c2 + eps_root) + eps);
-    p[i] = p[i] - upd;
+    const float pn = p[i] - upd;
+    p[i] = pn;
+    if (wb != nullptr) wb[i] = __float2bfloat16_rn(pn);
     m[i] = mn;
     v[i] = vn;
   }
@@ -45,13 +54,14 @@ fused_adam_kernel(float* __restrict__ p, float* __restrict__ m, float* __restric
 
 // Plain C entry point (loaded with ctypes): params, m, v updated in place
 // from grads and one [128] f32 hyper row (lr, c1, c2, b1, b2, eps,
-// eps_root). Launches on `stream`, returns cudaGetLastError().
+// eps_root); wb: n bf16, the new params rounded to bf16 (nullptr: no copy).
+// Launches on `stream`, returns cudaGetLastError().
 extern "C" int fused_adam(float* params, float* m, float* v, const float* grads,
-                          const float* hyper, long long n, void* stream) {
+                          const float* hyper, long long n, void* wb, void* stream) {
   if (n <= 0) return n == 0 ? 0 : (int)cudaErrorInvalidValue;
   long long blocks = (n + NTHREADS - 1) / NTHREADS;
   if (blocks > 132 * 16) blocks = 132 * 16;
   fused_adam_kernel<<<(unsigned)blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
-      params, m, v, grads, hyper, n);
+      params, m, v, grads, hyper, n, (__nv_bfloat16*)wb);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Training kernels of the texture field's skip-MLP, hand-written for Hopper
-// (sm_90a), bf16 tensor cores through nvcuda::wmma 16x16x16 fragments.
+// (sm_90a): bf16 tensor cores through wgmma (fwd_bwd) and nvcuda::wmma
+// 16x16x16 fragments (wgrad).
 //
 // Replaces the TPU kernels of intrinsic_neural_fields_tpu/ops/fused_mlp.py
 // whose body is _train_grads_body: make_fused_train_grads (gathered and
@@ -15,13 +16,14 @@
 // the step is split in two launches with no atomics, and every sum is taken
 // in a fixed order (the result is the same on every run):
 //
-//   fused_mlp_fwd_bwd  one block per 64 batch rows: the forward (as
-//     csrc/fused_mlp_fwd.cu), the loss and its gradient (or the cotangent
-//     seed) times the sigmoid's derivative, then the deltas back through
-//     W^T down to layer 0. It writes what the TPU kernel feeds its matrix
-//     unit: the bf16 post-relu activations and the bf16 deltas of every
-//     layer, plus per-block f32 partial sums of the loss, the squared error
-//     and every bias gradient (column sums of the f32 deltas).
+//   fused_mlp_fwd_bwd  one cluster of two CTAs per 64 batch rows, each CTA
+//     half of every layer's columns: the forward, the loss and its gradient
+//     (or the cotangent seed) times the sigmoid's derivative, then the
+//     deltas back through W^T down to layer 0 (design: the fwd_bwd section
+//     below). It writes what the TPU kernel feeds its matrix unit: the bf16
+//     post-relu activations and the bf16 deltas of every layer, plus
+//     per-64-row f32 partial sums of the loss, the squared error and every
+//     bias gradient (column sums of the f32 deltas).
 //   fused_mlp_wgrad  NSPLIT blocks per 64-row tile of each weight gradient,
 //     each contracting dW = A^T . D over its share of the batch with f32
 //     accumulation (A the layer input: the feature rows straight from the
@@ -41,23 +43,29 @@
 // gains the bottleneck, the two row blocks of Wc1 and the RGB head.
 //
 // Numerics are the reference's: bf16 (round to nearest even) operands, f32
-// accumulation; weights are f32 master copies rounded to bf16 as they are
-// loaded into shared memory; feature lanes past k_in and batch rows past B
-// read as zero, so pad rows of the gradient are exactly zero.
+// accumulation; fwd_bwd reads the weights from a bf16 copy of the f32
+// master parameters (rounded once per step, as the TPU kernel loads its
+// bf16 weights into VMEM once per grid; csrc/fused_adam.cu writes it beside
+// the master); feature lanes past k_in and batch rows past B read as zero,
+// so pad rows of the gradient are exactly zero.
 //
 // Bound on this card: per training row about 2*(k*128*2 + 4*128*128 +
 // 128*16) MACs forward and again for the weight gradients, plus the delta
 // walk (k=512: ~3.8 GFLOP at B=4096 against ~6 MB moved; the view-dependent
 // field adds ~17.9k MACs per row to each pass), above the H100's
 // bf16 ridge of ~295 FLOP/byte, so the ideal step is bound by the tensor
-// cores. This first version is simple (synchronous shared-memory loads,
-// 64-row blocks, no wgmma/TMA), so it is far from that bound.
+// cores. Split in two launches, each kernel is bound by the bytes of the
+// intermediates it writes or reads (the activations and deltas). fwd_bwd is
+// latency-bound: a chain of dependent 64-row products per cluster; wgrad is
+// the first, simple version (synchronous loads, wmma).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
 using namespace nvcuda;
 
 namespace {
@@ -67,21 +75,17 @@ constexpr int HID = 128;       // hidden width
 constexpr int KC = 64;         // input / weight rows per streamed chunk
 constexpr int OUTW = 16;       // head padded to one fragment width
 constexpr int NOUT = 3;        // real output columns
-constexpr int NTHREADS = 256;  // 8 warps: 4 row tiles x 2 column halves
-constexpr int LDH = HID + 8;   // bf16 row strides padded by 16 bytes
-constexpr int LDX = KC + 8;
+constexpr int NTHREADS = 256;  // wgrad: 8 warps, 4 row tiles x 2 column halves
+constexpr int LDX = KC + 8;    // bf16 row strides padded by 16 bytes
 constexpr int LDW = HID + 8;
-constexpr int LDS = HID + 4;   // f32 staging stride
 constexpr int MAXL = 16;       // most Linear layers a network may have
 constexpr int MAXM = MAXL + 1; // most weight matrices (the skip layer has two)
 constexpr int NSPLIT = 8;      // wgrad: blocks sharing one tile's batch
 constexpr int VENC_MAX = KC;   // most view-encoding lanes (one x tile)
 constexpr float CAUCHY_C2 = (float)((20.0 / 255.0) * (20.0 / 255.0));  // as the f32 ops see it
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // Where each layer's operands live in the flat f32 parameter buffer (see
@@ -135,34 +139,8 @@ Net make_net(int k_in, int k_w, int L, int skip, int venc_w) {
   return n;
 }
 
-struct Smem {
-  __nv_bfloat16 h[BM * LDH];   // current activations, bf16
-  __nv_bfloat16 d[BM * LDH];   // current delta, bf16
-  __nv_bfloat16 x[BM * LDX];   // one K-chunk of the input, bf16
-  __nv_bfloat16 w[HID * LDW];  // a weight chunk, or a whole [HID, N] matrix
-  float st[BM * LDS];          // f32 staging of fragment results
-  float red[2 * NTHREADS / 32];
-};
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// nrows rows of a row-major f32 [*, ncols] matrix into ws, rounded to bf16.
-__device__ __forceinline__ void load_w_f32(__nv_bfloat16* ws, const float* __restrict__ src,
-                                           int nrows, int ncols, int tid) {
-  const int vpr = ncols / 4;
-  const int total = nrows * vpr;
-  for (int i = tid; i < total; i += NTHREADS) {
-    const int r = i / vpr;
-    const int c = (i - r * vpr) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(src + (size_t)r * ncols + c);
-    __nv_bfloat16* dst = ws + r * LDW + c;
-    dst[0] = __float2bfloat16_rn(v.x);
-    dst[1] = __float2bfloat16_rn(v.y);
-    dst[2] = __float2bfloat16_rn(v.z);
-    dst[3] = __float2bfloat16_rn(v.w);
-  }
-}
 
 // Columns [k0, k0+KC) of BM table rows starting at xrows (row stride ld)
 // -> bf16; rows >= nrows and columns >= ncols read as zero.
@@ -178,21 +156,299 @@ __device__ __forceinline__ void load_x_chunk(__nv_bfloat16* xs, const XT* __rest
   }
 }
 
-// acc[j] += A[16 x KC] . W[KC x 16] for NF column fragments starting at col0.
-template <int NF>
-__device__ __forceinline__ void mma_chunk(const __nv_bfloat16* a_base, int lda,
-                                          const __nv_bfloat16* ws, int col0, FragC (&acc)[NF]) {
-#pragma unroll
-  for (int kk = 0; kk < KC; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, a_base + kk, lda);
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      FragB b;
-      wmma::load_matrix_sync(b, ws + kk * LDW + col0 + j * 16, LDW);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
+// ------------------------------------------------------------------ fwd_bwd
+//
+// One cluster of two CTAs per 64 batch rows, one warpgroup (128 threads)
+// per CTA. CTA c of the pair computes output columns [64c, 64c+64) of every
+// 128-wide layer, forward and back, with wgmma m64n64k16 (bf16 in, f32
+// accumulators in registers: 32 per thread). A layer's input is the previous
+// layer's bf16 output: the CTA's own half straight from its accumulator
+// registers (the accumulator of columns [16q, 16q+16) is the A fragment of
+// k-step q) goes first; the partner's half is read once per layer from the
+// partner's shared memory (DSMEM) behind a split cluster barrier (arrive
+// after the epilogue, wait just before the partner's half), so the barrier
+// overlaps the own half's products. Weight tiles of the bf16 parameter copy
+// (64 x 64, in wgmma's no-swizzle core-matrix layouts) and the feature
+// chunks come in by cp.async into a 3-stage ring, issued two tiles ahead
+// from a tile program each CTA writes into shared memory once, so a tile's
+// loads overlap the products of the two before it; each layer's biases
+// (walking back: its relu mask) load while its products run. The 64 x k_w
+// feature tile stays resident for the skip layer when it fits. The head (16
+// columns), the loss and the seed are computed by both CTAs of the pair on
+// the same registers (bit-identical); CTA 0 writes them out.
+
+constexpr int FB_THREADS = 128;            // one warpgroup
+constexpr int HALF = HID / 2;              // output columns per CTA of a pair
+constexpr int TILE_BYTES = KC * HALF * 2;  // a [64 x 64] bf16 tile: 8 KB
+constexpr int STAGES = 3;                  // cp.async ring depth
+constexpr int XCHG_BYTES = 4 * FB_THREADS * 16;  // one layer's half in fragment order
+constexpr int RED_FLOATS = 4 * HALF + 8;
+constexpr int SMEM_LIMIT = 227 * 1024;
+
+enum { T_NONE, T_FWD, T_FWD_VENC, T_FWD_HEAD, T_BWD, T_BWD_HEAD };
+
+struct Tile {
+  long long w;  // offset of the matrix in the flat parameters
+  int kind;
+  int k0;       // first row (forward) or column (backward) of the matrix in the tile
+  int xch;      // the feature chunk read with this tile (-1: none)
+  int xload;    // 1: load that chunk now (0: it is resident)
+};
+
+// The t-th weight tile of CTA c's program, in the order it uses them: the
+// forward layers (h-matrix halves, the CTA's own half of the input first,
+// then the feature chunks, the view rows), the head, then the walk back
+// (the head's transpose, then every h-matrix's, own half first).
+__device__ Tile tile_at(const Net& net, int t, bool x_res, int c) {
+  for (int l = 0; l < net.nh; ++l) {
+    if (l > 0) {
+      if (t < 2) return {net.w_h[l], T_FWD, KC * (t ^ c), -1, 0};
+      t -= 2;
+    }
+    if (l == 0 || l == net.skip) {
+      const int nch = net.k_w / KC;
+      if (t < nch) return {l == 0 ? net.w_in : net.w_x, T_FWD, KC * t, t, l == 0 || !x_res};
+      t -= nch;
+    }
+    if (l == net.cat) {
+      if (t < 1) return {net.w_v, T_FWD_VENC, 0, -1, 0};
+      t -= 1;
     }
   }
+  if (t < 1) return {net.w_h[net.nh], T_FWD_HEAD, 0, -1, 0};
+  if (t < 2) return {net.w_h[net.nh], T_BWD_HEAD, 0, -1, 0};
+  t -= 2;
+  for (int l = net.nh - 2; l >= 0; --l) {
+    if (t < 2) return {net.w_h[l + 1], T_BWD, KC * (t ^ c), -1, 0};
+    t -= 2;
+  }
+  return {0, T_NONE, 0, -1, 0};
+}
+
+// Tiles in the program (tile_at's length).
+int fwd_bwd_tiles(const Net& net) {
+  return 2 * (net.k_w / KC) + 4 * (net.nh - 1) + (net.cat >= 0 ? 1 : 0) + 2;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; bytes past src_bytes read as zero.
+__device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wgmma's shared-memory matrix descriptor, no swizzle: lbo = byte stride
+// between core matrices (8 rows x 16 bytes) along K, sbo = along M or N.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(v & 0xffffu)));
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(v >> 16)));
+}
+
+#define ACC32(d)                                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d[64 x 64] += A . B, A from registers (k-step fragment a), B by descriptor;
+// TB: B is MN-major (the forward's W[k][n]) or K-major (the walk's W^T).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31},"
+      "{%32,%33,%34,%35}, %36, p, 1, 1, %37;\n}\n"
+      : ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB), "r"(1));
+}
+
+// d[64 x 64] += A . B, A (K-major) and B (MN-major) by descriptor.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31},"
+      " %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 16] += A . B (the head), A from registers, B MN-major.
+__device__ __forceinline__ void wgmma_rs16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait(float (&d)[N]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <typename XT>
+struct FB {
+  // inputs
+  const XT* xrows;  // the block's first table row
+  const XT* vrows;  // its view encodings (VD)
+  int k_in, venc_in, venc_w, nrows;
+  bool x_async;     // bf16 rows on 16-byte boundaries: cp.async, else converted loads
+  bool x_res;       // the whole 64 x k_w feature tile stays in shared memory
+  const __nv_bfloat16* wb;
+  const Tile* prog;  // the tile program, in shared memory
+  int n_tiles;
+  int n0, tid;
+  // shared memory
+  unsigned char* wring;  // STAGES weight tiles
+  unsigned char* xs;     // the feature tile (resident) or a STAGES ring of chunks
+  unsigned char* vs;     // the view-encoding tile (VD)
+
+  __device__ unsigned char* xbuf(int ch, int slot) const {
+    return xs + (x_res ? ch : slot) * TILE_BYTES;
+  }
+
+  // 8 weights (16 bytes of the bf16 copy) into a tile
+  __device__ __forceinline__ void cpw(void* dst, const __nv_bfloat16* src) const { cp16(dst, src); }
+
+  // Rows x k of a feature / view table into the K-major core-matrix layout
+  // (element (m, k) at (k/8)*1024 + (m/8)*128 + (m%8)*16 + (k%8)*2).
+  template <typename T>
+  __device__ void load_rows(unsigned char* dst, const T* rows, int ld, int ncols, int k0,
+                            bool async) const {
+    if (async) {
+      for (int i = tid; i < BM * (KC / 8); i += FB_THREADS) {
+        const int m = i >> 3, kg = i & 7, gk = k0 + 8 * kg;
+        const bool ok = m < nrows && gk < ncols;
+        cp16(dst + kg * 1024 + (m >> 3) * 128 + (m & 7) * 16,
+             ok ? (const void*)(rows + (size_t)m * ld + gk) : (const void*)rows, ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll 8
+      for (int i = tid; i < BM * KC; i += FB_THREADS) {
+        const int m = i >> 6, k = i & 63, gk = k0 + k;
+        const float v = (m < nrows && gk < ncols) ? to_f(rows[(size_t)m * ld + gk]) : 0.0f;
+        *reinterpret_cast<__nv_bfloat16*>(dst + (k >> 3) * 1024 + (m >> 3) * 128 + (m & 7) * 16 +
+                                          (k & 7) * 2) = __float2bfloat16_rn(v);
+      }
+    }
+  }
+
+  // Issue the loads of tile t into ring slot t % STAGES (one commit group
+  // per tile, empty past the program's end).
+  __device__ void issue(int t) const {
+    if (t >= n_tiles) {
+      cp_commit();
+      return;
+    }
+    const Tile d = prog[t];
+    const int slot = t % STAGES;
+    unsigned char* ws = wring + slot * TILE_BYTES;
+    const __nv_bfloat16* W = wb + d.w;
+    if (d.kind == T_FWD || d.kind == T_FWD_VENC) {
+      // W [rows, 128] -> B[k][n] = W[k0 + k][n0 + n], MN-major
+      const int rows = d.kind == T_FWD ? KC : venc_w;
+      for (int i = tid; i < rows * 8; i += FB_THREADS) {
+        const int k = i >> 3, ng = i & 7;
+        cpw(ws + (k >> 3) * 1024 + ng * 128 + (k & 7) * 16,
+            W + (size_t)(d.k0 + k) * HID + n0 + 8 * ng);
+      }
+      if (d.kind == T_FWD_VENC) load_rows(vs, vrows, venc_w, venc_in, 0, false);
+    } else if (d.kind == T_FWD_HEAD) {
+      // W [128, 16] -> B[k][n] = W[k][n], MN-major, 16 k-groups x 2 n-groups
+      for (int i = tid; i < HID * 2; i += FB_THREADS) {
+        const int k = i >> 1, ng = i & 1;
+        cpw(ws + (k >> 3) * 256 + ng * 128 + (k & 7) * 16, W + (size_t)k * OUTW + 8 * ng);
+      }
+    } else if (d.kind == T_BWD) {
+      // W [128, 128] -> B[k][n] = W[n0 + n][k0 + k], K-major
+      for (int i = tid; i < HALF * 8; i += FB_THREADS) {
+        const int n = i >> 3, kg = i & 7;
+        cpw(ws + kg * 1024 + (n >> 3) * 128 + (n & 7) * 16,
+            W + (size_t)(n0 + n) * HID + d.k0 + 8 * kg);
+      }
+    } else if (d.kind == T_BWD_HEAD) {
+      // W [128, 16] -> B[k][n] = W[n0 + n][k], K-major, one k-step
+      for (int i = tid; i < HALF * 2; i += FB_THREADS) {
+        const int n = i >> 1, kg = i & 1;
+        cpw(ws + kg * 1024 + (n >> 3) * 128 + (n & 7) * 16, W + (size_t)(n0 + n) * OUTW + 8 * kg);
+      }
+    }
+    if (d.xch >= 0 && d.xload)
+      load_rows(xbuf(d.xch, slot), xrows, k_in, k_in, KC * d.xch, x_async);
+    cp_commit();
+  }
+};
+
+// The two halves of a cluster barrier: a CTA arrives once its half of a
+// layer is in its exchange slot, and waits only when it needs the partner's.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Wait for tile t's loads (this thread's), publish every thread's to the
+// tensor cores' view of shared memory.
+__device__ __forceinline__ void tile_ready() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Column sums over the 64 rows of NJ 8-column groups of an accumulator
+// layout: this thread's two rows, the warp's 8 row pairs by shuffles, then
+// the 4 warps in order (a fixed order: the same bits every run).
+template <int NJ>
+__device__ __forceinline__ void col_sums(const float (&v)[4 * NJ], float* red, int warp, int lane,
+                                         int cq, int tid, float* dst) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    float s0 = v[4 * j] + v[4 * j + 2], s1 = v[4 * j + 1] + v[4 * j + 3];
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    if (lane < 4) {
+      red[warp * HALF + 8 * j + cq] = s0;
+      red[warp * HALF + 8 * j + cq + 1] = s1;
+    }
+  }
+  __syncthreads();
+  if (tid < 8 * NJ)
+    dst[tid] = ((red[tid] + red[HALF + tid]) + red[2 * HALF + tid]) + red[3 * HALF + tid];
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -205,113 +461,209 @@ __device__ __forceinline__ float warp_sum(float v) {
 // VD: the view-dependent chain (a separate instantiation, so the plain
 // field's kernel is compiled without the concat layer's code).
 template <typename XT, bool VD>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(FB_THREADS, 1)
 fwd_bwd_kernel(const XT* __restrict__ x, long long row0, int B, const float* __restrict__ params,
-               Net net, const XT* __restrict__ venc, int venc_in,
-               const float* __restrict__ target, int mode, float inv_n,
-               __nv_bfloat16* __restrict__ acts, __nv_bfloat16* __restrict__ deltas,
-               float* __restrict__ bias_part, float* __restrict__ loss_part) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+               const __nv_bfloat16* __restrict__ wb, Net net, const XT* __restrict__ venc,
+               int venc_in, const float* __restrict__ target, int mode, float inv_n, int x_async,
+               int x_res, int n_tiles, __nv_bfloat16* __restrict__ acts,
+               __nv_bfloat16* __restrict__ deltas, float* __restrict__ bias_part,
+               float* __restrict__ loss_part) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = (int)cl.block_rank();  // which half of the columns
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int rt = warp & 3;   // 16-row tile of the block
-  const int cg = warp >> 2;  // 64-column half of a 128-wide result
-  const int brow = blockIdx.x * BM;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2);  // this thread's rows r0 and r0 + 8
+  const int cq = 2 * (lane & 3);           // and columns 8j + cq, 8j + cq + 1
+  const int blk = blockIdx.x >> 1;
+  const int brow = blk * BM;
   const int nrows = min(BM, B - brow);
   const int nh = net.nh;
-  const int nbp = HID * nh + OUTW;  // bias partials per block
-  const XT* xrows = x + (size_t)(row0 + brow) * net.k_in;
-  const XT* vrows = VD ? venc + (size_t)(row0 + brow) * net.venc_w : nullptr;
-  const float* wm = params;
+  const int n0 = HALF * c;
+  const int nbp = HID * nh + OUTW;
   const float* bias = params + net.n_w;
+
+  FB<XT> f;
+  f.xrows = x + (size_t)(row0 + brow) * net.k_in;
+  f.vrows = VD ? venc + (size_t)(row0 + brow) * net.venc_w : nullptr;
+  f.k_in = net.k_in;
+  f.venc_in = venc_in;
+  f.venc_w = net.venc_w;
+  f.nrows = nrows;
+  f.x_async = x_async != 0;
+  f.x_res = x_res != 0;
+  f.wb = wb;
+  f.n_tiles = n_tiles;
+  f.n0 = n0;
+  f.tid = tid;
+  f.wring = smem_raw;
+  f.xs = f.wring + STAGES * TILE_BYTES;
+  unsigned char* after_x = f.xs + (x_res ? net.k_w / KC : STAGES) * TILE_BYTES;
+  f.vs = after_x;
+  uint4* xchg = reinterpret_cast<uint4*>(after_x + (VD ? TILE_BYTES : 0));  // 2 slots
+  float* red = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(xchg) + 2 * XCHG_BYTES);
+  Tile* prog = reinterpret_cast<Tile*>(red + RED_FLOATS);
+  for (int i = tid; i < n_tiles; i += FB_THREADS) prog[i] = tile_at(net, i, x_res != 0, c);
+  f.prog = prog;
+  __syncthreads();
+
+  uint32_t own[4][4], par[4][4];  // A fragments of this CTA's / the partner's half
+  float acc[32];
+  float2 bh2[8], bx2[8];  // a forward layer's biases at this thread's columns
+  uint32_t mask[8][2];    // a backward layer's activations at this thread's places
+  int t = 0;
+  f.issue(0);
+  f.issue(1);
+
+  // Bias add(s) in the reference order (h-bias, then the skip layer's input
+  // bias: zero elsewhere, which changes no bit after the relu), relu, bf16:
+  // this CTA's half of the layer's output as A fragments, to global acts.
+  auto finish_forward = [&](int layer) {
+    __nv_bfloat16* act = acts + ((size_t)layer * B + brow) * HID + n0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + cq;
+      const float v0 = (acc[4 * j] + bh2[j].x) + bx2[j].x;
+      const float v1 = (acc[4 * j + 1] + bh2[j].y) + bx2[j].y;
+      const float v2 = (acc[4 * j + 2] + bh2[j].x) + bx2[j].x;
+      const float v3 = (acc[4 * j + 3] + bh2[j].y) + bx2[j].y;
+      const uint32_t top = pack_bf16(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+      const uint32_t bot = pack_bf16(fmaxf(v2, 0.0f), fmaxf(v3, 0.0f));
+      own[j >> 1][(j & 1) * 2] = top;
+      own[j >> 1][(j & 1) * 2 + 1] = bot;
+      if (r0 < nrows) *reinterpret_cast<uint32_t*>(act + (size_t)r0 * HID + col) = top;
+      if (r0 + 8 < nrows) *reinterpret_cast<uint32_t*>(act + (size_t)(r0 + 8) * HID + col) = bot;
+    }
+  };
+  // own -> exchange slot s, then arrive at the cluster barrier
+  auto publish = [&](int s) {
+    uint4* mine = xchg + s * 4 * FB_THREADS;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      mine[q * FB_THREADS + tid] = make_uint4(own[q][0], own[q][1], own[q][2], own[q][3]);
+    cluster_arrive();
+  };
+  // wait at the cluster barrier, then the partner's slot s -> par
+  auto fetch = [&](int s) {
+    cluster_wait();
+    const uint4* theirs = cl.map_shared_rank(xchg + s * 4 * FB_THREADS, c ^ 1);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = theirs[q * FB_THREADS + tid];
+      par[q][0] = v.x; par[q][1] = v.y; par[q][2] = v.z; par[q][3] = v.w;
+    }
+  };
+  // acc += own . tile (mine) or par . tile: the tile holds the k rows of
+  // that half
+  auto mma_h = [&](bool mine, int tb) {
+    const unsigned char* ws = f.wring + (t % STAGES) * TILE_BYTES;
+    wg_fence();
+    if (mine) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint64_t bd = gmma_desc(ws + q * 2048, 1024, 128);
+        if (tb) wgmma_rs64<1>(acc, own[q], bd); else wgmma_rs64<0>(acc, own[q], bd);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint64_t bd = gmma_desc(ws + q * 2048, 1024, 128);
+        if (tb) wgmma_rs64<1>(acc, par[q], bd); else wgmma_rs64<0>(acc, par[q], bd);
+      }
+    }
+    wg_commit();
+  };
+  auto next_tile = [&]() {
+    f.issue(t + 2);
+    wg_wait(acc);
+    ++t;
+  };
 
   // ---------------- forward
   for (int layer = 0; layer < nh; ++layer) {
-    FragC acc[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    if (layer > 0) {  // h . Wh  ([HID, HID])
-      for (int k0 = 0; k0 < HID; k0 += KC) {
-        load_w_f32(s.w, wm + net.w_h[layer] + (size_t)k0 * HID, KC, HID, tid);
-        __syncthreads();
-        mma_chunk<4>(s.h + rt * 16 * LDH + k0, LDH, s.w, cg * 64, acc);
-        __syncthreads();
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    {  // the epilogue's biases, loaded while the products run
+      const float* bh = bias + net.b[layer] + n0;
+      const float* bx = bias + net.b_x + n0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        bh2[j] = *reinterpret_cast<const float2*>(bh + 8 * j + cq);
+        bx2[j] = layer == net.skip ? *reinterpret_cast<const float2*>(bx + 8 * j + cq)
+                                   : make_float2(0.0f, 0.0f);
       }
     }
-    if (layer == 0 || layer == net.skip) {  // x . Wx  ([k_w, HID]), same accumulator
-      const float* wx = wm + (layer == 0 ? net.w_in : net.w_x);
-      for (int k0 = 0; k0 < net.k_w; k0 += KC) {
-        load_x_chunk(s.x, xrows, nrows, net.k_in, net.k_in, k0, tid);
-        load_w_f32(s.w, wx + (size_t)k0 * HID, KC, HID, tid);
-        __syncthreads();
-        mma_chunk<4>(s.x + rt * 16 * LDX, LDX, s.w, cg * 64, acc);
-        __syncthreads();
+    if (layer > 0) {  // h . Wh: this CTA's half of h from registers, then the partner's
+      tile_ready();
+      mma_h(true, 1);
+      next_tile();
+      fetch((layer - 1) & 1);
+      tile_ready();
+      mma_h(false, 1);
+      next_tile();
+    }
+    if (layer == 0 || layer == net.skip) {  // x . Wx, chunk by chunk
+      for (int ch = 0; ch < net.k_w / KC; ++ch) {
+        tile_ready();
+        const unsigned char* ws = f.wring + (t % STAGES) * TILE_BYTES;
+        const unsigned char* xa = f.xbuf(ch, t % STAGES);
+        wg_fence();
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          wgmma_ss64(acc, gmma_desc(xa + q * 2048, 1024, 128), gmma_desc(ws + q * 2048, 1024, 128));
+        wg_commit();
+        next_tile();
       }
     }
-    if (VD && layer == net.cat) {  // venc . Wv  ([venc_w, HID]), same accumulator
-      // one whole KC-row chunk: view lanes past venc_in read as zero and
-      // the weight rows past venc_w are zeroed, so mma_chunk keeps its
-      // constant trip count (on an H100 this kernel took 0.175 ms at k=512,
-      // B=4096, against 0.216 ms with a venc_w/16-step loop here)
-      load_x_chunk(s.x, vrows, nrows, net.venc_w, venc_in, 0, tid);
-      load_w_f32(s.w, wm + net.w_v, net.venc_w, HID, tid);
-      for (int i = tid; i < (KC - net.venc_w) * HID; i += NTHREADS)
-        s.w[(net.venc_w + i / HID) * LDW + i % HID] = __float2bfloat16_rn(0.0f);
-      __syncthreads();
-      mma_chunk<4>(s.x + rt * 16 * LDX, LDX, s.w, cg * 64, acc);
-      __syncthreads();
+    if (VD && layer == net.cat) {  // venc . Wv: venc_w / 16 k-steps
+      tile_ready();
+      const unsigned char* ws = f.wring + (t % STAGES) * TILE_BYTES;
+      wg_fence();
+      for (int q = 0; q < net.venc_w / 16; ++q)
+        wgmma_ss64(acc, gmma_desc(f.vs + q * 2048, 1024, 128), gmma_desc(ws + q * 2048, 1024, 128));
+      wg_commit();
+      next_tile();
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(s.st + rt * 16 * LDS + cg * 64 + j * 16, acc[j], LDS,
-                              wmma::mem_row_major);
-    __syncthreads();
-    // f32 bias add(s) in the reference order, relu, bf16 activation
-    const float* bh = bias + net.b[layer];
-    const float* bx = (layer == net.skip) ? bias + net.b_x : nullptr;
-    __nv_bfloat16* act = acts + (size_t)layer * B * HID + (size_t)brow * HID;
-    for (int i = tid; i < BM * HID; i += NTHREADS) {
-      const int r = i / HID;
-      const int c = i - r * HID;
-      float v = s.st[r * LDS + c] + bh[c];
-      if (bx != nullptr) v = v + bx[c];
-      const __nv_bfloat16 hb = __float2bfloat16_rn(fmaxf(v, 0.0f));
-      s.h[r * LDH + c] = hb;
-      if (r < nrows) act[(size_t)r * HID + c] = hb;
-    }
-    __syncthreads();
+    finish_forward(layer);
+    publish(layer & 1);
   }
 
-  // ---------------- head, loss, seed
+  // ---------------- head, loss, seed (both CTAs, the same registers)
+  float z[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) z[i] = 0.0f;
+  fetch((nh - 1) & 1);
+  tile_ready();
   {
-    FragC acc_o[1];
-    wmma::fill_fragment(acc_o[0], 0.0f);
-    for (int k0 = 0; k0 < HID; k0 += KC) {
-      load_w_f32(s.w, wm + net.w_h[nh] + (size_t)k0 * OUTW, KC, OUTW, tid);
-      __syncthreads();
-      if (cg == 0) mma_chunk<1>(s.h + rt * 16 * LDH + k0, LDH, s.w, 0, acc_o);
-      __syncthreads();
+    const unsigned char* ws = f.wring + (t % STAGES) * TILE_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t bd = gmma_desc(ws + kk * 512, 256, 128);
+      if ((kk >> 2) == c) wgmma_rs16(z, own[kk & 3], bd); else wgmma_rs16(z, par[kk & 3], bd);
     }
-    if (cg == 0)
-      wmma::store_matrix_sync(s.st + rt * 16 * LDS, acc_o[0], LDS, wmma::mem_row_major);
-    __syncthreads();
+    wg_commit();
+    f.issue(t + 2);
+    wg_wait(z);
+    ++t;
   }
   float lsum = 0.0f, ssum = 0.0f;
   const float* bo = bias + net.b[nh];
-  for (int i = tid; i < BM * OUTW; i += NTHREADS) {
-    const int r = i / OUTW;
-    const int c = i - r * OUTW;
+  float dv[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + ((i >> 1) & 1) * 8;
+    const int col = 8 * (i >> 2) + cq + (i & 1);
     float dval = 0.0f;
-    if (c < NOUT && r < nrows) {
-      const float z = s.st[r * LDS + c] + bo[c];
-      const float p = 1.0f / (1.0f + expf(-z));
-      const float t = target[(size_t)(brow + r) * NOUT + c];
+    if (col < NOUT && r < nrows) {
+      const float zz = z[i] + bo[col];
+      const float p = 1.0f / (1.0f + expf(-zz));
+      const float tg = target[(size_t)(brow + r) * NOUT + col];
       float g;
       if (mode == 3) {
-        g = t;
+        g = tg;
       } else {
-        const float diff = p - t;
+        const float diff = p - tg;
         const float sq = __fmul_rn(diff, diff);
         ssum += sq;
         if (mode == 0) {
@@ -328,86 +680,89 @@ fwd_bwd_kernel(const XT* __restrict__ x, long long row0, int B, const float* __r
       }
       dval = __fmul_rn(__fmul_rn(g, p), 1.0f - p);
     }
-    s.st[r * LDS + c] = dval;
+    dv[i] = dval;
   }
-  // per-block loss and squared-error sums, in a fixed order
-  lsum = warp_sum(lsum);
-  ssum = warp_sum(ssum);
-  if ((tid & 31) == 0) {
-    s.red[warp] = lsum;
-    s.red[NTHREADS / 32 + warp] = ssum;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float a = 0.0f, q = 0.0f;
-    for (int wi = 0; wi < NTHREADS / 32; ++wi) {
-      a += s.red[wi];
-      q += s.red[NTHREADS / 32 + wi];
+  uint32_t hd[4] = {pack_bf16(dv[0], dv[1]), pack_bf16(dv[2], dv[3]), pack_bf16(dv[4], dv[5]),
+                    pack_bf16(dv[6], dv[7])};
+  float* bpart = bias_part + (size_t)blk * nbp;
+  if (c == 0) {
+    lsum = warp_sum(lsum);
+    ssum = warp_sum(ssum);
+    if (lane == 0) {
+      red[4 * HALF + warp] = lsum;
+      red[4 * HALF + 4 + warp] = ssum;
     }
-    loss_part[2 * blockIdx.x] = a;
-    loss_part[2 * blockIdx.x + 1] = q;
+    col_sums<2>(dv, red, warp, lane, cq, tid, bpart + HID * nh);  // publishes the loss sums too
+    if (tid == 0) {
+      float a = 0.0f, q = 0.0f;
+      for (int w = 0; w < 4; ++w) {
+        a += red[4 * HALF + w];
+        q += red[4 * HALF + 4 + w];
+      }
+      loss_part[2 * blk] = a;
+      loss_part[2 * blk + 1] = q;
+    }
+    __nv_bfloat16* dout = deltas + (size_t)nh * B * HID + (size_t)brow * OUTW;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (r0 < nrows) *reinterpret_cast<uint32_t*>(dout + (size_t)r0 * OUTW + 8 * j + cq) = hd[2 * j];
+      if (r0 + 8 < nrows)
+        *reinterpret_cast<uint32_t*>(dout + (size_t)(r0 + 8) * OUTW + 8 * j + cq) = hd[2 * j + 1];
+    }
   }
-  // head delta: bias partial (f32 column sums), bf16 copy for the matmuls
-  float* bpart = bias_part + (size_t)blockIdx.x * nbp;
-  if (tid < OUTW) {
-    float sum = 0.0f;
-    for (int r = 0; r < BM; ++r) sum += s.st[r * LDS + tid];
-    bpart[HID * nh + tid] = sum;
-  }
-  __nv_bfloat16* dout = deltas + (size_t)nh * B * HID + (size_t)brow * OUTW;
-  for (int i = tid; i < BM * OUTW; i += NTHREADS) {
-    const int r = i / OUTW;
-    const int c = i - r * OUTW;
-    const __nv_bfloat16 db = __float2bfloat16_rn(s.st[r * LDS + c]);
-    s.d[r * LDH + c] = db;
-    if (r < nrows) dout[(size_t)r * OUTW + c] = db;
-  }
-  __syncthreads();
 
   // ---------------- backward: D_l = (D_{l+1} . W_{l+1,h}^T) * (h_l > 0)
-  int N = OUTW;  // width of D_{l+1}
   for (int l = nh - 1; l >= 0; --l) {
-    load_w_f32(s.w, wm + net.w_h[l + 1], HID, N, tid);  // [HID rows (in), N cols (out)]
-    __syncthreads();
-    FragC acc[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    for (int kk = 0; kk < N; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, s.d + rt * 16 * LDH + kk, LDH);
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    {  // the relu mask: this thread's own activations (rows past B zero),
+       // loaded while the products run
+      const __nv_bfloat16* act = acts + ((size_t)l * B + brow) * HID + n0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBc b;  // b(k, n) = W(n, k): W^T read column-major from W's rows
-        wmma::load_matrix_sync(b, s.w + (cg * 64 + j * 16) * LDW + kk, LDW);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + cq;
+        mask[j][0] = r0 < nrows ? *reinterpret_cast<const uint32_t*>(act + (size_t)r0 * HID + col)
+                                : 0u;
+        mask[j][1] = r0 + 8 < nrows
+                         ? *reinterpret_cast<const uint32_t*>(act + (size_t)(r0 + 8) * HID + col)
+                         : 0u;
       }
     }
+    if (l == nh - 1) {  // from the head: one k-step of 16
+      tile_ready();
+      wg_fence();
+      wgmma_rs64<0>(acc, hd, gmma_desc(f.wring + (t % STAGES) * TILE_BYTES, 1024, 128));
+      wg_commit();
+      next_tile();
+    } else {  // this CTA's half of D_{l+1} from registers, then the partner's
+      tile_ready();
+      mma_h(true, 0);
+      next_tile();
+      fetch((l + 2) & 1);
+      tile_ready();
+      mma_h(false, 0);
+      next_tile();
+    }
+    __nv_bfloat16* dl = deltas + ((size_t)l * B + brow) * HID + n0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(s.st + rt * 16 * LDS + cg * 64 + j * 16, acc[j], LDS,
-                              wmma::mem_row_major);
-    __syncthreads();
-    const __nv_bfloat16* act = acts + (size_t)l * B * HID + (size_t)brow * HID;
-    __nv_bfloat16* dl = deltas + (size_t)l * B * HID + (size_t)brow * HID;
-    for (int i = tid; i < BM * HID; i += NTHREADS) {
-      const int r = i / HID;
-      const int c = i - r * HID;
-      float v = 0.0f;
-      if (r < nrows && __bfloat162float(act[(size_t)r * HID + c]) > 0.0f) v = s.st[r * LDS + c];
-      s.st[r * LDS + c] = v;
-      const __nv_bfloat16 db = __float2bfloat16_rn(v);
-      s.d[r * LDH + c] = db;
-      if (r < nrows) dl[(size_t)r * HID + c] = db;
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + cq;
+      const uint32_t a0 = mask[j][0], a1 = mask[j][1];
+      acc[4 * j] = bf16_lo(a0) > 0.0f ? acc[4 * j] : 0.0f;
+      acc[4 * j + 1] = bf16_hi(a0) > 0.0f ? acc[4 * j + 1] : 0.0f;
+      acc[4 * j + 2] = bf16_lo(a1) > 0.0f ? acc[4 * j + 2] : 0.0f;
+      acc[4 * j + 3] = bf16_hi(a1) > 0.0f ? acc[4 * j + 3] : 0.0f;
+      const uint32_t top = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      const uint32_t bot = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      own[j >> 1][(j & 1) * 2] = top;
+      own[j >> 1][(j & 1) * 2 + 1] = bot;
+      if (r0 < nrows) *reinterpret_cast<uint32_t*>(dl + (size_t)r0 * HID + col) = top;
+      if (r0 + 8 < nrows) *reinterpret_cast<uint32_t*>(dl + (size_t)(r0 + 8) * HID + col) = bot;
     }
-    __syncthreads();
-    if (tid < HID) {
-      float sum = 0.0f;
-      for (int r = 0; r < BM; ++r) sum += s.st[r * LDS + tid];
-      bpart[HID * l + tid] = sum;
-    }
-    __syncthreads();
-    N = HID;
+    col_sums<8>(acc, red, warp, lane, cq, tid, bpart + HID * l + n0);
+    if (l > 0) publish((l + 1) & 1);
   }
+  cl.sync();  // the partner may still read this CTA's last exchange slot
 }
 
 // ------------------------------------------------------------------ wgrad
@@ -609,40 +964,93 @@ bool bad_net(int B, int k_in, int k_w, int L, int skip, int venc_in, int venc_w)
          skip <= 0 || skip >= L - 1 || venc_w < 0 || bad_venc;
 }
 
-template <typename XT, typename K>
-int launch_fwd_bwd_kernel(K kern, const XT* x, long long row0, int B, const float* params,
-                          const Net& net, const XT* venc, int venc_in,
+// Launch shape of fwd_bwd: {CTAs, cluster size, threads, shared memory
+// bytes, 1 if the feature tile stays resident}.
+void fwd_bwd_config(int B, const Net& net, int (&out)[5]) {
+  const int k_w = net.k_w;
+  const bool vd = net.cat >= 0;
+  const int fixed = STAGES * TILE_BYTES + (vd ? TILE_BYTES : 0) + 2 * XCHG_BYTES +
+                    RED_FLOATS * (int)sizeof(float) + fwd_bwd_tiles(net) * (int)sizeof(Tile);
+  const bool x_res = fixed + (k_w / KC) * TILE_BYTES <= SMEM_LIMIT;
+  out[0] = 2 * ((B + BM - 1) / BM);
+  out[1] = 2;
+  out[2] = FB_THREADS;
+  out[3] = fixed + (x_res ? k_w / KC : STAGES) * TILE_BYTES;
+  out[4] = x_res;
+}
+
+template <typename XT, bool VD>
+int launch_fwd_bwd_kernel(const XT* x, long long row0, int B, const float* params,
+                          const __nv_bfloat16* wb, const Net& net, const XT* venc, int venc_in,
                           const float* target, int mode, float inv_n, void* acts, void* deltas,
-                          float* bias_part, float* loss_part, cudaStream_t st) {
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                          float* bias_part, float* loss_part, int* launched, cudaStream_t st) {
+  int cfg[5];
+  fwd_bwd_config(B, net, cfg);
+  auto kern = fwd_bwd_kernel<XT, VD>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg[3]);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((B + BM - 1) / BM), NTHREADS, smem, st>>>(
-      x, row0, B, params, net, venc, venc_in, target, mode, inv_n, (__nv_bfloat16*)acts,
-      (__nv_bfloat16*)deltas, bias_part, loss_part);
-  return (int)cudaGetLastError();
+  // cp.async of 16-byte feature pieces: bf16 rows on 16-byte boundaries
+  const int x_async = sizeof(XT) == 2 && net.k_in % 8 == 0 && (uintptr_t)x % 16 == 0;
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = dim3(cfg[0]);
+  lc.blockDim = dim3(cfg[2]);
+  lc.dynamicSmemBytes = (size_t)cfg[3];
+  lc.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cfg[1];
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  lc.attrs = attr;
+  lc.numAttrs = 1;
+  err = cudaLaunchKernelEx(&lc, kern, x, row0, B, params, wb, net, venc, venc_in, target, mode,
+                           inv_n, x_async, cfg[4], fwd_bwd_tiles(net), (__nv_bfloat16*)acts,
+                           (__nv_bfloat16*)deltas, bias_part, loss_part);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (launched) {  // the shape this launch ran with
+    launched[0] = (int)lc.gridDim.x;
+    launched[1] = (int)attr[0].val.clusterDim.x;
+    launched[2] = (int)lc.blockDim.x;
+    launched[3] = (int)lc.dynamicSmemBytes;
+    launched[4] = cfg[4];
+  }
+  return 0;
 }
 
 int launch_fwd_bwd(const void* x, int x_bf16, long long row0, int B, int k_in,
-                   const float* params, int k_w, int num_layers, int skip_idx, const void* venc,
-                   int venc_in, int venc_w, const float* target, int mode, float inv_n,
-                   void* acts, void* deltas, float* bias_part, float* loss_part, void* stream) {
+                   const float* params, const void* wb, int k_w, int num_layers, int skip_idx,
+                   const void* venc, int venc_in, int venc_w, const float* target, int mode,
+                   float inv_n, void* acts, void* deltas, float* bias_part, float* loss_part,
+                   int* launched, void* stream) {
   if (bad_net(B, k_in, k_w, num_layers, skip_idx, venc_in, venc_w) || mode < 0 ||
-      mode > 3)
+      mode > 3 || wb == nullptr || (uintptr_t)wb % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const Net net = make_net(k_in, k_w, num_layers, skip_idx, venc_w);
   cudaStream_t st = (cudaStream_t)stream;
+  const auto* w = (const __nv_bfloat16*)wb;
   if (x_bf16) {
-    auto kern = venc_w > 0 ? fwd_bwd_kernel<__nv_bfloat16, true>
-                           : fwd_bwd_kernel<__nv_bfloat16, false>;
-    return launch_fwd_bwd_kernel(kern, (const __nv_bfloat16*)x, row0, B, params, net,
-                                 (const __nv_bfloat16*)venc, venc_in, target, mode, inv_n,
-                                 acts, deltas, bias_part, loss_part, st);
+    const auto* xb = (const __nv_bfloat16*)x;
+    const auto* vb = (const __nv_bfloat16*)venc;
+    return venc_w > 0
+               ? launch_fwd_bwd_kernel<__nv_bfloat16, true>(xb, row0, B, params, w, net, vb,
+                                                            venc_in, target, mode, inv_n, acts,
+                                                            deltas, bias_part, loss_part,
+                                                            launched, st)
+               : launch_fwd_bwd_kernel<__nv_bfloat16, false>(xb, row0, B, params, w, net, vb,
+                                                             venc_in, target, mode, inv_n, acts,
+                                                             deltas, bias_part, loss_part,
+                                                             launched, st);
   }
-  auto kern = venc_w > 0 ? fwd_bwd_kernel<float, true> : fwd_bwd_kernel<float, false>;
-  return launch_fwd_bwd_kernel(kern, (const float*)x, row0, B, params, net, (const float*)venc,
-                               venc_in, target, mode, inv_n, acts, deltas, bias_part,
-                               loss_part, st);
+  const auto* xf = (const float*)x;
+  const auto* vf = (const float*)venc;
+  return venc_w > 0
+             ? launch_fwd_bwd_kernel<float, true>(xf, row0, B, params, w, net, vf, venc_in,
+                                                  target, mode, inv_n, acts, deltas, bias_part,
+                                                  loss_part, launched, st)
+             : launch_fwd_bwd_kernel<float, false>(xf, row0, B, params, w, net, vf, venc_in,
+                                                   target, mode, inv_n, acts, deltas, bias_part,
+                                                   loss_part, launched, st);
 }
 
 int launch_wgrad(const void* x, int x_bf16, long long row0, int B, int k_in, int k_w,
@@ -676,31 +1084,38 @@ int launch_wgrad(const void* x, int x_bf16, long long row0, int B, int k_in, int
 //
 // x: the feature table ([*, k_in] row-major, bf16 if x_bf16 else f32); the
 // batch is rows [row0, row0 + B). params: flat f32 (matrix region, then
-// biases). target: [B, 3] f32. Scratch: acts [nh, B, HID] bf16; deltas
-// [nh, B, HID] then [B, OUTW] bf16; bias_part [nblk, HID*nh+OUTW] f32;
-// loss_part [nblk, 2] f32, nblk = ceil(B / 64); nh = num_layers - 1
-// (the _viewdep entry points: num_layers + 1).
+// biases; fwd_bwd reads the biases); wb: its bf16 copy (round to nearest
+// even, 16-byte aligned; fwd_bwd reads the matrices). target: [B, 3] f32.
+// Scratch: acts [nh, B, HID] bf16; deltas [nh, B, HID] then [B, OUTW]
+// bf16; bias_part [nblk, HID*nh+OUTW] f32; loss_part [nblk, 2] f32, nblk =
+// ceil(B / 64); nh = num_layers - 1 (the _viewdep entry points:
+// num_layers + 1). launched (null, or 5 ints): on success, the shape the
+// launch ran with: {CTAs, cluster size, threads per CTA, shared memory
+// bytes, feature tile resident (0/1)}.
 extern "C" int fused_mlp_fwd_bwd(const void* x, int x_bf16, long long row0, int B, int k_in,
-                                 const float* params, int k_w, int num_layers, int skip_idx,
-                                 const float* target, int mode, float inv_n, void* acts,
-                                 void* deltas, float* bias_part, float* loss_part, void* stream) {
-  return launch_fwd_bwd(x, x_bf16, row0, B, k_in, params, k_w, num_layers, skip_idx, nullptr, 0,
-                        0, target, mode, inv_n, acts, deltas, bias_part, loss_part, stream);
+                                 const float* params, const void* wb, int k_w, int num_layers,
+                                 int skip_idx, const float* target, int mode, float inv_n,
+                                 void* acts, void* deltas, float* bias_part, float* loss_part,
+                                 int* launched, void* stream) {
+  return launch_fwd_bwd(x, x_bf16, row0, B, k_in, params, wb, k_w, num_layers, skip_idx, nullptr,
+                        0, 0, target, mode, inv_n, acts, deltas, bias_part, loss_part, launched,
+                        stream);
 }
 
 // The view-dependent field: venc is the encoded view-direction table
 // beside x ([*, venc_w] row-major, x's dtype, the same rows), of which
 // lanes [0, venc_in) are read; venc_w = the view rows of Wc1 in params.
 extern "C" int fused_mlp_fwd_bwd_viewdep(const void* x, int x_bf16, long long row0, int B,
-                                         int k_in, const float* params, int k_w, int num_layers,
-                                         int skip_idx, const void* venc, int venc_in,
-                                         int venc_w, const float* target, int mode, float inv_n,
-                                         void* acts, void* deltas, float* bias_part,
-                                         float* loss_part, void* stream) {
+                                         int k_in, const float* params, const void* wb, int k_w,
+                                         int num_layers, int skip_idx, const void* venc,
+                                         int venc_in, int venc_w, const float* target, int mode,
+                                         float inv_n, void* acts, void* deltas,
+                                         float* bias_part, float* loss_part, int* launched,
+                                         void* stream) {
   if (venc == nullptr || venc_w <= 0) return (int)cudaErrorInvalidValue;
-  return launch_fwd_bwd(x, x_bf16, row0, B, k_in, params, k_w, num_layers, skip_idx, venc,
+  return launch_fwd_bwd(x, x_bf16, row0, B, k_in, params, wb, k_w, num_layers, skip_idx, venc,
                         venc_in, venc_w, target, mode, inv_n, acts, deltas, bias_part,
-                        loss_part, stream);
+                        loss_part, launched, stream);
 }
 
 // grads: flat f32 like params (every entry written); sums: [2] f32 (loss,

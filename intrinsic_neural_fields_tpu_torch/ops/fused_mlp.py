@@ -42,6 +42,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.autograd.graph import increment_version
 
 from .launches import _launches, kernel_launches, register, reset_kernel_launches  # noqa: F401
 
@@ -567,12 +568,18 @@ def apply_vjp_plain(layout, params, x, g):
     return train_grads_plain(layout, params, x, g, None)[0]
 
 
-class TrainScratch(NamedTuple):
+@dataclass(eq=False)
+class TrainScratch:
     """Per-batch-size device scratch of the train kernels (allocate once
-    per epoch): bf16 activations and deltas, per-block bias and loss
-    partial sums, the flat gradient, wgrad's partial tiles and its
-    per-tile arrival counters (zero between launches)."""
+    per epoch): the bf16 copy of the flat params that fwd_bwd reads its
+    weights from (``wb``, round to nearest even), bf16 activations and
+    deltas, per-64-row bias and loss partial sums, the flat gradient,
+    wgrad's partial tiles and its per-tile arrival counters (zero between
+    launches). ``wb_of``: the params tensor ``wb`` was rounded from and its
+    version counter then; the train kernels round the params again when
+    either differs (see ``_sync_wb``)."""
     B: int
+    wb: torch.Tensor
     acts: torch.Tensor
     deltas: torch.Tensor
     bias_part: torch.Tensor
@@ -580,16 +587,34 @@ class TrainScratch(NamedTuple):
     grads: torch.Tensor
     wpart: torch.Tensor
     counters: torch.Tensor
+    wb_of: tuple = (None, -1)
 
 
-def make_train_scratch(layout, B, device):
+def _sync_wb(scratch, params):
+    """Make ``scratch.wb`` params rounded to bf16: round them unless the copy
+    was made from this tensor at its current version. Every in-place write
+    to params bumps its version counter (``fused_adam_apply`` bumps it for
+    its kernel's writes), so a copy made before such a write is refreshed;
+    writes through ``params.data`` escape the counter, as they escape
+    autograd."""
+    src, version = scratch.wb_of
+    if src is not params or version != params._version:
+        scratch.wb.copy_(params.detach())
+        scratch.wb_of = (params, params._version)
+
+
+def make_train_scratch(layout, B, params):
+    """Scratch for batches of B rows on params' device; ``wb`` is filled
+    from params."""
     spec = layout.spec
     n_hid = len(layout.layers)
     nblk = -(-B // BLOCK_ROWS)
     nbp = spec.hidden * n_hid + OUT_PAD
-    kw = dict(device=device)
+    kw = dict(device=params.device)
     return TrainScratch(
         B=B,
+        wb=params.detach().to(torch.bfloat16),
+        wb_of=(params, params._version),
         acts=torch.empty(n_hid * B * spec.hidden, dtype=torch.bfloat16, **kw),
         deltas=torch.empty(n_hid * B * spec.hidden + B * OUT_PAD, dtype=torch.bfloat16, **kw),
         bias_part=torch.empty(nblk * nbp, dtype=torch.float32, **kw),
@@ -607,10 +632,11 @@ def _train_lib():
     lib = load("fused_mlp_train")
     if lib.fused_mlp_fwd_bwd.argtypes is None:
         P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.fused_mlp_fwd_bwd.argtypes = [P, I, LL, I, I, P, I, I, I, P, I, F, P, P, P, P, P]
+        lib.fused_mlp_fwd_bwd.argtypes = [P, I, LL, I, I, P, P, I, I, I, P, I, F, P, P, P, P,
+                                          P, P]
         lib.fused_mlp_wgrad.argtypes = [P, I, LL, I, I, I, I, I, P, P, P, P, P, P, P, P, P]
         lib.fused_mlp_fwd_bwd_viewdep.argtypes = (
-            [P, I, LL, I, I, P, I, I, I, P, I, I, P, I, F, P, P, P, P, P])
+            [P, I, LL, I, I, P, P, I, I, I, P, I, I, P, I, F, P, P, P, P, P, P])
         lib.fused_mlp_wgrad_viewdep.argtypes = (
             [P, I, LL, I, I, I, I, I, P, I, I, P, P, P, P, P, P, P, P, P])
         for fn in (lib.fused_mlp_fwd_bwd, lib.fused_mlp_wgrad, lib.fused_mlp_fwd_bwd_viewdep,
@@ -665,9 +691,10 @@ def _launch_fwd_bwd(layout, params, feats, row0, B, target, mode, inv_n, scratch
     spec = layout.spec
     lib = _train_lib()
     head = (feats.data_ptr(), int(feats.dtype == torch.bfloat16), row0, B, spec.k_in,
-            params.data_ptr(), spec.k_w, spec.num_layers, spec.skip_idx)
+            params.data_ptr(), scratch.wb.data_ptr(), spec.k_w, spec.num_layers, spec.skip_idx)
     rest = (target.data_ptr(), mode, inv_n, scratch.acts.data_ptr(), scratch.deltas.data_ptr(),
-            scratch.bias_part.data_ptr(), scratch.loss_part.data_ptr(), _stream(params))
+            scratch.bias_part.data_ptr(), scratch.loss_part.data_ptr(), _FB_LAUNCHED,
+            _stream(params))
     if layout.tail is None:
         name, rc = "fused_mlp_fwd_bwd", lib.fused_mlp_fwd_bwd(*head, *rest)
     else:
@@ -676,6 +703,16 @@ def _launch_fwd_bwd(layout, params, feats, row0, B, target, mode, inv_n, scratch
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     _launches[name] += 1
+
+
+# The shape of the last fwd_bwd launch, written by the C entry point.
+_FB_LAUNCHED = (ctypes.c_int * 5)()
+
+
+def last_fwd_bwd_launch():
+    """The shape the last fwd_bwd launch (either field) ran with: {"ctas",
+    "cluster", "threads", "smem_bytes", "x_resident"}."""
+    return dict(zip(("ctas", "cluster", "threads", "smem_bytes", "x_resident"), _FB_LAUNCHED))
 
 
 def _launch_wgrad(layout, feats, row0, B, scratch, grads, sums, vencs=None):
@@ -698,10 +735,14 @@ def _launch_wgrad(layout, feats, row0, B, scratch, grads, sums, vencs=None):
 
 
 def _train_kernels(layout, params, feats, row0, B, target, mode, scratch, grads, vencs=None):
+    """fwd_bwd + wgrad on scratch (None: a new one); its bf16 weight copy is
+    made to match params first."""
     if scratch is None:
-        scratch = make_train_scratch(layout, B, params.device)
+        scratch = make_train_scratch(layout, B, params)
     elif scratch.B != B:
         raise ValueError(f"scratch was made for B={scratch.B}, not {B}")
+    else:
+        _sync_wb(scratch, params)
     sums = torch.empty(2, dtype=torch.float32, device=params.device)
     inv_n = 1.0 / (B * 3)
     _launch_fwd_bwd(layout, params, feats, row0, B, target, mode, inv_n, scratch, vencs)
@@ -775,22 +816,31 @@ def _adam_fn():
 
     fn = load("fused_adam").fused_adam
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p,
+                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 @torch.no_grad()
-def fused_adam_apply(params, m, v, hyper, grads):
+def fused_adam_apply(params, m, v, hyper, grads, wb=None):
     """The Adam update over the flat buffers, IN PLACE on params, m and v
     (the port updates in place where the reference donated its buffers).
-    hyper: one [128] (or [1, 128]) row of ``adam_hyper_rows``.
+    hyper: one [128] (or [1, 128]) row of ``adam_hyper_rows``. wb: a bf16
+    buffer like params that receives the new params rounded to bf16 (the
+    train kernels' weight copy), or None.
     CPU: the plain twin. CUDA: csrc/fused_adam.cu, or an error."""
     if params.device.type == "cpu":
         for dst, src in zip((params, m, v), adam_apply_plain(params, m, v, hyper, grads)):
             dst.copy_(src)
+        if wb is not None:
+            wb.copy_(params)
         return
     n = params.numel()
+    if wb is not None and (wb.device != params.device or wb.dtype != torch.bfloat16
+                           or wb.numel() != n or not wb.is_contiguous()):
+        raise ValueError(f"fused_adam_apply: wb must be contiguous bfloat16 [{n}] on "
+                         f"{params.device}")
     for name, t in (("params", params), ("m", m), ("v", v), ("grads", grads)):
         if (t.device != params.device or t.dtype != torch.float32 or t.numel() != n
                 or not t.is_contiguous()):
@@ -800,10 +850,12 @@ def fused_adam_apply(params, m, v, hyper, grads):
             or hyper.numel() != 128 or not hyper.is_contiguous()):
         raise ValueError("fused_adam_apply: hyper must be one contiguous float32 [128] row")
     rc = _adam_fn()(params.data_ptr(), m.data_ptr(), v.data_ptr(), grads.data_ptr(),
-                    hyper.data_ptr(), n, _stream(params))
+                    hyper.data_ptr(), n, None if wb is None else wb.data_ptr(), _stream(params))
     if rc != 0:
         raise RuntimeError(f"fused_adam launch failed: cudaError {rc}")
     _launches["fused_adam"] += 1
+    for t in (params, m, v) if wb is None else (params, m, v, wb):
+        increment_version(t)  # the kernel wrote them in place
 
 
 def fused_train_adam(layout, params, m, v, hyper, feats, gt, block, batch_size,
@@ -812,11 +864,15 @@ def fused_train_adam(layout, params, m, v, hyper, feats, gt, block, batch_size,
     ``fused_adam_apply`` in place. Returns (loss_sum, sq_sum), 0-dim.
     On the card: fwd_bwd, wgrad, adam — three launches, no host sync (the
     tail's fwd_bwd and wgrad entry points with a tail; Adam is elementwise
-    over the flat buffer, the same kernel for both layouts)."""
+    over the flat buffer, the same kernel for both layouts). Adam writes
+    the new params' bf16 copy into the scratch's ``wb``, ready for the next
+    step."""
     if params.device.type == "cpu":
         grads, loss_sum, sq_sum = fused_train_grads(
             layout, params, feats, gt, block, batch_size, loss_type, vencs=vencs)
-        fused_adam_apply(params, m, v, hyper, grads)
+        fused_adam_apply(params, m, v, hyper, grads, None if scratch is None else scratch.wb)
+        if scratch is not None:
+            scratch.wb_of = (params, params._version)
         return loss_sum, sq_sum
     B = int(batch_size)
     if loss_type not in LOSS_MODES:
@@ -824,10 +880,11 @@ def fused_train_adam(layout, params, m, v, hyper, feats, gt, block, batch_size,
     _check_train_operands(layout, params, feats, gt, int(block) * B, B, "fused_train_adam",
                           vencs)
     if scratch is None:
-        scratch = make_train_scratch(layout, B, params.device)
+        scratch = make_train_scratch(layout, B, params)
     sums = _train_kernels(layout, params, feats, int(block) * B, B, gt,
                           LOSS_MODES[loss_type], scratch, scratch.grads, vencs)
-    fused_adam_apply(params, m, v, hyper, scratch.grads)
+    fused_adam_apply(params, m, v, hyper, scratch.grads, scratch.wb)
+    scratch.wb_of = (params, params._version)
     return sums[0], sums[1]
 
 

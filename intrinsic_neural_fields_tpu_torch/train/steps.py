@@ -215,7 +215,8 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         acc_n = torch.zeros((), dtype=torch.float32, device=dev)
         blocks = perm.tolist() if use_blocks else None
         perm_dev = None if use_blocks else perm.to(dev)
-        scratch = make_train_scratch(layout, B, dev) if (use_fused and dev.type == "cuda") else None
+        # the kernels' scratch, with the bf16 weight copy the Adam step keeps
+        scratch = make_train_scratch(layout, B, state.params) if use_fused else None
         for i in range(num_batches):
             if use_fused and use_blocks:
                 # stream block blocks[i] of the table through the kernels

@@ -174,12 +174,20 @@ def test_adam_kernel_equals_plain_twin(cuda):
     v = torch.rand(layout.n, generator=g, device=cuda) * 1e-6
     hyper = adam_hyper_rows(torch.tensor([9]), 1e-4, device=cuda)[0]
     want = adam_apply_plain(params, m, v, hyper, grads)
+    copies = [t.clone() for t in (params, m, v)]
     before = kernel_launches()["fused_adam"]
     fused_adam_apply(params, m, v, hyper, grads)
     torch.cuda.synchronize()
     assert kernel_launches()["fused_adam"] == before + 1
     for got, w in zip((params, m, v), want):  # -fmad=false: the same roundings
         assert torch.equal(got, w)
+    # with the train kernels' bf16 weight copy: the same f32 results, and
+    # the copy equals the twin's new params rounded to bf16
+    wb = torch.zeros(layout.n, dtype=torch.bfloat16, device=cuda)
+    fused_adam_apply(*copies, hyper, grads, wb)
+    for got, w in zip(copies, want):
+        assert torch.equal(got, w)
+    assert torch.equal(wb, want[0].to(torch.bfloat16))
 
 
 def test_train_adam_launches_three_kernels(cuda):
@@ -261,6 +269,92 @@ def test_train_epoch_on_card_tracks_cpu(cuda):
     diff = (results["cuda"][1] - results["cpu"][1]).abs()
     assert (diff > 2.5e-3).float().mean() <= 1e-3
     assert diff.max() <= 2 * 1e-3 * 8
+
+
+# The fwd_bwd kernel alone against its plain twin on every shape its
+# contract takes: batch sizes from one row to 64 clusters (ragged ones too),
+# feature widths that are and are not whole 16-byte rows (16, 100, 512,
+# 1023), bf16 and f32 tables, the plain and the view-dependent chain. L2
+# mode: loss and squared-error sums rel 1e-5, activations ||d||/||x|| <=
+# 1e-3 (ACT_TOL of chip_smoke.py); cotangent mode (a continuous seed): the
+# deltas <= 5e-2 and the bias sums <= 2e-2 (DELTA_TOL, BIAS_TOL); a second
+# run gives the same bits.
+FB_SHAPES = [(B, k) for B in (1, 64, 65, 1000, 4096) for k in (16, 100, 512, 1023)]
+
+
+@pytest.mark.parametrize("vd", [False, True], ids=["plain", "viewdep"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,k", FB_SHAPES)
+def test_fwd_bwd_kernel_matches_plain_twin(cuda, B, k, dtype, vd):
+    from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
+
+    N = B + 64
+    if vd:
+        layout, params, feats, _, vtable, gt = _vd_setup(cuda, "intrinsic", k=k, N=N, dtype=dtype)
+    else:
+        layout, params, feats, gt = _train_setup(cuda, k, N, dtype)
+        vtable = None
+    gt, cot = gt[:B].contiguous(), torch.randn(B, 3, device=cuda,
+                                               generator=torch.Generator(device=cuda).manual_seed(k))
+    sc = F.make_train_scratch(layout, B, params)
+    nh, H, nblk = len(layout.layers), 128, -(-B // 64)
+    x, v = feats[:B], (vtable[:B] if vd else None)
+    twin = F.fwd_bwd_viewdep_plain if vd else (lambda lay, p, x_, _v, t, lt: F.fwd_bwd_plain(
+        lay, p, x_, t, lt))
+
+    def norm_rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    name = "fused_mlp_fwd_bwd_viewdep" if vd else "fused_mlp_fwd_bwd"
+    before = kernel_launches()[name]
+    F._launch_fwd_bwd(layout, params, feats, 0, B, gt, F.LOSS_MODES["L2"], 1 / (3 * B), sc, vtable)
+    acts, _, _, loss, sq = twin(layout, params, x, v, gt, "L2")
+    torch.cuda.synchronize()
+    assert kernel_launches()[name] == before + 1
+    lsum = sc.loss_part.view(nblk, 2).sum(0)
+    assert abs(lsum[0].item() / loss.item() - 1) <= 1e-5
+    assert abs(lsum[1].item() / sq.item() - 1) <= 1e-5
+    assert norm_rel(sc.acts.view(nh, -1), acts.view(nh, -1)) <= 1e-3
+
+    F._launch_fwd_bwd(layout, params, feats, 0, B, cot, F.COTANGENT_MODE, 1 / (3 * B), sc, vtable)
+    _, deltas, bsum, _, _ = twin(layout, params, x, v, cot, None)
+    torch.cuda.synchronize()
+    first = [t.clone() for t in (sc.acts, sc.deltas, sc.bias_part)]
+    assert norm_rel(sc.deltas[:nh * B * H], deltas[:nh * B * H]) <= 5e-2
+    assert norm_rel(sc.deltas[nh * B * H:], deltas[nh * B * H:]) <= 5e-2
+    assert norm_rel(sc.bias_part.view(nblk, -1).sum(0), bsum) <= 2e-2
+    F._launch_fwd_bwd(layout, params, feats, 0, B, cot, F.COTANGENT_MODE, 1 / (3 * B), sc, vtable)
+    torch.cuda.synchronize()
+    for a, b in zip(first, (sc.acts, sc.deltas, sc.bias_part)):
+        assert torch.equal(a, b)
+    cfg = F.last_fwd_bwd_launch()  # the shape the last launch ran with
+    assert cfg["ctas"] == 2 * nblk and cfg["cluster"] == 2
+
+
+def test_train_step_refreshes_a_stale_weight_copy(cuda):
+    """A scratch made before the params moved (an in-place edit; an Adam
+    step that does not write the copy) gives the bits of a fresh scratch:
+    fwd_bwd never reads stale bf16 weights."""
+    from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
+
+    layout, params, feats, gt = _train_setup(cuda, 512, 8192, torch.bfloat16)
+    B = 4096
+    gt_b = gt[:B].contiguous()
+    sc = F.make_train_scratch(layout, B, params)
+    params.mul_(0.5)
+    got, _, _ = fused_train_grads(layout, params, feats, gt_b, 0, B, "L1", sc)
+    want, _, _ = fused_train_grads(layout, params, feats, gt_b, 0, B, "L1")
+    assert torch.equal(got, want)
+    m, v = torch.zeros_like(params), torch.zeros_like(params)
+    hyper = adam_hyper_rows(torch.tensor([1]), 1e-2, device=cuda)[0]
+    fused_adam_apply(params, m, v, hyper, want)  # the copy is not written
+    fresh = [t.clone() for t in (params, m, v)]
+    fused_train_adam(layout, params, m, v, hyper, feats, gt_b, 0, B, "L1", sc)
+    fused_train_adam(layout, *fresh, hyper, feats, gt_b, 0, B, "L1")
+    torch.cuda.synchronize()
+    for a, b in zip((params, m, v), fresh):
+        assert torch.equal(a, b)
+    assert torch.equal(sc.wb, params.to(torch.bfloat16))
 
 
 # The view-dependent field's tail kernels vs their plain twins (the same
@@ -434,18 +528,26 @@ def test_viewdep_epoch_on_card_tracks_cpu(cuda):
 # sort methods. Every method returns the permutation of a stable sort, so
 # the kernel, its plain twin and torch.sort(stable=True) agree to the bit.
 
-@pytest.mark.parametrize("n", [1, 255, 1000, 4096, 4097, 5000, 1 << 18, (1 << 18) + 1,
-                               1 << 20])
+@pytest.mark.parametrize("n", [1, 255, 1000, 4096, 4097, 5000, 1 << 14, (1 << 14) + 1, 1 << 15,
+                               1 << 16, 1 << 17, 1 << 18, (1 << 18) + 1, 1 << 20])
 def test_bitonic_kernel_matches_twin_and_sort(cuda, n):
-    from intrinsic_neural_fields_tpu_torch.ops.sort import bitonic_argsort, bitonic_argsort_vmem
+    """1 to 128 CTAs (2^14 to 2^18 keys: cooperative launches): one CUDA
+    launch per call up to 2^18, the plan's launches above."""
+    from intrinsic_neural_fields_tpu_torch.ops.sort import (bitonic_argsort,
+                                                            bitonic_argsort_vmem,
+                                                            device_max_ctas, sort_plan)
 
+    plan = sort_plan(n, device_max_ctas())
+    assert n > 1 << 18 or len(plan.launches) == 1
     g = torch.Generator(device="cuda").manual_seed(n)
     for hi in (max(2, n // 8), 1 << 30):  # dense duplicates, then nearly unique keys
         keys = torch.randint(0, hi, (n,), generator=g, device=cuda, dtype=torch.int32)
         before = kernel_launches()["bitonic_argsort"]
+        cuda_before = bitonic_argsort_vmem.cuda_launches
         got = bitonic_argsort_vmem(keys, 31)
         torch.cuda.synchronize()
         assert kernel_launches()["bitonic_argsort"] == before + 1
+        assert bitonic_argsort_vmem.cuda_launches - cuda_before == len(plan.launches)
         assert got.dtype == torch.int32 and got.device.type == "cuda"
         assert torch.equal(got.long(), torch.sort(keys, stable=True).indices)
         assert torch.equal(got, bitonic_argsort(keys, 31))

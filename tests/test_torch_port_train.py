@@ -150,6 +150,88 @@ def test_two_epochs_track_the_reference(models, fused_adam):
     assert st.count == adam["count"] == 8
 
 
+def _check_weight_copy_every_step(monkeypatch):
+    """Wrap train/steps.py's fused_train_adam: after each step the scratch's
+    bf16 weight copy (what the fwd_bwd kernel reads) must equal the params
+    rounded to bf16, bit for bit. Returns the list of checked steps."""
+    from intrinsic_neural_fields_tpu_torch.train import steps
+
+    checked, inner = [], steps.fused_train_adam
+
+    def step(layout, params, m, v, hyper, feats, gt, block, batch_size, loss_type="L1",
+             scratch=None, vencs=None):
+        out = inner(layout, params, m, v, hyper, feats, gt, block, batch_size, loss_type,
+                    scratch, vencs)
+        assert scratch is not None and scratch.wb.dtype == torch.bfloat16
+        assert torch.equal(scratch.wb, params.to(torch.bfloat16))
+        checked.append(block)
+        return out
+
+    monkeypatch.setattr(steps, "fused_train_adam", step)
+    return checked
+
+
+def test_bf16_weight_copy_equals_params_after_every_step(models, monkeypatch):
+    """Two epochs of 4 blocks through make_epoch_fns (the kernels' path,
+    plain twins on the CPU): the Adam step keeps the copy current."""
+    _, _, tmodel = models
+    checked = _check_weight_copy_every_step(monkeypatch)
+    _, td = _datasets(1024, 120, 1, "bfloat16")
+    t_epoch, _ = make_epoch_fns(tmodel, "L1", shuffle="blocks", fused=True)
+    st = create_train_state(tmodel, AdamHyper(LR), "cpu")
+    for e in range(2):
+        st, _ = t_epoch(st, np.arange(4)[::-1].copy() if e else np.arange(4), td, 4, 256)
+    assert len(checked) == 8 and st.count == 8
+
+
+def test_adam_twin_with_and_without_the_weight_copy():
+    """fused_adam_apply with a bf16 copy gives the same f32 params, m and v
+    as without one; the copy is the new params rounded to bf16."""
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import adam_hyper_rows, fused_adam_apply
+
+    rng = np.random.default_rng(4)
+    p, m, v, g = (torch.from_numpy(rng.normal(size=5000).astype(np.float32)) for _ in range(4))
+    v = v.abs() * 1e-4
+    hyper = adam_hyper_rows(torch.tensor([7]), 1e-3)[0]
+    with_copy = [t.clone() for t in (p, m, v)]
+    wb = torch.zeros(5000, dtype=torch.bfloat16)
+    fused_adam_apply(*with_copy, hyper, g, wb)
+    fused_adam_apply(p, m, v, hyper, g)
+    for a, b in zip(with_copy, (p, m, v)):
+        assert torch.equal(a, b)
+    assert torch.equal(wb, p.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("move", ["in_place_edit", "adam_without_copy", "other_tensor"])
+def test_stale_weight_copy_is_rounded_again(models, move):
+    """The scratch's bf16 weight copy follows the params it was made from:
+    after an in-place write (a load_state_dict, a manual edit, an Adam step
+    that does not write the copy) or for another params tensor, _sync_wb
+    rounds the params again; for the same unchanged tensor it keeps the
+    copy it has."""
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (
+        _sync_wb, adam_hyper_rows, fused_adam_apply, layout_for_model, make_train_scratch)
+
+    _, _, tmodel = models
+    layout = layout_for_model(tmodel)
+    params = layout.flat_from_state_dict(tmodel.state_dict())
+    sc = make_train_scratch(layout, 256, params)
+    assert torch.equal(sc.wb, params.to(torch.bfloat16))
+    sc.wb.zero_()  # a marker: the same unchanged params are not rounded again
+    _sync_wb(sc, params)
+    assert not sc.wb.any()
+    if move == "in_place_edit":
+        params.mul_(0.5)
+    elif move == "adam_without_copy":
+        g = torch.from_numpy(np.random.default_rng(3).normal(size=layout.n).astype(np.float32))
+        fused_adam_apply(params, torch.zeros_like(params), torch.zeros_like(params),
+                         adam_hyper_rows(torch.tensor([1]), 1e-2)[0], g)
+    else:
+        params = params * 2.0
+    _sync_wb(sc, params)
+    assert sc.wb.any() and torch.equal(sc.wb, params.to(torch.bfloat16))
+
+
 def test_eager_ragged_tail_matches_xla_step(models):
     """shuffle full, no table, 1000 records at batch 256 with the ragged
     tail (train_drop_last: false): the eager f32 step with the reference's
@@ -365,6 +447,18 @@ def test_trainer_runs_resumes_bit_exactly_and_logs_the_reference_tags(experiment
     jt.train()
     assert sorted({s[0] for s in first.scalars}) == sorted({s[0] for s in jt.writer.scalars})
     assert sorted(set(first.images)) == sorted(set(jt.writer.images))
+
+
+def test_bf16_weight_copy_after_resume(experiment, monkeypatch):
+    """A run resumed from checkpoint.pt makes its copy from the restored
+    params and keeps it current on every step of the resumed epoch."""
+    root, config = experiment
+    _port_trainer(config("wb_run", 1), Recorder()).train()
+    shutil.copytree(os.path.join(root, "wb_run"), os.path.join(root, "wb_resumed"))
+    checked = _check_weight_copy_every_step(monkeypatch)
+    resumed = _port_trainer(config("wb_resumed", 2), Recorder())
+    resumed.train()
+    assert len(checked) == 4 and resumed.state.count == 8
 
 
 def test_cli_trains_on_the_cpu(experiment):

@@ -363,6 +363,40 @@ def test_two_epochs_track_the_reference(setup, fused_adam):
     assert st.count == adam["count"] == 8
 
 
+def _check_weight_copy_every_step(monkeypatch):
+    """Wrap train/steps.py's fused_train_adam: after each step the scratch's
+    bf16 weight copy (what the tail fwd_bwd kernel reads) must equal the
+    params rounded to bf16, bit for bit. Returns the list of checked steps."""
+    from intrinsic_neural_fields_tpu_torch.train import steps
+
+    checked, inner = [], steps.fused_train_adam
+
+    def step(layout, params, m, v, hyper, feats, gt, block, batch_size, loss_type="L1",
+             scratch=None, vencs=None):
+        out = inner(layout, params, m, v, hyper, feats, gt, block, batch_size, loss_type,
+                    scratch, vencs)
+        assert layout.tail is not None and vencs is not None
+        assert torch.equal(scratch.wb, params.to(torch.bfloat16))
+        checked.append(block)
+        return out
+
+    monkeypatch.setattr(steps, "fused_train_adam", step)
+    return checked
+
+
+def test_bf16_weight_copy_equals_params_after_every_step(setup, monkeypatch):
+    """Two epochs of 4 blocks of the tail layout through make_epoch_fns (the
+    tail kernels' path, plain twins on the CPU)."""
+    s = setup
+    checked = _check_weight_copy_every_step(monkeypatch)
+    _, td = _with_jax_vencs(s, *_datasets(1024, 1, jax_icosphere(2).num_faces))
+    t_epoch, _ = make_epoch_fns(s["model"], "L1", shuffle="blocks", fused=True)
+    st = create_train_state(s["model"], AdamHyper(LR), "cpu")
+    for e in range(2):
+        st, _ = t_epoch(st, np.arange(4)[::-1].copy() if e else np.arange(4), td, 4, 256)
+    assert len(checked) == 8 and st.count == 8
+
+
 def test_eager_ragged_tail_and_val_match_xla(setup):
     """The view-dependent eager path (shuffle full, no table, a ragged tail
     of 1000 records at batch 256: the f32 forward encodes dirs and face ids
@@ -541,3 +575,15 @@ def test_trainer_runs_and_resumes_bit_exactly(experiment):
                  (resumed.state.mu, straight.state.mu), (resumed.state.nu, straight.state.nu)):
         assert torch.equal(a, b)
     assert resumed.state.count == straight.state.count == 12
+
+
+def test_bf16_weight_copy_after_resume(experiment, monkeypatch):
+    """A view-dependent run resumed from checkpoint.pt makes its copy from
+    the restored params and keeps it current on every step."""
+    root, config = experiment
+    _port_trainer(config("wb_run", 1), Recorder()).train()
+    shutil.copytree(os.path.join(root, "wb_run"), os.path.join(root, "wb_resumed"))
+    checked = _check_weight_copy_every_step(monkeypatch)
+    resumed = _port_trainer(config("wb_resumed", 2), Recorder())
+    resumed.train()
+    assert len(checked) == 4 and resumed.state.count == 8
