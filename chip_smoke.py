@@ -25,7 +25,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   (d) kernels: each kernel against its plain torch twin on the features
       each leg feeds it (its hit rays' interpolated rows), at B=8192 (the
       renderer's chunk) and a ragged B=1000 (tolerance 2e-3), timed with
-      CUDA events beside its bound;
+      CUDA events beside its bound; the forward's launch shape (2-CTA
+      clusters of 128-row CTAs at k=512, 64-row at k=1023) held to its
+      design;
   (s) sort_kernel: the bitonic argsort kernel against its plain twin and
       torch.sort(stable=True), equal to the bit, on the tracer's own keys
       (entry and overflow sorts of a 512^2 view over 81,920 faces and of a
@@ -57,7 +59,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       3 timed epochs after 1 warm-up;
   (g) train kernels: fwd_bwd, wgrad and Adam each against its plain twin on
       the batches each train leg feeds them (k=512 and k=1023, B=4096;
-      fwd_bwd's launch shape: 2-CTA clusters, 128 CTAs; Adam with and
+      fwd_bwd's launch shape: 2-CTA clusters, 128 CTAs; wgrad's: one
+      cluster of 8 CTAs per 128-row gradient tile, and two wgrad launches
+      equal to the bit; Adam with and
       without its bf16 weight copy), the autograd backward of fused_apply
       against torch.autograd of the plain forward, and its time; CUDA-event
       times beside bounds, plain and library times;
@@ -75,7 +79,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   (i) view-dependent kernels: each tail kernel against its plain twin on
       the batches the leg feeds it (B=4096 train blocks, B=8192 render
       chunks, a ragged B), one extrinsic batch (27 view lanes), Adam on
-      the view-dependent buffer; times beside bounds;
+      the view-dependent buffer; the launch shapes and wgrad's bits across
+      two launches as in (d) and (g); times beside bounds;
   (j) profile: torch.profiler over 4 pipelined render frames, one
       train-throughput epoch and one view-dependent train epoch;
   (k) the kernels summary line, the nvidia-smi line, and the result line.
@@ -146,13 +151,25 @@ SORT_SIZES = (1, 255, 1000, 5000, 1 << 18, (1 << 18) + 1, 1 << 20)
 # gate at 0.999 allows four times that many.
 AGREE_MIN = 0.999
 # Not measured here: the redesigned kernels' times before their redesign
-# and the train legs' rays/s then, as PERF.md section 6 records them (H100
-# 80GB HBM3 at 700 W). The phase rows print them under "cited_" keys beside
-# this run's numbers; the kernels line carries none of them.
+# and the train legs' best rays/s before the latest one, as PERF.md section
+# 6 records them (H100 80GB HBM3 at 700 W). The phase rows print them under
+# "cited_" keys beside this run's numbers; the kernels line carries none of
+# them.
 CITED_BEFORE_REDESIGN = {"fused_mlp_fwd_bwd": 0.1348, "fused_mlp_fwd_bwd_viewdep": 0.1744,
-                         "bitonic_argsort": 0.1505, "hq_train": 18.85e6,
-                         "viewdep_train": 15.10e6}
-REDESIGNED = ("fused_mlp_fwd_bwd", "fused_mlp_fwd_bwd_viewdep", "bitonic_argsort")
+                         "bitonic_argsort": 0.1505, "fused_mlp_fwd": 0.0650,
+                         "fused_mlp_fwd_viewdep": 0.0769, "fused_mlp_wgrad": 0.0517,
+                         "fused_mlp_wgrad_viewdep": 0.0608, "hq_train": 28.39e6,
+                         "viewdep_train": 23.60e6}
+REDESIGNED = ("fused_mlp_fwd_bwd", "fused_mlp_fwd_bwd_viewdep", "bitonic_argsort",
+              "fused_mlp_fwd", "fused_mlp_fwd_viewdep", "fused_mlp_wgrad",
+              "fused_mlp_wgrad_viewdep")
+# The designed launch shapes of the forward and wgrad. The forward: 2-CTA
+# clusters of 128-row CTAs (two warpgroups) while the CTA's resident bf16
+# feature tile fits in shared memory (k_w <= 512 here), else 64-row CTAs.
+# wgrad: one cluster of min(8, B/64) CTAs per 128-row gradient tile, 256
+# threads, a 3-stage ring of 32 KB chunks.
+FWD_ROWS = {512: 128, 1023: 64}
+WGRAD_SMEM = 3 * 32768
 # configs/synthetic/viewdep_intrinsic_blob.yaml's view_dependence section
 VIEWDEP = {"bottleneck_vec_dim": 128, "include_view_dir": True, "embed_size": 4,
            "directional_hidden_dim": 128, "in_dim_view_dir": 1, "strategy": "intrinsic"}
@@ -231,8 +248,12 @@ def phase_device():
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
+    # registers and spills per kernel; ptxas's notes that it inserted a
+    # warpgroup.arrive before a wgmma reading registers (C7519) are counted
     ptxas = {n: [ln.strip() for ln in b["ptxas"].splitlines()
-                 if "registers" in ln or "spill" in ln] for n, b in built.items()}
+                 if ("Used" in ln and "registers" in ln) or "spill" in ln]
+             + [f'{sum("C7519" in ln for ln in b["ptxas"].splitlines())} C7519 notes']
+             for n, b in built.items()}
     emit("device", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          build_s=build_s, built=sorted(built), ptxas=ptxas)
@@ -263,7 +284,8 @@ def phase_kernels(legs):
     weights: B=8192 (the renderer's chunk) and a ragged B."""
     import torch
 
-    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import fused_apply, fused_apply_plain
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (fused_apply, fused_apply_plain,
+                                                                 last_fwd_launch)
 
     rows = []
     for leg, (r, cams, K) in legs.items():
@@ -279,15 +301,33 @@ def phase_kernels(legs):
             row = {"leg": leg, "k": k, "B": B, "max_abs_err": diff.max().item(),
                    "mean_abs_err": diff.mean().item(),
                    "kernel_ms": cuda_ms(lambda: fused_apply(fw, x)),
+                   "launch": last_fwd_launch(),
                    "plain_ms": cuda_ms(lambda: fused_apply_plain(fw, x)),
                    "bound_ms": bound, "bound_by": bound_by}
+            if (leg, B) == ("hq_eval", 8192):
+                row["cited_ms_before_redesign"] = CITED_BEFORE_REDESIGN["fused_mlp_fwd"]
             emit("kernel_check", name="fused_mlp_fwd", tol=TOL, **row,
                  library="none: no single PyTorch call computes the whole MLP")
             rows.append(row)
     for row in rows:
         check(row["max_abs_err"] <= TOL, "fused_mlp_fwd disagrees with its plain twin: "
               f"{row['max_abs_err']} > {TOL} (k={row['k']}, B={row['B']})")
+        check_fwd_launch(row["launch"], row["k"], row["B"], "fused_mlp_fwd")
     return rows
+
+
+def check_fwd_launch(launch, k, B, name):
+    rows = FWD_ROWS[k]
+    check(launch["cluster"] == 2 and launch["rows"] == rows and launch["threads"] == 2 * rows
+          and launch["ctas"] == 2 * -(-B // rows),
+          f"{name} (k={k}, B={B}) does not launch 2-CTA clusters of {rows}-row CTAs: {launch}")
+
+
+def check_wgrad_launch(launch, tiles, B, name):
+    split = min(8, -(-B // 64))
+    check(launch == {"ctas": tiles * split, "cluster": split, "threads": 256,
+                     "smem_bytes": WGRAD_SMEM, "tiles": tiles},
+          f"{name} does not launch {tiles} clusters of {split} CTAs: {launch}")
 
 
 def phase_hq_prep():
@@ -914,6 +954,16 @@ def _per_tensor(layout, got, want):
     return mx, nr, ab
 
 
+def _wgrad_again_bit_equal(F, layout, table, B, sc, grads, sums, vtable=None):
+    """Launch wgrad again on the same scratch: the same bits as grads, sums."""
+    import torch
+
+    g2, s2 = torch.empty_like(grads), torch.empty_like(sums)
+    F._launch_wgrad(layout, table, 0, B, sc, g2, s2, vtable)
+    torch.cuda.synchronize()
+    return torch.equal(g2, grads) and torch.equal(s2, sums)
+
+
 def phase_train_kernels(legs):
     """Each train kernel against its plain twin on the batch each train leg
     feeds it (block 0 of its table, B=4096), and timed."""
@@ -993,8 +1043,12 @@ def phase_train_kernels(legs):
         torch.cuda.synchronize()
         mx, nr, ab = _per_tensor(layout, grads, want)
         wg = {"max_rel": mx, "norm_rel": nr, "max_abs_err": ab,
-              "sums_equal": torch.equal(sums, lsum)}
+              "sums_equal": torch.equal(sums, lsum), "launch": F.last_wgrad_launch(),
+              "bit_equal_across_launches": _wgrad_again_bit_equal(F, layout, table, B, sc, grads,
+                                                                  sums)}
         check(mx <= WGRAD_TOL, f"{leg}: wgrad disagrees with its plain twin {wg}")
+        check(wg["bit_equal_across_launches"], f"{leg}: two wgrad launches differ")
+        check_wgrad_launch(wg["launch"], {512: 13, 1023: 21}[spec.k_in], B, f"{leg}: wgrad")
 
         # the two together vs the whole plain twin: L1 (reported) and the
         # forward's VJP (gated), the backward of fused_apply_trainable
@@ -1066,6 +1120,8 @@ def phase_train_kernels(legs):
         check(fb["launch"]["ctas"] == 2 * nblk == 128 and fb["launch"]["cluster"] == 2,
               f"{leg}: fwd_bwd does not launch 2-CTA clusters per 64 rows: {fb['launch']}")
         wg["ms"] = cuda_ms(lambda: F._launch_wgrad(layout, table, 0, B, sc, grads, sums))
+        if leg == "hq_train":
+            wg["cited_ms_before_redesign"] = CITED_BEFORE_REDESIGN["fused_mlp_wgrad"]
         wg["plain_ms"] = cuda_ms(lambda: F.wgrad_plain(layout, x, sc.acts, sc.deltas, bsum))
         A = sc.acts.view(L - 1, B, H)
         D = sc.deltas[:(L - 1) * B * H].view(L - 1, B, H)
@@ -1279,8 +1335,13 @@ def _vd_check_train(F, layout, params, table, vtable, gt, B, leg):
     want = F.wgrad_viewdep_plain(layout, x, v, sc.acts, sc.deltas, bsum)
     torch.cuda.synchronize()
     mx, nr, ab = _per_tensor(layout, grads, want)
-    wg = {"max_rel": mx, "norm_rel": nr, "max_abs_err": ab, "sums_equal": torch.equal(sums, lsum)}
+    wg = {"max_rel": mx, "norm_rel": nr, "max_abs_err": ab, "sums_equal": torch.equal(sums, lsum),
+          "launch": F.last_wgrad_launch(),
+          "bit_equal_across_launches": _wgrad_again_bit_equal(F, layout, table, B, sc, grads, sums,
+                                                              vtable)}
     check(mx <= WGRAD_TOL, f"{leg}: wgrad_viewdep disagrees with its plain twin {wg}")
+    check(wg["bit_equal_across_launches"], f"{leg}: two wgrad_viewdep launches differ")
+    check_wgrad_launch(wg["launch"], 16, B, f"{leg}: wgrad_viewdep")
 
     # the whole tail backward on the cotangent seed vs the whole twin
     g_k = torch.empty(layout.n, device="cuda")
@@ -1333,12 +1394,16 @@ def phase_viewdep_kernels(vd_leg, vd_render):
              "max_abs_err": (got - want).abs().max().item(),
              "mean_abs_err": (got - want).abs().mean().item(),
              "ms": cuda_ms(lambda: F.fused_apply_viewdep(fw, x, v)),
+             "launch": F.last_fwd_launch(),
              "plain_ms": cuda_ms(lambda: F.fused_apply_viewdep_plain(fw, x, v)),
              "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
         emit("kernel_check", name="fused_mlp_fwd_viewdep", leg="viewdep_eval", k=512,
              tol=TOL_VD, mean_tol=MEAN_TOL_VD, **r)
         check(r["max_abs_err"] <= TOL_VD and r["mean_abs_err"] <= MEAN_TOL_VD,
               f"fused_mlp_fwd_viewdep disagrees: {r}")
+        check_fwd_launch(r["launch"], 512, Bf, "fused_mlp_fwd_viewdep")
+        if Bf == 8192:
+            r["cited_ms_before_redesign"] = CITED_BEFORE_REDESIGN["fused_mlp_fwd_viewdep"]
         fwd_rows.append(r)
     rows["fused_mlp_fwd_viewdep"] = fwd_rows[0]
     rows["fused_mlp_fwd_viewdep"]["max_abs_err"] = max(r["max_abs_err"] for r in fwd_rows)
@@ -1396,6 +1461,7 @@ def phase_viewdep_kernels(vd_leg, vd_render):
     check(fb["launch"]["ctas"] == 128 and fb["launch"]["cluster"] == 2,
           f"fwd_bwd_viewdep does not launch 2-CTA clusters per 64 rows: {fb['launch']}")
     wg["ms"] = cuda_ms(lambda: F._launch_wgrad(layout, table, 0, B, sc, grads, sums, vtable))
+    wg["cited_ms_before_redesign"] = CITED_BEFORE_REDESIGN["fused_mlp_wgrad_viewdep"]
     wg["plain_ms"] = cuda_ms(lambda: F.wgrad_viewdep_plain(layout, x, v, sc.acts, sc.deltas, bsum))
     nh, H = len(layout.layers), layout.spec.hidden
     A = sc.acts.view(nh, B, H)
@@ -1548,6 +1614,7 @@ def main():
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the whole MLP
+        "redesigned": True,
     }]
     tail = " (tail=ViewDepTailSpec)"
     sources = {"fused_mlp_fwd_bwd": ("fused_mlp_train.cu", "961", ["634", "700", "1305"]),

@@ -1,5 +1,5 @@
 // Fused skip-MLP forward for the texture field, hand-written for Hopper
-// (sm_90a), bf16 tensor cores through nvcuda::wmma 16x16x16 fragments.
+// (sm_90a): wgmma, 2-CTA thread-block clusters, cp.async weight tiles.
 //
 // Replaces the TPU kernels of intrinsic_neural_fields_tpu/ops/fused_mlp.py:
 // make_fused_apply's forward pallas_call (body _make_fwd_kernel over
@@ -19,267 +19,398 @@
 // k=1024) against 4*k bytes of f32 input read once, i.e. ~190 FLOP/byte —
 // below the H100's ~295 FLOP/byte bf16 ridge, so the ideal kernel is bound
 // by reading x from device memory (bytes), with the tensor cores close
-// behind. The design therefore reads x exactly as given (unpadded f32,
-// converted to bf16 in the load, no padded copy in device memory) and keeps
-// every activation on chip: h lives in shared memory as bf16 between
-// layers, and only 3 f32 columns per ray are written back.
+// behind. The view-dependent field adds the bottleneck and the concat layer
+// (+17.9k MACs and 4*venc_in bytes per ray: still bytes).
 //
-// The view-dependent field is the same chain with two more 128-wide relu
-// layers: the bottleneck (the spatial head, relu instead of sigmoid) and
-// the concat layer, whose second operand is the block's encoded view
-// directions read straight from their f32 rows (lanes past venc_in read as
-// zero), as the skip layer reads the features. Its bound is the same as the
-// plain forward's (+17.9k MACs and 4*venc_in bytes per ray: bytes).
-//
-// Unlike the TPU kernel, which keeps all weights resident in VMEM, the
-// weights do not fit in shared memory (at k=512 the input and skip-x
-// matrices are 128 KB each in bf16, 256 KB each at k=1024 against 227 KB
-// per block), so they are streamed through shared memory in KC-row chunks;
-// every block re-reads them, mostly from the 50 MB L2. Ragged K and B edges
-// are masked in the x load (zero padding contributes nothing, as in the
-// reference). This first version is simple: one 64-row block per 256
-// threads, synchronous chunk loads, no double buffering.
+// Design: the forward half of the train kernel's fwd_bwd (fused_mlp_train.cu,
+// device code shared through mlp_tiles.cuh). One cluster of two CTAs per
+// ROWS batch rows; CTA c computes columns [64c, 64c+64) of every 128-wide
+// layer with wgmma m64n64k16, one consumer warpgroup per 64 rows (ROWS =
+// 128, two warpgroups sharing every weight tile, when the CTA's resident
+// feature tile fits in shared memory; else 64). A layer's bf16 output
+// feeds the next layer as register A fragments (own half) and through the
+// partner's shared memory (its half, behind a split cluster barrier).
+// Weight tiles of the bf16 pack (ParamLayout.pack: the train kernels'
+// layout) stream through a 3-stage cp.async ring, two tiles ahead, driven
+// by the tile program (tile_at). x is f32 and the dominant byte stream: it
+// is read once, each chunk two tiles ahead into registers while earlier
+// chunks' products run, rounded to bf16 once into the CTA's resident
+// ROWS x k_w feature tile, which the skip layer reads again from shared
+// memory. The head (16 columns) runs in both CTAs on the same registers;
+// CTA 0 writes the 3 sigmoid outputs. Ragged K and B edges read as zero
+// (zero padding contributes nothing, as in the reference).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "mlp_tiles.cuh"
 
 namespace {
 
-constexpr int BM = 64;         // rows (rays) per block
-constexpr int HID = 128;       // hidden width
-constexpr int KC = 64;         // weight rows per streamed chunk
-constexpr int OUTW = 16;       // head padded to one fragment width
-constexpr int NOUT = 3;        // real output columns
-constexpr int NTHREADS = 256;  // 8 warps: 4 row tiles x 2 column halves
-constexpr int LDH = HID + 8;   // row strides padded by 16 bytes against
-constexpr int LDX = KC + 8;    // shared-memory bank conflicts; multiples of
-constexpr int LDW = HID + 8;   // 8 elements as wmma requires
-constexpr int LDS = HID + 4;   // f32 staging stride (multiple of 4)
-constexpr int VENC_MAX = KC;   // most view-encoding lanes (one x tile)
+constexpr int VENC_MAX = KC;  // most view-encoding lanes (one x tile)
 
-struct Smem {
-  __nv_bfloat16 h[BM * LDH];  // current activations, bf16
-  __nv_bfloat16 x[BM * LDX];  // one K-chunk of the input, bf16
-  __nv_bfloat16 w[KC * LDW];  // one K-chunk of a weight matrix
-  float st[BM * LDS];         // f32 accumulator staging for the epilogue
-};
+#ifndef FWD_FORCE_ROWS
+#define FWD_FORCE_ROWS 0  // 64 or 128: a fixed CTA height (ablation builds only)
+#endif
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+// One CTA: WG consumer warpgroups, ROWS = 64 * WG batch rows.
+template <int WG>
+struct FwdCta {
+  static constexpr int NT = 128 * WG;
+  static constexpr int ROWS = BM * WG;
+  static constexpr int LBO = ROWS * 16;        // K-major A tiles: k-group stride
+  static constexpr int CHUNK = ROWS * KC * 2;  // one 64-lane chunk of the feature tile
 
-// nrows (<= KC) rows of a row-major [*, ncols] bf16 matrix into s.w
-// (16-byte vectors).
-__device__ __forceinline__ void load_w_chunk(__nv_bfloat16* ws, const __nv_bfloat16* src,
-                                             int ncols, int tid, int nrows = KC) {
-  const int vec_per_row = ncols / 8;
-  const int total = nrows * vec_per_row;
-  for (int i = tid; i < total; i += NTHREADS) {
-    const int r = i / vec_per_row;
-    const int c = (i - r * vec_per_row) * 8;
-    *reinterpret_cast<uint4*>(ws + r * LDW + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * ncols + c);
-  }
-}
+  const float* xrows;  // the CTA's first feature row ([*, k_in] f32)
+  const float* vrows;  // its view encodings ([*, venc_in] f32; VD)
+  int k_in, venc_in, venc_w, nrows, nch, tid, n0, n_tiles;
+  bool x_vec;          // float4 feature loads
+  const __nv_bfloat16* wpack;
+  const Tile* prog;
+  unsigned char* wring;  // STAGES weight tiles
+  unsigned char* xs;     // the resident ROWS x k_w bf16 feature tile
+  unsigned char* vs;     // the ROWS x venc_w bf16 view tile (VD)
 
-// Columns [k0, k0+KC) of the block's 64 input rows, f32 -> bf16 (RNE);
-// rows >= B and columns >= k_in read as zero.
-__device__ __forceinline__ void load_x_chunk(__nv_bfloat16* xs, const float* __restrict__ x,
-                                             int row0, int B, int k_in, int k0, int tid) {
-  for (int i = tid; i < BM * KC; i += NTHREADS) {
-    const int r = i / KC;
-    const int c = i - r * KC;
-    const int gr = row0 + r;
-    const int gc = k0 + c;
-    const float v = (gr < B && gc < k_in) ? __ldg(x + (size_t)gr * k_in + gc) : 0.0f;
-    xs[r * LDX + c] = __float2bfloat16_rn(v);
-  }
-}
-
-// Lanes [0, venc_w) of the block's 64 view-encoding rows ([B, venc_in]
-// f32), -> bf16; rows >= B and lanes >= venc_in read as zero.
-__device__ __forceinline__ void load_v_rows(__nv_bfloat16* xs, const float* __restrict__ v,
-                                            int row0, int B, int venc_in, int venc_w, int tid) {
-  for (int i = tid; i < BM * venc_w; i += NTHREADS) {
-    const int r = i / venc_w;
-    const int c = i - r * venc_w;
-    const int gr = row0 + r;
-    const float val = (gr < B && c < venc_in) ? __ldg(v + (size_t)gr * venc_in + c) : 0.0f;
-    xs[r * LDX + c] = __float2bfloat16_rn(val);
-  }
-}
-
-// acc[j] += A[16 x KC] . W[KC x 16] for NF column fragments starting at col0.
-template <int NF>
-__device__ __forceinline__ void mma_chunk(const __nv_bfloat16* a_base, int lda,
-                                          const __nv_bfloat16* ws, int col0, FragC (&acc)[NF]) {
+  // This thread's 32 values of feature chunk ch (rows past nrows, lanes
+  // past k_in: zero), loaded into registers.
+  __device__ __forceinline__ void load_x(float (&v)[32], int ch) const {
+    if (x_vec) {
 #pragma unroll
-  for (int kk = 0; kk < KC; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, a_base + kk, lda);
+      for (int i = 0; i < 8; ++i) {
+        const int j = tid + NT * i, m = j >> 4, k = KC * ch + 4 * (j & 15);
+        const float4 q = m < nrows && k < k_in
+                             ? __ldg(reinterpret_cast<const float4*>(xrows + (size_t)m * k_in + k))
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        v[4 * i] = q.x; v[4 * i + 1] = q.y; v[4 * i + 2] = q.z; v[4 * i + 3] = q.w;
+      }
+    } else {
 #pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      FragB b;
-      wmma::load_matrix_sync(b, ws + kk * LDW + col0 + j * 16, LDW);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
+      for (int i = 0; i < 32; ++i) {
+        const int j = tid + NT * i, m = j >> 6, k = KC * ch + (j & 63);
+        v[i] = m < nrows && k < k_in ? __ldg(xrows + (size_t)m * k_in + k) : 0.0f;
+      }
     }
   }
-}
 
-// Weight pack (bf16, row-major [in, out], in layer order; the skip layer
-// holds Wh then Wx): input [k_w,128], hidden [128,128], skip Wh [128,128] +
-// Wx [k_w,128], output [128,16]. Bias pack (f32) in the same order:
-// 128 per matrix, 16 for the head. k_w = k_in rounded up to KC, zero rows.
-// With venc (the view-dependent field) the output slot holds the
-// bottleneck [128,128], then come Wc1 [128 + venc_w, 128] (bottleneck rows,
-// then the view rows) and the RGB head [128,16]; biases 128, 128, 16.
-// VD: the view-dependent chain (a separate instantiation, so the plain
-// field's kernel is compiled without the concat layer's code).
-template <bool VD>
-__global__ void __launch_bounds__(NTHREADS)
-fused_mlp_fwd_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wpack,
-                     const float* __restrict__ bpack, float* __restrict__ out, int B,
-                     int k_in, int k_w, int num_layers, int skip_idx,
-                     const float* __restrict__ venc, int venc_in, int venc_w) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int rt = warp & 3;   // 16-row tile of the block
-  const int cg = warp >> 2;  // 64-column half of the layer output
-  const int row0 = blockIdx.x * BM;
-  const __nv_bfloat16* w = wpack;
-  const float* b = bpack;
-  // relu layers: the spatial ones, then the bottleneck and the concat layer
-  const int n_relu = VD ? num_layers + 1 : num_layers - 1;
-  const int cat = VD ? num_layers : -1;
-
-  for (int layer = 0; layer < n_relu; ++layer) {
-    FragC acc[4];
+  // Those values, rounded to bf16, into the resident tile (K-major core
+  // matrices: (m, k) at (k/8)*LBO + (m/8)*128 + (m%8)*16 + (k%8)*2).
+  __device__ __forceinline__ void store_x(const float (&v)[32], int ch) const {
+    unsigned char* dst = xs + ch * CHUNK;
+    if (x_vec) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    const float* bias_h = b;
-    const float* bias_x = nullptr;
-    b += HID;
-
-    if (layer > 0) {  // h . W  (W [128,128])
-      for (int k0 = 0; k0 < HID; k0 += KC) {
-        load_w_chunk(s.w, w + (size_t)k0 * HID, HID, tid);
-        __syncthreads();
-        mma_chunk<4>(s.h + rt * 16 * LDH + k0, LDH, s.w, cg * 64, acc);
-        __syncthreads();
+      for (int i = 0; i < 8; ++i) {
+        const int j = tid + NT * i, m = j >> 4, k = 4 * (j & 15);
+        *reinterpret_cast<uint2*>(dst + (k >> 3) * LBO + (m >> 3) * 128 + (m & 7) * 16 +
+                                  (k & 7) * 2) =
+            make_uint2(pack_bf16(v[4 * i], v[4 * i + 1]), pack_bf16(v[4 * i + 2], v[4 * i + 3]));
       }
-      w += HID * HID;
-    }
-    if (layer == 0 || layer == skip_idx) {  // x . W  (W [k_w,128])
-      if (layer == skip_idx) {
-        bias_x = b;
-        b += HID;
-      }
-      for (int k0 = 0; k0 < k_w; k0 += KC) {
-        load_x_chunk(s.x, x, row0, B, k_in, k0, tid);
-        load_w_chunk(s.w, w + (size_t)k0 * HID, HID, tid);
-        __syncthreads();
-        mma_chunk<4>(s.x + rt * 16 * LDX, LDX, s.w, cg * 64, acc);
-        __syncthreads();
-      }
-      w += (size_t)k_w * HID;
-    }
-    if (VD && layer == cat) {  // venc . Wv  (the view rows of Wc1, [venc_w,128])
-      // venc_w/16 wmma k-steps over venc_w loaded rows. The train kernel's
-      // form (one whole KC chunk, weight rows past venc_w zeroed) is faster
-      // there but not here: on an H100 it took this kernel from 0.077 to
-      // 0.087 ms at k=512, B=8192.
-      load_v_rows(s.x, venc, row0, B, venc_in, venc_w, tid);
-      load_w_chunk(s.w, w, HID, tid, venc_w);
-      __syncthreads();
-      for (int kk = 0; kk < venc_w; kk += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, s.x + rt * 16 * LDX + kk, LDX);
+    } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          FragB bf;
-          wmma::load_matrix_sync(bf, s.w + kk * LDW + cg * 64 + j * 16, LDW);
-          wmma::mma_sync(acc[j], a, bf, acc[j]);
+      for (int i = 0; i < 32; ++i) {
+        const int j = tid + NT * i, m = j >> 6, k = j & 63;
+        *reinterpret_cast<__nv_bfloat16*>(dst + (k >> 3) * LBO + (m >> 3) * 128 + (m & 7) * 16 +
+                                          (k & 7) * 2) = __float2bfloat16_rn(v[i]);
+      }
+    }
+  }
+
+  // Issue the loads of tile t into ring slot t % STAGES (one commit group
+  // per tile, empty past the program's end); the concat layer's tile also
+  // converts the view rows into vs.
+  __device__ void issue(int t) const {
+    if (t < n_tiles) {
+      const Tile d = prog[t];
+      load_fwd_w_tile<NT>(wring + (t % STAGES) * TILE_BYTES, wpack + d.w, d.kind, d.k0, n0,
+                          d.kind == T_FWD ? KC : venc_w, tid,
+                          [](void* dst, const __nv_bfloat16* src) { cp16(dst, src); });
+      if (d.kind == T_FWD_VENC) {
+        for (int i = tid; i < ROWS * venc_w; i += NT) {
+          const int m = i / venc_w, k = i - m * venc_w;
+          const float v = m < nrows && k < venc_in ? __ldg(vrows + (size_t)m * venc_in + k) : 0.0f;
+          *reinterpret_cast<__nv_bfloat16*>(vs + (k >> 3) * LBO + (m >> 3) * 128 + (m & 7) * 16 +
+                                            (k & 7) * 2) = __float2bfloat16_rn(v);
         }
       }
-      __syncthreads();
-      w += (size_t)venc_w * HID;
     }
-
-    // Epilogue: f32 bias add(s) in the reference order, relu, bf16 h.
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(s.st + rt * 16 * LDS + cg * 64 + j * 16, acc[j], LDS,
-                              wmma::mem_row_major);
-    __syncthreads();
-    for (int i = tid; i < BM * HID; i += NTHREADS) {
-      const int r = i / HID;
-      const int c = i - r * HID;
-      float v = s.st[r * LDS + c] + bias_h[c];
-      if (bias_x != nullptr) v = v + bias_x[c];
-      s.h[r * LDH + c] = __float2bfloat16_rn(fmaxf(v, 0.0f));
-    }
-    __syncthreads();
+    cp_commit();
   }
+};
 
-  // Output head: h . Wo ([128,16], 3 real columns), warps of column half 0.
-  FragC acc_o[1];
-  wmma::fill_fragment(acc_o[0], 0.0f);
-  for (int k0 = 0; k0 < HID; k0 += KC) {
-    load_w_chunk(s.w, w + (size_t)k0 * OUTW, OUTW, tid);
-    __syncthreads();
-    if (cg == 0) mma_chunk<1>(s.h + rt * 16 * LDH + k0, LDH, s.w, 0, acc_o);
-    __syncthreads();
-  }
-  if (cg == 0)
-    wmma::store_matrix_sync(s.st + rt * 16 * LDS, acc_o[0], LDS, wmma::mem_row_major);
+// Shared memory of a CTA: the weight ring, the feature tile, the view tile
+// (VD), two exchange slots per warpgroup, the tile program.
+int fwd_smem(int wg, int k_w, bool vd, int n_tiles) {
+  return STAGES * TILE_BYTES + BM * wg * k_w * 2 + (vd ? BM * wg * KC * 2 : 0) +
+         2 * wg * XCHG_BYTES + n_tiles * (int)sizeof(Tile);
+}
+
+// Weight pack (bf16, ParamLayout's matrix region) and bias pack (f32, its
+// bias region): see mlp_tiles.cuh:Net. VD: the view-dependent chain (a
+// separate instantiation, so the plain field's kernel is compiled without
+// the concat layer's code).
+template <int WG, bool VD>
+__global__ void __launch_bounds__(128 * WG, 1)
+fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ venc,
+                     const __nv_bfloat16* __restrict__ wpack, const float* __restrict__ bpack,
+                     float* __restrict__ out, int B, Net net, int venc_in, int n_tiles) {
+  using Cta = FwdCta<WG>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = (int)cl.block_rank();  // which half of the columns
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2);  // this thread's rows r0 and r0 + 8 of its warpgroup
+  const int cq = 2 * (lane & 3);           // and columns 8j + cq, 8j + cq + 1
+  const int brow = (blockIdx.x >> 1) * Cta::ROWS;
+  const int wrow = brow + BM * wg;          // the warpgroup's first row
+  const int nh = net.nh;
+  const int n0 = HALF * c;
+
+  Cta f;
+  f.xrows = x + (size_t)brow * net.k_in;
+  f.vrows = VD ? venc + (size_t)brow * venc_in : nullptr;
+  f.k_in = net.k_in;
+  f.venc_in = venc_in;
+  f.venc_w = net.venc_w;
+  f.nrows = min(Cta::ROWS, B - brow);
+  f.nch = net.k_w / KC;
+  f.tid = tid;
+  f.n0 = n0;
+  f.n_tiles = n_tiles;
+  f.x_vec = net.k_in % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  f.wpack = wpack;
+  f.wring = smem_raw;
+  f.xs = f.wring + STAGES * TILE_BYTES;
+  f.vs = f.xs + (size_t)f.nch * Cta::CHUNK;
+  uint4* xchg = reinterpret_cast<uint4*>(f.vs + (VD ? Cta::ROWS * KC * 2 : 0));  // 2 x WG slots
+  Tile* prog = reinterpret_cast<Tile*>(reinterpret_cast<unsigned char*>(xchg) +
+                                       2 * WG * XCHG_BYTES);
+  for (int i = tid; i < n_tiles; i += Cta::NT) prog[i] = tile_at(net, i, true, c);
+  f.prog = prog;
   __syncthreads();
-  for (int i = tid; i < BM * NOUT; i += NTHREADS) {
-    const int r = i / NOUT;
-    const int c = i - r * NOUT;
-    const int gr = row0 + r;
-    if (gr < B) {
-      const float z = s.st[r * LDS + c] + b[c];
-      out[(size_t)gr * NOUT + c] = 1.0f / (1.0f + expf(-z));
+
+  uint32_t own[4][4], par[4][4];  // A fragments of this CTA's / the partner's half
+  float acc[32];
+  float2 bh2[8], bx2[8];  // a layer's biases at this thread's columns
+  float xa[32], xb[32];   // feature chunks in flight (even, odd)
+  int t = 0;
+  f.issue(0);
+  f.issue(1);
+  f.load_x(xa, 0);
+  if (f.nch > 1) f.load_x(xb, 1);
+
+  // own -> exchange slot s (this warpgroup's part), then arrive at the
+  // cluster barrier
+  auto publish = [&](int s) {
+    uint4* mine = xchg + (s * WG + wg) * 4 * 128;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      mine[q * 128 + wtid] = make_uint4(own[q][0], own[q][1], own[q][2], own[q][3]);
+    cluster_arrive();
+  };
+  // wait at the cluster barrier, then the partner's slot s -> par
+  auto fetch = [&](int s) {
+    cluster_wait();
+    const uint4* theirs = cl.map_shared_rank(xchg + (s * WG + wg) * 4 * 128, c ^ 1);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = theirs[q * 128 + wtid];
+      par[q][0] = v.x; par[q][1] = v.y; par[q][2] = v.z; par[q][3] = v.w;
+    }
+  };
+  // acc += own . tile (mine) or par . tile: the tile holds that half's k rows
+  auto mma_h = [&](bool mine) {
+    const unsigned char* ws = f.wring + (t % STAGES) * TILE_BYTES;
+    wg_fence();
+    if (mine) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wgmma_rs64<1>(acc, own[q], gmma_desc(ws + q * 2048, 1024, 128));
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wgmma_rs64<1>(acc, par[q], gmma_desc(ws + q * 2048, 1024, 128));
+    }
+    wg_commit();
+  };
+  // acc += rows . tile, the A operand a resident K-major tile (k-steps of 16)
+  auto mma_rows = [&](const unsigned char* a, int ksteps) {
+    const unsigned char* ws = f.wring + (t % STAGES) * TILE_BYTES;
+    wg_fence();
+    for (int q = 0; q < ksteps; ++q)
+      wgmma_ss64(acc, gmma_desc(a + q * 2 * Cta::LBO + wg * 1024, Cta::LBO, 128),
+                 gmma_desc(ws + q * 2048, 1024, 128));
+    wg_commit();
+  };
+  auto next_tile = [&]() {
+    f.issue(t + 2);
+    wg_wait(acc);
+    ++t;
+  };
+
+  for (int layer = 0; layer < nh; ++layer) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    {  // the epilogue's biases, loaded while the products run
+      const float* bh = bpack + net.b[layer] + n0;
+      const float* bx = bpack + net.b_x + n0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        bh2[j] = *reinterpret_cast<const float2*>(bh + 8 * j + cq);
+        bx2[j] = layer == net.skip ? *reinterpret_cast<const float2*>(bx + 8 * j + cq)
+                                   : make_float2(0.0f, 0.0f);
+      }
+    }
+    if (layer > 0) {  // h . Wh: this CTA's half of h from registers, then the partner's
+      tile_ready();
+      mma_h(true);
+      next_tile();
+      fetch((layer - 1) & 1);
+      tile_ready();
+      mma_h(false);
+      next_tile();
+    }
+    if (layer == 0 || layer == net.skip) {  // x . Wx, chunk by chunk
+      for (int ch = 0; ch < f.nch; ++ch) {
+        if (layer == 0) {  // chunk ch into the resident tile; chunk ch + 2 into registers
+          if (ch & 1) {
+            f.store_x(xb, ch);
+            if (ch + 2 < f.nch) f.load_x(xb, ch + 2);
+          } else {
+            f.store_x(xa, ch);
+            if (ch + 2 < f.nch) f.load_x(xa, ch + 2);
+          }
+        }
+        tile_ready();  // also publishes the stored chunk to the tensor cores
+        mma_rows(f.xs + ch * Cta::CHUNK, KC / 16);
+        next_tile();
+      }
+    }
+    if (VD && layer == net.cat) {  // venc . Wv: venc_w / 16 k-steps
+      tile_ready();
+      mma_rows(f.vs, net.venc_w / 16);
+      next_tile();
+    }
+    // bias add(s) in the reference order (h-bias, then the skip layer's
+    // input bias: zero elsewhere, which changes no bit after the relu),
+    // relu, bf16: this warpgroup's half of the layer as A fragments
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float v0 = (acc[4 * j] + bh2[j].x) + bx2[j].x;
+      const float v1 = (acc[4 * j + 1] + bh2[j].y) + bx2[j].y;
+      const float v2 = (acc[4 * j + 2] + bh2[j].x) + bx2[j].x;
+      const float v3 = (acc[4 * j + 3] + bh2[j].y) + bx2[j].y;
+      own[j >> 1][(j & 1) * 2] = pack_bf16(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+      own[j >> 1][(j & 1) * 2 + 1] = pack_bf16(fmaxf(v2, 0.0f), fmaxf(v3, 0.0f));
+    }
+    publish(layer & 1);
+  }
+
+  // the head (both CTAs, the same registers), sigmoid; CTA 0 writes
+  float z[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) z[i] = 0.0f;
+  fetch((nh - 1) & 1);
+  tile_ready();
+  {
+    const unsigned char* ws = f.wring + (t % STAGES) * TILE_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t bd = gmma_desc(ws + kk * 512, 256, 128);
+      if ((kk >> 2) == c) wgmma_rs16(z, own[kk & 3], bd); else wgmma_rs16(z, par[kk & 3], bd);
+    }
+    wg_commit();
+    wg_wait(z);
+  }
+  if (c == 0) {
+    const float* bo = bpack + net.b[nh];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // columns cq, cq + 1 of rows r0, r0 + 8
+      const int r = wrow + r0 + (i >> 1) * 8, col = cq + (i & 1);
+      if (col < NOUT && r < B) out[(size_t)r * NOUT + col] = 1.0f / (1.0f + expf(-(z[i] + bo[col])));
     }
   }
+  cl.sync();  // the partner may still read this CTA's last exchange slot
+}
+
+// Launch shape: {CTAs, cluster size, threads, shared memory bytes, rows
+// per CTA}; the CTA height is 128 rows when that CTA's shared memory fits.
+void fwd_config(int B, const Net& net, int (&out)[5]) {
+  const int n_tiles = forward_tiles(net);
+  const bool vd = net.cat >= 0;
+  int wg = fwd_smem(2, net.k_w, vd, n_tiles) <= SMEM_LIMIT ? 2 : 1;
+  if (FWD_FORCE_ROWS) wg = FWD_FORCE_ROWS / BM;
+  const int rows = BM * wg;
+  out[0] = 2 * ((B + rows - 1) / rows);
+  out[1] = 2;
+  out[2] = 128 * wg;
+  out[3] = fwd_smem(wg, net.k_w, vd, n_tiles);
+  out[4] = rows;
+}
+
+template <int WG, bool VD>
+cudaError_t launch_kernel(const int (&cfg)[5], const float* x, const float* venc,
+                          const void* wpack, const float* bpack, float* out, int B,
+                          const Net& net, int venc_in, cudaStream_t st) {
+  auto kern = fused_mlp_fwd_kernel<WG, VD>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg[3]);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = dim3(cfg[0]);
+  lc.blockDim = dim3(cfg[2]);
+  lc.dynamicSmemBytes = (size_t)cfg[3];
+  lc.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cfg[1];
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  lc.attrs = attr;
+  lc.numAttrs = 1;
+  err = cudaLaunchKernelEx(&lc, kern, x, venc, (const __nv_bfloat16*)wpack, bpack, out, B, net,
+                           venc_in, forward_tiles(net));
+  return err == cudaSuccess ? cudaGetLastError() : err;
 }
 
 int launch(const float* x, const void* wpack, const float* bpack, float* out, int B, int k_in,
            int k_w, int num_layers, int skip_idx, const float* venc, int venc_in, int venc_w,
-           void* stream) {
+           int* launched, void* stream) {
   if (B <= 0) return 0;
-  if (k_in <= 0 || k_w < k_in || k_w % KC != 0 || num_layers < 3 || skip_idx <= 0 ||
-      skip_idx >= num_layers - 1)
+  if (k_in <= 0 || k_w < k_in || k_w % KC != 0 || num_layers < 3 || num_layers > MAXL ||
+      (venc != nullptr && num_layers + 3 > MAXL) || skip_idx <= 0 ||
+      skip_idx >= num_layers - 1 || wpack == nullptr ||
+      (uintptr_t)wpack % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (venc != nullptr && (venc_in <= 0 || venc_w < venc_in || venc_w % 16 != 0 ||
                           venc_w > VENC_MAX))
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
-  auto kern = venc != nullptr ? fused_mlp_fwd_kernel<true> : fused_mlp_fwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const Net net = make_net(k_in, k_w, num_layers, skip_idx, venc != nullptr ? venc_w : 0);
+  int cfg[5];
+  fwd_config(B, net, cfg);
+  if (cfg[3] > SMEM_LIMIT) return (int)cudaErrorInvalidValue;  // the feature tile does not fit
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (cfg[4] == 2 * BM)
+    err = venc != nullptr
+              ? launch_kernel<2, true>(cfg, x, venc, wpack, bpack, out, B, net, venc_in, st)
+              : launch_kernel<2, false>(cfg, x, venc, wpack, bpack, out, B, net, venc_in, st);
+  else
+    err = venc != nullptr
+              ? launch_kernel<1, true>(cfg, x, venc, wpack, bpack, out, B, net, venc_in, st)
+              : launch_kernel<1, false>(cfg, x, venc, wpack, bpack, out, B, net, venc_in, st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + BM - 1) / BM);
-  kern<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      x, (const __nv_bfloat16*)wpack, bpack, out, B, k_in, k_w, num_layers, skip_idx, venc,
-      venc_in, venc_w);
-  return (int)cudaGetLastError();
+  if (launched)
+    for (int i = 0; i < 5; ++i) launched[i] = cfg[i];
+  return 0;
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). They launch on `stream` and
 // return cudaGetLastError() (0 on success); they never synchronize.
+// launched (null, or 5 ints): on success, the shape the launch ran with:
+// {CTAs, cluster size, threads per CTA, shared memory bytes, rows per CTA}.
 extern "C" int fused_mlp_fwd(const float* x, const void* wpack, const float* bpack, float* out,
                              int B, int k_in, int k_w, int num_layers, int skip_idx,
-                             void* stream) {
+                             int* launched, void* stream) {
   return launch(x, wpack, bpack, out, B, k_in, k_w, num_layers, skip_idx, nullptr, 0, 0,
-                stream);
+                launched, stream);
 }
 
 // The view-dependent field: venc [B, venc_in] f32 rows; venc_w = the view
@@ -287,10 +418,10 @@ extern "C" int fused_mlp_fwd(const float* x, const void* wpack, const float* bpa
 extern "C" int fused_mlp_fwd_viewdep(const float* x, const float* venc, const void* wpack,
                                      const float* bpack, float* out, int B, int k_in, int k_w,
                                      int num_layers, int skip_idx, int venc_in, int venc_w,
-                                     void* stream) {
+                                     int* launched, void* stream) {
   if (venc == nullptr) return (int)cudaErrorInvalidValue;
   return launch(x, wpack, bpack, out, B, k_in, k_w, num_layers, skip_idx, venc, venc_in, venc_w,
-                stream);
+                launched, stream);
 }
 
 // Constants the Python wrapper checks its packing against.

@@ -1,6 +1,7 @@
 // Training kernels of the texture field's skip-MLP, hand-written for Hopper
-// (sm_90a): bf16 tensor cores through wgmma (fwd_bwd) and nvcuda::wmma
-// 16x16x16 fragments (wgrad).
+// (sm_90a): bf16 tensor cores through wgmma, operands streamed by cp.async,
+// thread-block clusters (device code shared with the forward kernel in
+// mlp_tiles.cuh).
 //
 // Replaces the TPU kernels of intrinsic_neural_fields_tpu/ops/fused_mlp.py
 // whose body is _train_grads_body: make_fused_train_grads (gathered and
@@ -24,13 +25,13 @@
 //     post-relu activations and the bf16 deltas of every layer, plus
 //     per-64-row f32 partial sums of the loss, the squared error and every
 //     bias gradient (column sums of the f32 deltas).
-//   fused_mlp_wgrad  NSPLIT blocks per 64-row tile of each weight gradient,
-//     each contracting dW = A^T . D over its share of the batch with f32
-//     accumulation (A the layer input: the feature rows straight from the
-//     table, or the saved activations) into a partial tile; the last block
-//     of a tile to finish (an arrival counter, not a float atomic) sums the
-//     NSPLIT partials in split order. One more block sums the per-block bias
-//     and loss partials in block order.
+//   fused_mlp_wgrad  one cluster of up to 8 CTAs per 128-row tile of each
+//     weight gradient, each CTA contracting dW = A^T . D over its share of
+//     the batch with f32 accumulation (A the layer input: the feature rows
+//     straight from the table, or the saved activations); the cluster sums
+//     its partials on chip, in rank order (design: the wgrad section
+//     below). Every warp of the grid also sums one bias entry or loss sum
+//     over the per-block partials, in a fixed order.
 //
 // The view-dependent field is the same chain with two more 128-wide relu
 // layers: the spatial head becomes the relu bottleneck, and the concat layer
@@ -56,105 +57,16 @@
 // bf16 ridge of ~295 FLOP/byte, so the ideal step is bound by the tensor
 // cores. Split in two launches, each kernel is bound by the bytes of the
 // intermediates it writes or reads (the activations and deltas). fwd_bwd is
-// latency-bound: a chain of dependent 64-row products per cluster; wgrad is
-// the first, simple version (synchronous loads, wmma).
+// latency-bound: a chain of dependent 64-row products per cluster; wgrad by
+// the chunks it streams from L2 (every tile reads all of its deltas).
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
-using namespace nvcuda;
+#include "mlp_tiles.cuh"
 
 namespace {
 
-constexpr int BM = 64;         // batch rows per block (fwd_bwd), batch chunk (wgrad)
-constexpr int HID = 128;       // hidden width
-constexpr int KC = 64;         // input / weight rows per streamed chunk
-constexpr int OUTW = 16;       // head padded to one fragment width
-constexpr int NOUT = 3;        // real output columns
-constexpr int NTHREADS = 256;  // wgrad: 8 warps, 4 row tiles x 2 column halves
-constexpr int LDX = KC + 8;    // bf16 row strides padded by 16 bytes
-constexpr int LDW = HID + 8;
-constexpr int MAXL = 16;       // most Linear layers a network may have
 constexpr int MAXM = MAXL + 1; // most weight matrices (the skip layer has two)
-constexpr int NSPLIT = 8;      // wgrad: blocks sharing one tile's batch
 constexpr int VENC_MAX = KC;   // most view-encoding lanes (one x tile)
 constexpr float CAUCHY_C2 = (float)((20.0 / 255.0) * (20.0 / 255.0));  // as the f32 ops see it
-
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Where each layer's operands live in the flat f32 parameter buffer (see
-// ops/fused_mlp.py:ParamLayout): the matrix region, then the bias region.
-// Relu layers 0..nh-1, then the head (index nh): nh = L-1 for the plain
-// field; the view-dependent one adds the bottleneck (L-1) and the concat
-// layer (cat = L), nh = L+1.
-struct Net {
-  int L, skip, k_in, k_w;
-  int nh, cat, venc_w;  // relu layers; the concat layer (-1: none); view rows of Wc1
-  long long w_h[MAXL];  // layer i >= 1: its [HID, N] h-matrix; nh: the head
-  long long w_in;       // layer 0: [k_w, HID]
-  long long w_x;        // skip layer's input matrix [k_w, HID]
-  long long w_v;        // concat layer's view rows [venc_w, HID]
-  long long b[MAXL];    // layer i's bias (the skip layer's h-bias), head at nh
-  long long b_x;        // skip layer's input bias
-  long long n_w;        // size of the matrix region
-};
-
-Net make_net(int k_in, int k_w, int L, int skip, int venc_w) {
-  Net n{};
-  n.L = L; n.skip = skip; n.k_in = k_in; n.k_w = k_w;
-  n.venc_w = venc_w;
-  n.nh = venc_w > 0 ? L + 1 : L - 1;
-  n.cat = venc_w > 0 ? L : -1;
-  long long w = 0, b = 0;
-  for (int i = 0; i < L - 1; ++i) {
-    if (i == 0) {
-      n.w_in = w; w += (long long)k_w * HID;
-      n.b[i] = b; b += HID;
-    } else if (i == skip) {
-      n.w_h[i] = w; w += (long long)HID * HID;
-      n.w_x = w; w += (long long)k_w * HID;
-      n.b[i] = b; b += HID;
-      n.b_x = b; b += HID;
-    } else {
-      n.w_h[i] = w; w += (long long)HID * HID;
-      n.b[i] = b; b += HID;
-    }
-  }
-  if (venc_w > 0) {
-    n.w_h[L - 1] = w; w += (long long)HID * HID;  // bottleneck
-    n.b[L - 1] = b; b += HID;
-    n.w_h[L] = w; w += (long long)HID * HID;      // concat: bottleneck rows of Wc1
-    n.w_v = w; w += (long long)venc_w * HID;       //         view rows
-    n.b[L] = b; b += HID;
-  }
-  n.w_h[n.nh] = w; w += (long long)HID * OUTW;
-  n.b[n.nh] = b;
-  n.n_w = w;
-  return n;
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Columns [k0, k0+KC) of BM table rows starting at xrows (row stride ld)
-// -> bf16; rows >= nrows and columns >= ncols read as zero.
-template <typename XT>
-__device__ __forceinline__ void load_x_chunk(__nv_bfloat16* xs, const XT* __restrict__ xrows,
-                                             int nrows, int ld, int ncols, int k0, int tid) {
-  for (int i = tid; i < BM * KC; i += NTHREADS) {
-    const int r = i / KC;
-    const int c = i - r * KC;
-    const int gc = k0 + c;
-    const float v = (r < nrows && gc < ncols) ? to_f(xrows[(size_t)r * ld + gc]) : 0.0f;
-    xs[r * LDX + c] = __float2bfloat16_rn(v);
-  }
-}
 
 // ------------------------------------------------------------------ fwd_bwd
 //
@@ -178,144 +90,11 @@ __device__ __forceinline__ void load_x_chunk(__nv_bfloat16* xs, const XT* __rest
 // the same registers (bit-identical); CTA 0 writes them out.
 
 constexpr int FB_THREADS = 128;            // one warpgroup
-constexpr int HALF = HID / 2;              // output columns per CTA of a pair
-constexpr int TILE_BYTES = KC * HALF * 2;  // a [64 x 64] bf16 tile: 8 KB
-constexpr int STAGES = 3;                  // cp.async ring depth
-constexpr int XCHG_BYTES = 4 * FB_THREADS * 16;  // one layer's half in fragment order
 constexpr int RED_FLOATS = 4 * HALF + 8;
-constexpr int SMEM_LIMIT = 227 * 1024;
 
-enum { T_NONE, T_FWD, T_FWD_VENC, T_FWD_HEAD, T_BWD, T_BWD_HEAD };
-
-struct Tile {
-  long long w;  // offset of the matrix in the flat parameters
-  int kind;
-  int k0;       // first row (forward) or column (backward) of the matrix in the tile
-  int xch;      // the feature chunk read with this tile (-1: none)
-  int xload;    // 1: load that chunk now (0: it is resident)
-};
-
-// The t-th weight tile of CTA c's program, in the order it uses them: the
-// forward layers (h-matrix halves, the CTA's own half of the input first,
-// then the feature chunks, the view rows), the head, then the walk back
-// (the head's transpose, then every h-matrix's, own half first).
-__device__ Tile tile_at(const Net& net, int t, bool x_res, int c) {
-  for (int l = 0; l < net.nh; ++l) {
-    if (l > 0) {
-      if (t < 2) return {net.w_h[l], T_FWD, KC * (t ^ c), -1, 0};
-      t -= 2;
-    }
-    if (l == 0 || l == net.skip) {
-      const int nch = net.k_w / KC;
-      if (t < nch) return {l == 0 ? net.w_in : net.w_x, T_FWD, KC * t, t, l == 0 || !x_res};
-      t -= nch;
-    }
-    if (l == net.cat) {
-      if (t < 1) return {net.w_v, T_FWD_VENC, 0, -1, 0};
-      t -= 1;
-    }
-  }
-  if (t < 1) return {net.w_h[net.nh], T_FWD_HEAD, 0, -1, 0};
-  if (t < 2) return {net.w_h[net.nh], T_BWD_HEAD, 0, -1, 0};
-  t -= 2;
-  for (int l = net.nh - 2; l >= 0; --l) {
-    if (t < 2) return {net.w_h[l + 1], T_BWD, KC * (t ^ c), -1, 0};
-    t -= 2;
-  }
-  return {0, T_NONE, 0, -1, 0};
-}
-
-// Tiles in the program (tile_at's length).
-int fwd_bwd_tiles(const Net& net) {
-  return 2 * (net.k_w / KC) + 4 * (net.nh - 1) + (net.cat >= 0 ? 1 : 0) + 2;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronously; bytes past src_bytes read as zero.
-__device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes = 16) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// wgmma's shared-memory matrix descriptor, no swizzle: lbo = byte stride
-// between core matrices (8 rows x 16 bytes) along K, sbo = along M or N.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t v) {
-  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(v & 0xffffu)));
-}
-__device__ __forceinline__ float bf16_hi(uint32_t v) {
-  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(v >> 16)));
-}
-
-#define ACC32(d)                                                                         \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-// d[64 x 64] += A . B, A from registers (k-step fragment a), B by descriptor;
-// TB: B is MN-major (the forward's W[k][n]) or K-major (the walk's W^T).
-template <int TB>
-__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31},"
-      "{%32,%33,%34,%35}, %36, p, 1, 1, %37;\n}\n"
-      : ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB), "r"(1));
-}
-
-// d[64 x 64] += A . B, A (K-major) and B (MN-major) by descriptor.
-__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31},"
-      " %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : ACC32(d)
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d[64 x 16] += A . B (the head), A from registers, B MN-major.
-__device__ __forceinline__ void wgmma_rs16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait(float (&d)[N]) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+// Tiles in the program (tile_at's length): the forward's, the head's
+// transpose, the h-matrices' transposes.
+int fwd_bwd_tiles(const Net& net) { return forward_tiles(net) + 1 + 2 * (net.nh - 1); }
 
 template <typename XT>
 struct FB {
@@ -375,21 +154,10 @@ struct FB {
     const int slot = t % STAGES;
     unsigned char* ws = wring + slot * TILE_BYTES;
     const __nv_bfloat16* W = wb + d.w;
-    if (d.kind == T_FWD || d.kind == T_FWD_VENC) {
-      // W [rows, 128] -> B[k][n] = W[k0 + k][n0 + n], MN-major
-      const int rows = d.kind == T_FWD ? KC : venc_w;
-      for (int i = tid; i < rows * 8; i += FB_THREADS) {
-        const int k = i >> 3, ng = i & 7;
-        cpw(ws + (k >> 3) * 1024 + ng * 128 + (k & 7) * 16,
-            W + (size_t)(d.k0 + k) * HID + n0 + 8 * ng);
-      }
+    if (d.kind == T_FWD || d.kind == T_FWD_VENC || d.kind == T_FWD_HEAD) {
+      load_fwd_w_tile<FB_THREADS>(ws, W, d.kind, d.k0, n0, d.kind == T_FWD ? KC : venc_w, tid,
+                                  [&](void* dst, const __nv_bfloat16* src) { cpw(dst, src); });
       if (d.kind == T_FWD_VENC) load_rows(vs, vrows, venc_w, venc_in, 0, false);
-    } else if (d.kind == T_FWD_HEAD) {
-      // W [128, 16] -> B[k][n] = W[k][n], MN-major, 16 k-groups x 2 n-groups
-      for (int i = tid; i < HID * 2; i += FB_THREADS) {
-        const int k = i >> 1, ng = i & 1;
-        cpw(ws + (k >> 3) * 256 + ng * 128 + (k & 7) * 16, W + (size_t)k * OUTW + 8 * ng);
-      }
     } else if (d.kind == T_BWD) {
       // W [128, 128] -> B[k][n] = W[n0 + n][k0 + k], K-major
       for (int i = tid; i < HALF * 8; i += FB_THREADS) {
@@ -409,23 +177,6 @@ struct FB {
     cp_commit();
   }
 };
-
-// The two halves of a cluster barrier: a CTA arrives once its half of a
-// layer is in its exchange slot, and waits only when it needs the partner's.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Wait for tile t's loads (this thread's), publish every thread's to the
-// tensor cores' view of shared memory.
-__device__ __forceinline__ void tile_ready() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
-}
 
 // Column sums over the 64 rows of NJ 8-column groups of an accumulator
 // layout: this thread's two rows, the warp's 8 row pairs by shuffles, then
@@ -766,10 +517,48 @@ fwd_bwd_kernel(const XT* __restrict__ x, long long row0, int B, const float* __r
 }
 
 // ------------------------------------------------------------------ wgrad
+//
+// One thread-block cluster of S CTAs (S = min(8, 64-row batch chunks)) per
+// 128-row tile of a weight gradient. CTA r of the cluster contracts dW =
+// A^T . D over its share of the chunks (shares differ by at most one chunk,
+// in batch order) with two consumer warpgroups of 64 rows each, which share
+// every D chunk. The chunks (A^T: 128 rows x 64 batch rows; D: 64 batch
+// rows x N columns; both MN-major in wgmma's no-swizzle layout) stream in
+// by cp.async into a 3-stage ring, two chunks ahead; table rows that are
+// f32 or off 16-byte boundaries go through converting loads (two CTAs per
+// SM hide part of their latency). The view rows are copied whole (venc_w
+// lanes); their pad lanes meet only the pad rows of the gradient, which
+// are written as zero. wgmma accumulates in f32 registers (m64n64k16 twice per k-step,
+// m64n16k16 for the head). The split partials then meet on chip: each CTA
+// writes its partial into its own shared memory (the ring, free by then);
+// after a cluster barrier, CTA r sums the r-th share of the tile's entries
+// over the S partials through distributed shared memory, in rank order, and
+// writes them out. So no partial crosses device memory, no arrival counter
+// is needed, and every launch gives the same bits. While its first chunks
+// arrive, every warp of the grid sums one bias entry (or loss sum) over
+// fwd_bwd's per-64-row partials: lane l the blocks l, l+32, ... in order,
+// then a fixed shuffle tree.
+
+constexpr int WG_THREADS = 256;                      // two consumer warpgroups
+constexpr int WG_ROWS = 128;                         // gradient rows per tile
+constexpr int WG_STAGES = 3;                         // chunk ring depth
+constexpr int WG_MAX_SPLIT = 8;                      // most CTAs of a cluster (portable)
+constexpr int A_BYTES = WG_ROWS * KC * 2;            // an A^T chunk: 16 KB
+constexpr int STAGE_BYTES = A_BYTES + KC * HID * 2;  // and a D chunk: 32 KB
+constexpr int PART_F4 = WG_THREADS * HID / 8;        // a partial tile in float4s
+
+#ifndef WGRAD_GLOBAL_PARTIALS
+#define WGRAD_GLOBAL_PARTIALS 0
+#endif
+#if WGRAD_GLOBAL_PARTIALS
+// Ablation build only (tools/ab_port_kernels.py): the partials cross device
+// memory instead of distributed shared memory, summed in the same order.
+__device__ float4 g_wpart[64 * WG_MAX_SPLIT * PART_F4];
+#endif
 
 struct Wgrad {
   int n_mats;
-  int tile0[MAXM + 1];     // first 64-row tile of each matrix; tile0[n_mats] = #tiles
+  int tile0[MAXM + 1];     // first 128-row tile of each matrix; tile0[n_mats] = #tiles
   int nrows[MAXM];         // rows (the view rows of Wc1: venc_w, a partial tile)
   int ncols[MAXM];         // HID or OUTW
   long long w_off[MAXM];   // offset in the flat gradient
@@ -779,9 +568,8 @@ struct Wgrad {
   long long b_off[MAXM];   // offset of each bias in the flat gradient
   int b_len[MAXM];
   int b_src[MAXM];         // offset of its partial sums in a block's partials
-  int nbp, nblk;
-  int nsplit;              // batch shares per tile
-  long long n_w;           // size of the matrix region (a partial's stride)
+  int n_items;             // bias columns of every entry, then the two loss sums
+  int nbp, nblk;           // partials per fwd_bwd block; fwd_bwd blocks (64 rows each)
 };
 
 Wgrad make_wgrad(const Net& n, int B) {
@@ -790,10 +578,11 @@ Wgrad make_wgrad(const Net& n, int B) {
   auto add = [&](long long off, int rows, int cols, int a, int d) {
     g.tile0[m] = t; g.nrows[m] = rows; g.ncols[m] = cols; g.w_off[m] = off;
     g.a_src[m] = a; g.d_src[m] = d;
-    t += (rows + BM - 1) / BM; ++m;
+    t += (rows + WG_ROWS - 1) / WG_ROWS; ++m;
   };
   auto addb = [&](long long off, int len, int src) {
     g.b_off[g.n_bias] = n.n_w + off; g.b_len[g.n_bias] = len; g.b_src[g.n_bias] = src;
+    g.n_items += len;
     ++g.n_bias;
   };
   for (int i = 0; i < n.L - 1; ++i) {
@@ -822,139 +611,192 @@ Wgrad make_wgrad(const Net& n, int B) {
   addb(n.b[n.nh], OUTW, HID * n.nh);
   g.n_mats = m;
   g.tile0[m] = t;
+  g.n_items += 2;
   g.nbp = HID * n.nh + OUTW;
   g.nblk = (B + BM - 1) / BM;
-  g.nsplit = g.nblk < NSPLIT ? g.nblk : NSPLIT;
-  g.n_w = n.n_w;
   return g;
 }
 
 template <typename XT>
-__global__ void __launch_bounds__(NTHREADS)
-wgrad_kernel(const XT* __restrict__ x, long long row0, int B, int k_in,
+__global__ void __launch_bounds__(WG_THREADS, 2)
+wgrad_kernel(const XT* __restrict__ x, long long row0, int B, int k_in, int t_async,
              const XT* __restrict__ venc, int venc_in, int venc_w,
              const __nv_bfloat16* __restrict__ acts, const __nv_bfloat16* __restrict__ deltas,
              const float* __restrict__ bias_part, const float* __restrict__ loss_part,
-             float* __restrict__ grads, float* __restrict__ sums, float* __restrict__ wpart,
-             int* __restrict__ counters, Wgrad g) {
-  __shared__ __align__(128) __nv_bfloat16 sa[BM * LDX];  // [batch, 64 rows of A^T]
-  __shared__ __align__(128) __nv_bfloat16 sd[BM * LDW];  // [batch, N]
-  __shared__ int s_last;
+             float* __restrict__ grads, float* __restrict__ sums, Wgrad g) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int S = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
   const int tid = threadIdx.x;
-  const int n_tiles = g.tile0[g.n_mats];
-  if ((int)blockIdx.x == n_tiles * g.nsplit) {
-    // bias gradients and the loss sums: per-block partials in block order
-    for (int e = 0; e < g.n_bias; ++e) {
-      for (int c = tid; c < g.b_len[e]; c += NTHREADS) {
-        float sum = 0.0f;
-        for (int blk = 0; blk < g.nblk; ++blk) sum += bias_part[(size_t)blk * g.nbp + g.b_src[e] + c];
-        grads[g.b_off[e] + c] = sum;
-      }
-    }
-    if (tid == 0) {
-      float a = 0.0f, q = 0.0f;
-      for (int blk = 0; blk < g.nblk; ++blk) {
-        a += loss_part[2 * blk];
-        q += loss_part[2 * blk + 1];
-      }
-      sums[0] = a;
-      sums[1] = q;
-    }
-    return;
-  }
-  const int tile = blockIdx.x / g.nsplit;
-  const int split = blockIdx.x - tile * g.nsplit;
+  const int wg = tid >> 7;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int tile = blockIdx.x / S;
   int m = 0;
   while (tile >= g.tile0[m + 1]) ++m;
-  const int r0 = (tile - g.tile0[m]) * BM;  // first row of this tile of dW (input index)
-  const int per = (g.nblk + g.nsplit - 1) / g.nsplit;  // batch chunks per split
-  const int c_end = min(g.nblk, (split + 1) * per);
+  const int r0 = (tile - g.tile0[m]) * WG_ROWS;  // first row of this tile of dW (input index)
   const int N = g.ncols[m];
-  const int mrows = min(BM, g.nrows[m] - r0);  // rows of this tile (16 | mrows)
-  const int warp = tid >> 5;
-  const int rt = warp & 3;
-  const int cg = warp >> 2;
+  const int mrows = min(WG_ROWS, g.nrows[m] - r0);
+  const int nchunk = (B + BM - 1) / BM;
+  const int c_begin = (int)((long long)rank * nchunk / S);
+  const int c_end = (int)((long long)(rank + 1) * nchunk / S);
+  const int a_src = g.a_src[m];
   const __nv_bfloat16* D = deltas + (size_t)g.d_src[m] * B * HID;  // row stride N
-  const __nv_bfloat16* A = g.a_src[m] >= 0 ? acts + (size_t)g.a_src[m] * B * HID : nullptr;
-  const XT* xrows = x + (size_t)row0 * k_in;
-  const XT* vrows = venc != nullptr ? venc + (size_t)row0 * venc_w : nullptr;
+  const __nv_bfloat16* A = a_src >= 0 ? acts + (size_t)a_src * B * HID : nullptr;
+  // a table operand: the feature rows (k_in lanes) or the view rows (venc_in of venc_w)
+  const XT* tab = a_src == -1 ? x + (size_t)row0 * k_in
+                              : (a_src == -2 ? venc + (size_t)row0 * venc_w : nullptr);
+  const int tab_ld = a_src == -1 ? k_in : venc_w;
+  const bool copy_a = a_src >= 0 || (a_src == -1 && (t_async & 1)) ||
+                      (a_src == -2 && (t_async & 2));
+  const int tab_cols = a_src == -1 ? k_in : (copy_a ? venc_w : venc_in);
+  const int mvalid = a_src == -2 ? venc_in : mrows;  // rows past it are written as zero
+  const int dpr = N / 8;  // 16-byte pieces per D row
 
-  FragC acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  for (int chunk = split * per; chunk < c_end; ++chunk) {
-    const int b0 = chunk * BM;
-    const int nb = min(BM, B - b0);
-    if (g.a_src[m] == -1) {
-      load_x_chunk(sa, xrows + (size_t)b0 * k_in, nb, k_in, k_in, r0, tid);
-    } else if (g.a_src[m] == -2) {
-      load_x_chunk(sa, vrows + (size_t)b0 * venc_w, nb, venc_w, venc_in, r0, tid);
-    } else {
-      for (int i = tid; i < BM * (KC / 8); i += NTHREADS) {  // 16-byte vectors
-        const int r = i / (KC / 8);
-        const int c = (i - r * (KC / 8)) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r < nb) v = *reinterpret_cast<const uint4*>(A + (size_t)(b0 + r) * HID + r0 + c);
-        *reinterpret_cast<uint4*>(sa + r * LDX + c) = v;
-      }
-    }
-    const int vpr = N / 8;
-    for (int i = tid; i < BM * vpr; i += NTHREADS) {
-      const int r = i / vpr;
-      const int c = (i - r * vpr) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < nb) v = *reinterpret_cast<const uint4*>(D + (size_t)(b0 + r) * N + c);
-      *reinterpret_cast<uint4*>(sd + r * LDW + c) = v;
-    }
-    __syncthreads();
-    if (N == HID || cg == 0) {
-#pragma unroll
-      for (int kk = 0; kk < BM; kk += 16) {
-        FragAc a;  // a(m, k) = A(k, m): A^T read column-major from A's rows
-        wmma::load_matrix_sync(a, sa + kk * LDX + rt * 16, LDX);
-        if (N == HID) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            FragB b;
-            wmma::load_matrix_sync(b, sd + kk * LDW + cg * 64 + j * 16, LDW);
-            wmma::mma_sync(acc[j], a, b, acc[j]);
-          }
-        } else {
-          FragB b;
-          wmma::load_matrix_sync(b, sd + kk * LDW, LDW);
-          wmma::mma_sync(acc[0], a, b, acc[0]);
+  // Chunk i of this CTA's share into ring slot i % WG_STAGES (one commit
+  // group, empty past the share). A^T (m, b) at (b/8)*2048 + (m/8)*128 +
+  // (b%8)*16 + (m%8)*2; D (b, n) at (b/8)*16N + (n/8)*128 + (b%8)*16 +
+  // (n%8)*2; batch rows past B read as zero.
+  auto issue = [&](int i) {
+    const int chunk = c_begin + i;
+    if (chunk < c_end) {
+      unsigned char* sa = smem_raw + (i % WG_STAGES) * STAGE_BYTES;
+      unsigned char* sd = sa + A_BYTES;
+      const int b0 = chunk * BM;
+      const int nb = min(BM, B - b0);
+      if (copy_a) {
+        for (int j = tid; j < BM * (WG_ROWS / 8); j += WG_THREADS) {
+          const int b = j >> 4, mg = j & 15, gm = r0 + 8 * mg;
+          const bool ok = b < nb && (a_src >= 0 || gm < tab_cols);
+          const void* src = a_src >= 0 ? (const void*)(A + (size_t)(b0 + b) * HID + gm)
+                                       : (const void*)(tab + (size_t)(b0 + b) * tab_ld + gm);
+          cp16(sa + (b >> 3) * 2048 + mg * 128 + (b & 7) * 16, ok ? src : (const void*)D,
+               ok ? 16 : 0);
+        }
+      } else {
+#pragma unroll 8
+        for (int j = tid; j < BM * WG_ROWS; j += WG_THREADS) {
+          const int b = j >> 7, mm = j & 127, gm = r0 + mm;
+          const float v =
+              (b < nb && gm < tab_cols) ? to_f(tab[(size_t)(b0 + b) * tab_ld + gm]) : 0.0f;
+          *reinterpret_cast<__nv_bfloat16*>(sa + (b >> 3) * 2048 + (mm >> 3) * 128 +
+                                            (b & 7) * 16 + (mm & 7) * 2) = __float2bfloat16_rn(v);
         }
       }
+      for (int j = tid; j < BM * dpr; j += WG_THREADS) {
+        const int b = j / dpr, ng = j - b * dpr;
+        const bool ok = b < nb;
+        cp16(sd + (b >> 3) * (16 * N) + ng * 128 + (b & 7) * 16,
+             ok ? (const void*)(D + (size_t)(b0 + b) * N + 8 * ng) : (const void*)D, ok ? 16 : 0);
+      }
     }
-    __syncthreads();
-  }
-  // this split's partial tile; with one split it is the gradient itself
-  float* dst = g.nsplit == 1 ? grads : wpart + (size_t)split * g.n_w;
-  float* out = dst + g.w_off[m] + (size_t)(r0 + rt * 16) * N;
-  if (rt * 16 >= mrows) {
-    // past the matrix's last row (a partial tile): nothing to store
-  } else if (N == HID) {
+    cp_commit();
+  };
+
+  for (int s = 0; s < WG_STAGES - 1; ++s) issue(s);
+
+  // Bias gradients and the loss sums, one per warp of the grid.
+  const int n_warps = (int)gridDim.x * (WG_THREADS / 32);
+  for (int item = (int)blockIdx.x * (WG_THREADS / 32) + warp; item < g.n_items;
+       item += n_warps) {
+    int e = 0, c = item;
+    while (e < g.n_bias && c >= g.b_len[e]) c -= g.b_len[e++];
+    const float* src = e < g.n_bias ? bias_part + g.b_src[e] + c : loss_part + c;
+    const int stride = e < g.n_bias ? g.nbp : 2;
+    float s = 0.0f;
+    for (int blk = lane; blk < g.nblk; blk += 32) s += src[(size_t)blk * stride];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(out + cg * 64 + j * 16, acc[j], N, wmma::mem_row_major);
-  } else if (cg == 0) {
-    wmma::store_matrix_sync(out, acc[0], N, wmma::mem_row_major);
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) *(e < g.n_bias ? grads + g.b_off[e] + c : sums + c) = s;
   }
-  if (g.nsplit == 1) return;
-  // the last split of this tile to arrive sums the partials in split order
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(counters + tile, 1) == g.nsplit - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  const size_t base = g.w_off[m] + (size_t)r0 * N;
-  for (int i = tid; i < mrows * N; i += NTHREADS) {
-    float sum = 0.0f;
-    for (int sp = 0; sp < g.nsplit; ++sp) sum += __ldcg(wpart + (size_t)sp * g.n_w + base + i);
-    grads[base + i] = sum;
+
+  float acc0[32], acc1[32], acc16[8];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc16[i] = 0.0f;
+  for (int i = 0; i < c_end - c_begin; ++i) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(WG_STAGES - 2) : "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // chunk i is in; every warpgroup is done with chunk i - 1's slot
+    issue(i + WG_STAGES - 1);
+    const unsigned char* sa = smem_raw + (i % WG_STAGES) * STAGE_BYTES + wg * 1024;
+    const unsigned char* sd = smem_raw + (i % WG_STAGES) * STAGE_BYTES + A_BYTES;
+    wg_fence();
+    if (N == HID) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint64_t ad = gmma_desc(sa + q * 4096, 2048, 128);
+        wgmma_ss64<1, 1>(acc0, ad, gmma_desc(sd + q * 4096, 2048, 128));
+        wgmma_ss64<1, 1>(acc1, ad, gmma_desc(sd + q * 4096 + 1024, 2048, 128));
+      }
+      wg_commit();
+      wg_wait(acc0);
+      wg_wait(acc1);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        wgmma_ss16<1, 1>(acc16, gmma_desc(sa + q * 4096, 2048, 128),
+                         gmma_desc(sd + q * 512, 256, 128));
+      wg_commit();
+      wg_wait(acc16);
+    }
   }
-  if (tid == 0) counters[tile] = 0;  // ready for the next launch
+
+  // This CTA's partial, float4 f of thread tid at [f * WG_THREADS + tid]
+  // (f: 8-column group; the accumulator's rows r, r + 8 at columns c, c + 1).
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();  // every warpgroup's products are done: the ring is free
+#if WGRAD_GLOBAL_PARTIALS
+  float4* red = g_wpart + (size_t)blockIdx.x * PART_F4;
+#else
+  float4* red = reinterpret_cast<float4*>(smem_raw);
+#endif
+  if (N == HID) {
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      red[f * WG_THREADS + tid] = make_float4(acc0[4 * f], acc0[4 * f + 1], acc0[4 * f + 2],
+                                              acc0[4 * f + 3]);
+      red[(8 + f) * WG_THREADS + tid] = make_float4(acc1[4 * f], acc1[4 * f + 1],
+                                                    acc1[4 * f + 2], acc1[4 * f + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+      red[f * WG_THREADS + tid] = make_float4(acc16[4 * f], acc16[4 * f + 1], acc16[4 * f + 2],
+                                              acc16[4 * f + 3]);
+  }
+#if WGRAD_GLOBAL_PARTIALS
+  __threadfence();
+#endif
+  cl.sync();
+  // the r-th share of the tile's float4s: summed over the S partials in rank order
+  const int total = dpr * WG_THREADS;
+  float* out = grads + g.w_off[m] + (size_t)r0 * N;
+  for (int idx = rank * total / S + tid; idx < (rank + 1) * total / S; idx += WG_THREADS) {
+#if WGRAD_GLOBAL_PARTIALS
+    const float4* p0 = g_wpart + (size_t)(blockIdx.x - rank) * PART_F4 + idx;
+    float4 s = __ldcg(p0);
+    for (int q = 1; q < S; ++q) {
+      const float4 v = __ldcg(p0 + (size_t)q * PART_F4);
+#else
+    float4 s = *cl.map_shared_rank(red + idx, 0);
+    for (int q = 1; q < S; ++q) {
+      const float4 v = *cl.map_shared_rank(red + idx, q);
+#endif
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    const int f = idx / WG_THREADS, t = idx - f * WG_THREADS, tw = t & 127;
+    const int row = 64 * (t >> 7) + 16 * (tw >> 5) + ((tw & 31) >> 2);
+    const int col = 8 * f + 2 * (tw & 3);
+    if (row < mrows)
+      *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
+          row < mvalid ? make_float2(s.x, s.y) : make_float2(0.0f, 0.0f);
+    if (row + 8 < mrows)
+      *reinterpret_cast<float2*>(out + (size_t)(row + 8) * N + col) =
+          row + 8 < mvalid ? make_float2(s.z, s.w) : make_float2(0.0f, 0.0f);
+  }
+  cl.sync();  // the other CTAs may still read this CTA's partial
 }
 
 bool bad_net(int B, int k_in, int k_w, int L, int skip, int venc_in, int venc_w) {
@@ -1053,28 +895,78 @@ int launch_fwd_bwd(const void* x, int x_bf16, long long row0, int B, int k_in,
                                                    loss_part, launched, st);
 }
 
+// Launch shape of wgrad: {CTAs, cluster size, threads, shared memory
+// bytes, gradient tiles}.
+void wgrad_config(int B, const Wgrad& g, int (&out)[5]) {
+  const int nchunk = (B + BM - 1) / BM;
+  const int split = nchunk < WG_MAX_SPLIT ? nchunk : WG_MAX_SPLIT;
+  out[0] = g.tile0[g.n_mats] * split;
+  out[1] = split;
+  out[2] = WG_THREADS;
+  out[3] = WG_STAGES * STAGE_BYTES;
+  out[4] = g.tile0[g.n_mats];
+}
+
+template <typename XT>
+int launch_wgrad_kernel(const XT* x, long long row0, int B, int k_in, int t_async,
+                        const XT* venc, int venc_in, int venc_w, const void* acts,
+                        const void* deltas, const float* bias_part, const float* loss_part,
+                        float* grads, float* sums, const Wgrad& g, int* launched,
+                        cudaStream_t st) {
+  int cfg[5];
+  wgrad_config(B, g, cfg);
+  auto kern = wgrad_kernel<XT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg[3]);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = dim3(cfg[0]);
+  lc.blockDim = dim3(cfg[2]);
+  lc.dynamicSmemBytes = (size_t)cfg[3];
+  lc.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cfg[1];
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  lc.attrs = attr;
+  lc.numAttrs = 1;
+  err = cudaLaunchKernelEx(&lc, kern, x, row0, B, k_in, t_async, venc, venc_in, venc_w,
+                           (const __nv_bfloat16*)acts, (const __nv_bfloat16*)deltas, bias_part,
+                           loss_part, grads, sums, g);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (launched) {  // the shape this launch ran with
+    launched[0] = (int)lc.gridDim.x;
+    launched[1] = (int)attr[0].val.clusterDim.x;
+    launched[2] = (int)lc.blockDim.x;
+    launched[3] = (int)lc.dynamicSmemBytes;
+    launched[4] = cfg[4];
+  }
+  return 0;
+}
+
 int launch_wgrad(const void* x, int x_bf16, long long row0, int B, int k_in, int k_w,
                  int num_layers, int skip_idx, const void* venc, int venc_in, int venc_w,
                  const void* acts, const void* deltas, const float* bias_part,
-                 const float* loss_part, float* grads, float* sums, float* wpart, int* counters,
+                 const float* loss_part, float* grads, float* sums, int* launched,
                  void* stream) {
   if (bad_net(B, k_in, k_w, num_layers, skip_idx, venc_in, venc_w))
     return (int)cudaErrorInvalidValue;
   const Net net = make_net(k_in, k_w, num_layers, skip_idx, venc_w);
   const Wgrad g = make_wgrad(net, B);
-  const dim3 grid(g.tile0[g.n_mats] * g.nsplit + 1);
   cudaStream_t st = (cudaStream_t)stream;
+  // cp.async of 16-byte table pieces: bf16 rows on 16-byte boundaries (bit 0:
+  // the feature rows, bit 1: the view rows); else converting loads
+  const int t_async = (x_bf16 && k_in % 8 == 0 && (uintptr_t)x % 16 == 0) |
+                      (x_bf16 && venc != nullptr && venc_w % 8 == 0 && (uintptr_t)venc % 16 == 0)
+                          << 1;
   if (x_bf16)
-    wgrad_kernel<__nv_bfloat16><<<grid, NTHREADS, 0, st>>>(
-        (const __nv_bfloat16*)x, row0, B, k_in, (const __nv_bfloat16*)venc, venc_in, venc_w,
-        (const __nv_bfloat16*)acts, (const __nv_bfloat16*)deltas, bias_part, loss_part, grads,
-        sums, wpart, counters, g);
-  else
-    wgrad_kernel<float><<<grid, NTHREADS, 0, st>>>(
-        (const float*)x, row0, B, k_in, (const float*)venc, venc_in, venc_w,
-        (const __nv_bfloat16*)acts, (const __nv_bfloat16*)deltas, bias_part, loss_part, grads,
-        sums, wpart, counters, g);
-  return (int)cudaGetLastError();
+    return launch_wgrad_kernel<__nv_bfloat16>(
+        (const __nv_bfloat16*)x, row0, B, k_in, t_async, (const __nv_bfloat16*)venc, venc_in,
+        venc_w, acts, deltas, bias_part, loss_part, grads, sums, g, launched, st);
+  return launch_wgrad_kernel<float>((const float*)x, row0, B, k_in, t_async, (const float*)venc,
+                                    venc_in, venc_w, acts, deltas, bias_part, loss_part, grads,
+                                    sums, g, launched, st);
 }
 
 }  // namespace
@@ -1119,16 +1011,16 @@ extern "C" int fused_mlp_fwd_bwd_viewdep(const void* x, int x_bf16, long long ro
 }
 
 // grads: flat f32 like params (every entry written); sums: [2] f32 (loss,
-// squared error) summed over the batch. Scratch: wpart [8, size of the
-// matrix region] f32; counters: one int per gradient tile of the matrices,
-// zero before the first launch (each launch leaves them zero).
+// squared error) summed over the batch. launched (null, or 5 ints): on
+// success, the shape the launch ran with: {CTAs, cluster size, threads per
+// CTA, shared memory bytes, gradient tiles}.
 extern "C" int fused_mlp_wgrad(const void* x, int x_bf16, long long row0, int B, int k_in,
                                int k_w, int num_layers, int skip_idx, const void* acts,
                                const void* deltas, const float* bias_part,
-                               const float* loss_part, float* grads, float* sums, float* wpart,
-                               int* counters, void* stream) {
+                               const float* loss_part, float* grads, float* sums, int* launched,
+                               void* stream) {
   return launch_wgrad(x, x_bf16, row0, B, k_in, k_w, num_layers, skip_idx, nullptr, 0, 0,
-                      acts, deltas, bias_part, loss_part, grads, sums, wpart, counters, stream);
+                      acts, deltas, bias_part, loss_part, grads, sums, launched, stream);
 }
 
 extern "C" int fused_mlp_wgrad_viewdep(const void* x, int x_bf16, long long row0, int B,
@@ -1136,17 +1028,14 @@ extern "C" int fused_mlp_wgrad_viewdep(const void* x, int x_bf16, long long row0
                                        const void* venc, int venc_in, int venc_w,
                                        const void* acts, const void* deltas,
                                        const float* bias_part, const float* loss_part,
-                                       float* grads, float* sums, float* wpart, int* counters,
-                                       void* stream) {
+                                       float* grads, float* sums, int* launched, void* stream) {
   if (venc == nullptr || venc_w <= 0) return (int)cudaErrorInvalidValue;
   return launch_wgrad(x, x_bf16, row0, B, k_in, k_w, num_layers, skip_idx, venc, venc_in,
-                      venc_w, acts, deltas, bias_part, loss_part, grads, sums, wpart, counters,
-                      stream);
+                      venc_w, acts, deltas, bias_part, loss_part, grads, sums, launched, stream);
 }
 
 // Constants the Python wrapper checks its layout against.
 extern "C" int fused_mlp_train_kc() { return KC; }
 extern "C" int fused_mlp_train_out_pad() { return OUTW; }
 extern "C" int fused_mlp_train_block_rows() { return BM; }
-extern "C" int fused_mlp_train_nsplit() { return NSPLIT; }
 extern "C" int fused_mlp_train_venc_max() { return VENC_MAX; }

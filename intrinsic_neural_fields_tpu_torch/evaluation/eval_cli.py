@@ -33,7 +33,7 @@ def evaluate_views(output_path, config, dataset_or_views, split="test",
                 f"dataset type {config['data']['type']!r} is not ported yet")
         from ..data.datasets import MeshViewsDataset
 
-        views = MeshViewsDataset(dataset_or_views, split, H=H, W=W)
+        views = MeshViewsDataset(dataset_or_views, split, H=H, W=W, background=background)
     else:
         views = dataset_or_views
     if renderer is None:

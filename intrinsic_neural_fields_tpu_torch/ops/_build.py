@@ -2,7 +2,8 @@
 
 Each source under ``csrc/`` is compiled for sm_90a into a shared library
 with a plain C interface, at first use, into ``_build/`` inside the package
-(listed in .gitignore). Library names carry a hash of the source and flags,
+(listed in .gitignore). Library names carry a hash of the source, the
+shared device headers (``csrc/*.cuh``) and the flags,
 so an edited source is rebuilt and a stale library is never loaded. All
 missing libraries of one ``build_all`` call compile in parallel, one nvcc
 process per source.
@@ -10,6 +11,7 @@ process per source.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -22,6 +24,7 @@ SOURCES = {
     name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
     for name in ("fused_mlp_fwd", "fused_mlp_train", "fused_adam", "bitonic_argsort")
 }
+HEADERS = sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cuh")))
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,8 +50,13 @@ def _flags(name):
 
 
 def library_path(name):
-    with open(SOURCES[name], "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_flags(name)).encode()).hexdigest()
+    """The library's path: its name hashes the source, the shared headers
+    beside it (csrc/*.cuh) and the flags."""
+    h = hashlib.sha256()
+    for path in [SOURCES[name]] + HEADERS:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = hashlib.sha256(h.digest() + " ".join(_flags(name)).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
 
 

@@ -50,7 +50,6 @@ KC = 64         # K-chunk of the kernels (input rows are padded to it)
 OUT_PAD = 16    # padded head width of the kernels
 KERNEL_HIDDEN = 128
 BLOCK_ROWS = 64  # batch rows per block of the train kernels
-WGRAD_SPLIT = 8  # wgrad blocks sharing one gradient tile's batch
 LOSS_MODES = {"L1": 0, "L2": 1, "cauchy": 2}
 COTANGENT_MODE = 3
 CAUCHY_C2 = (20.0 / 255.0) ** 2
@@ -359,8 +358,8 @@ def _fwd_lib():
     lib = load("fused_mlp_fwd")
     if lib.fused_mlp_fwd.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.fused_mlp_fwd.argtypes = [P] * 4 + [I] * 5 + [P]
-        lib.fused_mlp_fwd_viewdep.argtypes = [P] * 5 + [I] * 7 + [P]
+        lib.fused_mlp_fwd.argtypes = [P] * 4 + [I] * 5 + [P, P]
+        lib.fused_mlp_fwd_viewdep.argtypes = [P] * 5 + [I] * 7 + [P, P]
         lib.fused_mlp_fwd.restype = lib.fused_mlp_fwd_viewdep.restype = I
         _check_consts(lib, (("fused_mlp_fwd_kc", KC), ("fused_mlp_fwd_out_pad", OUT_PAD),
                             ("fused_mlp_fwd_venc_max", VENC_MAX)))
@@ -403,7 +402,7 @@ def fused_apply(fw, x):
         return out
     rc = _fwd_lib().fused_mlp_fwd(x.data_ptr(), fw.w.data_ptr(), fw.b.data_ptr(),
                                   out.data_ptr(), B, spec.k_in, spec.k_w, spec.num_layers,
-                                  spec.skip_idx, _stream(x))
+                                  spec.skip_idx, _FWD_LAUNCHED, _stream(x))
     if rc != 0:
         raise RuntimeError(f"fused_mlp_fwd launch failed: cudaError {rc}")
     _launches["fused_mlp_fwd"] += 1
@@ -436,11 +435,22 @@ def fused_apply_viewdep(fw, x, venc):
     rc = _fwd_lib().fused_mlp_fwd_viewdep(
         x.data_ptr(), venc.data_ptr(), fw.w.data_ptr(), fw.b.data_ptr(), out.data_ptr(), B,
         spec.k_in, spec.k_w, spec.num_layers, spec.skip_idx, tail.venc_in, tail.venc_w,
-        _stream(x))
+        _FWD_LAUNCHED, _stream(x))
     if rc != 0:
         raise RuntimeError(f"fused_mlp_fwd_viewdep launch failed: cudaError {rc}")
     _launches["fused_mlp_fwd_viewdep"] += 1
     return out
+
+
+# The shape of the last forward launch (either field), written by the C
+# entry point.
+_FWD_LAUNCHED = (ctypes.c_int * 5)()
+
+
+def last_fwd_launch():
+    """The shape the last forward launch (either field) ran with: {"ctas",
+    "cluster", "threads", "smem_bytes", "rows"} (batch rows per CTA)."""
+    return dict(zip(("ctas", "cluster", "threads", "smem_bytes", "rows"), _FWD_LAUNCHED))
 
 
 # ----------------------------------------------------------------- training
@@ -573,9 +583,8 @@ class TrainScratch:
     """Per-batch-size device scratch of the train kernels (allocate once
     per epoch): the bf16 copy of the flat params that fwd_bwd reads its
     weights from (``wb``, round to nearest even), bf16 activations and
-    deltas, per-64-row bias and loss partial sums, the flat gradient,
-    wgrad's partial tiles and its per-tile arrival counters (zero between
-    launches). ``wb_of``: the params tensor ``wb`` was rounded from and its
+    deltas, per-64-row bias and loss partial sums, the flat gradient.
+    ``wb_of``: the params tensor ``wb`` was rounded from and its
     version counter then; the train kernels round the params again when
     either differs (see ``_sync_wb``)."""
     B: int
@@ -585,8 +594,6 @@ class TrainScratch:
     bias_part: torch.Tensor
     loss_part: torch.Tensor
     grads: torch.Tensor
-    wpart: torch.Tensor
-    counters: torch.Tensor
     wb_of: tuple = (None, -1)
 
 
@@ -620,9 +627,6 @@ def make_train_scratch(layout, B, params):
         bias_part=torch.empty(nblk * nbp, dtype=torch.float32, **kw),
         loss_part=torch.empty(nblk * 2, dtype=torch.float32, **kw),
         grads=torch.empty(layout.n, dtype=torch.float32, **kw),
-        wpart=torch.empty(WGRAD_SPLIT * layout.n_w, dtype=torch.float32, **kw),
-        # one per gradient tile: every tile holds at least 64 x 16 entries
-        counters=torch.zeros(layout.n_w // (BLOCK_ROWS * OUT_PAD), dtype=torch.int32, **kw),
     )
 
 
@@ -634,17 +638,15 @@ def _train_lib():
         P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.fused_mlp_fwd_bwd.argtypes = [P, I, LL, I, I, P, P, I, I, I, P, I, F, P, P, P, P,
                                           P, P]
-        lib.fused_mlp_wgrad.argtypes = [P, I, LL, I, I, I, I, I, P, P, P, P, P, P, P, P, P]
+        lib.fused_mlp_wgrad.argtypes = [P, I, LL, I, I, I, I, I] + [P] * 8
         lib.fused_mlp_fwd_bwd_viewdep.argtypes = (
             [P, I, LL, I, I, P, P, I, I, I, P, I, I, P, I, F, P, P, P, P, P, P])
-        lib.fused_mlp_wgrad_viewdep.argtypes = (
-            [P, I, LL, I, I, I, I, I, P, I, I, P, P, P, P, P, P, P, P, P])
+        lib.fused_mlp_wgrad_viewdep.argtypes = [P, I, LL, I, I, I, I, I, P, I, I] + [P] * 8
         for fn in (lib.fused_mlp_fwd_bwd, lib.fused_mlp_wgrad, lib.fused_mlp_fwd_bwd_viewdep,
                    lib.fused_mlp_wgrad_viewdep):
             fn.restype = I
         _check_consts(lib, (("fused_mlp_train_kc", KC), ("fused_mlp_train_out_pad", OUT_PAD),
                             ("fused_mlp_train_block_rows", BLOCK_ROWS),
-                            ("fused_mlp_train_nsplit", WGRAD_SPLIT),
                             ("fused_mlp_train_venc_max", VENC_MAX)))
     return lib
 
@@ -722,8 +724,8 @@ def _launch_wgrad(layout, feats, row0, B, scratch, grads, sums, vencs=None):
     head = (feats.data_ptr(), int(feats.dtype == torch.bfloat16), row0, B, spec.k_in,
             spec.k_w, spec.num_layers, spec.skip_idx)
     rest = (scratch.acts.data_ptr(), scratch.deltas.data_ptr(), scratch.bias_part.data_ptr(),
-            scratch.loss_part.data_ptr(), grads.data_ptr(), sums.data_ptr(),
-            scratch.wpart.data_ptr(), scratch.counters.data_ptr(), _stream(grads))
+            scratch.loss_part.data_ptr(), grads.data_ptr(), sums.data_ptr(), _WG_LAUNCHED,
+            _stream(grads))
     if layout.tail is None:
         name, rc = "fused_mlp_wgrad", lib.fused_mlp_wgrad(*head, *rest)
     else:
@@ -732,6 +734,17 @@ def _launch_wgrad(layout, feats, row0, B, scratch, grads, sums, vencs=None):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     _launches[name] += 1
+
+
+# The shape of the last wgrad launch, written by the C entry point.
+_WG_LAUNCHED = (ctypes.c_int * 5)()
+
+
+def last_wgrad_launch():
+    """The shape the last wgrad launch (either field) ran with: {"ctas",
+    "cluster", "threads", "smem_bytes", "tiles"} (128-row gradient tiles;
+    a cluster per tile)."""
+    return dict(zip(("ctas", "cluster", "threads", "smem_bytes", "tiles"), _WG_LAUNCHED))
 
 
 def _train_kernels(layout, params, feats, row0, B, target, mode, scratch, grads, vencs=None):

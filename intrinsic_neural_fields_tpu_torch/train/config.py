@@ -126,6 +126,7 @@ def get_renderer(config, model, mesh, device="cuda"):
         eigenvalues_path=config["data"].get("eigenvalues_path"),
         ts=config["model"].get("hks_timesteps", 128),
     )
+    # The vis renders use an f32 feature table whatever the training table's
+    # dtype, as the reference Trainer's renderer does.
     return Renderer(model, mesh, E, H=config["data"]["img_height"],
-                    W=config["data"]["img_width"],
-                    feature_dtype=config["data"].get("precompute_dtype"), device=device)
+                    W=config["data"]["img_width"], device=device)

@@ -50,11 +50,30 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("k,B", [(512, 8192), (1023, 8192), (512, 1000), (16, 1)])
+def _fwd_launch_as_designed(layout, B):
+    """The forward's launch shape against its design: 2-CTA clusters of
+    128-row CTAs (two warpgroups) when such a CTA's shared memory (weight
+    ring, resident bf16 feature tile, view tile, exchange slots, tile
+    program) fits in 227 KB, else of 64-row CTAs."""
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import last_fwd_launch
+
+    k_w, vd = layout.spec.k_w, layout.tail is not None
+    n_tiles = 2 * (k_w // 64) + 2 * (len(layout.layers) - 1) + vd + 1
+
+    def smem(wg):
+        return (3 * 8192 + 64 * wg * k_w * 2 + (64 * wg * 64 * 2 if vd else 0) + 2 * wg * 8192
+                + 24 * n_tiles)
+    wg = 2 if smem(2) <= 227 * 1024 else 1
+    assert last_fwd_launch() == {"ctas": 2 * -(-B // (64 * wg)), "cluster": 2,
+                                 "threads": 128 * wg, "smem_bytes": smem(wg), "rows": 64 * wg}
+
+
+@pytest.mark.parametrize("k,B", [(512, 8192), (1023, 8192), (512, 1000), (512, 1), (16, 1)])
 def test_kernel_matches_plain_twin(cuda, k, B):
     """HQ layout (6 x 128, skip 3), feature-like inputs (range 1 per
     column). Tolerance 2e-3: f32 summation order and rare bf16
-    re-rounding of a hidden activation only."""
+    re-rounding of a hidden activation only. Two launches give the same
+    bits; the launch has the designed shape."""
     cfg = {"k": k, "num_layers": 6, "mlp_hidden_dim": 128, "skip_layer_idx": 3}
     fw = pack_weights(FusedMLPSpec(6, k, 128, 3), make_model(cfg, seed=4).state_dict(),
                       device=cuda)
@@ -67,6 +86,8 @@ def test_kernel_matches_plain_twin(cuda, k, B):
     want = fused_apply_plain(fw, x)
     assert got.shape == (B, 3)
     assert (got - want).abs().max().item() <= 2e-3
+    _fwd_launch_as_designed(fw.layout, B)
+    assert torch.equal(fused_apply(fw, x), got)
 
 
 def test_kernel_rejects_bad_input(cuda):
@@ -387,7 +408,7 @@ def _vd_setup(cuda, strategy, k=512, N=8192, dtype=torch.bfloat16, seed=1):
 
 
 @pytest.mark.parametrize("strategy,B", [("intrinsic", 8192), ("intrinsic", 1000),
-                                        ("extrinsic", 8192)])
+                                        ("intrinsic", 1), ("extrinsic", 8192)])
 def test_viewdep_forward_kernel_matches_plain_twin(cuda, strategy, B):
     from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (fused_apply_viewdep,
                                                                  fused_apply_viewdep_plain)
@@ -403,6 +424,8 @@ def test_viewdep_forward_kernel_matches_plain_twin(cuda, strategy, B):
     assert after["fused_mlp_fwd"] == before["fused_mlp_fwd"]
     assert got.shape == (B, 3)
     assert (got - fused_apply_viewdep_plain(fw, x, v)).abs().max().item() <= 2e-3
+    _fwd_launch_as_designed(layout, B)
+    assert torch.equal(fused_apply_viewdep(fw, x, v), got)
 
 
 @pytest.mark.parametrize("strategy,loss_type", [("intrinsic", "L1"), ("extrinsic", "L2")])
@@ -606,3 +629,60 @@ def test_preprocessing_on_card_matches_cpu(cuda, tmp_path):
     same = caches["cuda"]["face_idxs"] == caches["cpu"]["face_idxs"]
     np.testing.assert_allclose(caches["cuda"]["barycentric_coords"][same],
                                caches["cpu"]["barycentric_coords"][same], atol=2e-4)
+
+
+# The wgrad kernel alone against its plain twin, both on the kernel's own
+# fwd_bwd outputs: k=512 and 1023 (rows on and off 16-byte boundaries), B =
+# 4096, 1000 and 64, a batch whose 47 chunks of 64 rows do not divide evenly
+# over the cluster's 8 CTAs (3000), bf16 tables and f32 batches, the plain
+# and the view-dependent chain. Held to chip_smoke.py's WGRAD_TOL: per
+# tensor max|d|/max|g| <= 1e-4 (the same products summed in another order);
+# the loss sums to the per-block partials' sum rel 1e-6; a second launch
+# gives the same bits; the launch has the designed shape: one cluster of
+# min(8, B/64) CTAs per 128-row gradient tile.
+WG_CASES = ([(k, B, torch.bfloat16) for k in (512, 1023) for B in (4096, 1000, 64)]
+            + [(512, 4096, torch.float32), (512, 3000, torch.bfloat16)])
+
+
+@pytest.mark.parametrize("vd", [False, True], ids=["plain", "viewdep"])
+@pytest.mark.parametrize("k,B,dtype", WG_CASES)
+def test_wgrad_kernel_matches_plain_twin(cuda, k, B, dtype, vd):
+    from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
+
+    N = B + 64
+    if vd:
+        layout, params, feats, _, vtable, gt = _vd_setup(cuda, "intrinsic", k=k, N=N, dtype=dtype)
+    else:
+        layout, params, feats, gt = _train_setup(cuda, k, N, dtype)
+        vtable = None
+    gt = gt[:B].contiguous()
+    sc = F.make_train_scratch(layout, B, params)
+    nh, nblk = len(layout.layers), -(-B // 64)
+    F._launch_fwd_bwd(layout, params, feats, 0, B, gt, F.LOSS_MODES["L1"], 1 / (3 * B), sc, vtable)
+    grads, sums = torch.empty(layout.n, device=cuda), torch.empty(2, device=cuda)
+    name = "fused_mlp_wgrad_viewdep" if vd else "fused_mlp_wgrad"
+    before = kernel_launches()[name]
+    F._launch_wgrad(layout, feats, 0, B, sc, grads, sums, vtable)
+    torch.cuda.synchronize()
+    assert kernel_launches()[name] == before + 1
+    bsum = sc.bias_part.view(nblk, 128 * nh + 16).sum(0)
+    want = F._wgrad(layout, feats[:B], None if vtable is None else vtable[:B], sc.acts, sc.deltas,
+                    bsum)
+    for a, b in zip(layout.mats(grads) + layout.biases(grads),
+                    layout.mats(want) + layout.biases(want)):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp_min(1e-30)
+    lsum = sc.loss_part.view(nblk, 2).sum(0)
+    assert torch.allclose(sums, lsum, rtol=1e-6, atol=0)
+    first = torch.cat([grads, sums]).clone()
+    F._launch_wgrad(layout, feats, 0, B, sc, grads, sums, vtable)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([grads, sums]), first)
+    tiles = 1  # the head
+    for lay in layout.layers:
+        tiles += 0 if lay.h is None else 1
+        if lay.ext is not None:
+            rows = layout.spec.k_w if lay.ext[3] == "x" else layout.tail.venc_w
+            tiles += -(-rows // 128)
+    split = min(8, nblk)
+    assert F.last_wgrad_launch() == {"ctas": tiles * split, "cluster": split, "threads": 256,
+                                     "smem_bytes": 3 * 32768, "tiles": tiles}

@@ -103,3 +103,18 @@ def test_eval_cli_matches_jax_evaluate_views(tmp_path):
         assert got[view]["dssim_rescaled"] == pytest.approx(
             want[view]["dssim_rescaled"], abs=0.05)
         assert np.isnan(got[view]["lpips_rescaled"])
+
+
+def test_evaluate_views_refuses_a_non_white_background(tmp_path):
+    """Both packages build the MeshViews dataset with the caller's
+    background, and the dataset takes only white: evaluate_views on a
+    dataset directory with background="black" raises its AssertionError
+    before anything is rendered."""
+    (tmp_path / "test.lst").write_text("view0\n")
+    config = {"data": {"img_height": H, "img_width": W}, "model": {}, "training": {}}
+    from intrinsic_neural_fields_tpu_torch.evaluation.eval_cli import evaluate_views
+
+    with pytest.raises(AssertionError, match="white background"):
+        evaluate_views(None, config, str(tmp_path), "test", background="black")
+    with pytest.raises(AssertionError, match="white background"):
+        jax_evaluate_views(None, config, str(tmp_path), "test", background="black")

@@ -449,6 +449,41 @@ def test_trainer_runs_resumes_bit_exactly_and_logs_the_reference_tags(experiment
     assert sorted(set(first.images)) == sorted(set(jt.writer.images))
 
 
+def test_trainer_vis_renders_use_an_f32_table_like_the_jax_trainer(experiment):
+    """Under precompute_dtype: bfloat16 the training table is bf16, but the
+    Trainer's vis renderer holds an f32 feature table, as the JAX Trainer's
+    does. On the same weights and vis view the two Trainers log the same
+    img000 scalars: PSNR within 0.05 dB and the summed absolute distance
+    within 0.5% (the port's CPU forward rounds matmul operands to bf16, the
+    JAX CPU forward is f32)."""
+    from intrinsic_neural_fields_tpu.geometry.mesh import load_mesh
+    from intrinsic_neural_fields_tpu.train import (Trainer, get_data, get_model_and_optim,
+                                                   get_renderer)
+
+    _, config = experiment
+    jcfg = config("vis_jax", 1, fused_mlp=False)
+    mesh = load_mesh(jcfg["data"]["mesh_path"])
+    model, variables, opt = get_model_and_optim(jcfg, mesh)
+    jt = Trainer(model, variables, opt, "L1", get_renderer(jcfg, model, variables, mesh),
+                 get_data(jcfg, mesh), mesh, jcfg)
+    jt.writer = Recorder()
+    jt._visualize(0)
+
+    pt = _port_trainer(config("vis_port", 1), Recorder())
+    assert pt.train_data.hit_features.dtype == torch.bfloat16
+    assert pt.renderer.features.dtype == torch.float32
+    pt.model.load_state_dict(state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, variables["params"]), CFG))
+    pt.state = create_train_state(pt.model, AdamHyper(LR), "cpu")
+    pt._visualize(0)
+
+    got = {tag: v for tag, v, _ in pt.writer.scalars}
+    want = {tag: v for tag, v, _ in jt.writer.scalars}
+    assert set(got) == set(want) == {"img000_psnr", "img000_dist"}
+    assert got["img000_psnr"] == pytest.approx(want["img000_psnr"], abs=0.05)
+    assert got["img000_dist"] == pytest.approx(want["img000_dist"], rel=5e-3)
+
+
 def test_bf16_weight_copy_after_resume(experiment, monkeypatch):
     """A run resumed from checkpoint.pt makes its copy from the restored
     params and keeps it current on every step of the resumed epoch."""

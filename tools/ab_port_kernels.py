@@ -1,40 +1,54 @@
 #!/usr/bin/env python
 """A/B of design choices in the port's hand-written kernels, on one NVIDIA GPU.
 
-  python tools/ab_port_kernels.py [--out FILE]
+  python tools/ab_port_kernels.py [--parent DIR] [--sections S,...] [--out FILE]
 
-fwd_bwd (``csrc/fused_mlp_train.cu``): builds variants that take back one
-part of its design at a time and times each against the kernel as shipped
-on the same inputs (k=512, B=4096, the HQ layout and its view-dependent
-tail):
+Sections (all by default):
 
-  - ``sync_loads``: every cp.async copy becomes a synchronous 16-byte load
-    and store (the weight tiles and feature chunks no longer overlap the
-    products);
-  - ``f32_weights``: the weight tiles are read from the f32 master and
-    rounded to bf16 in the kernel (synchronously), not from the bf16 copy;
-  - ``sync_f32``: both;
-  - grid fill: the shipped kernel at B=2048 (32 clusters, 64 CTAs, half the
-    card) beside B=4096 (64 clusters, 128 CTAs).
+``fwd_bwd`` (``csrc/fused_mlp_train.cu``): variants that take back one part
+of its design at a time, timed against the kernel as shipped on the same
+inputs (k=512, B=4096, the HQ layout and its view-dependent tail):
+``sync_loads`` (every cp.async copy a synchronous 16-byte load and store),
+``f32_weights`` (weight tiles read from the f32 master and rounded in the
+kernel), ``sync_f32`` (both); and the grid: B=2048 (64 CTAs) beside B=4096.
+Every variant must give the shipped kernel's bits.
 
-Every variant must give the shipped kernel's bits (the loads change, not the
-arithmetic). The variants are made by replacing source text of the kernel,
-and the script stops if a text to replace is not found exactly once.
+``wgrad``: the kernel as shipped beside ``global_partials``, the same
+kernel with its split partials summed through a buffer in device memory
+instead of the cluster's shared memory (it must give the same bits), at
+k=512 (plain and tail) and k=1023, B=4096.
 
-The sort (``csrc/bitonic_argsort.cu``): above 2^18 keys, the plan's run size
+``fwd``: the forward as shipped (its CTA height chosen by shared memory)
+beside forced 64-row and 128-row CTAs, at k=512, B=8192, plain and
+view-dependent (every variant must give the shipped kernel's bits).
+
+``parent`` (needs ``--parent``, a checkout of an earlier tree, e.g. ``git
+archive`` of it unpacked into an ignored directory): that tree's
+fwd_bwd, wgrad and forward kernels built from its own sources and timed
+beside this tree's on the same inputs, with its fwd_bwd's bits held to
+this tree's; and its wgrad with one part removed at a time:
+``no_bias_block`` (the block that sums the bias and loss partials is not
+launched), ``no_split_sum`` (each split stores its partial tile, nothing
+sums them), ``loads_only`` (the chunk loads alone: no products, no stores,
+no bias block).
+
+``sort`` (``csrc/bitonic_argsort.cu``): above 2^18 keys, the plan's run size
 (``ops/sort.py:sort_plan``'s ``run_log``, 2^11..2^18 words) on dense random
 keys of 2^18+1, 2^20 and 2^22; each plan's order must equal
 torch.sort(stable=True), and its CUDA launches the plan's.
 
-Prints one JSON line per row, then the card's name and power limit. Needs
-nvcc and a CUDA card.
+Variants are made by replacing source text or by a -D flag; the script
+stops if a text to replace is not found exactly once. Prints one JSON line
+per row, then the card's name and power limit. Needs nvcc and a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -48,6 +62,7 @@ from intrinsic_neural_fields_tpu_torch.ops import _build  # noqa: E402
 from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F  # noqa: E402
 from intrinsic_neural_fields_tpu_torch.ops import sort as S  # noqa: E402
 
+SECTIONS = ("fwd_bwd", "wgrad", "fwd", "parent", "sort")
 SORT_SIZES = ((1 << 18) + 1, 1 << 20, 1 << 22)
 SORT_RUN_LOGS = (11, 12, 14, 16, 18)
 SYNC_CP16 = '''__device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes = 16) {
@@ -64,50 +79,42 @@ F32_CPW = '''  __device__ __forceinline__ void cpw(void* dst, const __nv_bfloat1
   }'''
 
 
-def _variant_sources(src):
-    """{name: source} with the substitutions made (each must apply)."""
-    start = src.index("__device__ __forceinline__ void cp16(")
-    cp16 = src[start:src.index("}\n", start) + 1]
-    cpw = [ln for ln in src.splitlines() if "void cpw(" in ln]
-    if len(cpw) != 1:
-        raise RuntimeError("csrc/fused_mlp_train.cu: no single cpw() to ablate")
-
-    def f32(code):  # the tiles read the f32 master (the kernel's params) instead of wb
-        for old, new in (("  const __nv_bfloat16* wb;\n",
-                          "  const __nv_bfloat16* wb;\n  const float* wf;\n"),
-                         ("  f.wb = wb;\n", "  f.wb = wb;\n  f.wf = params;\n"),
-                         (cpw[0], F32_CPW)):
-            if code.count(old) != 1:
-                raise RuntimeError(f"csrc/fused_mlp_train.cu: cannot ablate at {old!r}")
-            code = code.replace(old, new)
-        return code
-
-    sync = src.replace(cp16, SYNC_CP16)
-    return {"shipped": src, "sync_loads": sync, "f32_weights": f32(src), "sync_f32": f32(sync)}
+def _replace(files, fname, old, new):
+    if files[fname].count(old) != 1:
+        raise RuntimeError(f"{fname}: cannot make the variant at {old[:60]!r}")
+    files[fname] = files[fname].replace(old, new)
 
 
-def _build_variants():
-    """Compile every variant in parallel into _build/ablate/; {name: path}."""
-    with open(_build.SOURCES["fused_mlp_train"]) as f:
-        sources = _variant_sources(f.read())
-    out_dir = os.path.join(_build.BUILD_DIR, "ablate")
-    os.makedirs(out_dir, exist_ok=True)
+def _build_variants(csrc, target, variants, tree="this"):
+    """Compile variants of csrc/<target>.cu in parallel, each in its own
+    copy of the csrc directory under _build/ablate/ (a directory per tree,
+    target and variant: a library path is loaded once per process):
+    variants = {name: (edit(files) or None, extra nvcc flags)}, files =
+    {file name: text}. Returns {name: ctypes library}."""
     procs = {}
-    for name, code in sources.items():
-        cu = os.path.join(out_dir, f"fused_mlp_train_{name}.cu")
-        with open(cu, "w") as f:
-            f.write(code)
-        so = os.path.join(out_dir, f"libfused_mlp_train_{name}.so")
-        procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build._flags("fused_mlp_train"),
-                                             "-o", so, cu], stdout=subprocess.PIPE,
-                                            stderr=subprocess.PIPE, text=True))
-    paths = {}
+    for name, (edit, flags) in variants.items():
+        files = {os.path.basename(p): open(p).read()
+                 for p in glob.glob(os.path.join(csrc, "*.cu*"))}
+        if edit is not None:
+            edit(files)
+        out_dir = os.path.join(_build.BUILD_DIR, "ablate", f"{tree}_{target}_{name}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        for fname, text in files.items():
+            with open(os.path.join(out_dir, fname), "w") as f:
+                f.write(text)
+        so = os.path.join(out_dir, f"lib{target}.so")
+        cmd = [_build._nvcc(), *_build._flags(target), *flags, "-o", so,
+               os.path.join(out_dir, f"{target}.cu")]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                            text=True))
+    libs = {}
     for name, (so, p) in procs.items():
         _, err = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} variant:\n{err}")
-        paths[name] = so
-    return paths
+            raise RuntimeError(f"nvcc failed on the {target} {name} variant:\n{err}")
+        libs[name] = ctypes.CDLL(so)
+    return libs
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -153,6 +160,232 @@ def _case(viewdep, B, k=512, seed=0):
     return layout, params, feats, vencs, gt
 
 
+def _fwd_bwd_outputs(case):
+    """fwd_bwd (this tree's kernel) on a case: its scratch, ready for wgrad."""
+    layout, params, feats, vencs, gt = case
+    B = feats.shape[0]
+    sc = F.make_train_scratch(layout, B, params)
+    F._launch_fwd_bwd(layout, params, feats, 0, B, gt, F.LOSS_MODES["L1"], 1.0 / (3 * B), sc,
+                      vencs)
+    torch.cuda.synchronize()
+    return sc
+
+
+def fwd_bwd_rows(csrc):
+    def sync(files):
+        text = files["mlp_tiles.cuh"]
+        start = text.index("__device__ __forceinline__ void cp16(")
+        _replace(files, "mlp_tiles.cuh", text[start:text.index("}\n", start) + 1], SYNC_CP16)
+
+    def f32(files):
+        cpw = [ln for ln in files["fused_mlp_train.cu"].splitlines() if "void cpw(" in ln]
+        if len(cpw) != 1:
+            raise RuntimeError("csrc/fused_mlp_train.cu: no single cpw() to ablate")
+        for old, new in (("  const __nv_bfloat16* wb;\n",
+                          "  const __nv_bfloat16* wb;\n  const float* wf;\n"),
+                         ("  f.wb = wb;\n", "  f.wb = wb;\n  f.wf = params;\n"),
+                         (cpw[0], F32_CPW)):
+            _replace(files, "fused_mlp_train.cu", old, new)
+
+    libs = _build_variants(csrc, "fused_mlp_train", {
+        "shipped": (None, []), "sync_loads": (sync, []), "f32_weights": (f32, []),
+        "sync_f32": (lambda fs: (sync(fs), f32(fs)), [])})
+    cases = {(vd, B): _case(vd, B) for vd, B in ((False, 4096), (True, 4096), (False, 2048))}
+    rows, outputs = [], {}
+    for name, lib in libs.items():
+        _build._loaded["fused_mlp_train"] = lib
+        for (vd, B), (layout, params, feats, vencs, gt) in cases.items():
+            if name != "shipped" and B != 4096:
+                continue
+            sc = F.make_train_scratch(layout, B, params)
+
+            def launch():
+                F._launch_fwd_bwd(layout, params, feats, 0, B, gt, F.LOSS_MODES["L1"],
+                                  1.0 / (3 * B), sc, vencs)
+            launch()
+            torch.cuda.synchronize()
+            bits = [t.clone() for t in (sc.acts, sc.deltas, sc.bias_part, sc.loss_part)]
+            ref = outputs.setdefault((vd, B), bits)
+            rows.append({"kernel": "fwd_bwd", "variant": name, "viewdep": vd, "B": B, "k": 512,
+                         "ctas": F.last_fwd_bwd_launch()["ctas"],
+                         "bit_equal_to_shipped": all(torch.equal(a, b)
+                                                     for a, b in zip(bits, ref)),
+                         "ms": cuda_ms(launch)})
+    _build._loaded.pop("fused_mlp_train", None)
+    return rows
+
+
+def wgrad_rows(csrc):
+    libs = _build_variants(csrc, "fused_mlp_train", {
+        "shipped": (None, []), "global_partials": (None, ["-DWGRAD_GLOBAL_PARTIALS=1"])})
+    rows = []
+    for vd, k in ((False, 512), (True, 512), (False, 1023)):
+        case = _case(vd, 4096, k)
+        layout, params, feats, vencs, gt = case
+        sc = _fwd_bwd_outputs(case)
+        ref = None
+        for name, lib in libs.items():
+            _build._loaded["fused_mlp_train"] = lib
+            grads, sums = torch.empty(layout.n, device="cuda"), torch.empty(2, device="cuda")
+
+            def launch():
+                F._launch_wgrad(layout, feats, 0, 4096, sc, grads, sums, vencs)
+            launch()
+            torch.cuda.synchronize()
+            bits = torch.cat([grads, sums]).clone()
+            ref = bits if ref is None else ref
+            rows.append({"kernel": "wgrad", "variant": name, "viewdep": vd, "B": 4096, "k": k,
+                         "launch": F.last_wgrad_launch(),
+                         "bit_equal_to_shipped": torch.equal(bits, ref), "ms": cuda_ms(launch)})
+    _build._loaded.pop("fused_mlp_train", None)
+    return rows
+
+
+def _fwd_inputs(vd, B, k=512, seed=0):
+    """The forward's operands on a seeded network: (weights, x, venc) with
+    x f32 features (uniform in [-0.5, 0.5]) and venc f32 view encodings."""
+    layout, params, _, _, _ = _case(vd, 8, k, seed)
+    fw = layout.pack(params)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.rand(B, k, generator=g, device="cuda") - 0.5
+    venc = (torch.rand(B, layout.tail.venc_in, generator=g, device="cuda") - 0.5) if vd else None
+    return fw, x, venc
+
+
+def fwd_rows(csrc):
+    libs = _build_variants(csrc, "fused_mlp_fwd", {
+        "shipped": (None, []), "rows64": (None, ["-DFWD_FORCE_ROWS=64"]),
+        "rows128": (None, ["-DFWD_FORCE_ROWS=128"])})
+    rows = []
+    for vd in (False, True):
+        fw, x, venc = _fwd_inputs(vd, 8192)
+        ref = None
+        for name, lib in libs.items():
+            _build._loaded["fused_mlp_fwd"] = lib
+
+            def launch():
+                return F.fused_apply_viewdep(fw, x, venc) if vd else F.fused_apply(fw, x)
+            out = launch()
+            torch.cuda.synchronize()
+            ref = out if ref is None else ref
+            rows.append({"kernel": "fwd", "variant": name, "viewdep": vd, "B": 8192, "k": 512,
+                         "launch": F.last_fwd_launch(), "bit_equal_to_shipped": torch.equal(out, ref),
+                         "ms": cuda_ms(launch)})
+    _build._loaded.pop("fused_mlp_fwd", None)
+    return rows
+
+
+def parent_rows(parent):
+    """The parent tree's kernels beside this tree's, and its wgrad's parts."""
+    csrc = os.path.join(parent, "intrinsic_neural_fields_tpu_torch", "csrc")
+    P, I, LL, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+    def no_bias(files):
+        _replace(files, "fused_mlp_train.cu", "const dim3 grid(g.tile0[g.n_mats] * g.nsplit + 1);",
+                 "const dim3 grid(g.tile0[g.n_mats] * g.nsplit);")
+
+    def no_split_sum(files):
+        _replace(files, "fused_mlp_train.cu", "  if (g.nsplit == 1) return;\n", "  return;\n")
+
+    def loads_only(files):
+        no_bias(files)
+        _replace(files, "fused_mlp_train.cu", "    if (N == HID || cg == 0) {\n",
+                 "    if (false) {\n")
+        _replace(files, "fused_mlp_train.cu",
+                 "  // this split's partial tile; with one split it is the gradient itself\n",
+                 "  return;\n")
+
+    train = _build_variants(csrc, "fused_mlp_train", {
+        "shipped": (None, []), "no_bias_block": (no_bias, []),
+        "no_split_sum": (no_split_sum, []), "loads_only": (loads_only, [])}, "parent")
+    fwd = _build_variants(csrc, "fused_mlp_fwd", {"shipped": (None, [])}, "parent")["shipped"]
+    for lib in train.values():
+        lib.fused_mlp_wgrad.argtypes = [P, I, LL, I, I, I, I, I] + [P] * 9
+        lib.fused_mlp_wgrad_viewdep.argtypes = [P, I, LL, I, I, I, I, I, P, I, I] + [P] * 9
+        lib.fused_mlp_fwd_bwd.argtypes = [P, I, LL, I, I, P, P, I, I, I, P, I, Fl] + [P] * 6
+        lib.fused_mlp_fwd_bwd_viewdep.argtypes = (
+            [P, I, LL, I, I, P, P, I, I, I, P, I, I, P, I, Fl] + [P] * 6)
+    fwd.fused_mlp_fwd.argtypes = [P] * 4 + [I] * 5 + [P]
+    fwd.fused_mlp_fwd_viewdep.argtypes = [P] * 5 + [I] * 7 + [P]
+    rows = []
+    for vd, k in ((False, 512), (True, 512), (False, 1023)):
+        case = _case(vd, 4096, k)
+        layout, params, feats, vencs, gt = case
+        spec, B = layout.spec, 4096
+        sc = _fwd_bwd_outputs(case)  # this tree's fwd_bwd: the inputs of both wgrads
+        mine = [t.clone() for t in (sc.acts, sc.deltas, sc.bias_part, sc.loss_part)]
+        stream = torch.cuda.current_stream().cuda_stream
+        x16 = int(feats.dtype == torch.bfloat16)
+        head = (feats.data_ptr(), x16, 0, B, spec.k_in)
+        vargs = () if not vd else (vencs.data_ptr(), layout.tail.venc_in, layout.tail.venc_w)
+        launched = (ctypes.c_int * 5)()
+
+        def parent_fwd_bwd():
+            fn = train["shipped"].fused_mlp_fwd_bwd_viewdep if vd else \
+                train["shipped"].fused_mlp_fwd_bwd
+            rc = fn(*head, params.data_ptr(), sc.wb.data_ptr(), spec.k_w, spec.num_layers,
+                    spec.skip_idx, *vargs, gt.data_ptr(), F.LOSS_MODES["L1"], 1.0 / (3 * B),
+                    sc.acts.data_ptr(), sc.deltas.data_ptr(), sc.bias_part.data_ptr(),
+                    sc.loss_part.data_ptr(), launched, stream)
+            assert rc == 0, rc
+        parent_fwd_bwd()
+        torch.cuda.synchronize()
+        theirs = [t.clone() for t in (sc.acts, sc.deltas, sc.bias_part, sc.loss_part)]
+        rows.append({"kernel": "fwd_bwd", "tree": "parent", "viewdep": vd, "k": k, "B": B,
+                     "bit_equal_to_this_tree": all(torch.equal(a, b)
+                                                   for a, b in zip(mine, theirs)),
+                     "ms": cuda_ms(parent_fwd_bwd)})
+        rows.append({"kernel": "fwd_bwd", "tree": "this", "viewdep": vd, "k": k, "B": B,
+                     "ms": cuda_ms(lambda: F._launch_fwd_bwd(
+                         layout, params, feats, 0, B, gt, F.LOSS_MODES["L1"], 1.0 / (3 * B),
+                         sc, vencs))})
+        wpart = torch.empty(8 * layout.n_w, device="cuda")
+        counters = torch.zeros(layout.n_w // (64 * 16), dtype=torch.int32, device="cuda")
+        grads, sums = torch.empty(layout.n, device="cuda"), torch.empty(2, device="cuda")
+        for name, lib in train.items():
+            def parent_wgrad(lib=lib):
+                fn = lib.fused_mlp_wgrad_viewdep if vd else lib.fused_mlp_wgrad
+                rc = fn(*head, spec.k_w, spec.num_layers, spec.skip_idx, *vargs,
+                        sc.acts.data_ptr(), sc.deltas.data_ptr(), sc.bias_part.data_ptr(),
+                        sc.loss_part.data_ptr(), grads.data_ptr(), sums.data_ptr(),
+                        wpart.data_ptr(), counters.data_ptr(), stream)
+                assert rc == 0, rc
+            rows.append({"kernel": "wgrad", "tree": "parent", "variant": name, "viewdep": vd,
+                         "k": k, "B": B, "ms": cuda_ms(parent_wgrad)})
+        rows.append({"kernel": "wgrad", "tree": "this", "viewdep": vd, "k": k, "B": B,
+                     "ms": cuda_ms(lambda: F._launch_wgrad(layout, feats, 0, B, sc, grads, sums,
+                                                           vencs))})
+    for vd in (False, True):
+        fw, x, venc = _fwd_inputs(vd, 8192)
+        spec, out = fw.spec, torch.empty(8192, 3, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def parent_fwd():
+            if vd:
+                t = fw.layout.tail
+                rc = fwd.fused_mlp_fwd_viewdep(x.data_ptr(), venc.data_ptr(), fw.w.data_ptr(),
+                                               fw.b.data_ptr(), out.data_ptr(), 8192, spec.k_in,
+                                               spec.k_w, spec.num_layers, spec.skip_idx,
+                                               t.venc_in, t.venc_w, stream)
+            else:
+                rc = fwd.fused_mlp_fwd(x.data_ptr(), fw.w.data_ptr(), fw.b.data_ptr(),
+                                       out.data_ptr(), 8192, spec.k_in, spec.k_w,
+                                       spec.num_layers, spec.skip_idx, stream)
+            assert rc == 0, rc
+
+        def this_fwd():
+            return F.fused_apply_viewdep(fw, x, venc) if vd else F.fused_apply(fw, x)
+        parent_fwd()
+        mine = this_fwd()
+        torch.cuda.synchronize()
+        rows.append({"kernel": "fwd", "tree": "parent", "viewdep": vd, "k": 512, "B": 8192,
+                     "max_abs_diff_to_this_tree": (out - mine).abs().max().item(),
+                     "ms": cuda_ms(parent_fwd)})
+        rows.append({"kernel": "fwd", "tree": "this", "viewdep": vd, "k": 512, "B": 8192,
+                     "ms": cuda_ms(this_fwd)})
+    return rows
+
+
 def sort_rows():
     """The sort on each plan: the module's sort_plan is swapped for one
     with the run size fixed while the wrapper runs it."""
@@ -187,46 +420,38 @@ def sort_rows():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None, help="checkout of an earlier tree to compare with")
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help=f"comma-separated subset of {','.join(SECTIONS)}")
     ap.add_argument("--out", default=None, help="also write the JSON lines to this file")
     args = ap.parse_args(argv)
+    sections = args.sections.split(",")
+    if not set(sections) <= set(SECTIONS):
+        raise SystemExit(f"ab_port_kernels: unknown section in {args.sections}")
+    if "parent" in sections and args.parent is None:
+        sections.remove("parent")
     if not torch.cuda.is_available():
         raise SystemExit("ab_port_kernels: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    t0 = time.perf_counter()
-    paths = _build_variants()
-    rows = [{"build_s": time.perf_counter() - t0, "card": torch.cuda.get_device_name(0)}]
-    cases = {(vd, B): _case(vd, B) for vd, B in ((False, 4096), (True, 4096), (False, 2048))}
-    outputs = {}
-    for name, path in paths.items():
-        _build._loaded["fused_mlp_train"] = ctypes.CDLL(path)
-        for (vd, B), (layout, params, feats, vencs, gt) in cases.items():
-            if name != "shipped" and B != 4096:
-                continue
-            sc = F.make_train_scratch(layout, B, params)
-
-            def launch():
-                F._launch_fwd_bwd(layout, params, feats, 0, B, gt, F.LOSS_MODES["L1"],
-                                  1.0 / (3 * B), sc, vencs)
-            launch()
-            torch.cuda.synchronize()
-            bits = [t.clone() for t in (sc.acts, sc.deltas, sc.bias_part, sc.loss_part)]
-            ref = outputs.setdefault((vd, B), bits)
-            row = {"variant": name, "viewdep": vd, "B": B, "k": 512,
-                   "ctas": F.last_fwd_bwd_launch()["ctas"],
-                   "bit_equal_to_shipped": all(torch.equal(a, b) for a, b in zip(bits, ref)),
-                   "ms": cuda_ms(launch)}
-            rows.append(row)
-    _build._loaded.pop("fused_mlp_train", None)
-    rows += sort_rows()
+    csrc = os.path.dirname(_build.SOURCES["fused_mlp_train"])
+    rows = [{"card": torch.cuda.get_device_name(0), "sections": sections}]
+    for name, fn in (("fwd_bwd", lambda: fwd_bwd_rows(csrc)), ("wgrad", lambda: wgrad_rows(csrc)),
+                     ("fwd", lambda: fwd_rows(csrc)), ("parent", lambda: parent_rows(args.parent)),
+                     ("sort", sort_rows)):
+        if name in sections:
+            t0 = time.perf_counter()
+            new = fn()
+            for r in new:
+                print(json.dumps(r), flush=True)
+            rows += new + [{"section": name, "s": time.perf_counter() - t0}]
     lines = [json.dumps(r) for r in rows]
-    for ln in lines:
-        print(ln, flush=True)
     print(smi, flush=True)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines + [smi]) + "\n")
-    if not all(r.get("bit_equal_to_shipped", True) for r in rows):
+    if not all(r.get("bit_equal_to_shipped", True) and r.get("bit_equal_to_this_tree", True)
+               for r in rows):
         raise SystemExit("ab_port_kernels: a variant changed the kernel's bits")
     if not all(r.get("equal_to_sort", True) and r.get("launches_as_planned", True)
                for r in rows):
