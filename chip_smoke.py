@@ -319,8 +319,9 @@ def phase_kernels(legs):
 def check_fwd_launch(launch, k, B, name):
     rows = FWD_ROWS[k]
     check(launch["cluster"] == 2 and launch["rows"] == rows and launch["threads"] == 2 * rows
-          and launch["ctas"] == 2 * -(-B // rows),
-          f"{name} (k={k}, B={B}) does not launch 2-CTA clusters of {rows}-row CTAs: {launch}")
+          and launch["ctas"] == 2 * -(-B // rows) and launch["x_resident"] == 1,
+          f"{name} (k={k}, B={B}) does not launch 2-CTA clusters of {rows}-row CTAs "
+          f"with a resident feature tile: {launch}")
 
 
 def check_wgrad_launch(launch, tiles, B, name):

@@ -26,19 +26,22 @@
 // device code shared through mlp_tiles.cuh). One cluster of two CTAs per
 // ROWS batch rows; CTA c computes columns [64c, 64c+64) of every 128-wide
 // layer with wgmma m64n64k16, one consumer warpgroup per 64 rows (ROWS =
-// 128, two warpgroups sharing every weight tile, when the CTA's resident
-// feature tile fits in shared memory; else 64). A layer's bf16 output
+// 128, two warpgroups sharing every weight tile, unless only a 64-row
+// CTA's resident feature tile fits in shared memory). A layer's bf16 output
 // feeds the next layer as register A fragments (own half) and through the
 // partner's shared memory (its half, behind a split cluster barrier).
 // Weight tiles of the bf16 pack (ParamLayout.pack: the train kernels'
 // layout) stream through a 3-stage cp.async ring, two tiles ahead, driven
-// by the tile program (tile_at). x is f32 and the dominant byte stream: it
-// is read once, each chunk two tiles ahead into registers while earlier
-// chunks' products run, rounded to bf16 once into the CTA's resident
-// ROWS x k_w feature tile, which the skip layer reads again from shared
-// memory. The head (16 columns) runs in both CTAs on the same registers;
-// CTA 0 writes the 3 sigmoid outputs. Ragged K and B edges read as zero
-// (zero padding contributes nothing, as in the reference).
+// by the tile program (tile_at). x is f32 and the dominant byte stream:
+// each chunk is loaded two tiles ahead into registers while earlier
+// chunks' products run, then rounded to bf16 into the CTA's feature tile.
+// When the whole ROWS x k_w tile fits in shared memory it stays resident
+// and the skip layer reads it from there, so x is read once; when not even
+// a 64-row CTA's does (k_w >= ~1500), the tile is a ring of two chunks and
+// the skip layer streams x again the same way. The head (16 columns) runs
+// in both CTAs on the same registers; CTA 0 writes the 3 sigmoid outputs.
+// Ragged K and B edges read as zero (zero padding contributes nothing, as
+// in the reference).
 
 #include "mlp_tiles.cuh"
 
@@ -46,12 +49,9 @@ namespace {
 
 constexpr int VENC_MAX = KC;  // most view-encoding lanes (one x tile)
 
-#ifndef FWD_FORCE_ROWS
-#define FWD_FORCE_ROWS 0  // 64 or 128: a fixed CTA height (ablation builds only)
-#endif
-
-// One CTA: WG consumer warpgroups, ROWS = 64 * WG batch rows.
-template <int WG>
+// One CTA: WG consumer warpgroups, ROWS = 64 * WG batch rows; XRES: the
+// feature tile is resident (every chunk), else a ring of two chunks.
+template <int WG, bool XRES>
 struct FwdCta {
   static constexpr int NT = 128 * WG;
   static constexpr int ROWS = BM * WG;
@@ -65,7 +65,7 @@ struct FwdCta {
   const __nv_bfloat16* wpack;
   const Tile* prog;
   unsigned char* wring;  // STAGES weight tiles
-  unsigned char* xs;     // the resident ROWS x k_w bf16 feature tile
+  unsigned char* xs;     // the bf16 feature tile
   unsigned char* vs;     // the ROWS x venc_w bf16 view tile (VD)
 
   // This thread's 32 values of feature chunk ch (rows past nrows, lanes
@@ -89,10 +89,15 @@ struct FwdCta {
     }
   }
 
-  // Those values, rounded to bf16, into the resident tile (K-major core
+  // Chunk ch of the feature tile (its slot in the ring when not resident).
+  __device__ __forceinline__ unsigned char* x_chunk(int ch) const {
+    return xs + (XRES ? ch : ch & 1) * CHUNK;
+  }
+
+  // Those values, rounded to bf16, into the feature tile (K-major core
   // matrices: (m, k) at (k/8)*LBO + (m/8)*128 + (m%8)*16 + (k%8)*2).
   __device__ __forceinline__ void store_x(const float (&v)[32], int ch) const {
-    unsigned char* dst = xs + ch * CHUNK;
+    unsigned char* dst = x_chunk(ch);
     if (x_vec) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -133,23 +138,25 @@ struct FwdCta {
   }
 };
 
-// Shared memory of a CTA: the weight ring, the feature tile, the view tile
-// (VD), two exchange slots per warpgroup, the tile program.
-int fwd_smem(int wg, int k_w, bool vd, int n_tiles) {
-  return STAGES * TILE_BYTES + BM * wg * k_w * 2 + (vd ? BM * wg * KC * 2 : 0) +
+// Shared memory of a CTA: the weight ring, the feature tile (x_chunks
+// chunks of 64 lanes), the view tile (VD), two exchange slots per
+// warpgroup, the tile program.
+int fwd_smem(int wg, int x_chunks, bool vd, int n_tiles) {
+  return STAGES * TILE_BYTES + BM * wg * KC * 2 * x_chunks + (vd ? BM * wg * KC * 2 : 0) +
          2 * wg * XCHG_BYTES + n_tiles * (int)sizeof(Tile);
 }
 
 // Weight pack (bf16, ParamLayout's matrix region) and bias pack (f32, its
 // bias region): see mlp_tiles.cuh:Net. VD: the view-dependent chain (a
 // separate instantiation, so the plain field's kernel is compiled without
-// the concat layer's code).
-template <int WG, bool VD>
+// the concat layer's code); XRES likewise (the resident tile's kernel
+// carries no second pass over x).
+template <int WG, bool VD, bool XRES>
 __global__ void __launch_bounds__(128 * WG, 1)
 fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ venc,
                      const __nv_bfloat16* __restrict__ wpack, const float* __restrict__ bpack,
                      float* __restrict__ out, int B, Net net, int venc_in, int n_tiles) {
-  using Cta = FwdCta<WG>;
+  using Cta = FwdCta<WG, XRES>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   cg::cluster_group cl = cg::this_cluster();
   const int c = (int)cl.block_rank();  // which half of the columns
@@ -178,7 +185,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ venc
   f.wpack = wpack;
   f.wring = smem_raw;
   f.xs = f.wring + STAGES * TILE_BYTES;
-  f.vs = f.xs + (size_t)f.nch * Cta::CHUNK;
+  f.vs = f.xs + (size_t)(XRES ? f.nch : 2) * Cta::CHUNK;
   uint4* xchg = reinterpret_cast<uint4*>(f.vs + (VD ? Cta::ROWS * KC * 2 : 0));  // 2 x WG slots
   Tile* prog = reinterpret_cast<Tile*>(reinterpret_cast<unsigned char*>(xchg) +
                                        2 * WG * XCHG_BYTES);
@@ -256,6 +263,10 @@ fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ venc
                                    : make_float2(0.0f, 0.0f);
       }
     }
+    if (!XRES && layer == net.skip) {  // x again: its first chunks load under h . Wh
+      f.load_x(xa, 0);
+      if (f.nch > 1) f.load_x(xb, 1);
+    }
     if (layer > 0) {  // h . Wh: this CTA's half of h from registers, then the partner's
       tile_ready();
       mma_h(true);
@@ -267,7 +278,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ venc
     }
     if (layer == 0 || layer == net.skip) {  // x . Wx, chunk by chunk
       for (int ch = 0; ch < f.nch; ++ch) {
-        if (layer == 0) {  // chunk ch into the resident tile; chunk ch + 2 into registers
+        if (layer == 0 || !XRES) {  // chunk ch into the tile; chunk ch + 2 into registers
           if (ch & 1) {
             f.store_x(xb, ch);
             if (ch + 2 < f.nch) f.load_x(xb, ch + 2);
@@ -277,7 +288,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ venc
           }
         }
         tile_ready();  // also publishes the stored chunk to the tensor cores
-        mma_rows(f.xs + ch * Cta::CHUNK, KC / 16);
+        mma_rows(f.x_chunk(ch), KC / 16);
         next_tile();
       }
     }
@@ -330,25 +341,31 @@ fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ venc
 }
 
 // Launch shape: {CTAs, cluster size, threads, shared memory bytes, rows
-// per CTA}; the CTA height is 128 rows when that CTA's shared memory fits.
-void fwd_config(int B, const Net& net, int (&out)[5]) {
-  const int n_tiles = forward_tiles(net);
+// per CTA, 1 if the feature tile stays resident}: 128-row CTAs with the
+// resident tile when their shared memory fits, else 64-row ones, else
+// 128-row CTAs that stream x twice.
+void fwd_config(int B, const Net& net, int (&out)[6]) {
+  const int n_tiles = forward_tiles(net), nch = net.k_w / KC;
   const bool vd = net.cat >= 0;
-  int wg = fwd_smem(2, net.k_w, vd, n_tiles) <= SMEM_LIMIT ? 2 : 1;
-  if (FWD_FORCE_ROWS) wg = FWD_FORCE_ROWS / BM;
+  int wg = 2, x_res = 1;
+  if (fwd_smem(2, nch, vd, n_tiles) > SMEM_LIMIT) {
+    if (fwd_smem(1, nch, vd, n_tiles) <= SMEM_LIMIT) wg = 1;
+    else x_res = 0;
+  }
   const int rows = BM * wg;
   out[0] = 2 * ((B + rows - 1) / rows);
   out[1] = 2;
   out[2] = 128 * wg;
-  out[3] = fwd_smem(wg, net.k_w, vd, n_tiles);
+  out[3] = fwd_smem(wg, x_res ? nch : 2, vd, n_tiles);
   out[4] = rows;
+  out[5] = x_res;
 }
 
-template <int WG, bool VD>
-cudaError_t launch_kernel(const int (&cfg)[5], const float* x, const float* venc,
+template <int WG, bool VD, bool XRES = true>
+cudaError_t launch_kernel(const int (&cfg)[6], const float* x, const float* venc,
                           const void* wpack, const float* bpack, float* out, int B,
                           const Net& net, int venc_in, cudaStream_t st) {
-  auto kern = fused_mlp_fwd_kernel<WG, VD>;
+  auto kern = fused_mlp_fwd_kernel<WG, VD, XRES>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg[3]);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t lc = {};
@@ -381,12 +398,17 @@ int launch(const float* x, const void* wpack, const float* bpack, float* out, in
                           venc_w > VENC_MAX))
     return (int)cudaErrorInvalidValue;
   const Net net = make_net(k_in, k_w, num_layers, skip_idx, venc != nullptr ? venc_w : 0);
-  int cfg[5];
+  int cfg[6];
   fwd_config(B, net, cfg);
-  if (cfg[3] > SMEM_LIMIT) return (int)cudaErrorInvalidValue;  // the feature tile does not fit
+  if (cfg[3] > SMEM_LIMIT) return (int)cudaErrorInvalidValue;  // the tile program does not fit
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
-  if (cfg[4] == 2 * BM)
+  if (!cfg[5])
+    err = venc != nullptr
+              ? launch_kernel<2, true, false>(cfg, x, venc, wpack, bpack, out, B, net, venc_in, st)
+              : launch_kernel<2, false, false>(cfg, x, venc, wpack, bpack, out, B, net, venc_in,
+                                               st);
+  else if (cfg[4] == 2 * BM)
     err = venc != nullptr
               ? launch_kernel<2, true>(cfg, x, venc, wpack, bpack, out, B, net, venc_in, st)
               : launch_kernel<2, false>(cfg, x, venc, wpack, bpack, out, B, net, venc_in, st);
@@ -396,7 +418,7 @@ int launch(const float* x, const void* wpack, const float* bpack, float* out, in
               : launch_kernel<1, false>(cfg, x, venc, wpack, bpack, out, B, net, venc_in, st);
   if (err != cudaSuccess) return (int)err;
   if (launched)
-    for (int i = 0; i < 5; ++i) launched[i] = cfg[i];
+    for (int i = 0; i < 6; ++i) launched[i] = cfg[i];
   return 0;
 }
 
@@ -404,8 +426,9 @@ int launch(const float* x, const void* wpack, const float* bpack, float* out, in
 
 // Plain C entry points (loaded with ctypes). They launch on `stream` and
 // return cudaGetLastError() (0 on success); they never synchronize.
-// launched (null, or 5 ints): on success, the shape the launch ran with:
-// {CTAs, cluster size, threads per CTA, shared memory bytes, rows per CTA}.
+// launched (null, or 6 ints): on success, the shape the launch ran with:
+// {CTAs, cluster size, threads per CTA, shared memory bytes, rows per CTA,
+// 1 if the feature tile stays resident}.
 extern "C" int fused_mlp_fwd(const float* x, const void* wpack, const float* bpack, float* out,
                              int B, int k_in, int k_w, int num_layers, int skip_idx,
                              int* launched, void* stream) {

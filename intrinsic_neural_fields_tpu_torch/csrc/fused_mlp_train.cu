@@ -547,15 +547,6 @@ constexpr int A_BYTES = WG_ROWS * KC * 2;            // an A^T chunk: 16 KB
 constexpr int STAGE_BYTES = A_BYTES + KC * HID * 2;  // and a D chunk: 32 KB
 constexpr int PART_F4 = WG_THREADS * HID / 8;        // a partial tile in float4s
 
-#ifndef WGRAD_GLOBAL_PARTIALS
-#define WGRAD_GLOBAL_PARTIALS 0
-#endif
-#if WGRAD_GLOBAL_PARTIALS
-// Ablation build only (tools/ab_port_kernels.py): the partials cross device
-// memory instead of distributed shared memory, summed in the same order.
-__device__ float4 g_wpart[64 * WG_MAX_SPLIT * PART_F4];
-#endif
-
 struct Wgrad {
   int n_mats;
   int tile0[MAXM + 1];     // first 128-row tile of each matrix; tile0[n_mats] = #tiles
@@ -747,11 +738,7 @@ wgrad_kernel(const XT* __restrict__ x, long long row0, int B, int k_in, int t_as
   // (f: 8-column group; the accumulator's rows r, r + 8 at columns c, c + 1).
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();  // every warpgroup's products are done: the ring is free
-#if WGRAD_GLOBAL_PARTIALS
-  float4* red = g_wpart + (size_t)blockIdx.x * PART_F4;
-#else
   float4* red = reinterpret_cast<float4*>(smem_raw);
-#endif
   if (N == HID) {
 #pragma unroll
     for (int f = 0; f < 8; ++f) {
@@ -766,24 +753,14 @@ wgrad_kernel(const XT* __restrict__ x, long long row0, int B, int k_in, int t_as
       red[f * WG_THREADS + tid] = make_float4(acc16[4 * f], acc16[4 * f + 1], acc16[4 * f + 2],
                                               acc16[4 * f + 3]);
   }
-#if WGRAD_GLOBAL_PARTIALS
-  __threadfence();
-#endif
   cl.sync();
   // the r-th share of the tile's float4s: summed over the S partials in rank order
   const int total = dpr * WG_THREADS;
   float* out = grads + g.w_off[m] + (size_t)r0 * N;
   for (int idx = rank * total / S + tid; idx < (rank + 1) * total / S; idx += WG_THREADS) {
-#if WGRAD_GLOBAL_PARTIALS
-    const float4* p0 = g_wpart + (size_t)(blockIdx.x - rank) * PART_F4 + idx;
-    float4 s = __ldcg(p0);
-    for (int q = 1; q < S; ++q) {
-      const float4 v = __ldcg(p0 + (size_t)q * PART_F4);
-#else
     float4 s = *cl.map_shared_rank(red + idx, 0);
     for (int q = 1; q < S; ++q) {
       const float4 v = *cl.map_shared_rank(red + idx, q);
-#endif
       s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
     }
     const int f = idx / WG_THREADS, t = idx - f * WG_THREADS, tw = t & 127;

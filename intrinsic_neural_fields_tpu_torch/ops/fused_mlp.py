@@ -444,13 +444,16 @@ def fused_apply_viewdep(fw, x, venc):
 
 # The shape of the last forward launch (either field), written by the C
 # entry point.
-_FWD_LAUNCHED = (ctypes.c_int * 5)()
+_FWD_LAUNCHED = (ctypes.c_int * 6)()
 
 
 def last_fwd_launch():
     """The shape the last forward launch (either field) ran with: {"ctas",
-    "cluster", "threads", "smem_bytes", "rows"} (batch rows per CTA)."""
-    return dict(zip(("ctas", "cluster", "threads", "smem_bytes", "rows"), _FWD_LAUNCHED))
+    "cluster", "threads", "smem_bytes", "rows", "x_resident"} (batch rows
+    per CTA; 1 if the bf16 feature tile stayed in shared memory, 0 if the
+    skip layer streamed the features again)."""
+    return dict(zip(("ctas", "cluster", "threads", "smem_bytes", "rows", "x_resident"),
+                    _FWD_LAUNCHED))
 
 
 # ----------------------------------------------------------------- training

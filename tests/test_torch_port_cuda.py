@@ -54,26 +54,36 @@ def _fwd_launch_as_designed(layout, B):
     """The forward's launch shape against its design: 2-CTA clusters of
     128-row CTAs (two warpgroups) when such a CTA's shared memory (weight
     ring, resident bf16 feature tile, view tile, exchange slots, tile
-    program) fits in 227 KB, else of 64-row CTAs."""
+    program) fits in 227 KB, else of 64-row CTAs if theirs fits, else of
+    128-row CTAs whose feature tile is a ring of two 64-lane chunks."""
     from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import last_fwd_launch
 
     k_w, vd = layout.spec.k_w, layout.tail is not None
     n_tiles = 2 * (k_w // 64) + 2 * (len(layout.layers) - 1) + vd + 1
 
-    def smem(wg):
-        return (3 * 8192 + 64 * wg * k_w * 2 + (64 * wg * 64 * 2 if vd else 0) + 2 * wg * 8192
-                + 24 * n_tiles)
-    wg = 2 if smem(2) <= 227 * 1024 else 1
+    def smem(wg, x_chunks):
+        return (3 * 8192 + 64 * wg * 64 * 2 * x_chunks + (64 * wg * 64 * 2 if vd else 0)
+                + 2 * wg * 8192 + 24 * n_tiles)
+    wg, x_res = 2, 1
+    if smem(2, k_w // 64) > 227 * 1024:
+        if smem(1, k_w // 64) <= 227 * 1024:
+            wg = 1
+        else:
+            x_res = 0
     assert last_fwd_launch() == {"ctas": 2 * -(-B // (64 * wg)), "cluster": 2,
-                                 "threads": 128 * wg, "smem_bytes": smem(wg), "rows": 64 * wg}
+                                 "threads": 128 * wg,
+                                 "smem_bytes": smem(wg, k_w // 64 if x_res else 2),
+                                 "rows": 64 * wg, "x_resident": x_res}
 
 
-@pytest.mark.parametrize("k,B", [(512, 8192), (1023, 8192), (512, 1000), (512, 1), (16, 1)])
+@pytest.mark.parametrize("k,B", [(512, 8192), (1023, 8192), (512, 1000), (512, 1), (16, 1),
+                                 (2048, 8192), (2048, 1000)])
 def test_kernel_matches_plain_twin(cuda, k, B):
     """HQ layout (6 x 128, skip 3), feature-like inputs (range 1 per
     column). Tolerance 2e-3: f32 summation order and rare bf16
     re-rounding of a hidden activation only. Two launches give the same
-    bits; the launch has the designed shape."""
+    bits; the launch has the designed shape (k=2048: the skip layer
+    streams the features again)."""
     cfg = {"k": k, "num_layers": 6, "mlp_hidden_dim": 128, "skip_layer_idx": 3}
     fw = pack_weights(FusedMLPSpec(6, k, 128, 3), make_model(cfg, seed=4).state_dict(),
                       device=cuda)
@@ -407,13 +417,14 @@ def _vd_setup(cuda, strategy, k=512, N=8192, dtype=torch.bfloat16, seed=1):
     return layout, params, feats, venc.contiguous(), vtable, gt
 
 
-@pytest.mark.parametrize("strategy,B", [("intrinsic", 8192), ("intrinsic", 1000),
-                                        ("intrinsic", 1), ("extrinsic", 8192)])
-def test_viewdep_forward_kernel_matches_plain_twin(cuda, strategy, B):
+@pytest.mark.parametrize("strategy,B,k", [("intrinsic", 8192, 512), ("intrinsic", 1000, 512),
+                                          ("intrinsic", 1, 512), ("extrinsic", 8192, 512),
+                                          ("intrinsic", 8192, 2048), ("extrinsic", 1000, 2048)])
+def test_viewdep_forward_kernel_matches_plain_twin(cuda, strategy, B, k):
     from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (fused_apply_viewdep,
                                                                  fused_apply_viewdep_plain)
 
-    layout, params, feats, venc, _, _ = _vd_setup(cuda, strategy, dtype=torch.float32)
+    layout, params, feats, venc, _, _ = _vd_setup(cuda, strategy, k=k, dtype=torch.float32)
     fw = layout.pack(params)
     x, v = feats[:B].contiguous(), venc[:B].contiguous()
     before = kernel_launches()

@@ -18,27 +18,30 @@ kernel with its split partials summed through a buffer in device memory
 instead of the cluster's shared memory (it must give the same bits), at
 k=512 (plain and tail) and k=1023, B=4096.
 
-``fwd``: the forward as shipped (its CTA height chosen by shared memory)
-beside forced 64-row and 128-row CTAs, at k=512, B=8192, plain and
+``fwd``: the forward as shipped (its CTA height and feature tile chosen
+by shared memory) beside forced 64-row and 128-row CTAs and
+``streamed`` (128-row CTAs whose skip layer reads the features from
+device memory again, as at k_w >= ~1500), at k=512, B=8192, plain and
 view-dependent (every variant must give the shipped kernel's bits).
 
-``parent`` (needs ``--parent``, a checkout of an earlier tree, e.g. ``git
-archive`` of it unpacked into an ignored directory): that tree's
-fwd_bwd, wgrad and forward kernels built from its own sources and timed
-beside this tree's on the same inputs, with its fwd_bwd's bits held to
-this tree's; and its wgrad with one part removed at a time:
-``no_bias_block`` (the block that sums the bias and loss partials is not
-launched), ``no_split_sum`` (each split stores its partial tile, nothing
-sums them), ``loads_only`` (the chunk loads alone: no products, no stores,
-no bias block).
+``parent`` (needs ``--parent``, a checkout of another tree of the port,
+e.g. ``git archive`` of it unpacked into an ignored directory): each
+tree's own Python entry points, in subprocesses that import that tree's
+package (which builds its kernels from its own sources), in the order
+parent, this, this, parent, on the same seeded inputs: ``fused_apply``
+and ``fused_apply_viewdep`` (k=512, B=8192; k=1023 plain), the train
+kernels (``fused_train_grads``: fwd_bwd + wgrad) and wgrad alone
+(``_launch_wgrad`` on this tree's fwd_bwd outputs) at k=512 plain and
+tail and k=1023, B=4096; with each output's largest difference to this
+tree's.
 
 ``sort`` (``csrc/bitonic_argsort.cu``): above 2^18 keys, the plan's run size
 (``ops/sort.py:sort_plan``'s ``run_log``, 2^11..2^18 words) on dense random
 keys of 2^18+1, 2^20 and 2^22; each plan's order must equal
 torch.sort(stable=True), and its CUDA launches the plan's.
 
-Variants are made by replacing source text or by a -D flag; the script
-stops if a text to replace is not found exactly once. Prints one JSON line
+Variants are made by replacing source text in a copy of ``csrc/``; the
+script stops if a text to replace is not found exactly once. Prints one JSON line
 per row, then the card's name and power limit. Needs nvcc and a CUDA card.
 """
 from __future__ import annotations
@@ -55,12 +58,9 @@ import time
 
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-
-from intrinsic_neural_fields_tpu_torch.models import make_model  # noqa: E402
-from intrinsic_neural_fields_tpu_torch.ops import _build  # noqa: E402
-from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F  # noqa: E402
-from intrinsic_neural_fields_tpu_torch.ops import sort as S  # noqa: E402
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+# The port's modules, from this tree or the one given by --time-tree.
+F = S = _build = make_model = None
 
 SECTIONS = ("fwd_bwd", "wgrad", "fwd", "parent", "sort")
 SORT_SIZES = ((1 << 18) + 1, 1 << 20, 1 << 22)
@@ -78,6 +78,32 @@ F32_CPW = '''  __device__ __forceinline__ void cpw(void* dst, const __nv_bfloat1
                                                 pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
   }'''
 
+# wgrad's split partials through device memory (one slot per CTA, room for
+# GLOBAL_PARTIAL_CTAS CTAs), summed in the same rank order.
+GLOBAL_PARTIAL_CTAS = 512
+WGPART_DECL = f"""
+__device__ float4 g_wpart[{GLOBAL_PARTIAL_CTAS} * PART_F4];
+"""
+WGPART_SUM_OLD = """    float4 s = *cl.map_shared_rank(red + idx, 0);
+    for (int q = 1; q < S; ++q) {
+      const float4 v = *cl.map_shared_rank(red + idx, q);
+"""
+WGPART_SUM_NEW = """    const float4* p0 = g_wpart + (size_t)(blockIdx.x - rank) * PART_F4 + idx;
+    float4 s = __ldcg(p0);
+    for (int q = 1; q < S; ++q) {
+      const float4 v = __ldcg(p0 + (size_t)q * PART_F4);
+"""
+
+
+def _use_port(root):
+    """Import the port's package from the tree at root."""
+    global F, S, _build, make_model
+    sys.path.insert(0, root)
+    from intrinsic_neural_fields_tpu_torch.models import make_model
+    from intrinsic_neural_fields_tpu_torch.ops import _build
+    from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
+    from intrinsic_neural_fields_tpu_torch.ops import sort as S
+
 
 def _replace(files, fname, old, new):
     if files[fname].count(old) != 1:
@@ -85,26 +111,26 @@ def _replace(files, fname, old, new):
     files[fname] = files[fname].replace(old, new)
 
 
-def _build_variants(csrc, target, variants, tree="this"):
+def _build_variants(csrc, target, variants):
     """Compile variants of csrc/<target>.cu in parallel, each in its own
-    copy of the csrc directory under _build/ablate/ (a directory per tree,
+    copy of the csrc directory under _build/ablate/ (a directory per
     target and variant: a library path is loaded once per process):
-    variants = {name: (edit(files) or None, extra nvcc flags)}, files =
-    {file name: text}. Returns {name: ctypes library}."""
+    variants = {name: edit(files) or None}, files = {file name: text}.
+    Returns {name: ctypes library}."""
     procs = {}
-    for name, (edit, flags) in variants.items():
+    for name, edit in variants.items():
         files = {os.path.basename(p): open(p).read()
                  for p in glob.glob(os.path.join(csrc, "*.cu*"))}
         if edit is not None:
             edit(files)
-        out_dir = os.path.join(_build.BUILD_DIR, "ablate", f"{tree}_{target}_{name}")
+        out_dir = os.path.join(_build.BUILD_DIR, "ablate", f"{target}_{name}")
         shutil.rmtree(out_dir, ignore_errors=True)
         os.makedirs(out_dir)
         for fname, text in files.items():
             with open(os.path.join(out_dir, fname), "w") as f:
                 f.write(text)
         so = os.path.join(out_dir, f"lib{target}.so")
-        cmd = [_build._nvcc(), *_build._flags(target), *flags, "-o", so,
+        cmd = [_build._nvcc(), *_build._flags(target), "-o", so,
                os.path.join(out_dir, f"{target}.cu")]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                             text=True))
@@ -188,8 +214,8 @@ def fwd_bwd_rows(csrc):
             _replace(files, "fused_mlp_train.cu", old, new)
 
     libs = _build_variants(csrc, "fused_mlp_train", {
-        "shipped": (None, []), "sync_loads": (sync, []), "f32_weights": (f32, []),
-        "sync_f32": (lambda fs: (sync(fs), f32(fs)), [])})
+        "shipped": None, "sync_loads": sync, "f32_weights": f32,
+        "sync_f32": lambda fs: (sync(fs), f32(fs))})
     cases = {(vd, B): _case(vd, B) for vd, B in ((False, 4096), (True, 4096), (False, 2048))}
     rows, outputs = [], {}
     for name, lib in libs.items():
@@ -216,8 +242,18 @@ def fwd_bwd_rows(csrc):
 
 
 def wgrad_rows(csrc):
-    libs = _build_variants(csrc, "fused_mlp_train", {
-        "shipped": (None, []), "global_partials": (None, ["-DWGRAD_GLOBAL_PARTIALS=1"])})
+    def global_partials(files):
+        f = "fused_mlp_train.cu"
+        decl = next(ln for ln in files[f].splitlines() if ln.startswith("constexpr int PART_F4"))
+        _replace(files, f, decl + "\n", decl + "\n" + WGPART_DECL)
+        _replace(files, f, "  float4* red = reinterpret_cast<float4*>(smem_raw);\n",
+                 "  float4* red = g_wpart + (size_t)blockIdx.x * PART_F4;\n")
+        _replace(files, f, "  cl.sync();\n  // the r-th share", "  __threadfence();\n  cl.sync();\n"
+                 "  // the r-th share")
+        _replace(files, f, WGPART_SUM_OLD, WGPART_SUM_NEW)
+
+    libs = _build_variants(csrc, "fused_mlp_train", {"shipped": None,
+                                                     "global_partials": global_partials})
     rows = []
     for vd, k in ((False, 512), (True, 512), (False, 1023)):
         case = _case(vd, 4096, k)
@@ -230,6 +266,9 @@ def wgrad_rows(csrc):
 
             def launch():
                 F._launch_wgrad(layout, feats, 0, 4096, sc, grads, sums, vencs)
+            if name != "shipped" and rows[-1]["launch"]["ctas"] > GLOBAL_PARTIAL_CTAS:
+                raise RuntimeError(f"wgrad {name}: {rows[-1]['launch']['ctas']} CTAs, room "
+                                   f"for {GLOBAL_PARTIAL_CTAS}")
             launch()
             torch.cuda.synchronize()
             bits = torch.cat([grads, sums]).clone()
@@ -253,9 +292,14 @@ def _fwd_inputs(vd, B, k=512, seed=0):
 
 
 def fwd_rows(csrc):
+    def forced(wg, x_res):
+        return lambda files: _replace(files, "fused_mlp_fwd.cu", "  const int rows = BM * wg;\n",
+                                      f"  wg = {wg};\n  x_res = {x_res};\n"
+                                      "  const int rows = BM * wg;\n")
+
     libs = _build_variants(csrc, "fused_mlp_fwd", {
-        "shipped": (None, []), "rows64": (None, ["-DFWD_FORCE_ROWS=64"]),
-        "rows128": (None, ["-DFWD_FORCE_ROWS=128"])})
+        "shipped": None, "rows64": forced(1, 1), "rows128": forced(2, 1),
+        "streamed": forced(2, 0)})
     rows = []
     for vd in (False, True):
         fw, x, venc = _fwd_inputs(vd, 8192)
@@ -275,114 +319,59 @@ def fwd_rows(csrc):
     return rows
 
 
-def parent_rows(parent):
-    """The parent tree's kernels beside this tree's, and its wgrad's parts."""
-    csrc = os.path.join(parent, "intrinsic_neural_fields_tpu_torch", "csrc")
-    P, I, LL, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-
-    def no_bias(files):
-        _replace(files, "fused_mlp_train.cu", "const dim3 grid(g.tile0[g.n_mats] * g.nsplit + 1);",
-                 "const dim3 grid(g.tile0[g.n_mats] * g.nsplit);")
-
-    def no_split_sum(files):
-        _replace(files, "fused_mlp_train.cu", "  if (g.nsplit == 1) return;\n", "  return;\n")
-
-    def loads_only(files):
-        no_bias(files)
-        _replace(files, "fused_mlp_train.cu", "    if (N == HID || cg == 0) {\n",
-                 "    if (false) {\n")
-        _replace(files, "fused_mlp_train.cu",
-                 "  // this split's partial tile; with one split it is the gradient itself\n",
-                 "  return;\n")
-
-    train = _build_variants(csrc, "fused_mlp_train", {
-        "shipped": (None, []), "no_bias_block": (no_bias, []),
-        "no_split_sum": (no_split_sum, []), "loads_only": (loads_only, [])}, "parent")
-    fwd = _build_variants(csrc, "fused_mlp_fwd", {"shipped": (None, [])}, "parent")["shipped"]
-    for lib in train.values():
-        lib.fused_mlp_wgrad.argtypes = [P, I, LL, I, I, I, I, I] + [P] * 9
-        lib.fused_mlp_wgrad_viewdep.argtypes = [P, I, LL, I, I, I, I, I, P, I, I] + [P] * 9
-        lib.fused_mlp_fwd_bwd.argtypes = [P, I, LL, I, I, P, P, I, I, I, P, I, Fl] + [P] * 6
-        lib.fused_mlp_fwd_bwd_viewdep.argtypes = (
-            [P, I, LL, I, I, P, P, I, I, I, P, I, I, P, I, Fl] + [P] * 6)
-    fwd.fused_mlp_fwd.argtypes = [P] * 4 + [I] * 5 + [P]
-    fwd.fused_mlp_fwd_viewdep.argtypes = [P] * 5 + [I] * 7 + [P]
-    rows = []
+def entry_rows(out_pt):
+    """This process's tree: its entry points timed on the seeded cases, their
+    outputs saved to out_pt for the comparison across trees."""
+    rows, outs = [], {}
     for vd, k in ((False, 512), (True, 512), (False, 1023)):
         case = _case(vd, 4096, k)
         layout, params, feats, vencs, gt = case
-        spec, B = layout.spec, 4096
-        sc = _fwd_bwd_outputs(case)  # this tree's fwd_bwd: the inputs of both wgrads
-        mine = [t.clone() for t in (sc.acts, sc.deltas, sc.bias_part, sc.loss_part)]
-        stream = torch.cuda.current_stream().cuda_stream
-        x16 = int(feats.dtype == torch.bfloat16)
-        head = (feats.data_ptr(), x16, 0, B, spec.k_in)
-        vargs = () if not vd else (vencs.data_ptr(), layout.tail.venc_in, layout.tail.venc_w)
-        launched = (ctypes.c_int * 5)()
-
-        def parent_fwd_bwd():
-            fn = train["shipped"].fused_mlp_fwd_bwd_viewdep if vd else \
-                train["shipped"].fused_mlp_fwd_bwd
-            rc = fn(*head, params.data_ptr(), sc.wb.data_ptr(), spec.k_w, spec.num_layers,
-                    spec.skip_idx, *vargs, gt.data_ptr(), F.LOSS_MODES["L1"], 1.0 / (3 * B),
-                    sc.acts.data_ptr(), sc.deltas.data_ptr(), sc.bias_part.data_ptr(),
-                    sc.loss_part.data_ptr(), launched, stream)
-            assert rc == 0, rc
-        parent_fwd_bwd()
-        torch.cuda.synchronize()
-        theirs = [t.clone() for t in (sc.acts, sc.deltas, sc.bias_part, sc.loss_part)]
-        rows.append({"kernel": "fwd_bwd", "tree": "parent", "viewdep": vd, "k": k, "B": B,
-                     "bit_equal_to_this_tree": all(torch.equal(a, b)
-                                                   for a, b in zip(mine, theirs)),
-                     "ms": cuda_ms(parent_fwd_bwd)})
-        rows.append({"kernel": "fwd_bwd", "tree": "this", "viewdep": vd, "k": k, "B": B,
-                     "ms": cuda_ms(lambda: F._launch_fwd_bwd(
-                         layout, params, feats, 0, B, gt, F.LOSS_MODES["L1"], 1.0 / (3 * B),
-                         sc, vencs))})
-        wpart = torch.empty(8 * layout.n_w, device="cuda")
-        counters = torch.zeros(layout.n_w // (64 * 16), dtype=torch.int32, device="cuda")
+        sc = _fwd_bwd_outputs(case)
         grads, sums = torch.empty(layout.n, device="cuda"), torch.empty(2, device="cuda")
-        for name, lib in train.items():
-            def parent_wgrad(lib=lib):
-                fn = lib.fused_mlp_wgrad_viewdep if vd else lib.fused_mlp_wgrad
-                rc = fn(*head, spec.k_w, spec.num_layers, spec.skip_idx, *vargs,
-                        sc.acts.data_ptr(), sc.deltas.data_ptr(), sc.bias_part.data_ptr(),
-                        sc.loss_part.data_ptr(), grads.data_ptr(), sums.data_ptr(),
-                        wpart.data_ptr(), counters.data_ptr(), stream)
-                assert rc == 0, rc
-            rows.append({"kernel": "wgrad", "tree": "parent", "variant": name, "viewdep": vd,
-                         "k": k, "B": B, "ms": cuda_ms(parent_wgrad)})
-        rows.append({"kernel": "wgrad", "tree": "this", "viewdep": vd, "k": k, "B": B,
-                     "ms": cuda_ms(lambda: F._launch_wgrad(layout, feats, 0, B, sc, grads, sums,
-                                                           vencs))})
-    for vd in (False, True):
-        fw, x, venc = _fwd_inputs(vd, 8192)
-        spec, out = fw.spec, torch.empty(8192, 3, device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
 
-        def parent_fwd():
-            if vd:
-                t = fw.layout.tail
-                rc = fwd.fused_mlp_fwd_viewdep(x.data_ptr(), venc.data_ptr(), fw.w.data_ptr(),
-                                               fw.b.data_ptr(), out.data_ptr(), 8192, spec.k_in,
-                                               spec.k_w, spec.num_layers, spec.skip_idx,
-                                               t.venc_in, t.venc_w, stream)
-            else:
-                rc = fwd.fused_mlp_fwd(x.data_ptr(), fw.w.data_ptr(), fw.b.data_ptr(),
-                                       out.data_ptr(), 8192, spec.k_in, spec.k_w,
-                                       spec.num_layers, spec.skip_idx, stream)
-            assert rc == 0, rc
+        def wgrad():
+            F._launch_wgrad(layout, feats, 0, 4096, sc, grads, sums, vencs)
 
-        def this_fwd():
+        def train():
+            return F.fused_train_grads(layout, params, feats, gt, 0, 4096, "L1", sc, vencs)
+        wgrad()
+        outs[f"wgrad_vd{int(vd)}_k{k}"] = torch.cat([grads, sums]).cpu()
+        g, loss, sq = train()
+        outs[f"train_vd{int(vd)}_k{k}"] = torch.cat([g, loss[None], sq[None]]).cpu()
+        base = {"viewdep": vd, "k": k, "B": 4096}
+        rows += [{"entry": "_launch_wgrad", **base, "ms": cuda_ms(wgrad)},
+                 {"entry": "fused_train_grads", **base, "ms": cuda_ms(train)}]
+    for vd, k in ((False, 512), (True, 512), (False, 1023)):
+        fw, x, venc = _fwd_inputs(vd, 8192, k)
+
+        def fwd():
             return F.fused_apply_viewdep(fw, x, venc) if vd else F.fused_apply(fw, x)
-        parent_fwd()
-        mine = this_fwd()
-        torch.cuda.synchronize()
-        rows.append({"kernel": "fwd", "tree": "parent", "viewdep": vd, "k": 512, "B": 8192,
-                     "max_abs_diff_to_this_tree": (out - mine).abs().max().item(),
-                     "ms": cuda_ms(parent_fwd)})
-        rows.append({"kernel": "fwd", "tree": "this", "viewdep": vd, "k": 512, "B": 8192,
-                     "ms": cuda_ms(this_fwd)})
+        outs[f"fwd_vd{int(vd)}_k{k}"] = fwd().cpu()
+        rows.append({"entry": "fused_apply_viewdep" if vd else "fused_apply", "viewdep": vd,
+                     "k": k, "B": 8192, "ms": cuda_ms(fwd)})
+    torch.save(outs, out_pt)
+    return rows
+
+
+def parent_rows(parent):
+    """Both trees' entry points, each tree in its own processes."""
+    tmp = os.path.join(_build.BUILD_DIR, "ablate", "trees")
+    os.makedirs(tmp, exist_ok=True)
+    rows, outs = [], {}
+    for i, (tree, root) in enumerate((("parent", parent), ("this", ROOT), ("this", ROOT),
+                                      ("parent", parent))):
+        out_pt = os.path.join(tmp, f"run{i}.pt")
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-tree",
+                            os.path.abspath(root), "--out", out_pt], capture_output=True,
+                           text=True, cwd=root)
+        if p.returncode != 0:
+            raise RuntimeError(f"ab_port_kernels: the {tree} tree's run failed:\n{p.stderr}")
+        rows += [{"tree": tree, "run": i, **json.loads(ln)} for ln in p.stdout.splitlines()
+                 if ln.startswith("{")]
+        outs.setdefault(tree, torch.load(out_pt))
+    for name, mine in outs["this"].items():
+        rows.append({"output": name, "max_abs_diff_parent_to_this":
+                     (outs["parent"][name] - mine).abs().max().item()})
     return rows
 
 
@@ -424,7 +413,13 @@ def main(argv=None):
     ap.add_argument("--sections", default=",".join(SECTIONS),
                     help=f"comma-separated subset of {','.join(SECTIONS)}")
     ap.add_argument("--out", default=None, help="also write the JSON lines to this file")
+    ap.add_argument("--time-tree", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    _use_port(args.time_tree or ROOT)
+    if args.time_tree:  # one tree's entry points (the parent section's subprocess)
+        for r in entry_rows(args.out):
+            print(json.dumps(r), flush=True)
+        return 0
     sections = args.sections.split(",")
     if not set(sections) <= set(SECTIONS):
         raise SystemExit(f"ab_port_kernels: unknown section in {args.sections}")
