@@ -48,17 +48,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       (configs/synthetic/intrinsic_blob_hq.yaml: k=512, 6x128 skip 3, L1,
       Adam lr 1e-4, batch 4096, bf16 table, shuffle blocks, fused_mlp) for
       5 epochs with an in-memory writer, counters set to 0 just before and
-      read just after (train kernels, Adam kernel and the forward kernel of
-      the eval after training must have launched, the eager step never);
-      train loss falls, the tags are the JAX Trainer's, the params finite;
-      then a run resumed from checkpoint.pt must equal the uninterrupted
-      run to the bit; PSNR/DSSIM on the val views before and after; the
-      port's eval CLI (main(argv)) scores the test split;
+      read just after (fwd_bwd and wgrad with its Adam epilogue once per
+      step, each epoch one replay of a captured CUDA graph, and the forward
+      kernel of the eval after training must have launched; the eager step,
+      the grads-only wgrad and the Adam kernel never); train loss falls,
+      the tags are the JAX Trainer's, the params finite; then a run resumed
+      from checkpoint.pt (its graph captured anew) must equal the
+      uninterrupted run to the bit; the same 5 epochs with fused_adam:
+      false (per step from the host: fwd_bwd, grads-only wgrad, the Adam
+      kernel; counters set to 0 just before, read just after) must give
+      the same params, moments, bf16 weight copy and epoch losses, to the
+      bit; PSNR/DSSIM on the val views before and after; the port's eval
+      CLI (main(argv)) scores the test split;
   (f) train throughput at the reference bench's shapes (bench.py:26-33:
       V=30k, k=1023, N=2^21 bf16 table, batch 4096, 6x128 skip 3, L1, Adam):
-      3 timed epochs after 1 warm-up;
-  (g) train kernels: fwd_bwd, wgrad and Adam each against its plain twin on
+      3 timed epochs after 1 warm-up (which captures the epoch's graph);
+      kernels per step, host dispatches per epoch, the capture's seconds;
+  (g) train kernels: fwd_bwd, wgrad, wgrad with its Adam epilogue and the
+      standalone Adam each against its plain twin on
       the batches each train leg feeds them (k=512 and k=1023, B=4096;
+      wgrad_adam to the bit against the Adam twin on the grads-only wgrad's
+      gradients, moments random over the whole flat buffer;
       fwd_bwd's launch shape: 2-CTA clusters, 128 CTAs; wgrad's: one
       cluster of 8 CTAs per 128-row gradient tile, and two wgrad launches
       equal to the bit; Adam with and
@@ -71,9 +81,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       sections (k=512, 6x128 skip 3, bottleneck 128, intrinsic view angle,
       embed 4, directional 128; L1, Adam lr 1e-4, batch 4096, shuffle
       blocks) with fused_mlp and a bf16 table, 5 epochs, counters set to 0
-      just before and read just after: the tail kernels once per step, the
-      plain train kernels and the eager step never; loss falls, tags, finite
-      state, bit-exact resume; evaluate_views of the val views through the
+      just before and read just after: the tail kernels (fwd_bwd, wgrad
+      with Adam) once per step in one graph replay per epoch, the plain
+      train kernels, the Adam kernel and the eager step never; loss falls,
+      tags, finite state, bit-exact resume; the fused_adam: false run equal
+      to the bit, as in (e); evaluate_views of the val views through the
       view-dependent forward kernel before and after, each held to the
       plain twin's render (equal masks, PSNR >= 50 dB);
   (i) view-dependent kernels: each tail kernel against its plain twin on
@@ -81,8 +93,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       chunks, a ragged B), one extrinsic batch (27 view lanes), Adam on
       the view-dependent buffer; the launch shapes and wgrad's bits across
       two launches as in (d) and (g); times beside bounds;
-  (j) profile: torch.profiler over 4 pipelined render frames, one
-      train-throughput epoch and one view-dependent train epoch;
+  (j) profile: torch.profiler over 4 pipelined render frames and one
+      epoch of each train leg (HQ, train throughput, view-dependent), whose
+      port kernels, counted by name in the trace, must be exactly one
+      fwd_bwd and one wgrad with Adam per step; before it an unprofiled
+      epoch, CUDA events around its graph replay, against its wall time;
   (k) the kernels summary line, the nvidia-smi line, and the result line.
       The train kernels' bound_ms counts the activations and deltas their
       two-launch split writes; their fused_step_bound_ms is the bound of
@@ -151,18 +166,25 @@ SORT_SIZES = (1, 255, 1000, 5000, 1 << 18, (1 << 18) + 1, 1 << 20)
 # gate at 0.999 allows four times that many.
 AGREE_MIN = 0.999
 # Not measured here: the redesigned kernels' times before their redesign
-# and the train legs' best rays/s before the latest one, as PERF.md section
-# 6 records them (H100 80GB HBM3 at 700 W). The phase rows print them under
+# (wgrad_adam: wgrad's and the Adam kernel's, the two launches it replaces),
+# the train legs' best rays/s and the HQ step's best wall ms before the
+# latest redesign, as PERF.md sections 5 and 6 record them (H100 80GB HBM3
+# at 700 W). The phase rows print them under
 # "cited_" keys beside this run's numbers; the kernels line carries none of
 # them.
 CITED_BEFORE_REDESIGN = {"fused_mlp_fwd_bwd": 0.1348, "fused_mlp_fwd_bwd_viewdep": 0.1744,
                          "bitonic_argsort": 0.1505, "fused_mlp_fwd": 0.0650,
                          "fused_mlp_fwd_viewdep": 0.0769, "fused_mlp_wgrad": 0.0517,
-                         "fused_mlp_wgrad_viewdep": 0.0608, "hq_train": 28.39e6,
-                         "viewdep_train": 23.60e6}
+                         "fused_mlp_wgrad_viewdep": 0.0608, "hq_train": 40.80e6,
+                         "viewdep_train": 34.29e6, "fused_adam": 0.00356,
+                         # wgrad, then the Adam kernel (two launches before the epilogue)
+                         "fused_mlp_wgrad_adam": 0.0229 + 0.00356,
+                         "fused_mlp_wgrad_adam_viewdep": 0.0264 + 0.00406,
+                         "hq_step_wall_ms": 0.1004}
 REDESIGNED = ("fused_mlp_fwd_bwd", "fused_mlp_fwd_bwd_viewdep", "bitonic_argsort",
               "fused_mlp_fwd", "fused_mlp_fwd_viewdep", "fused_mlp_wgrad",
-              "fused_mlp_wgrad_viewdep")
+              "fused_mlp_wgrad_viewdep", "fused_adam", "fused_mlp_wgrad_adam",
+              "fused_mlp_wgrad_adam_viewdep")
 # The designed launch shapes of the forward and wgrad. The forward: 2-CTA
 # clusters of 128-row CTAs (two warpgroups) while the CTA's resident bf16
 # feature tile fits in shared memory (k_w <= 512 here), else 64-row CTAs.
@@ -220,8 +242,12 @@ def _macs(layout):
     return fwd + 3 * H, bwd + 3 * H
 
 
-def _bound(flops, nbytes, flops_rate=H100_BF16_FLOPS):
-    t_ops, t_bytes = flops / flops_rate, nbytes / H100_BYTES_PER_S
+def _bound(flops, nbytes, flops_rate=H100_BF16_FLOPS, f32_flops=0.0):
+    """(least ms, "operations" or "bytes"): the larger of the operations at
+    their peak rate (`flops` at flops_rate, plus f32_flops outside the
+    tensor cores) and the bytes at the HBM rate."""
+    t_ops = flops / flops_rate + f32_flops / H100_F32_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -731,6 +757,52 @@ def phase_hq_preprocess(prep):
     return dict(prep, pre=pre, rays=rays)
 
 
+def _graph_stats(trainer, launches, steps, epochs, names):
+    """What the Trainer's blocks + fused_adam epochs did on the card: kernel
+    launches per step (of the kernels `names`), host dispatches (graph
+    replays) per epoch, captures and the last capture's seconds."""
+    g = trainer.train_epoch_fn.graph
+    return {"kernels_per_step": sum(launches[n] for n in names) / steps,
+            "host_dispatches_per_epoch": g.replays / epochs, "graph_captures": g.captures,
+            "graph_capture_s": g.capture_s}
+
+
+def _yardstick_equal(p, trainer, rec, config_fn, out_name, mesh, renderer, data, tail):
+    """The same run with training.fused_adam false (per step from the host:
+    fwd_bwd, the grads-only wgrad, the Adam kernel, the accumulators in
+    torch), counters set to 0 just before and read just after: its params,
+    moments, epoch losses and PSNRs must equal the graph-replayed run's to
+    the bit, and the run's bf16 weight copy its params rounded to bf16.
+    Returns (its launches, the comparison)."""
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.train import Trainer, get_model_and_optim
+
+    cfg = config_fn(p, out_name, 5)
+    cfg["training"]["fused_adam"] = False
+    model, opt = get_model_and_optim(cfg, mesh)
+    rec_y = Recorder()
+    yard = Trainer(model, opt, "L1", renderer, data, mesh, cfg, writer=rec_y)
+    reset_kernel_launches()
+    yard.train()
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    nb = data["train"].n // 4096
+    check(launches["fused_mlp_fwd_bwd" + tail] == launches["fused_mlp_wgrad" + tail]
+          == launches["fused_adam"] == 5 * nb and launches["fused_mlp_wgrad_adam" + tail] == 0,
+          f"fused_adam=False did not run fwd_bwd, wgrad and Adam once per step: {launches}")
+    wb = trainer.train_epoch_fn.graph.bufs.scratch.wb
+    cmp = {name: torch.equal(getattr(yard.state, name), getattr(trainer.state, name))
+           for name in ("params", "mu", "nu")}
+    cmp["wb"] = torch.equal(wb, yard.state.params.to(torch.bfloat16))
+    for tag in ("Train_Loss", "Train Epoch-PSNR"):
+        cmp[tag] = rec_y.values(tag) == rec.values(tag)
+    check(all(cmp.values()), f"the graph epoch and the fused_adam=False loop differ: {cmp}")
+    return launches, cmp
+
+
 def _hq_train_config(p, out_name, epochs):
     """configs/synthetic/intrinsic_blob_hq.yaml on the hq_pipeline's files,
     cut to `epochs` epochs, checkpoints every 3 epochs, no vis views (the
@@ -807,7 +879,7 @@ def phase_hq_train(p):
     path_s = time.perf_counter() - t1
     launches, eager = kernel_launches(), eager_step.launches
 
-    plain_kernels = ("fused_mlp_fwd", "fused_mlp_fwd_bwd", "fused_mlp_wgrad", "fused_adam")
+    plain_kernels = ("fused_mlp_fwd", "fused_mlp_fwd_bwd", "fused_mlp_wgrad_adam")
     check(all(launches[k] > 0 for k in plain_kernels)
           and not any(launches[k] for k in launches if k not in plain_kernels),
           f"the HQ path's kernels did not launch, or others did: {launches}")
@@ -819,8 +891,12 @@ def phase_hq_train(p):
     check(all(torch.isfinite(t).all().item() for t in (trainer.state.params, trainer.state.mu,
                                                        trainer.state.nu)), "non-finite state")
     nb = data["train"].n // 4096
-    check(launches["fused_mlp_fwd_bwd"] == launches["fused_mlp_wgrad"]
-          == launches["fused_adam"] == 5 * nb, f"not one of each kernel per step: {launches}")
+    check(launches["fused_mlp_fwd_bwd"] == launches["fused_mlp_wgrad_adam"] == 5 * nb,
+          f"not one fwd_bwd and one wgrad_adam per step: {launches}")
+    graph = _graph_stats(trainer, launches, 5 * nb, 5, ("fused_mlp_fwd_bwd",
+                                                          "fused_mlp_wgrad_adam"))
+    check(graph["kernels_per_step"] == 2 and graph["host_dispatches_per_epoch"] == 1
+          and graph["graph_captures"] == 1, f"not one graph replay per epoch: {graph}")
 
     # resume from checkpoint.pt (epoch 3) for the last epoch: bit-equal
     shutil.copytree(config["training"]["out_dir"], os.path.join(root, "resumed"))
@@ -832,6 +908,9 @@ def phase_hq_train(p):
         check(torch.equal(getattr(resumed.state, name), getattr(trainer.state, name)),
               f"resumed {name} differs from the uninterrupted run")
     check(resumed.state.count == trainer.state.count == 5 * nb, "Adam counts differ")
+    check(resumed.train_epoch_fn.graph.captures == 1, "the resumed run did not capture its graph")
+    yard_launches, yard_cmp = _yardstick_equal(p, trainer, rec, _hq_train_config, "yardstick",
+                                               mesh, renderer, data, "")
 
     # the port's eval CLI on the test split, with the trained model.pt
     cfg_path = os.path.join(root, "hq_config.yaml")
@@ -855,10 +934,15 @@ def phase_hq_train(p):
          val_psnr=rec.values("Val Epoch-PSNR"), test_loss=rec.values("Test Loss"),
          psnr_before=before["psnr"], dssim_before=before["dssim_rescaled"],
          psnr_after=after["psnr"], dssim_after=after["dssim_rescaled"],
-         launches=launches, eager_steps=eager, resumed_bit_equal=True)
+         launches=launches, eager_steps=eager, resumed_bit_equal=True, **graph,
+         cited_step_wall_ms_best_before=CITED_BEFORE_REDESIGN["hq_step_wall_ms"],
+         step_wall_ms_best=4096e3 / max(rays),
+         fused_adam_false_launches=yard_launches, fused_adam_false_bit_equal=yard_cmp)
     state = trainer.state
-    return launches, (state.layout, state.params.clone(), state.mu.clone(), state.nu.clone(),
-                      data["train"].hit_features, data["train"].expected_rgbs)
+    run = (trainer.train_epoch_fn, trainer.state, data["train"], nb, 4096)
+    return launches, yard_launches, (state.layout, state.params.clone(), state.mu.clone(),
+                                     state.nu.clone(), data["train"].hit_features,
+                                     data["train"].expected_rgbs), run
 
 
 def phase_train_throughput():
@@ -894,6 +978,7 @@ def phase_train_throughput():
     losses = [float(m["loss"])]
     times = []
     reset_kernel_launches()
+    replays = train_epoch.graph.replays
     for ep in range(1, 4):
         t0 = time.perf_counter()
         state, m = train_epoch(state, epoch_generator(0, ep), data, nb, B)
@@ -901,12 +986,19 @@ def phase_train_throughput():
         times.append(time.perf_counter() - t0)
     launches = kernel_launches()
     check(all(np.isfinite(losses)), f"non-finite throughput losses {losses}")
+    graph = {"kernels_per_step": sum(launches.values()) / (3 * nb),
+             "host_dispatches_per_epoch": (train_epoch.graph.replays - replays) / 3,
+             "graph_captures": train_epoch.graph.captures,
+             "graph_capture_s": train_epoch.graph.capture_s}
+    check(launches["fused_mlp_fwd_bwd"] == launches["fused_mlp_wgrad_adam"] == 3 * nb
+          and graph["kernels_per_step"] == 2 and graph["host_dispatches_per_epoch"] == 1,
+          f"the bench epoch is not one replay of two launches per step: {launches}, {graph}")
     rays = nb * B
     emit("train_throughput", card=torch.cuda.get_device_name(0), V=V, k=k, N=N, batch=B,
          steps_per_epoch=nb, precompute_s=precompute_s,
          rays_per_s_best=rays / min(times), rays_per_s_median=rays / float(np.median(times)),
          epoch_s=times, step_ms_best=1e3 * min(times) / nb, losses=losses,
-         launches_per_step={n: c / (3 * nb) for n, c in launches.items()},
+         launches_per_step={n: c / (3 * nb) for n, c in launches.items()}, **graph,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     return (state.layout, state.params.clone(), state.mu.clone(), state.nu.clone(),
             data.hit_features, data.expected_rgbs), (train_epoch, state, data, nb, B)
@@ -936,8 +1028,14 @@ def _train_bounds(layout, B, x_bytes):
         "fused_mlp_wgrad": _bound(2.0 * B * fwd_macs,
                                   in_bytes + act_bytes + delta_bytes + part_bytes
                                   + layout.n * 4 + 8),
+        # wgrad's reads, then params, m, v read and written, the bf16 copy
+        # written, the hyper row read, the sums and accumulators
+        "fused_mlp_wgrad_adam": _bound(2.0 * B * fwd_macs,
+                                       in_bytes + act_bytes + delta_bytes + part_bytes
+                                       + layout.n * (6 * 4 + 2) + 7 * 4 + 8 + 2 * 8,
+                                       f32_flops=12.0 * layout.n),
         # 4 f32 reads, 3 writes, ~12 f32 operations per parameter (no tensor cores)
-        "fused_adam": _bound(12.0 * layout.n, 7 * layout.n * 4 + 7 * 4, H100_F32_FLOPS),
+        "fused_adam": _bound(0.0, 7 * layout.n * 4 + 7 * 4, f32_flops=12.0 * layout.n),
         # x (and venc) and the targets read once; params, m, v read and written
         "fused_step": _bound(2.0 * B * (2 * fwd_macs + dgrad_macs),
                              in_bytes + B * 3 * 4 + 6 * layout.n * 4),
@@ -963,6 +1061,48 @@ def _wgrad_again_bit_equal(F, layout, table, B, sc, grads, sums, vtable=None):
     F._launch_wgrad(layout, table, 0, B, sc, g2, s2, vtable)
     torch.cuda.synchronize()
     return torch.equal(g2, grads) and torch.equal(s2, sums)
+
+
+def _wgrad_adam_check(F, layout, table, x, B, sc, grads, sums, bsum, params, vtable=None,
+                      v=None):
+    """wgrad with its Adam epilogue on fwd_bwd's outputs in sc: to the bit
+    against the Adam twin (new params, moments, bf16 copy, accumulators) on
+    the grads-only wgrad's gradients and sums (grads, sums, from the same
+    scratch), with moments random over the whole flat buffer, pads
+    included; its largest difference to wgrad_adam_plain on the same
+    fwd_bwd outputs; its time, the twin's."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    m = torch.randn(layout.n, generator=g, device="cuda") * 1e-4
+    vv = torch.rand(layout.n, generator=g, device="cuda") * 1e-6
+    hyper_all = F.adam_hyper_rows(torch.tensor([1000, 1001]), 1e-4, device="cuda")
+    acc0 = torch.tensor([0.25, 0.5], device="cuda")
+    want = F.adam_apply_plain(params, m, vv, hyper_all[1], grads)
+    want_acc = acc0.clone()
+    F.accumulate_loss(want_acc, sums[0], sums[1])
+    wb_keep = sc.wb.clone()
+    p2, m2, v2, acc, s2 = params.clone(), m.clone(), vv.clone(), acc0.clone(), torch.empty_like(sums)
+    F._launch_wgrad_adam(layout, table, 0, B, sc, p2, m2, v2, hyper_all, s2, acc, vtable, step=1)
+    torch.cuda.synchronize()
+    r = {"bit_equal": all(torch.equal(a, b) for a, b in zip((p2, m2, v2), want))
+         and torch.equal(sc.wb, want[0].to(torch.bfloat16)) and torch.equal(acc, want_acc)
+         and torch.equal(s2, sums), "launch": F.last_wgrad_launch()}
+    # the whole twin (wgrad_plain, then Adam) on the same fwd_bwd outputs
+    tw = [t.clone() for t in (params, m, vv)]
+    wb_t = torch.empty_like(sc.wb)
+    acc_t = acc0.clone()
+    F.wgrad_adam_plain(layout, x, sc.acts, sc.deltas, bsum, (sums[0], sums[1]), *tw,
+                       hyper_all[1], wb_t, acc_t, v)
+    r["max_abs_err"] = max((a - b).abs().max().item() for a, b in zip((p2, m2, v2), tw))
+    r["ms"] = cuda_ms(lambda: F._launch_wgrad_adam(layout, table, 0, B, sc, p2, m2, v2, hyper_all,
+                                                   s2, acc, vtable, step=1))
+    r["plain_ms"] = cuda_ms(lambda: F.wgrad_adam_plain(layout, x, sc.acts, sc.deltas, bsum,
+                                                       (sums[0], sums[1]), *tw, hyper_all[1],
+                                                       wb_t, acc_t, v))
+    r["library_ms"] = None  # no single PyTorch call computes the gradients and the update
+    sc.wb.copy_(wb_keep)
+    return r
 
 
 def phase_train_kernels(legs):
@@ -1050,6 +1190,9 @@ def phase_train_kernels(legs):
         check(mx <= WGRAD_TOL, f"{leg}: wgrad disagrees with its plain twin {wg}")
         check(wg["bit_equal_across_launches"], f"{leg}: two wgrad launches differ")
         check_wgrad_launch(wg["launch"], {512: 13, 1023: 21}[spec.k_in], B, f"{leg}: wgrad")
+        wa = _wgrad_adam_check(F, layout, table, x, B, sc, grads, sums, bsum, params)
+        check(wa["bit_equal"], f"{leg}: wgrad_adam differs from the Adam twin on its gradients")
+        check_wgrad_launch(wa["launch"], {512: 13, 1023: 21}[spec.k_in], B, f"{leg}: wgrad_adam")
 
         # the two together vs the whole plain twin: L1 (reported) and the
         # forward's VJP (gated), the backward of fused_apply_trainable
@@ -1141,14 +1284,19 @@ def phase_train_kernels(legs):
         p_lib.grad = g_k.clone()
         opt = torch.optim.Adam([p_lib], lr=1e-4, fused=True)
         ad["library_ms"] = cuda_ms(opt.step)
-        for name, r in (("fused_mlp_fwd_bwd", fb), ("fused_mlp_wgrad", wg), ("fused_adam", ad)):
+        if leg == "hq_train":
+            ad["cited_ms_before_redesign"] = CITED_BEFORE_REDESIGN["fused_adam"]
+            wa["cited_ms_before_redesign"] = CITED_BEFORE_REDESIGN["fused_mlp_wgrad_adam"]
+        for name, r in (("fused_mlp_fwd_bwd", fb), ("fused_mlp_wgrad", wg), ("fused_adam", ad),
+                        ("fused_mlp_wgrad_adam", wa)):
             r["bound_ms"], r["bound_by"] = bounds[name]
             if name != "fused_adam":
                 r["fused_step_bound_ms"] = bounds["fused_step"][0]
             emit("kernel_check", name=name, leg=leg, k=spec.k_in, B=B, **r)
         emit("train_grads_check", leg=leg, k=spec.k_in, B=B, **e2e)
         emit("apply_vjp_check", leg=leg, k=spec.k_in, B=B, tol_norm=VJP_NORM_TOL, **vjp)
-        rows[leg] = {"fused_mlp_fwd_bwd": fb, "fused_mlp_wgrad": wg, "fused_adam": ad}
+        rows[leg] = {"fused_mlp_fwd_bwd": fb, "fused_mlp_wgrad": wg, "fused_adam": ad,
+                     "fused_mlp_wgrad_adam": wa}
     return rows
 
 
@@ -1231,11 +1379,16 @@ def phase_viewdep_train(p):
     launches, eager = kernel_launches(), eager_step.launches
 
     nb = data["train"].n // 4096
-    check(launches["fused_mlp_fwd_bwd_viewdep"] == launches["fused_mlp_wgrad_viewdep"]
-          == launches["fused_adam"] == 5 * nb, f"not one of each tail kernel per step: {launches}")
+    check(launches["fused_mlp_fwd_bwd_viewdep"] == launches["fused_mlp_wgrad_adam_viewdep"]
+          == 5 * nb, f"not one of each tail kernel per step: {launches}")
     check(launches["fused_mlp_fwd_viewdep"] > 0, f"the eval did not launch the forward: {launches}")
-    check(launches["fused_mlp_fwd_bwd"] == launches["fused_mlp_wgrad"]
-          == launches["fused_mlp_fwd"] == 0, f"plain-mode kernels ran on this path: {launches}")
+    check(not any(launches[k] for k in launches if k not in (
+        "fused_mlp_fwd_bwd_viewdep", "fused_mlp_wgrad_adam_viewdep", "fused_mlp_fwd_viewdep")),
+          f"other kernels ran on this path: {launches}")
+    graph = _graph_stats(trainer, launches, 5 * nb, 5, ("fused_mlp_fwd_bwd_viewdep",
+                                                          "fused_mlp_wgrad_adam_viewdep"))
+    check(graph["kernels_per_step"] == 2 and graph["host_dispatches_per_epoch"] == 1
+          and graph["graph_captures"] == 1, f"not one graph replay per epoch: {graph}")
     check(eager == 0, f"the eager step ran {eager} times on the view-dependent recipe")
     losses = rec.values("Train_Loss")
     check(len(losses) == 5 and losses[-1] < losses[0], f"train loss did not fall: {losses}")
@@ -1258,6 +1411,9 @@ def phase_viewdep_train(p):
         check(torch.equal(getattr(resumed.state, name), getattr(trainer.state, name)),
               f"resumed {name} differs from the uninterrupted run")
     check(resumed.state.count == trainer.state.count == 5 * nb, "Adam counts differ")
+    check(resumed.train_epoch_fn.graph.captures == 1, "the resumed run did not capture its graph")
+    yard_launches, yard_cmp = _yardstick_equal(p, trainer, rec, _vd_train_config, "vd_yardstick",
+                                               mesh, renderer, data, "_viewdep")
 
     rays = rec.values("Train Rays-per-sec")
     emit("viewdep_train", n_train=data["train"].n, steps_per_epoch=nb, setup_s=setup_s,
@@ -1270,13 +1426,14 @@ def phase_viewdep_train(p):
          dssim_before=before["dssim_rescaled"], psnr_after=after["psnr"],
          dssim_after=after["dssim_rescaled"], psnr_kernel_vs_plain_before=psnr_kp_before,
          psnr_kernel_vs_plain_after=psnr_kp_after, launches=launches, eager_steps=eager,
-         resumed_bit_equal=True)
+         resumed_bit_equal=True, **graph, step_wall_ms_best=4096e3 / max(rays),
+         fused_adam_false_launches=yard_launches, fused_adam_false_bit_equal=yard_cmp)
     state = trainer.state
     leg = (state.layout, state.params.clone(), state.mu.clone(), state.nu.clone(),
            trainer.train_data.hit_features, trainer.train_data.hit_vencs,
            trainer.train_data.expected_rgbs, trainer.train_data.unit_ray_dirs)
     run = (trainer.train_epoch_fn, trainer.state, trainer.train_data, nb, 4096)
-    return launches, leg, (renderer, val_views), run
+    return launches, yard_launches, leg, (renderer, val_views), run
 
 
 def _vd_check_train(F, layout, params, table, vtable, gt, B, leg):
@@ -1343,6 +1500,10 @@ def _vd_check_train(F, layout, params, table, vtable, gt, B, leg):
     check(mx <= WGRAD_TOL, f"{leg}: wgrad_viewdep disagrees with its plain twin {wg}")
     check(wg["bit_equal_across_launches"], f"{leg}: two wgrad_viewdep launches differ")
     check_wgrad_launch(wg["launch"], 16, B, f"{leg}: wgrad_viewdep")
+    wa = _wgrad_adam_check(F, layout, table, x, B, sc, grads, sums, bsum, params, vtable, v)
+    check(wa["bit_equal"], f"{leg}: wgrad_adam_viewdep differs from the Adam twin on its "
+          "gradients")
+    check_wgrad_launch(wa["launch"], 16, B, f"{leg}: wgrad_adam_viewdep")
 
     # the whole tail backward on the cotangent seed vs the whole twin
     g_k = torch.empty(layout.n, device="cuda")
@@ -1354,7 +1515,7 @@ def _vd_check_train(F, layout, params, table, vtable, gt, B, leg):
     check(mx <= GRAD_MAX_REL and nr <= E2E_NORM_TOL,
           f"{leg}: tail train grads disagree with the plain twin {e2e}")
     g_l1, _, _ = F.fused_train_grads(layout, params, table, gt, 0, B, "L1", vencs=vtable)
-    return fb, wg, e2e, sc, grads, sums, bsum, g_l1
+    return fb, wg, wa, e2e, sc, grads, sums, bsum, g_l1
 
 
 def phase_viewdep_kernels(vd_leg, vd_render):
@@ -1410,7 +1571,7 @@ def phase_viewdep_kernels(vd_leg, vd_render):
     rows["fused_mlp_fwd_viewdep"]["max_abs_err"] = max(r["max_abs_err"] for r in fwd_rows)
 
     # train kernels on the leg's tables (bf16, block 0, B=4096), trained weights
-    fb, wg, e2e, sc, grads, sums, bsum, g_l1 = _vd_check_train(
+    fb, wg, wa, e2e, sc, grads, sums, bsum, g_l1 = _vd_check_train(
         F, layout, params, table, vtable, gt, B, "viewdep_train")
     emit("train_grads_check", leg="viewdep_train", k=512, B=B, **e2e)
 
@@ -1424,8 +1585,8 @@ def phase_viewdep_kernels(vd_leg, vd_render):
     venc_x = view_encoder_apply(model_x)(dirs[:2 * B], None)
     vt_x = torch.zeros(2 * B, lay_x.tail.venc_w, device="cuda", dtype=table.dtype)
     vt_x[:, :lay_x.tail.venc_in] = venc_x.to(table.dtype)
-    fbx, wgx, e2ex, _, _, _, _, _ = _vd_check_train(F, lay_x, p_x, table[:2 * B].contiguous(),
-                                                    vt_x, gt, B, "extrinsic")
+    fbx, wgx, wax, e2ex, _, _, _, _, _ = _vd_check_train(
+        F, lay_x, p_x, table[:2 * B].contiguous(), vt_x, gt, B, "extrinsic")
     fw_x = lay_x.pack(p_x)
     xf = table[:B].float().contiguous()
     vx = venc_x[:B].contiguous()
@@ -1434,7 +1595,7 @@ def phase_viewdep_kernels(vd_leg, vd_render):
     err_x = (got - F.fused_apply_viewdep_plain(fw_x, xf, vx)).abs().max().item()
     check(err_x <= TOL_VD, f"extrinsic fused_mlp_fwd_viewdep disagrees: {err_x}")
     emit("extrinsic_check", venc_in=lay_x.tail.venc_in, fwd_max_abs_err=err_x,
-         fwd_bwd=fbx, wgrad=wgx, grads=e2ex)
+         fwd_bwd=fbx, wgrad=wgx, wgrad_adam=wax, grads=e2ex)
 
     # Adam on the view-dependent buffer: bit-equal to its twin (-fmad=false)
     hyper = F.adam_hyper_rows(torch.tensor([1000]), 1e-4, device="cuda")[0]
@@ -1486,53 +1647,100 @@ def phase_viewdep_kernels(vd_leg, vd_render):
     p_lib.grad = g_l1.clone()
     opt = torch.optim.Adam([p_lib], lr=1e-4, fused=True)
     ad["library_ms"] = cuda_ms(opt.step)
-    for name, r in (("fused_mlp_fwd_bwd", fb), ("fused_mlp_wgrad", wg), ("fused_adam", ad)):
+    wa["cited_ms_before_redesign"] = CITED_BEFORE_REDESIGN["fused_mlp_wgrad_adam_viewdep"]
+    for name, r in (("fused_mlp_fwd_bwd", fb), ("fused_mlp_wgrad", wg), ("fused_adam", ad),
+                    ("fused_mlp_wgrad_adam", wa)):
         r["bound_ms"], r["bound_by"] = bounds[name]
         if name != "fused_adam":
             r["fused_step_bound_ms"] = bounds["fused_step"][0]
     for name, r in (("fused_mlp_fwd_bwd_viewdep", fb), ("fused_mlp_wgrad_viewdep", wg),
-                    ("fused_adam", ad)):
+                    ("fused_adam", ad), ("fused_mlp_wgrad_adam_viewdep", wa)):
         emit("kernel_check", name=name, leg="viewdep_train", k=512, B=B, **r)
     rows.update({"fused_mlp_fwd_bwd_viewdep": fb, "fused_mlp_wgrad_viewdep": wg,
-                 "fused_adam": ad})
+                 "fused_adam": ad, "fused_mlp_wgrad_adam_viewdep": wa})
     rows["extrinsic"] = {"fused_mlp_fwd_viewdep": err_x, "fused_mlp_fwd_bwd_viewdep":
-                         fbx["max_abs_err"], "fused_mlp_wgrad_viewdep": wgx["max_abs_err"]}
+                         fbx["max_abs_err"], "fused_mlp_wgrad_viewdep": wgx["max_abs_err"],
+                         "fused_mlp_wgrad_adam_viewdep": wax["max_abs_err"]}
     return rows
 
 
 def profile_train_epoch(train_leg, leg):
-    """Device time by kernel and busy share over one epoch of a train leg."""
+    """Device time by kernel and busy share over one profiled epoch of a
+    train leg; the port's kernels the profiler saw, by name, must be exactly
+    num_batches fwd_bwd and num_batches wgrad with Adam. The profiler's own
+    hooks lengthen the host's part of the epoch, so an epoch before it runs
+    without the profiler, CUDA events around its graph replay: the replay's
+    device time over that epoch's wall time (`replay_share_of_wall`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
 
     train_epoch, state, data, nb, B = train_leg
+    graph = train_epoch.graph
+    graph.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = train_epoch(state, epoch_generator(0, 98), data, nb, B)
+    float(m["loss"])
+    plain_wall_ms = 1e3 * (time.perf_counter() - t0)
+    replay_ms = graph.events[0].elapsed_time(graph.events[1])
+    graph.events = None
+    replays = graph.replays
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         _, m = train_epoch(state, epoch_generator(0, 99), data, nb, B)
+        stop.record()
         float(m["loss"])
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_kernel = _device_us_by_kernel(prof)
+    by_kernel, counts = _device_us_by_kernel(prof, with_counts=True)
     device_us = sum(by_kernel.values())
+    check(device_us > 0, f"{leg}: the profiler saw no device time")
+    port = {}
+    for name, n in counts.items():
+        kernel = _port_kernel(name)
+        if kernel is not None:
+            port[kernel] = port.get(kernel, 0) + n
+    check(port == {"fwd_bwd": nb, "wgrad_adam": nb},
+          f"{leg}: the profiled epoch ran other than {nb} fwd_bwd and {nb} wgrad_adam: {port}")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit("profile_train", leg=leg, steps=nb, wall_ms_per_step=wall_us / 1e3 / nb,
          device_ms_per_step=device_us / 1e3 / nb, device_busy_share=device_us / wall_us,
+         events_ms_per_step=start.elapsed_time(stop) / nb, port_kernels_seen=port,
+         other_device_events=sum(counts.values()) - sum(port.values()),
+         unprofiled_wall_ms_per_step=plain_wall_ms / nb,
+         unprofiled_replay_ms_per_step=replay_ms / nb,
+         replay_share_of_wall=replay_ms / plain_wall_ms,
+         graph_replays=graph.replays - replays,
          top_kernels_ms_per_step=[[name[:70], us / 1e3 / nb] for name, us in top])
 
 
-def _device_us_by_kernel(prof):
+def _port_kernel(name):
+    """Which of the port's train kernels a profiler kernel name is (wgrad's
+    Adam instantiation apart from its grads-only one), or None."""
+    if "wgrad_kernel" in name:
+        return "wgrad_adam" if (", true>" in name or "Lb1E" in name) else "wgrad"
+    for kernel in ("fwd_bwd_kernel", "fused_adam_kernel", "fused_mlp_fwd_kernel"):
+        if kernel in name:
+            return kernel[:-len("_kernel")]
+    return None
+
+
+def _device_us_by_kernel(prof, with_counts=False):
     import torch
 
-    by_kernel = {}
+    by_kernel, counts = {}, {}
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = e.self_cuda_time_total
         if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + dev_us
-    return by_kernel
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    return (by_kernel, counts) if with_counts else by_kernel
 
 
 def profile_frames(r, cams, K):
@@ -1586,16 +1794,18 @@ def main():
     srows = timed("sort_kernel", lambda: phase_sort_kernel(tp_leg, hq_leg))
     traces = timed("trace_methods", lambda: phase_trace_methods(tp_leg))
     pipe = timed("hq_pipeline", lambda: phase_hq_preprocess(prep))
-    train_launches, hq_train_leg = timed("hq_train", lambda: phase_hq_train(pipe))
+    train_launches, yard_launches, hq_train_leg, hq_run = timed("hq_train",
+                                                                lambda: phase_hq_train(pipe))
     tput_leg, tput_run = timed("train_throughput", phase_train_throughput)
     trows = timed("train_kernels", lambda: phase_train_kernels(
         {"hq_train": hq_train_leg, "train_throughput": tput_leg}))
-    vd_launches, vd_leg, vd_render, vd_run = timed("viewdep_train",
-                                                   lambda: phase_viewdep_train(pipe))
+    vd_launches, vd_yard_launches, vd_leg, vd_render, vd_run = timed(
+        "viewdep_train", lambda: phase_viewdep_train(pipe))
     vrows = timed("viewdep_kernels", lambda: phase_viewdep_kernels(vd_leg, vd_render))
     # Last: the profiler's hooks may slow host-bound torch code run after it.
     r, cams, K = tp_leg
     timed("profile", lambda: (profile_frames(r, cams[:4], K),
+                              profile_train_epoch(hq_run, "hq_train"),
                               profile_train_epoch(tput_run, "train_throughput"),
                               profile_train_epoch(vd_run, "viewdep_train")))
     check(not any(m.startswith(("jax", "flax", "optax", "intrinsic_neural_fields_tpu."))
@@ -1618,15 +1828,20 @@ def main():
         "redesigned": True,
     }]
     tail = " (tail=ViewDepTailSpec)"
+    # launches: the HQ train path's (fused_adam: true, the main path); the
+    # grads-only wgrad and the Adam kernel run on its fused_adam: false
+    # path, driven and counted on its own
     sources = {"fused_mlp_fwd_bwd": ("fused_mlp_train.cu", "961", ["634", "700", "1305"]),
-               "fused_mlp_wgrad": ("fused_mlp_train.cu", "961", ["634", "700", "1305"]),
-               "fused_adam": ("fused_adam.cu", "1068", ["961", "961" + tail, "1068" + tail])}
+               "fused_mlp_wgrad_adam": ("fused_mlp_train.cu", "961", ["1068"]),
+               "fused_mlp_wgrad": ("fused_mlp_train.cu", "634", ["700", "1305"]),
+               "fused_adam": ("fused_adam.cu", "1068", ["1068" + tail])}
+    off_main = {"fused_mlp_wgrad": yard_launches, "fused_adam": yard_launches}
     for name, (src, site, also) in sources.items():
         main = trows["hq_train"][name]  # the HQ recipe's shape: k=512, B=4096
         kernels.append({
             "name": name, "route": "cuda", "source": pkg + src, "replaces": ref + site,
             "also_replaces": [ref + a for a in also],
-            "launches": train_launches[name],
+            "launches": off_main.get(name, train_launches)[name],
             "max_abs_err": max(trows[leg][name]["max_abs_err"] for leg in trows),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1635,8 +1850,12 @@ def main():
             kernels[-1]["fused_step_bound_ms"] = main["fused_step_bound_ms"]
         if name in REDESIGNED:
             kernels[-1]["redesigned"] = True
-    kernels[-1]["launches_by_path"] = {"hq_train": train_launches["fused_adam"],
-                                       "viewdep_train": vd_launches["fused_adam"]}
+        if name in off_main:
+            kernels[-1]["launches_path"] = "hq_train with training.fused_adam: false"
+    kernels[-1]["launches_by_path"] = {
+        "hq_train": train_launches["fused_adam"], "viewdep_train": vd_launches["fused_adam"],
+        "hq_train_fused_adam_false": yard_launches["fused_adam"],
+        "viewdep_train_fused_adam_false": vd_yard_launches["fused_adam"]}
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      vrows["fused_adam"]["max_abs_err"])
     kernels[-1]["viewdep"] = {k: vrows["fused_adam"][k] for k in
@@ -1646,13 +1865,15 @@ def main():
     vd_sources = {"fused_mlp_fwd_viewdep": ("fused_mlp_fwd.cu", "1240", []),
                   "fused_mlp_fwd_bwd_viewdep": ("fused_mlp_train.cu", "961" + tail,
                                                 ["655", "729"]),
-                  "fused_mlp_wgrad_viewdep": ("fused_mlp_train.cu", "961" + tail,
-                                              ["655", "729"])}
+                  "fused_mlp_wgrad_adam_viewdep": ("fused_mlp_train.cu", "961" + tail,
+                                                   ["1068" + tail]),
+                  "fused_mlp_wgrad_viewdep": ("fused_mlp_train.cu", "655", ["729"])}
     for name, (src, site, also) in vd_sources.items():
         main = vrows[name]
+        launched = (vd_yard_launches if name == "fused_mlp_wgrad_viewdep" else vd_launches)[name]
         kernels.append({
             "name": name, "route": "cuda", "source": pkg + src, "replaces": ref + site,
-            "also_replaces": [ref + a for a in also], "launches": vd_launches[name],
+            "also_replaces": [ref + a for a in also], "launches": launched,
             "max_abs_err": max(main["max_abs_err"], vrows["extrinsic"][name]),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1661,6 +1882,8 @@ def main():
             kernels[-1]["fused_step_bound_ms"] = main["fused_step_bound_ms"]
         if name in REDESIGNED:
             kernels[-1]["redesigned"] = True
+        if name == "fused_mlp_wgrad_viewdep":
+            kernels[-1]["launches_path"] = "viewdep_train with training.fused_adam: false"
     # the sort: the 512^2 render leg's entry sort (2^18 padded) is the main
     # row; launches are the bitonic_vmem trace's (calls; CUDA launches beside)
     main = srows["render512_entry"]

@@ -32,6 +32,19 @@
 //     its partials on chip, in rank order (design: the wgrad section
 //     below). Every warp of the grid also sums one bias entry or loss sum
 //     over the per-block partials, in a fixed order.
+//   fused_mlp_wgrad_adam  the same kernel with an Adam epilogue (the train
+//     step of make_fused_train_adam): the owner of each final gradient
+//     entry applies csrc/adam.cuh to its parameter, moments and bf16 copy
+//     instead of storing the gradient, and the loss sums also go into the
+//     epoch's accumulators. A train step is then two launches.
+//
+// Given the epoch's block order (nullable), the entry points take the
+// batch's place on the device, as the TPU kernel takes its
+// scalar-prefetched block offset: a step number i, so row0 = order[i] * B
+// is read at kernel start, the targets are read at the same rows of the
+// whole table and the Adam hyper row is row i of the epoch's table. A
+// step's launch arguments then do not depend on the permutation, and an
+// epoch can be captured once as a CUDA graph and replayed.
 //
 // The view-dependent field is the same chain with two more 128-wide relu
 // layers: the spatial head becomes the relu bottleneck, and the concat layer
@@ -60,6 +73,7 @@
 // latency-bound: a chain of dependent 64-row products per cluster; wgrad by
 // the chunks it streams from L2 (every tile reads all of its deltas).
 
+#include "adam.cuh"
 #include "mlp_tiles.cuh"
 
 namespace {
@@ -213,13 +227,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 // field's kernel is compiled without the concat layer's code).
 template <typename XT, bool VD>
 __global__ void __launch_bounds__(FB_THREADS, 1)
-fwd_bwd_kernel(const XT* __restrict__ x, long long row0, int B, const float* __restrict__ params,
-               const __nv_bfloat16* __restrict__ wb, Net net, const XT* __restrict__ venc,
-               int venc_in, const float* __restrict__ target, int mode, float inv_n, int x_async,
-               int x_res, int n_tiles, __nv_bfloat16* __restrict__ acts,
-               __nv_bfloat16* __restrict__ deltas, float* __restrict__ bias_part,
-               float* __restrict__ loss_part) {
+fwd_bwd_kernel(const XT* __restrict__ x, const int* __restrict__ order, int step, long long row0,
+               int B, const float* __restrict__ params, const __nv_bfloat16* __restrict__ wb,
+               Net net, const XT* __restrict__ venc, int venc_in, const float* __restrict__ target,
+               long long target_row0, int mode, float inv_n, int x_async, int x_res, int n_tiles,
+               __nv_bfloat16* __restrict__ acts, __nv_bfloat16* __restrict__ deltas,
+               float* __restrict__ bias_part, float* __restrict__ loss_part) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (order != nullptr) row0 = (long long)order[step] * B;  // the step's block, on the device
+  target += (row0 - target_row0) * NOUT;  // target's first row is row target_row0 of x
   cg::cluster_group cl = cg::this_cluster();
   const int c = (int)cl.block_rank();  // which half of the columns
   const int tid = threadIdx.x;
@@ -538,6 +554,24 @@ fwd_bwd_kernel(const XT* __restrict__ x, long long row0, int B, const float* __r
 // arrive, every warp of the grid sums one bias entry (or loss sum) over
 // fwd_bwd's per-64-row partials: lane l the blocks l, l+32, ... in order,
 // then a fixed shuffle tree.
+//
+// With the Adam epilogue (ADAM), the owner of each final entry updates its
+// parameter instead of storing the gradient: CTA r of a tile's cluster the
+// entries of its share, read p, m and v, write them back and write the bf16
+// copy (round to nearest even); lane 0 of a bias item's warp its bias entry;
+// the loss-sum items write `sums` and add into the epoch's accumulators,
+// acc[0] += loss_sum / 3 and acc[1] += sq_sum (step-ordered because the
+// launches are). The flat layout (ops/fused_mlp.py:ParamLayout) is the
+// matrix region, the matrices back to back in make_wgrad's order, then the
+// bias region, the biases back to back in its order, with no gap; so the
+// tiles, which cover every row of every matrix (pad rows included: rows
+// past k_in, the view rows past venc_in, the head's 13 pad columns), and
+// the bias items, which cover every bias entry (the head's 13 pad entries
+// included), update each of the layout's n entries exactly once. A pad
+// entry takes g = 0 (its gradient is exactly zero: zero table lanes, zero
+// head deltas), as the split path's Adam over the whole buffer gives it.
+// The kernel reads neither params nor wb but the entries it owns, after
+// fwd_bwd (earlier on the stream) has read them.
 
 constexpr int WG_THREADS = 256;                      // two consumer warpgroups
 constexpr int WG_ROWS = 128;                         // gradient rows per tile
@@ -546,6 +580,15 @@ constexpr int WG_MAX_SPLIT = 8;                      // most CTAs of a cluster (
 constexpr int A_BYTES = WG_ROWS * KC * 2;            // an A^T chunk: 16 KB
 constexpr int STAGE_BYTES = A_BYTES + KC * HID * 2;  // and a D chunk: 32 KB
 constexpr int PART_F4 = WG_THREADS * HID / 8;        // a partial tile in float4s
+
+struct AdamArgs {
+  float* p;             // flat f32 params, m, v: updated in place
+  float* m;
+  float* v;
+  __nv_bfloat16* wb;    // the params' bf16 copy: written
+  const float* hyper;   // [steps, 128] hyper rows (row `step` is read)
+  float* acc;           // [2] epoch accumulators (loss, squared error), or null
+};
 
 struct Wgrad {
   int n_mats;
@@ -608,14 +651,31 @@ Wgrad make_wgrad(const Net& n, int B) {
   return g;
 }
 
-template <typename XT>
+// Adam on the two entries at off, off + 1 from their gradients (a float2
+// of the flat buffer: off is even).
+__device__ __forceinline__ void adam_pair(const AdamArgs& ad, const AdamHyper& h, size_t off,
+                                          float2 gq) {
+  float2 pq = *reinterpret_cast<const float2*>(ad.p + off);
+  float2 mq = *reinterpret_cast<const float2*>(ad.m + off);
+  float2 vq = *reinterpret_cast<const float2*>(ad.v + off);
+  adam_update(h, gq.x, pq.x, mq.x, vq.x);
+  adam_update(h, gq.y, pq.y, mq.y, vq.y);
+  *reinterpret_cast<float2*>(ad.p + off) = pq;
+  *reinterpret_cast<float2*>(ad.m + off) = mq;
+  *reinterpret_cast<float2*>(ad.v + off) = vq;
+  *reinterpret_cast<__nv_bfloat162*>(ad.wb + off) = __floats2bfloat162_rn(pq.x, pq.y);
+}
+
+template <typename XT, bool ADAM>
 __global__ void __launch_bounds__(WG_THREADS, 2)
-wgrad_kernel(const XT* __restrict__ x, long long row0, int B, int k_in, int t_async,
-             const XT* __restrict__ venc, int venc_in, int venc_w,
+wgrad_kernel(const XT* __restrict__ x, const int* __restrict__ order, int step, long long row0,
+             int B, int k_in, int t_async, const XT* __restrict__ venc, int venc_in, int venc_w,
              const __nv_bfloat16* __restrict__ acts, const __nv_bfloat16* __restrict__ deltas,
              const float* __restrict__ bias_part, const float* __restrict__ loss_part,
-             float* __restrict__ grads, float* __restrict__ sums, Wgrad g) {
+             float* __restrict__ grads, float* __restrict__ sums, Wgrad g, AdamArgs ad) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (order != nullptr) row0 = (long long)order[step] * B;  // the step's block, on the device
+  if (ADAM) ad.hyper += (size_t)step * 128;
   cg::cluster_group cl = cg::this_cluster();
   const int S = (int)cl.num_blocks();
   const int rank = (int)cl.block_rank();
@@ -698,7 +758,23 @@ wgrad_kernel(const XT* __restrict__ x, long long row0, int B, int k_in, int t_as
     for (int blk = lane; blk < g.nblk; blk += 32) s += src[(size_t)blk * stride];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) *(e < g.n_bias ? grads + g.b_off[e] + c : sums + c) = s;
+    if (lane == 0) {
+      if (e == g.n_bias) {
+        sums[c] = s;
+        if (ADAM && ad.acc != nullptr)
+          ad.acc[c] = __fadd_rn(ad.acc[c], c == 0 ? __fdiv_rn(s, 3.0f) : s);
+      } else if (ADAM) {
+        const size_t o = (size_t)g.b_off[e] + c;
+        float p = ad.p[o], m = ad.m[o], v = ad.v[o];
+        adam_update(adam_hyper(ad.hyper), s, p, m, v);
+        ad.p[o] = p;
+        ad.m[o] = m;
+        ad.v[o] = v;
+        ad.wb[o] = __float2bfloat16_rn(p);
+      } else {
+        grads[g.b_off[e] + c] = s;
+      }
+    }
   }
 
   float acc0[32], acc1[32], acc16[8];
@@ -753,10 +829,12 @@ wgrad_kernel(const XT* __restrict__ x, long long row0, int B, int k_in, int t_as
       red[f * WG_THREADS + tid] = make_float4(acc16[4 * f], acc16[4 * f + 1], acc16[4 * f + 2],
                                               acc16[4 * f + 3]);
   }
+  AdamHyper h{};
+  if (ADAM) h = adam_hyper(ad.hyper);  // its latency overlaps the cluster barrier
   cl.sync();
   // the r-th share of the tile's float4s: summed over the S partials in rank order
   const int total = dpr * WG_THREADS;
-  float* out = grads + g.w_off[m] + (size_t)r0 * N;
+  const size_t out0 = (size_t)g.w_off[m] + (size_t)r0 * N;
   for (int idx = rank * total / S + tid; idx < (rank + 1) * total / S; idx += WG_THREADS) {
     float4 s = *cl.map_shared_rank(red + idx, 0);
     for (int q = 1; q < S; ++q) {
@@ -766,12 +844,16 @@ wgrad_kernel(const XT* __restrict__ x, long long row0, int B, int k_in, int t_as
     const int f = idx / WG_THREADS, t = idx - f * WG_THREADS, tw = t & 127;
     const int row = 64 * (t >> 7) + 16 * (tw >> 5) + ((tw & 31) >> 2);
     const int col = 8 * f + 2 * (tw & 3);
-    if (row < mrows)
-      *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
-          row < mvalid ? make_float2(s.x, s.y) : make_float2(0.0f, 0.0f);
-    if (row + 8 < mrows)
-      *reinterpret_cast<float2*>(out + (size_t)(row + 8) * N + col) =
-          row + 8 < mvalid ? make_float2(s.z, s.w) : make_float2(0.0f, 0.0f);
+    const float2 top = row < mvalid ? make_float2(s.x, s.y) : make_float2(0.0f, 0.0f);
+    const float2 bot = row + 8 < mvalid ? make_float2(s.z, s.w) : make_float2(0.0f, 0.0f);
+    const size_t o_top = out0 + (size_t)row * N + col, o_bot = o_top + (size_t)8 * N;
+    if (ADAM) {
+      if (row < mrows) adam_pair(ad, h, o_top, top);
+      if (row + 8 < mrows) adam_pair(ad, h, o_bot, bot);
+    } else {
+      if (row < mrows) *reinterpret_cast<float2*>(grads + o_top) = top;
+      if (row + 8 < mrows) *reinterpret_cast<float2*>(grads + o_bot) = bot;
+    }
   }
   cl.sync();  // the other CTAs may still read this CTA's partial
 }
@@ -781,6 +863,68 @@ bool bad_net(int B, int k_in, int k_w, int L, int skip, int venc_in, int venc_w)
                                        venc_w > VENC_MAX || L + 4 > MAXM);
   return B <= 0 || k_in <= 0 || k_w < k_in || k_w % KC != 0 || L < 3 || L > MAXL ||
          skip <= 0 || skip >= L - 1 || venc_w < 0 || bad_venc;
+}
+
+constexpr int WG_SMEM = WG_STAGES * STAGE_BYTES;
+
+// Raise every kernel's dynamic shared memory ceiling once per process to the
+// most any of its launches takes (fwd_bwd: the limit; wgrad: its ring), so
+// that no launch, and none captured into a CUDA graph, calls
+// cudaFuncSetAttribute. It also loads every kernel of the library.
+int prepare_kernels() {
+  static bool done = false;
+  if (done) return 0;
+  const void* fb[] = {(const void*)fwd_bwd_kernel<__nv_bfloat16, false>,
+                      (const void*)fwd_bwd_kernel<__nv_bfloat16, true>,
+                      (const void*)fwd_bwd_kernel<float, false>,
+                      (const void*)fwd_bwd_kernel<float, true>};
+  const void* wg[] = {(const void*)wgrad_kernel<__nv_bfloat16, false>,
+                      (const void*)wgrad_kernel<__nv_bfloat16, true>,
+                      (const void*)wgrad_kernel<float, false>,
+                      (const void*)wgrad_kernel<float, true>};
+  for (const void* k : fb) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return (int)err;
+  }
+  for (const void* k : wg) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+    if (err != cudaSuccess) return (int)err;
+  }
+  done = true;
+  return 0;
+}
+
+// A launch of `kern` on `st` as clusters of `cluster` CTAs; on success
+// `launched` (null, or 5 ints) gets {CTAs, cluster size, threads, shared
+// memory bytes, last}.
+template <typename... KArgs, typename... Args>
+int launch_clusters(void (*kern)(KArgs...), const int (&cfg)[5], cudaStream_t st, int* launched,
+                    Args... args) {
+  cudaLaunchConfig_t lc = {};
+  lc.gridDim = dim3(cfg[0]);
+  lc.blockDim = dim3(cfg[2]);
+  lc.dynamicSmemBytes = (size_t)cfg[3];
+  lc.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cfg[1];
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  lc.attrs = attr;
+  lc.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&lc, kern, args...);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (launched) {  // the shape this launch ran with
+    launched[0] = (int)lc.gridDim.x;
+    launched[1] = (int)attr[0].val.clusterDim.x;
+    launched[2] = (int)lc.blockDim.x;
+    launched[3] = (int)lc.dynamicSmemBytes;
+    launched[4] = cfg[4];
+  }
+  return 0;
 }
 
 // Launch shape of fwd_bwd: {CTAs, cluster size, threads, shared memory
@@ -799,51 +943,31 @@ void fwd_bwd_config(int B, const Net& net, int (&out)[5]) {
 }
 
 template <typename XT, bool VD>
-int launch_fwd_bwd_kernel(const XT* x, long long row0, int B, const float* params,
-                          const __nv_bfloat16* wb, const Net& net, const XT* venc, int venc_in,
-                          const float* target, int mode, float inv_n, void* acts, void* deltas,
-                          float* bias_part, float* loss_part, int* launched, cudaStream_t st) {
+int launch_fwd_bwd_kernel(const XT* x, const int* order, int step, long long row0, int B,
+                          const float* params, const __nv_bfloat16* wb, const Net& net,
+                          const XT* venc, int venc_in, const float* target, long long target_row0,
+                          int mode, float inv_n, void* acts, void* deltas, float* bias_part,
+                          float* loss_part, int* launched, cudaStream_t st) {
   int cfg[5];
   fwd_bwd_config(B, net, cfg);
-  auto kern = fwd_bwd_kernel<XT, VD>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg[3]);
-  if (err != cudaSuccess) return (int)err;
+  const int err = prepare_kernels();
+  if (err != 0) return err;
   // cp.async of 16-byte feature pieces: bf16 rows on 16-byte boundaries
   const int x_async = sizeof(XT) == 2 && net.k_in % 8 == 0 && (uintptr_t)x % 16 == 0;
-  cudaLaunchConfig_t lc = {};
-  lc.gridDim = dim3(cfg[0]);
-  lc.blockDim = dim3(cfg[2]);
-  lc.dynamicSmemBytes = (size_t)cfg[3];
-  lc.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cfg[1];
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  lc.attrs = attr;
-  lc.numAttrs = 1;
-  err = cudaLaunchKernelEx(&lc, kern, x, row0, B, params, wb, net, venc, venc_in, target, mode,
-                           inv_n, x_async, cfg[4], fwd_bwd_tiles(net), (__nv_bfloat16*)acts,
-                           (__nv_bfloat16*)deltas, bias_part, loss_part);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (launched) {  // the shape this launch ran with
-    launched[0] = (int)lc.gridDim.x;
-    launched[1] = (int)attr[0].val.clusterDim.x;
-    launched[2] = (int)lc.blockDim.x;
-    launched[3] = (int)lc.dynamicSmemBytes;
-    launched[4] = cfg[4];
-  }
-  return 0;
+  return launch_clusters(fwd_bwd_kernel<XT, VD>, cfg, st, launched, x, order, step, row0, B,
+                         params, wb, net, venc, venc_in, target, target_row0, mode, inv_n,
+                         x_async, cfg[4],
+                         fwd_bwd_tiles(net), (__nv_bfloat16*)acts, (__nv_bfloat16*)deltas,
+                         bias_part, loss_part);
 }
 
-int launch_fwd_bwd(const void* x, int x_bf16, long long row0, int B, int k_in,
-                   const float* params, const void* wb, int k_w, int num_layers, int skip_idx,
-                   const void* venc, int venc_in, int venc_w, const float* target, int mode,
-                   float inv_n, void* acts, void* deltas, float* bias_part, float* loss_part,
-                   int* launched, void* stream) {
+int launch_fwd_bwd(const void* x, int x_bf16, const int* order, int step, long long row0, int B,
+                   int k_in, const float* params, const void* wb, int k_w, int num_layers,
+                   int skip_idx, const void* venc, int venc_in, int venc_w, const float* target,
+                   long long target_row0, int mode, float inv_n, void* acts, void* deltas,
+                   float* bias_part, float* loss_part, int* launched, void* stream) {
   if (bad_net(B, k_in, k_w, num_layers, skip_idx, venc_in, venc_w) || mode < 0 ||
-      mode > 3 || wb == nullptr || (uintptr_t)wb % 16 != 0)
+      mode > 3 || wb == nullptr || (uintptr_t)wb % 16 != 0 || (order != nullptr && step < 0))
     return (int)cudaErrorInvalidValue;
   const Net net = make_net(k_in, k_w, num_layers, skip_idx, venc_w);
   cudaStream_t st = (cudaStream_t)stream;
@@ -852,24 +976,24 @@ int launch_fwd_bwd(const void* x, int x_bf16, long long row0, int B, int k_in,
     const auto* xb = (const __nv_bfloat16*)x;
     const auto* vb = (const __nv_bfloat16*)venc;
     return venc_w > 0
-               ? launch_fwd_bwd_kernel<__nv_bfloat16, true>(xb, row0, B, params, w, net, vb,
-                                                            venc_in, target, mode, inv_n, acts,
-                                                            deltas, bias_part, loss_part,
-                                                            launched, st)
-               : launch_fwd_bwd_kernel<__nv_bfloat16, false>(xb, row0, B, params, w, net, vb,
-                                                             venc_in, target, mode, inv_n, acts,
-                                                             deltas, bias_part, loss_part,
-                                                             launched, st);
+               ? launch_fwd_bwd_kernel<__nv_bfloat16, true>(
+                     xb, order, step, row0, B, params, w, net, vb, venc_in, target, target_row0,
+                     mode, inv_n, acts, deltas, bias_part, loss_part, launched, st)
+               : launch_fwd_bwd_kernel<__nv_bfloat16, false>(
+                     xb, order, step, row0, B, params, w, net, vb, venc_in, target, target_row0,
+                     mode, inv_n, acts, deltas, bias_part, loss_part, launched, st);
   }
   const auto* xf = (const float*)x;
   const auto* vf = (const float*)venc;
   return venc_w > 0
-             ? launch_fwd_bwd_kernel<float, true>(xf, row0, B, params, w, net, vf, venc_in,
-                                                  target, mode, inv_n, acts, deltas, bias_part,
-                                                  loss_part, launched, st)
-             : launch_fwd_bwd_kernel<float, false>(xf, row0, B, params, w, net, vf, venc_in,
-                                                   target, mode, inv_n, acts, deltas, bias_part,
-                                                   loss_part, launched, st);
+             ? launch_fwd_bwd_kernel<float, true>(xf, order, step, row0, B, params, w, net, vf,
+                                                  venc_in, target, target_row0, mode, inv_n,
+                                                  acts, deltas, bias_part, loss_part, launched,
+                                                  st)
+             : launch_fwd_bwd_kernel<float, false>(xf, order, step, row0, B, params, w, net, vf,
+                                                   venc_in, target, target_row0, mode, inv_n,
+                                                   acts, deltas, bias_part, loss_part, launched,
+                                                   st);
 }
 
 // Launch shape of wgrad: {CTAs, cluster size, threads, shared memory
@@ -880,55 +1004,46 @@ void wgrad_config(int B, const Wgrad& g, int (&out)[5]) {
   out[0] = g.tile0[g.n_mats] * split;
   out[1] = split;
   out[2] = WG_THREADS;
-  out[3] = WG_STAGES * STAGE_BYTES;
+  out[3] = WG_SMEM;
   out[4] = g.tile0[g.n_mats];
 }
 
 template <typename XT>
-int launch_wgrad_kernel(const XT* x, long long row0, int B, int k_in, int t_async,
-                        const XT* venc, int venc_in, int venc_w, const void* acts,
+int launch_wgrad_kernel(const XT* x, const int* order, int step, long long row0, int B, int k_in,
+                        int t_async, const XT* venc, int venc_in, int venc_w, const void* acts,
                         const void* deltas, const float* bias_part, const float* loss_part,
-                        float* grads, float* sums, const Wgrad& g, int* launched,
-                        cudaStream_t st) {
+                        float* grads, float* sums, const Wgrad& g, const AdamArgs* ad,
+                        int* launched, cudaStream_t st) {
   int cfg[5];
   wgrad_config(B, g, cfg);
-  auto kern = wgrad_kernel<XT>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg[3]);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t lc = {};
-  lc.gridDim = dim3(cfg[0]);
-  lc.blockDim = dim3(cfg[2]);
-  lc.dynamicSmemBytes = (size_t)cfg[3];
-  lc.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cfg[1];
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  lc.attrs = attr;
-  lc.numAttrs = 1;
-  err = cudaLaunchKernelEx(&lc, kern, x, row0, B, k_in, t_async, venc, venc_in, venc_w,
-                           (const __nv_bfloat16*)acts, (const __nv_bfloat16*)deltas, bias_part,
-                           loss_part, grads, sums, g);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (launched) {  // the shape this launch ran with
-    launched[0] = (int)lc.gridDim.x;
-    launched[1] = (int)attr[0].val.clusterDim.x;
-    launched[2] = (int)lc.blockDim.x;
-    launched[3] = (int)lc.dynamicSmemBytes;
-    launched[4] = cfg[4];
-  }
-  return 0;
+  const int err = prepare_kernels();
+  if (err != 0) return err;
+  const auto* A = (const __nv_bfloat16*)acts;
+  const auto* D = (const __nv_bfloat16*)deltas;
+  if (ad != nullptr)
+    return launch_clusters(wgrad_kernel<XT, true>, cfg, st, launched, x, order, step, row0, B,
+                           k_in, t_async, venc, venc_in, venc_w, A, D, bias_part, loss_part,
+                           grads, sums, g, *ad);
+  return launch_clusters(wgrad_kernel<XT, false>, cfg, st, launched, x, order, step, row0, B,
+                         k_in, t_async, venc, venc_in, venc_w, A, D, bias_part, loss_part, grads,
+                         sums, g, AdamArgs{});
 }
 
-int launch_wgrad(const void* x, int x_bf16, long long row0, int B, int k_in, int k_w,
-                 int num_layers, int skip_idx, const void* venc, int venc_in, int venc_w,
-                 const void* acts, const void* deltas, const float* bias_part,
-                 const float* loss_part, float* grads, float* sums, int* launched,
-                 void* stream) {
-  if (bad_net(B, k_in, k_w, num_layers, skip_idx, venc_in, venc_w))
+int launch_wgrad(const void* x, int x_bf16, const int* order, int step, long long row0, int B,
+                 int k_in, int k_w, int num_layers, int skip_idx, const void* venc, int venc_in,
+                 int venc_w, const void* acts, const void* deltas, const float* bias_part,
+                 const float* loss_part, float* grads, float* sums, const AdamArgs* ad,
+                 int* launched, void* stream) {
+  if (bad_net(B, k_in, k_w, num_layers, skip_idx, venc_in, venc_w) ||
+      (order != nullptr && step < 0) || sums == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (ad != nullptr &&
+      (ad->p == nullptr || ad->m == nullptr || ad->v == nullptr || ad->wb == nullptr ||
+       ad->hyper == nullptr || step < 0 ||
+       (((uintptr_t)ad->p | (uintptr_t)ad->m | (uintptr_t)ad->v) % 8 != 0) ||
+       (uintptr_t)ad->wb % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (ad == nullptr && grads == nullptr) return (int)cudaErrorInvalidValue;
   const Net net = make_net(k_in, k_w, num_layers, skip_idx, venc_w);
   const Wgrad g = make_wgrad(net, B);
   cudaStream_t st = (cudaStream_t)stream;
@@ -939,11 +1054,11 @@ int launch_wgrad(const void* x, int x_bf16, long long row0, int B, int k_in, int
                           << 1;
   if (x_bf16)
     return launch_wgrad_kernel<__nv_bfloat16>(
-        (const __nv_bfloat16*)x, row0, B, k_in, t_async, (const __nv_bfloat16*)venc, venc_in,
-        venc_w, acts, deltas, bias_part, loss_part, grads, sums, g, launched, st);
-  return launch_wgrad_kernel<float>((const float*)x, row0, B, k_in, t_async, (const float*)venc,
-                                    venc_in, venc_w, acts, deltas, bias_part, loss_part, grads,
-                                    sums, g, launched, st);
+        (const __nv_bfloat16*)x, order, step, row0, B, k_in, t_async, (const __nv_bfloat16*)venc,
+        venc_in, venc_w, acts, deltas, bias_part, loss_part, grads, sums, g, ad, launched, st);
+  return launch_wgrad_kernel<float>((const float*)x, order, step, row0, B, k_in, t_async,
+                                    (const float*)venc, venc_in, venc_w, acts, deltas, bias_part,
+                                    loss_part, grads, sums, g, ad, launched, st);
 }
 
 }  // namespace
@@ -952,39 +1067,45 @@ int launch_wgrad(const void* x, int x_bf16, long long row0, int B, int k_in, int
 // return cudaGetLastError() (0 on success); they never synchronize.
 //
 // x: the feature table ([*, k_in] row-major, bf16 if x_bf16 else f32); the
-// batch is rows [row0, row0 + B). params: flat f32 (matrix region, then
-// biases; fwd_bwd reads the biases); wb: its bf16 copy (round to nearest
-// even, 16-byte aligned; fwd_bwd reads the matrices). target: [B, 3] f32.
+// batch is rows [row0, row0 + B), or [order[step] * B, +B) when order
+// (int32 block ids on the device, nullable) is given. params: flat f32
+// (matrix region, then biases; fwd_bwd reads the biases); wb: its bf16 copy
+// (round to nearest even, 16-byte aligned; fwd_bwd reads the matrices).
+// target: f32 rows of 3 whose first row belongs to row target_row0 of x,
+// read at the batch's rows (the batch's own [B, 3]: target_row0 = row0;
+// the whole ground-truth table: 0).
 // Scratch: acts [nh, B, HID] bf16; deltas [nh, B, HID] then [B, OUTW]
 // bf16; bias_part [nblk, HID*nh+OUTW] f32; loss_part [nblk, 2] f32, nblk =
 // ceil(B / 64); nh = num_layers - 1 (the _viewdep entry points:
 // num_layers + 1). launched (null, or 5 ints): on success, the shape the
 // launch ran with: {CTAs, cluster size, threads per CTA, shared memory
 // bytes, feature tile resident (0/1)}.
-extern "C" int fused_mlp_fwd_bwd(const void* x, int x_bf16, long long row0, int B, int k_in,
-                                 const float* params, const void* wb, int k_w, int num_layers,
-                                 int skip_idx, const float* target, int mode, float inv_n,
-                                 void* acts, void* deltas, float* bias_part, float* loss_part,
-                                 int* launched, void* stream) {
-  return launch_fwd_bwd(x, x_bf16, row0, B, k_in, params, wb, k_w, num_layers, skip_idx, nullptr,
-                        0, 0, target, mode, inv_n, acts, deltas, bias_part, loss_part, launched,
-                        stream);
+extern "C" int fused_mlp_fwd_bwd(const void* x, int x_bf16, const int* order, int step,
+                                 long long row0, int B, int k_in, const float* params,
+                                 const void* wb, int k_w, int num_layers, int skip_idx,
+                                 const float* target, long long target_row0, int mode,
+                                 float inv_n, void* acts, void* deltas, float* bias_part,
+                                 float* loss_part, int* launched, void* stream) {
+  return launch_fwd_bwd(x, x_bf16, order, step, row0, B, k_in, params, wb, k_w, num_layers,
+                        skip_idx, nullptr, 0, 0, target, target_row0, mode, inv_n, acts, deltas,
+                        bias_part, loss_part, launched, stream);
 }
 
 // The view-dependent field: venc is the encoded view-direction table
 // beside x ([*, venc_w] row-major, x's dtype, the same rows), of which
 // lanes [0, venc_in) are read; venc_w = the view rows of Wc1 in params.
-extern "C" int fused_mlp_fwd_bwd_viewdep(const void* x, int x_bf16, long long row0, int B,
-                                         int k_in, const float* params, const void* wb, int k_w,
-                                         int num_layers, int skip_idx, const void* venc,
-                                         int venc_in, int venc_w, const float* target, int mode,
+extern "C" int fused_mlp_fwd_bwd_viewdep(const void* x, int x_bf16, const int* order, int step,
+                                         long long row0, int B, int k_in, const float* params,
+                                         const void* wb, int k_w, int num_layers, int skip_idx,
+                                         const void* venc, int venc_in, int venc_w,
+                                         const float* target, long long target_row0, int mode,
                                          float inv_n, void* acts, void* deltas,
                                          float* bias_part, float* loss_part, int* launched,
                                          void* stream) {
   if (venc == nullptr || venc_w <= 0) return (int)cudaErrorInvalidValue;
-  return launch_fwd_bwd(x, x_bf16, row0, B, k_in, params, wb, k_w, num_layers, skip_idx, venc,
-                        venc_in, venc_w, target, mode, inv_n, acts, deltas, bias_part,
-                        loss_part, launched, stream);
+  return launch_fwd_bwd(x, x_bf16, order, step, row0, B, k_in, params, wb, k_w, num_layers,
+                        skip_idx, venc, venc_in, venc_w, target, target_row0, mode, inv_n, acts,
+                        deltas, bias_part, loss_part, launched, stream);
 }
 
 // grads: flat f32 like params (every entry written); sums: [2] f32 (loss,
@@ -996,8 +1117,9 @@ extern "C" int fused_mlp_wgrad(const void* x, int x_bf16, long long row0, int B,
                                const void* deltas, const float* bias_part,
                                const float* loss_part, float* grads, float* sums, int* launched,
                                void* stream) {
-  return launch_wgrad(x, x_bf16, row0, B, k_in, k_w, num_layers, skip_idx, nullptr, 0, 0,
-                      acts, deltas, bias_part, loss_part, grads, sums, launched, stream);
+  return launch_wgrad(x, x_bf16, nullptr, 0, row0, B, k_in, k_w, num_layers, skip_idx, nullptr,
+                      0, 0, acts, deltas, bias_part, loss_part, grads, sums, nullptr, launched,
+                      stream);
 }
 
 extern "C" int fused_mlp_wgrad_viewdep(const void* x, int x_bf16, long long row0, int B,
@@ -1007,9 +1129,48 @@ extern "C" int fused_mlp_wgrad_viewdep(const void* x, int x_bf16, long long row0
                                        const float* bias_part, const float* loss_part,
                                        float* grads, float* sums, int* launched, void* stream) {
   if (venc == nullptr || venc_w <= 0) return (int)cudaErrorInvalidValue;
-  return launch_wgrad(x, x_bf16, row0, B, k_in, k_w, num_layers, skip_idx, venc, venc_in,
-                      venc_w, acts, deltas, bias_part, loss_part, grads, sums, launched, stream);
+  return launch_wgrad(x, x_bf16, nullptr, 0, row0, B, k_in, k_w, num_layers, skip_idx, venc,
+                      venc_in, venc_w, acts, deltas, bias_part, loss_part, grads, sums, nullptr,
+                      launched, stream);
 }
+
+// wgrad with the Adam epilogue, the second launch of a train step: params,
+// m and v (flat f32, 8-byte aligned) updated in place from this step's
+// gradients, wb (their bf16 copy) written; no gradient is stored. The batch
+// is rows [order[step] * B, +B) when order (int32 block ids on the device)
+// is given, else [row0, row0 + B); hyper: [*, 128] f32 hyper rows, of which
+// row `step` is read. sums: [2] f32 as fused_mlp_wgrad's; acc: [2] f32 epoch
+// accumulators, acc[0] += loss_sum / 3, acc[1] += sq_sum (null: none).
+extern "C" int fused_mlp_wgrad_adam(const void* x, int x_bf16, const int* order, int step,
+                                    long long row0, int B, int k_in, int k_w, int num_layers,
+                                    int skip_idx, const void* acts, const void* deltas,
+                                    const float* bias_part, const float* loss_part, float* params,
+                                    float* m, float* v, void* wb, const float* hyper, float* sums,
+                                    float* acc, int* launched, void* stream) {
+  const AdamArgs ad{params, m, v, (__nv_bfloat16*)wb, hyper, acc};
+  return launch_wgrad(x, x_bf16, order, step, row0, B, k_in, k_w, num_layers, skip_idx, nullptr,
+                      0, 0, acts, deltas, bias_part, loss_part, nullptr, sums, &ad, launched,
+                      stream);
+}
+
+extern "C" int fused_mlp_wgrad_adam_viewdep(const void* x, int x_bf16, const int* order,
+                                            int step, long long row0, int B, int k_in, int k_w,
+                                            int num_layers, int skip_idx, const void* venc,
+                                            int venc_in, int venc_w, const void* acts,
+                                            const void* deltas, const float* bias_part,
+                                            const float* loss_part, float* params, float* m,
+                                            float* v, void* wb, const float* hyper, float* sums,
+                                            float* acc, int* launched, void* stream) {
+  if (venc == nullptr || venc_w <= 0) return (int)cudaErrorInvalidValue;
+  const AdamArgs ad{params, m, v, (__nv_bfloat16*)wb, hyper, acc};
+  return launch_wgrad(x, x_bf16, order, step, row0, B, k_in, k_w, num_layers, skip_idx, venc,
+                      venc_in, venc_w, acts, deltas, bias_part, loss_part, nullptr, sums, &ad,
+                      launched, stream);
+}
+
+// Raise the kernels' shared memory ceilings and load them: call before a
+// capture of launches into a CUDA graph (the first launch does it too).
+extern "C" int fused_mlp_train_prepare() { return prepare_kernels(); }
 
 // Constants the Python wrapper checks its layout against.
 extern "C" int fused_mlp_train_kc() { return KC; }

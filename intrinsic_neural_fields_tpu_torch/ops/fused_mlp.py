@@ -12,7 +12,14 @@ with the directional tail when a ``ViewDepTailSpec`` is given):
     and bias gradients of the mean loss over one batch (``vencs=``: the
     encoded view directions beside the features, for the tail);
   - ``fused_adam_apply``: the optax Adam update, in place on params, m, v;
-  - ``fused_train_adam``: the two composed, one training step;
+  - ``fused_train_adam_step``: the two composed, one training step with
+    its batch found on the device (row0 = order[i] * B, the targets and the
+    hyper row read at step i); on the card two launches, fwd_bwd then wgrad
+    with Adam in its epilogue (``fused_mlp_wgrad_adam``), the gradients
+    never stored. Its launch arguments do not depend on the block order, so
+    ``train/steps.py`` captures an epoch of them as one CUDA graph;
+    ``fused_train_adam`` is one such step on a given block, its operands
+    checked;
   - ``fused_apply_trainable``: the forward as a ``torch.autograd.Function``
     whose backward runs the train kernels seeded by the output cotangent.
 
@@ -56,7 +63,8 @@ CAUCHY_C2 = (20.0 / 255.0) ** 2
 VENC_K = 16     # the concat layer's view rows are padded to this (one wmma k-step)
 VENC_MAX = 64   # most encoded view lanes the kernels take (one chunk of their x tile)
 KERNELS = ("fused_mlp_fwd", "fused_mlp_fwd_bwd", "fused_mlp_wgrad", "fused_adam",
-           "fused_mlp_fwd_viewdep", "fused_mlp_fwd_bwd_viewdep", "fused_mlp_wgrad_viewdep")
+           "fused_mlp_fwd_viewdep", "fused_mlp_fwd_bwd_viewdep", "fused_mlp_wgrad_viewdep",
+           "fused_mlp_wgrad_adam", "fused_mlp_wgrad_adam_viewdep")
 register(*KERNELS)
 
 
@@ -567,6 +575,31 @@ def wgrad_viewdep_plain(layout, x, venc, acts, deltas, bias_sums):
     return _wgrad(layout, x, venc, acts, deltas, bias_sums)
 
 
+def accumulate_loss(acc, loss_sum, sq_sum):
+    """The epoch's accumulators, in place: acc[0] += loss_sum / 3 (the
+    batch's mean loss times B), acc[1] += sq_sum; f32, the division by a
+    device tensor (a correctly rounded quotient, as the kernel's: torch on
+    the card multiplies by the reciprocal of a Python scalar divisor)."""
+    three = torch.full((), 3.0, dtype=torch.float32, device=acc.device)
+    acc += torch.stack((loss_sum / three, sq_sum))
+
+
+def wgrad_adam_plain(layout, x, acts, deltas, bias_sums, sums, params, m, v, hyper, wb,
+                     acc=None, venc=None):
+    """Plain twin of the wgrad kernel with its Adam epilogue (either
+    layout; venc: the view rows, with a tail): ``wgrad_plain`` (or
+    ``wgrad_viewdep_plain``), then ``adam_apply_plain`` IN PLACE on params,
+    m, v with the new params rounded to bf16 into wb (if given); sums (loss_sum,
+    sq_sum) go into acc by ``accumulate_loss`` when acc is given."""
+    grads = _wgrad(layout, x, venc, acts, deltas, bias_sums)
+    for dst, src in zip((params, m, v), adam_apply_plain(params, m, v, hyper, grads)):
+        dst.copy_(src)
+    if wb is not None:
+        wb.copy_(params)
+    if acc is not None:
+        accumulate_loss(acc, *sums)
+
+
 def train_grads_plain(layout, params, x, gt, loss_type="L1", venc=None):
     """Plain twin of ``fused_train_grads`` on a gathered [B, k_in] batch
     (and its [B, venc_w] view encodings with a tail): fwd_bwd then
@@ -586,7 +619,7 @@ class TrainScratch:
     """Per-batch-size device scratch of the train kernels (allocate once
     per epoch): the bf16 copy of the flat params that fwd_bwd reads its
     weights from (``wb``, round to nearest even), bf16 activations and
-    deltas, per-64-row bias and loss partial sums, the flat gradient.
+    deltas, per-64-row bias and loss partial sums.
     ``wb_of``: the params tensor ``wb`` was rounded from and its
     version counter then; the train kernels round the params again when
     either differs (see ``_sync_wb``)."""
@@ -596,7 +629,6 @@ class TrainScratch:
     deltas: torch.Tensor
     bias_part: torch.Tensor
     loss_part: torch.Tensor
-    grads: torch.Tensor
     wb_of: tuple = (None, -1)
 
 
@@ -629,7 +661,6 @@ def make_train_scratch(layout, B, params):
         deltas=torch.empty(n_hid * B * spec.hidden + B * OUT_PAD, dtype=torch.bfloat16, **kw),
         bias_part=torch.empty(nblk * nbp, dtype=torch.float32, **kw),
         loss_part=torch.empty(nblk * 2, dtype=torch.float32, **kw),
-        grads=torch.empty(layout.n, dtype=torch.float32, **kw),
     )
 
 
@@ -639,14 +670,19 @@ def _train_lib():
     lib = load("fused_mlp_train")
     if lib.fused_mlp_fwd_bwd.argtypes is None:
         P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.fused_mlp_fwd_bwd.argtypes = [P, I, LL, I, I, P, P, I, I, I, P, I, F, P, P, P, P,
-                                          P, P]
+        lib.fused_mlp_fwd_bwd.argtypes = [P, I, P, I, LL, I, I, P, P, I, I, I, P, LL, I, F, P,
+                                          P, P, P, P, P]
         lib.fused_mlp_wgrad.argtypes = [P, I, LL, I, I, I, I, I] + [P] * 8
         lib.fused_mlp_fwd_bwd_viewdep.argtypes = (
-            [P, I, LL, I, I, P, P, I, I, I, P, I, I, P, I, F, P, P, P, P, P, P])
+            [P, I, P, I, LL, I, I, P, P, I, I, I, P, I, I, P, LL, I, F, P, P, P, P, P, P])
         lib.fused_mlp_wgrad_viewdep.argtypes = [P, I, LL, I, I, I, I, I, P, I, I] + [P] * 8
+        lib.fused_mlp_wgrad_adam.argtypes = [P, I, P, I, LL, I, I, I, I, I] + [P] * 13
+        lib.fused_mlp_wgrad_adam_viewdep.argtypes = (
+            [P, I, P, I, LL, I, I, I, I, I, P, I, I] + [P] * 13)
+        lib.fused_mlp_train_prepare.argtypes = []
         for fn in (lib.fused_mlp_fwd_bwd, lib.fused_mlp_wgrad, lib.fused_mlp_fwd_bwd_viewdep,
-                   lib.fused_mlp_wgrad_viewdep):
+                   lib.fused_mlp_wgrad_viewdep, lib.fused_mlp_wgrad_adam,
+                   lib.fused_mlp_wgrad_adam_viewdep, lib.fused_mlp_train_prepare):
             fn.restype = I
         _check_consts(lib, (("fused_mlp_train_kc", KC), ("fused_mlp_train_out_pad", OUT_PAD),
                             ("fused_mlp_train_block_rows", BLOCK_ROWS),
@@ -654,14 +690,18 @@ def _train_lib():
     return lib
 
 
+def _check_flat(layout, name, t, dev, what):
+    if (t.device != dev or t.dtype != torch.float32 or t.shape != (layout.n,)
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"{what}: {name} must be contiguous 16-byte aligned float32 "
+                         f"[{layout.n}] on {dev} (the kernels read it in vectors)")
+
+
 def _check_train_operands(layout, params, feats, target, row0, B, what, vencs=None):
     spec, tail = layout.spec, layout.tail
     _check_kernel_spec(layout, what)
     dev = params.device
-    if (params.dtype != torch.float32 or params.shape != (layout.n,)
-            or not params.is_contiguous() or params.data_ptr() % 16):
-        raise ValueError(f"{what}: params must be contiguous 16-byte aligned float32 "
-                         f"[{layout.n}] (the kernels read it in float4 vectors)")
+    _check_flat(layout, "params", params, dev, what)
     if (feats.device != dev or feats.dtype not in (torch.bfloat16, torch.float32)
             or feats.dim() != 2 or feats.shape[1] != spec.k_in or not feats.is_contiguous()):
         raise ValueError(
@@ -691,15 +731,36 @@ def _venc_args(layout, vencs):
     return (vencs.data_ptr(), t.venc_in, t.venc_w)
 
 
-def _launch_fwd_bwd(layout, params, feats, row0, B, target, mode, inv_n, scratch, vencs=None):
-    """One launch of csrc/fused_mlp_train.cu:fused_mlp_fwd_bwd[_viewdep]."""
+def check_epoch_operands(layout, params, m, v, feats, targets, B, num_batches, vencs=None):
+    """The operands of an epoch of ``fused_train_adam_step`` on the card,
+    checked once: the flat buffers, the tables (targets: the whole [N, 3]
+    ground truth beside the [N, k_in] feature table) and the blocks."""
+    what = "train epoch"
+    _check_train_operands(layout, params, feats, targets[:B], 0, B, what, vencs)
+    for name, t in (("m", m), ("v", v)):
+        _check_flat(layout, name, t, params.device, what)
+    if (targets.dtype != torch.float32 or targets.shape != (feats.shape[0], 3)
+            or not targets.is_contiguous()):
+        raise ValueError(f"{what}: targets must be contiguous float32 [{feats.shape[0]}, 3]")
+    if num_batches * B > feats.shape[0]:
+        raise ValueError(f"{what}: {num_batches} blocks of {B} rows outside feats "
+                         f"[0, {feats.shape[0]})")
+
+
+def _launch_fwd_bwd(layout, params, feats, row0, B, target, mode, inv_n, scratch, vencs=None,
+                    order=None, step=0, target_row0=None):
+    """One launch of csrc/fused_mlp_train.cu:fused_mlp_fwd_bwd[_viewdep]: the
+    batch at row0, or with order (int32 block ids on the device) at
+    order[step] * B. target: f32 rows of 3 whose first row belongs to row
+    target_row0 of feats (None: row0, target is the batch's [B, 3])."""
     spec = layout.spec
     lib = _train_lib()
-    head = (feats.data_ptr(), int(feats.dtype == torch.bfloat16), row0, B, spec.k_in,
+    head = (feats.data_ptr(), int(feats.dtype == torch.bfloat16),
+            None if order is None else order.data_ptr(), step, row0, B, spec.k_in,
             params.data_ptr(), scratch.wb.data_ptr(), spec.k_w, spec.num_layers, spec.skip_idx)
-    rest = (target.data_ptr(), mode, inv_n, scratch.acts.data_ptr(), scratch.deltas.data_ptr(),
-            scratch.bias_part.data_ptr(), scratch.loss_part.data_ptr(), _FB_LAUNCHED,
-            _stream(params))
+    rest = (target.data_ptr(), row0 if target_row0 is None else target_row0, mode, inv_n,
+            scratch.acts.data_ptr(), scratch.deltas.data_ptr(), scratch.bias_part.data_ptr(),
+            scratch.loss_part.data_ptr(), _FB_LAUNCHED, _stream(params))
     if layout.tail is None:
         name, rc = "fused_mlp_fwd_bwd", lib.fused_mlp_fwd_bwd(*head, *rest)
     else:
@@ -737,6 +798,41 @@ def _launch_wgrad(layout, feats, row0, B, scratch, grads, sums, vencs=None):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     _launches[name] += 1
+
+
+def _launch_wgrad_adam(layout, feats, row0, B, scratch, params, m, v, hyper, sums, acc=None,
+                       vencs=None, order=None, step=0):
+    """One launch of csrc/fused_mlp_train.cu:fused_mlp_wgrad_adam[_viewdep]:
+    Adam in place on params, m, v from the batch's gradients, the bf16 copy
+    into scratch.wb, the loss sums into sums [2] (and acc [2], if given).
+    The batch at row0, or with order at order[step] * B; hyper: the [*, 128]
+    hyper rows, of which row `step` is read."""
+    spec = layout.spec
+    lib = _train_lib()
+    head = (feats.data_ptr(), int(feats.dtype == torch.bfloat16),
+            None if order is None else order.data_ptr(), step, row0, B, spec.k_in, spec.k_w,
+            spec.num_layers, spec.skip_idx)
+    rest = (scratch.acts.data_ptr(), scratch.deltas.data_ptr(), scratch.bias_part.data_ptr(),
+            scratch.loss_part.data_ptr(), params.data_ptr(), m.data_ptr(), v.data_ptr(),
+            scratch.wb.data_ptr(), hyper.data_ptr(), sums.data_ptr(),
+            None if acc is None else acc.data_ptr(), _WG_LAUNCHED, _stream(params))
+    if layout.tail is None:
+        name, rc = "fused_mlp_wgrad_adam", lib.fused_mlp_wgrad_adam(*head, *rest)
+    else:
+        name = "fused_mlp_wgrad_adam_viewdep"
+        rc = lib.fused_mlp_wgrad_adam_viewdep(*head, *_venc_args(layout, vencs), *rest)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    _launches[name] += 1
+
+
+def prepare_train_kernels():
+    """Load the train kernels and raise their shared-memory ceilings, so no
+    later launch makes a CUDA call besides the launch itself (call before
+    capturing launches into a CUDA graph)."""
+    rc = _train_lib().fused_mlp_train_prepare()
+    if rc != 0:
+        raise RuntimeError(f"fused_mlp_train_prepare failed: cudaError {rc}")
 
 
 # The shape of the last wgrad launch, written by the C entry point.
@@ -807,7 +903,8 @@ def adam_hyper_rows(counts, learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=
     b1, b2, eps, eps_root) in lanes 0..6 for the 1-based step counts t.
     Computed in f32 like optax under inject_hyperparams (its betas are f32)."""
     t = torch.as_tensor(counts, device=device).to(torch.float32)[:, None]
-    f32 = lambda v: torch.tensor(float(v), dtype=torch.float32, device=t.device)  # noqa: E731
+    # constants filled on the device (no host-to-device copy each)
+    f32 = lambda v: torch.full((), float(v), dtype=torch.float32, device=t.device)  # noqa: E731
     c1 = 1.0 / (1.0 - torch.pow(f32(b1), t))
     c2 = 1.0 / (1.0 - torch.pow(f32(b2), t))
     cols = [f32(learning_rate).expand_as(t), c1, c2] + [
@@ -854,14 +951,14 @@ def fused_adam_apply(params, m, v, hyper, grads, wb=None):
         return
     n = params.numel()
     if wb is not None and (wb.device != params.device or wb.dtype != torch.bfloat16
-                           or wb.numel() != n or not wb.is_contiguous()):
-        raise ValueError(f"fused_adam_apply: wb must be contiguous bfloat16 [{n}] on "
-                         f"{params.device}")
+                           or wb.numel() != n or not wb.is_contiguous() or wb.data_ptr() % 8):
+        raise ValueError(f"fused_adam_apply: wb must be contiguous 8-byte aligned bfloat16 "
+                         f"[{n}] on {params.device}")
     for name, t in (("params", params), ("m", m), ("v", v), ("grads", grads)):
         if (t.device != params.device or t.dtype != torch.float32 or t.numel() != n
-                or not t.is_contiguous()):
-            raise ValueError(f"fused_adam_apply: {name} must be contiguous float32 "
-                             f"[{n}] on {params.device}")
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"fused_adam_apply: {name} must be contiguous 16-byte aligned "
+                             f"float32 [{n}] on {params.device} (the kernel reads float4s)")
     if (hyper.device != params.device or hyper.dtype != torch.float32
             or hyper.numel() != 128 or not hyper.is_contiguous()):
         raise ValueError("fused_adam_apply: hyper must be one contiguous float32 [128] row")
@@ -874,34 +971,87 @@ def fused_adam_apply(params, m, v, hyper, grads, wb=None):
         increment_version(t)  # the kernel wrote them in place
 
 
+def _step_plain(layout, params, m, v, hyper, feats, gt, row0, B, loss_type, scratch, acc,
+                vencs):
+    """The plain twin of a train step on rows [row0, row0 + B): fwd_bwd's
+    twin, then ``wgrad_adam_plain``. Returns (loss_sum, sq_sum)."""
+    venc = None if vencs is None else vencs[row0:row0 + B]
+    x = feats[row0:row0 + B]
+    acts, deltas, bias_sums, loss_sum, sq_sum = _fwd_bwd(layout, params, x, venc, gt, loss_type)
+    wgrad_adam_plain(layout, x, acts, deltas, bias_sums, (loss_sum, sq_sum), params, m, v,
+                     hyper, scratch.wb, acc, venc)
+    scratch.wb_of = (params, params._version)
+    return loss_sum, sq_sum
+
+
 def fused_train_adam(layout, params, m, v, hyper, feats, gt, block, batch_size,
                      loss_type="L1", scratch=None, vencs=None):
-    """One training step: ``fused_train_grads`` on the streamed batch, then
-    ``fused_adam_apply`` in place. Returns (loss_sum, sq_sum), 0-dim.
-    On the card: fwd_bwd, wgrad, adam — three launches, no host sync (the
-    tail's fwd_bwd and wgrad entry points with a tail; Adam is elementwise
-    over the flat buffer, the same kernel for both layouts). Adam writes
-    the new params' bf16 copy into the scratch's ``wb``, ready for the next
-    step."""
-    if params.device.type == "cpu":
-        grads, loss_sum, sq_sum = fused_train_grads(
-            layout, params, feats, gt, block, batch_size, loss_type, vencs=vencs)
-        fused_adam_apply(params, m, v, hyper, grads, None if scratch is None else scratch.wb)
-        if scratch is not None:
-            scratch.wb_of = (params, params._version)
-        return loss_sum, sq_sum
+    """One training step on the streamed batch (rows [block*B, (block+1)*B)
+    of feats, ground truth gt [B, 3]): the gradients of
+    ``fused_train_grads``, then the Adam update in place on params, m, v
+    (hyper: one [128] row). Returns (loss_sum, sq_sum), 0-dim. The operands
+    are checked, then it is one ``fused_train_adam_step`` (order [block],
+    step 0, gt the targets of the block's rows): on the card fwd_bwd, then
+    wgrad with Adam in its epilogue, the new params' bf16 copy left in the
+    scratch's ``wb`` for the next step. CPU: the plain twins."""
     B = int(batch_size)
-    if loss_type not in LOSS_MODES:
-        raise ValueError(f"unknown loss_type {loss_type!r}")
-    _check_train_operands(layout, params, feats, gt, int(block) * B, B, "fused_train_adam",
-                          vencs)
+    row0 = int(block) * B
+    dev = params.device
+    what = "fused_train_adam"
+    if (layout.tail is None) != (vencs is None):
+        raise ValueError(f"{what}: vencs must be given exactly when the layout has a tail")
+    if dev.type != "cpu":
+        if loss_type not in LOSS_MODES:
+            raise ValueError(f"unknown loss_type {loss_type!r}")
+        _check_train_operands(layout, params, feats, gt, row0, B, what, vencs)
+        for name, t in (("m", m), ("v", v)):
+            _check_flat(layout, name, t, dev, what)
+        if (hyper.device != dev or hyper.dtype != torch.float32 or hyper.numel() != 128
+                or not hyper.is_contiguous()):
+            raise ValueError(f"{what}: hyper must be one contiguous float32 [128] row")
     if scratch is None:
         scratch = make_train_scratch(layout, B, params)
-    sums = _train_kernels(layout, params, feats, int(block) * B, B, gt,
-                          LOSS_MODES[loss_type], scratch, scratch.grads, vencs)
-    fused_adam_apply(params, m, v, hyper, scratch.grads, scratch.wb)
-    scratch.wb_of = (params, params._version)
+    elif scratch.B != B:
+        raise ValueError(f"scratch was made for B={scratch.B}, not {B}")
+    else:
+        _sync_wb(scratch, params)
+    sums = torch.empty(2, dtype=torch.float32, device=dev)
+    order = torch.full((1,), int(block), dtype=torch.int32, device=dev)
+    fused_train_adam_step(layout, params, m, v, hyper.reshape(1, 128), order, 0, feats, gt, B,
+                          loss_type, scratch, sums, None, vencs, targets_row0=row0)
     return sums[0], sums[1]
+
+
+def fused_train_adam_step(layout, params, m, v, hyper_all, order, i, feats, targets, B,
+                          loss_type, scratch, sums, acc, vencs=None, targets_row0=0):
+    """Step i of an epoch of train steps with Adam, its batch found where
+    the TPU kernel finds it: rows [order[i] * B, +B) of feats (and vencs),
+    their ground truth at the same rows of targets (f32 rows of 3, the
+    first of them row targets_row0: the whole [N, 3] table by default),
+    hyper row hyper_all[i]. params, m, v updated in place, scratch.wb
+    rewritten (and ``wb_of`` set), the loss sums into sums [2] and, when acc
+    [2] is given, acc[0] += loss_sum / 3, acc[1] += sq_sum.
+
+    Unchecked: the caller checks its operands (``check_epoch_operands``)
+    and makes scratch.wb current. CPU: the plain twins, order a CPU int
+    tensor. CUDA: fwd_bwd and wgrad with Adam, two launches whose arguments
+    hold pointers and i only (order: int32 on the device), so an epoch of
+    them can be captured and replayed."""
+    if params.device.type == "cpu":
+        row0 = int(order[i]) * B
+        t0 = row0 - targets_row0
+        loss_sum, sq_sum = _step_plain(layout, params, m, v, hyper_all[i], feats,
+                                       targets[t0:t0 + B], row0, B, loss_type, scratch, acc,
+                                       vencs)
+        sums.copy_(torch.stack((loss_sum, sq_sum)))
+        return
+    _launch_fwd_bwd(layout, params, feats, 0, B, targets, LOSS_MODES[loss_type], 1.0 / (B * 3),
+                    scratch, vencs, order, i, targets_row0)
+    _launch_wgrad_adam(layout, feats, 0, B, scratch, params, m, v, hyper_all, sums, acc, vencs,
+                       order, i)
+    for t in (params, m, v, scratch.wb):
+        increment_version(t)  # the kernels wrote them in place
+    scratch.wb_of = (params, params._version)
 
 
 # ------------------------------------------------------ forward with a VJP

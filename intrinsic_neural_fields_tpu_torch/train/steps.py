@@ -6,9 +6,13 @@ updated in place, plus the step count and the hyperparameters. An epoch:
 
   - blocks shuffle + ``fused`` (the HQ recipe): each step streams one
     shuffled batch-sized block of the precomputed hit-feature table through
-    the train kernels and the Adam kernel (``fused_train_adam``; with
-    ``fused_adam=False`` the gradients leave the kernel and the Adam kernel
-    runs as its own call, the same numbers);
+    the train kernels, Adam in wgrad's epilogue (``fused_train_adam_step``:
+    the step finds its block, targets and hyper row on the device). On the
+    card the whole epoch is one CUDA graph of those launches, two per step,
+    captured on first use (``EpochGraph``) and replayed: one host dispatch
+    per epoch. With ``fused_adam=False`` the gradients leave the kernel and
+    the Adam kernel runs as its own call, per step from the host: the same
+    numbers to the bit;
   - full shuffle + ``fused``: the batch rows are gathered, then the same
     kernels run on the gathered batch (the plain field only);
   - the view-dependent field takes the kernels (in tail mode) on the
@@ -35,21 +39,30 @@ per-sample MSE summed over the 3 channels).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.autograd.graph import increment_version
 
 from ..data.sampler import gather_batch, slice_batch
 from ..models.texture_field import view_encoder_apply
 from ..ops.fused_mlp import (
+    LOSS_MODES,
     ParamLayout,
+    _launches,
+    _sync_wb,
+    accumulate_loss,
     adam_hyper_rows,
+    check_epoch_operands,
     fused_adam_apply,
-    fused_train_adam,
+    fused_train_adam_step,
     fused_train_grads,
+    kernel_launches,
     layout_for_model,
     make_train_scratch,
+    prepare_train_kernels,
 )
 from .losses import elementwise_loss
 
@@ -161,6 +174,109 @@ def _order(order, size):
     return t
 
 
+@dataclass(eq=False)
+class EpochBuffers:
+    """What an epoch graph reads and writes besides the state and the
+    tables: the train kernels' scratch, the block order (int32), the hyper
+    rows [num_batches, 128], the last step's loss sums and the epoch's
+    accumulators (loss, squared error)."""
+    scratch: object
+    order: torch.Tensor
+    hyper: torch.Tensor
+    sums: torch.Tensor
+    acc: torch.Tensor
+
+    @classmethod
+    def make(cls, layout, B, num_batches, params):
+        f32 = dict(dtype=torch.float32, device=params.device)
+        return cls(make_train_scratch(layout, B, params),
+                   torch.zeros(num_batches, dtype=torch.int32, device=params.device),
+                   torch.zeros(num_batches, 128, **f32), torch.zeros(2, **f32),
+                   torch.zeros(2, **f32))
+
+
+def epoch_graph_key(state, data, bufs, B, num_batches, vencs):
+    """What an epoch graph bakes in: every tensor its launches address, by
+    pointer and dtype, and B and num_batches. A graph is replayed only for
+    an equal key; a new params tensor (a resume builds new ones) or any
+    other moved buffer gives another key, and the epoch is captured again."""
+    sc = bufs.scratch
+    ts = (state.params, state.mu, state.nu, data.hit_features, data.expected_rgbs, vencs,
+          sc.wb, sc.acts, sc.deltas, sc.bias_part, sc.loss_part, bufs.order, bufs.hyper,
+          bufs.sums, bufs.acc)
+    return (B, num_batches) + tuple(None if t is None else (t.data_ptr(), t.dtype) for t in ts)
+
+
+class EpochGraph:
+    """The blocks + fused + fused_adam epoch on the card: num_batches steps
+    of ``fused_train_adam_step`` (fwd_bwd, then wgrad with Adam) captured
+    once into a ``torch.cuda.CUDAGraph`` and replayed, one host dispatch per
+    epoch. The graph is captured on first use and again whenever
+    ``epoch_graph_key`` changes. Per epoch the host writes the block order
+    and this epoch's hyper rows (the lr may have changed) into the static
+    buffers and zeroes the accumulators, then replays. The kernel wrappers
+    count the launches they record during the capture; those counts
+    (``launches``) are taken back from the totals then and added again at
+    every replay, which runs them. ``captures``, ``capture_s`` (the last
+    capture's seconds) and ``replays`` say what it did; ``events``, a pair
+    of CUDA events or None, are recorded just before and after each replay."""
+
+    def __init__(self):
+        self.key = self.graph = self.bufs = None
+        self.launches = {}
+        self.captures, self.capture_s, self.replays = 0, 0.0, 0
+        self.events = None
+
+    def run(self, state, perm, data, num_batches, B, hyper_all, loss_type, vencs):
+        """One epoch; returns the accumulators [2] (the static buffer, which
+        the next replay overwrites)."""
+        layout, params = state.layout, state.params
+        b = self.bufs
+        if (b is None or b.scratch.B != B or b.order.numel() != num_batches
+                or b.acc.device != params.device):
+            b = self.bufs = EpochBuffers.make(layout, B, num_batches, params)
+        _sync_wb(b.scratch, params)
+        b.order.copy_(perm.to(torch.int32))
+        b.hyper.copy_(hyper_all)
+        b.acc.zero_()
+        key = epoch_graph_key(state, data, b, B, num_batches, vencs)
+        if key != self.key:
+            self.graph = self.key = None
+            self.graph = self._capture(state, data, num_batches, B, loss_type, vencs)
+            self.key = key
+        if self.events is not None:
+            self.events[0].record()
+        self.graph.replay()
+        if self.events is not None:
+            self.events[1].record()
+        self.replays += 1
+        for t in (params, state.mu, state.nu, b.scratch.wb):
+            increment_version(t)  # the graph's kernels wrote them in place
+        b.scratch.wb_of = (params, params._version)
+        for name, n in self.launches.items():
+            _launches[name] += n
+        return b.acc
+
+    def _capture(self, state, data, num_batches, B, loss_type, vencs):
+        b = self.bufs
+        prepare_train_kernels()  # nothing but launches inside the capture
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(num_batches):
+                fused_train_adam_step(state.layout, state.params, state.mu, state.nu, b.hyper,
+                                      b.order, i, data.hit_features, data.expected_rgbs, B,
+                                      loss_type, b.scratch, b.sums, b.acc, vencs)
+        # what the wrappers counted went into the graph, not onto the card
+        after = kernel_launches()
+        self.launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
+        _launches.update(before)
+        self.capture_s = time.perf_counter() - t0
+        self.captures += 1
+        return graph
+
+
 def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=True):
     """(train_epoch, val_epoch) for a TextureField or a
     TextureFieldWithViewDependency.
@@ -169,7 +285,8 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         -> (state, {"loss", "sq_err_per_sample"}: 0-dim device tensors)
       updates `state` in place. generator_or_order: a torch.Generator, or
       the permutation itself — of the num_batches blocks when the epoch
-      streams blocks, else of the n records.
+      streams blocks, else of the n records. ``train_epoch.graph``: the
+      ``EpochGraph`` of its blocks + fused_adam epochs on the card.
     val_epoch(state, data, batch_size) -> {"loss", "sq_err_per_sample"}
     """
     if shuffle not in ("full", "blocks"):
@@ -192,6 +309,42 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
                              "face ids (unit_ray_dirs.npy, face_idxs.npy)")
         return view_fn(batch["unit_ray_dirs"], batch["hit_face_idxs"])
 
+    graph = EpochGraph()
+
+    def adam_blocks_epoch(state, perm, data, num_batches, B, hyper_all, vencs):
+        """The blocks + fused_adam epoch: two launches per step, Adam in
+        wgrad's epilogue; on the card one graph replay. Returns acc [2]."""
+        params = state.params
+        if params.device.type == "cuda":
+            check_epoch_operands(layout, params, state.mu, state.nu, data.hit_features,
+                                 data.expected_rgbs, B, num_batches, vencs)
+            if loss_type not in LOSS_MODES:
+                raise ValueError(f"unknown loss_type {loss_type!r}")
+            return graph.run(state, perm, data, num_batches, B, hyper_all, loss_type, vencs)
+        scratch = make_train_scratch(layout, B, params)
+        sums = torch.zeros(2, dtype=torch.float32)
+        acc = torch.zeros(2, dtype=torch.float32)
+        for i in range(num_batches):
+            fused_train_adam_step(layout, params, state.mu, state.nu, hyper_all, perm, i,
+                                  data.hit_features, data.expected_rgbs, B, loss_type, scratch,
+                                  sums, acc, vencs)
+        return acc
+
+    def grads_blocks_epoch(state, perm, data, num_batches, B, hyper_all, vencs):
+        """fused_adam=False: per step from the host, fwd_bwd and the
+        grads-only wgrad on the block, then the standalone Adam kernel and
+        the accumulators in torch. Returns acc [2]."""
+        acc = torch.zeros(2, dtype=torch.float32, device=state.params.device)
+        scratch = make_train_scratch(layout, B, state.params)
+        for i in range(num_batches):
+            blk = int(perm[i])
+            gt = data.expected_rgbs[blk * B:(blk + 1) * B]
+            grads, loss_sum, sq_sum = fused_train_grads(
+                layout, state.params, data.hit_features, gt, blk, B, loss_type, scratch, vencs)
+            fused_adam_apply(state.params, state.mu, state.nu, hyper_all[i], grads)
+            accumulate_loss(acc, loss_sum, sq_sum)
+        return acc
+
     def train_epoch(state, order, data, num_batches, batch_size):
         n, B = data.n, batch_size
         if not (0 < num_batches and (num_batches * B <= n or num_batches == -(-n // B))):
@@ -210,33 +363,24 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         hyper_all = adam_hyper_rows(state.count + 1 + torch.arange(num_batches),
                                     h.learning_rate, h.b1, h.b2, h.eps, h.eps_root,
                                     device=dev)
-        acc_loss = torch.zeros((), dtype=torch.float32, device=dev)
-        acc_sq = torch.zeros((), dtype=torch.float32, device=dev)
+        if use_fused and use_blocks:
+            # stream block perm[i] of the table through the kernels
+            if not (0 <= int(perm.min()) and int(perm.max()) < num_batches):
+                raise ValueError(f"block ids must lie in [0, {num_batches})")
+            if fused_adam:
+                acc = adam_blocks_epoch(state, perm, data, num_batches, B, hyper_all, vencs)
+            else:
+                acc = grads_blocks_epoch(state, perm, data, num_batches, B, hyper_all, vencs)
+            state.count += num_batches
+            means = acc / torch.full((), float(num_batches * B), dtype=torch.float32, device=dev)
+            return state, {"loss": means[0], "sq_err_per_sample": means[1]}
+        acc = torch.zeros(2, dtype=torch.float32, device=dev)  # loss, squared error
         acc_n = torch.zeros((), dtype=torch.float32, device=dev)
-        blocks = perm.tolist() if use_blocks else None
-        perm_dev = None if use_blocks else perm.to(dev)
-        # the kernels' scratch, with the bf16 weight copy the Adam step keeps
+        perm_dev = perm.to(dev)
         scratch = make_train_scratch(layout, B, state.params) if use_fused else None
         for i in range(num_batches):
-            if use_fused and use_blocks:
-                # stream block blocks[i] of the table through the kernels
-                blk = blocks[i]
-                gt = data.expected_rgbs[blk * B:(blk + 1) * B]
-                if fused_adam:
-                    loss_sum, sq_sum = fused_train_adam(
-                        layout, state.params, state.mu, state.nu, hyper_all[i],
-                        data.hit_features, gt, blk, B, loss_type, scratch, vencs)
-                else:
-                    grads, loss_sum, sq_sum = fused_train_grads(
-                        layout, state.params, data.hit_features, gt, blk, B, loss_type,
-                        scratch, vencs)
-                    fused_adam_apply(state.params, state.mu, state.nu, hyper_all[i], grads)
-                acc_loss = acc_loss + loss_sum / 3.0   # loss_sum/(B*3) * B
-                acc_sq = acc_sq + sq_sum
-                acc_n = acc_n + float(B)
-                continue
             if use_blocks:
-                batch = slice_batch(data, blocks[i] * B, B)
+                batch = slice_batch(data, int(perm[i]) * B, B)
                 w = torch.ones(B, dtype=torch.float32, device=dev)
             else:
                 pos = i * B + torch.arange(B, device=dev)
@@ -250,17 +394,16 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
                 grads, loss_sum, sq_sum = fused_train_grads(
                     layout, state.params, x.contiguous(), gt, 0, B, loss_type, scratch)
                 fused_adam_apply(state.params, state.mu, state.nu, hyper_all[i], grads)
-                acc_loss = acc_loss + loss_sum / 3.0
-                acc_sq = acc_sq + sq_sum
+                accumulate_loss(acc, loss_sum, sq_sum)
                 acc_n = acc_n + float(B)
             else:
                 loss, sq, n_b = eager_step(state, hyper_all[i], batch["eigenfunctions"], gt,
                                            w, loss_elem, venc_of(batch))
-                acc_loss = acc_loss + loss * n_b
-                acc_sq = acc_sq + sq
+                acc += torch.stack((loss * n_b, sq))
                 acc_n = acc_n + n_b
         state.count += num_batches
-        return state, {"loss": acc_loss / acc_n, "sq_err_per_sample": acc_sq / acc_n}
+        means = acc / acc_n
+        return state, {"loss": means[0], "sq_err_per_sample": means[1]}
 
     @torch.no_grad()
     def val_epoch(state, data, batch_size):
@@ -278,4 +421,5 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
             acc_sq = acc_sq + ((pred - gt) ** 2).sum(-1).sum()
         return {"loss": acc_loss / n, "sq_err_per_sample": acc_sq / n}
 
+    train_epoch.graph = graph
     return train_epoch, val_epoch

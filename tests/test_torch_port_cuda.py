@@ -222,6 +222,8 @@ def test_adam_kernel_equals_plain_twin(cuda):
 
 
 def test_train_adam_launches_three_kernels(cuda):
+    """A train step with Adam: since Adam moved into wgrad's epilogue, two
+    launches (fwd_bwd, wgrad_adam), no grads-only wgrad and no Adam kernel."""
     layout, params, feats, gt = _train_setup(cuda, 512, 4096, torch.bfloat16)
     m, v = torch.zeros_like(params), torch.zeros_like(params)
     p_ref = params.clone()
@@ -230,8 +232,9 @@ def test_train_adam_launches_three_kernels(cuda):
     fused_train_adam(layout, params, m, v, hyper, feats, gt[:1024].contiguous(), 2, 1024)
     torch.cuda.synchronize()
     after = kernel_launches()
-    for name in ("fused_mlp_fwd_bwd", "fused_mlp_wgrad", "fused_adam"):
-        assert after[name] == before[name] + 1
+    for name, n in (("fused_mlp_fwd_bwd", 1), ("fused_mlp_wgrad_adam", 1),
+                    ("fused_mlp_wgrad", 0), ("fused_adam", 0)):
+        assert after[name] == before[name] + n
     # one Adam step from zero moments moves every real weight by about lr
     assert 0 < (params - p_ref).abs().max().item() <= 1.01e-4
 
@@ -475,9 +478,10 @@ def test_viewdep_train_adam_launches_three_kernels(cuda):
     fused_train_adam(layout, params, m, v, hyper, feats, gt[:1024].contiguous(), 2, 1024,
                      vencs=vtable)
     torch.cuda.synchronize()
-    after = kernel_launches()
-    for name in ("fused_mlp_fwd_bwd_viewdep", "fused_mlp_wgrad_viewdep", "fused_adam"):
-        assert after[name] == before[name] + 1
+    after = kernel_launches()  # two launches: Adam is wgrad_adam's epilogue
+    for name, n in (("fused_mlp_fwd_bwd_viewdep", 1), ("fused_mlp_wgrad_adam_viewdep", 1),
+                    ("fused_mlp_wgrad_viewdep", 0), ("fused_adam", 0)):
+        assert after[name] == before[name] + n
     assert 0 < (params - p_ref).abs().max().item() <= 1.01e-4
 
 
@@ -697,3 +701,209 @@ def test_wgrad_kernel_matches_plain_twin(cuda, k, B, dtype, vd):
     split = min(8, nblk)
     assert F.last_wgrad_launch() == {"ctas": tiles * split, "cluster": split, "threads": 256,
                                      "smem_bytes": 3 * 32768, "tiles": tiles}
+
+
+# Adam in wgrad's epilogue (fused_mlp_wgrad_adam[_viewdep]) and the epoch as
+# one CUDA graph. The epilogue's Adam is held to the bit: against the plain
+# Adam twin (with its bf16 copy and the accumulators) applied to the
+# gradients and loss sums of the grads-only wgrad launched on the same
+# scratch, which test_wgrad_kernel_matches_plain_twin holds to wgrad_plain.
+# m and v start random over the whole flat buffer, pads included, so an
+# entry the epilogue skips or updates twice shows.
+
+def _random_moments(layout, cuda, seed=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    m = torch.randn(layout.n, generator=g, device=cuda) * 1e-4
+    v = torch.rand(layout.n, generator=g, device=cuda) * 1e-6
+    return m, v
+
+
+@pytest.mark.parametrize("vd", [False, True], ids=["plain", "viewdep"])
+@pytest.mark.parametrize("k,dtype", [(512, torch.bfloat16), (1023, torch.bfloat16),
+                                     (512, torch.float32), (1023, torch.float32)])
+def test_wgrad_adam_kernel_equals_twin(cuda, k, dtype, vd):
+    from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
+
+    B, blk = 4096, 1
+    N = 2 * B
+    if vd:
+        layout, params, feats, _, vtable, gt = _vd_setup(cuda, "intrinsic", k=k, N=N, dtype=dtype)
+    else:
+        layout, params, feats, gt = _train_setup(cuda, k, N, dtype)
+        vtable = None
+    gt_b = gt[blk * B:(blk + 1) * B].contiguous()
+    m, v = _random_moments(layout, cuda)
+    hyper_all = adam_hyper_rows(torch.arange(1, 4), 1e-3, device=cuda)
+    sc = F.make_train_scratch(layout, B, params)
+    F._launch_fwd_bwd(layout, params, feats, blk * B, B, gt_b, F.LOSS_MODES["L1"], 1 / (3 * B),
+                      sc, vtable)
+    grads, sums = torch.empty(layout.n, device=cuda), torch.empty(2, device=cuda)
+    F._launch_wgrad(layout, feats, blk * B, B, sc, grads, sums, vtable)
+    acc0 = torch.tensor([0.25, 0.5], device=cuda)
+    want = [t.clone() for t in (params, m, v)]
+    for dst, src in zip(want, adam_apply_plain(params, m, v, hyper_all[2], grads)):
+        dst.copy_(src)
+    want_acc = acc0.clone()
+    F.accumulate_loss(want_acc, sums[0], sums[1])
+    p2, m2, v2, acc = params.clone(), m.clone(), v.clone(), acc0.clone()
+    sums2 = torch.empty(2, device=cuda)
+    name = "fused_mlp_wgrad_adam" + ("_viewdep" if vd else "")
+    before = kernel_launches()[name]
+    F._launch_wgrad_adam(layout, feats, blk * B, B, sc, p2, m2, v2, hyper_all, sums2, acc, vtable,
+                         step=2)
+    torch.cuda.synchronize()
+    assert kernel_launches()[name] == before + 1
+    for got, w in zip((p2, m2, v2), want):
+        assert torch.equal(got, w)
+    assert torch.equal(sc.wb, want[0].to(torch.bfloat16))
+    assert torch.equal(sums2, sums) and torch.equal(acc, want_acc)
+    assert F.last_wgrad_launch()["ctas"] % 8 == 0  # the grads-only kernel's shape
+
+
+@pytest.mark.parametrize("vd", [False, True], ids=["plain", "viewdep"])
+def test_step_with_device_indices_equals_host_step(cuda, vd):
+    """fused_train_adam_step (block, targets and hyper row read on the
+    device) gives the bits of fused_train_adam on the same block."""
+    from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
+
+    B = 1024
+    if vd:
+        layout, params, feats, _, vtable, gt = _vd_setup(cuda, "intrinsic", N=4 * B)
+    else:
+        layout, params, feats, gt = _train_setup(cuda, 512, 4 * B, torch.bfloat16)
+        vtable = None
+    m, v = _random_moments(layout, cuda)
+    hyper_all = adam_hyper_rows(torch.arange(1, 5), 1e-3, device=cuda)
+    order = torch.tensor([3, 0, 2, 1], dtype=torch.int32, device=cuda)
+    p2, m2, v2 = params.clone(), m.clone(), v.clone()
+    sc = F.make_train_scratch(layout, B, p2)
+    sums, acc = torch.empty(2, device=cuda), torch.zeros(2, device=cuda)
+    F.fused_train_adam_step(layout, p2, m2, v2, hyper_all, order, 2, feats, gt, B, "L1", sc,
+                            sums, acc, vtable)
+    ls, ss = fused_train_adam(layout, params, m, v, hyper_all[2], feats,
+                              gt[2 * B:3 * B].contiguous(), 2, B, "L1", vencs=vtable)
+    torch.cuda.synchronize()
+    for a, b in zip((p2, m2, v2), (params, m, v)):
+        assert torch.equal(a, b)
+    assert torch.equal(sums, torch.stack((ls, ss)))
+
+
+def _epoch_data(cuda, vd, n=8192, k=128, seed=0):
+    from intrinsic_neural_fields_tpu_torch.data.sampler import (RayData, precompute_hit_features,
+                                                                precompute_hit_vencs)
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
+    from intrinsic_neural_fields_tpu_torch.models import view_encoder_apply
+
+    rng = np.random.default_rng(seed)
+    mesh = icosphere(3)
+    V = mesh.num_vertices
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    cfg = {"k": k, "num_layers": 6, "mlp_hidden_dim": 128, "skip_layer_idx": 3}
+    if vd:
+        cfg["view_dependence"] = {"bottleneck_vec_dim": 128, "include_view_dir": True,
+                                  "embed_size": 4, "directional_hidden_dim": 128,
+                                  "in_dim_view_dir": 1, "strategy": "intrinsic"}
+    f, vids, bary, rgbs, d, fid = (torch.as_tensor(a).to(cuda) for a in (
+        rng.normal(size=(V, k)).astype(np.float32), rng.integers(0, V, size=(n, 3)),
+        rng.dirichlet(np.ones(3), size=n).astype(np.float32),
+        rng.uniform(size=(n, 3)).astype(np.float32), dirs,
+        rng.integers(0, mesh.num_faces, size=n)))
+    model = make_model(cfg, seed=1, device=cuda, mesh=mesh)
+    data = precompute_hit_features(RayData(f, "efuncs", vids.long(), bary, rgbs, d, fid.long()),
+                                   dtype=torch.bfloat16)
+    if vd:
+        data = precompute_hit_vencs(view_encoder_apply(model), data, 16, dtype=torch.bfloat16)
+    return model, data
+
+
+@pytest.mark.parametrize("vd", [False, True], ids=["plain", "viewdep"])
+def test_graph_epoch_equals_three_launch_loop(cuda, vd):
+    """Two blocks epochs with an lr change between them: the graph-replayed
+    epoch (fused_adam=True: 2 launches per step, one replay) and the
+    per-step loop of fwd_bwd, grads-only wgrad and the Adam kernel
+    (fused_adam=False) give the same params, m, v, bf16 copy and metrics,
+    to the bit."""
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import reset_kernel_launches
+    from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, create_train_state,
+                                                               make_epoch_fns)
+
+    model, data = _epoch_data(cuda, vd)
+    tail = "_viewdep" if vd else ""
+    nb, B = 8, 1024
+    out = {}
+    for fused_adam in (True, False):
+        train_epoch, _ = make_epoch_fns(model, "L1", shuffle="blocks", fused=True,
+                                        fused_adam=fused_adam)
+        state = create_train_state(model, AdamHyper(1e-3), cuda)
+        metrics = []
+        for e, order in enumerate((np.arange(nb)[::-1].copy(), np.array([2, 5, 0, 7, 1, 4, 6, 3]))):
+            if e:
+                state.set_lr(3e-4)
+            reset_kernel_launches()
+            state, m = train_epoch(state, order, data, nb, B)
+            torch.cuda.synchronize()
+            launches = kernel_launches()
+            metrics.append((m["loss"].clone(), m["sq_err_per_sample"].clone()))
+            if fused_adam:
+                assert launches["fused_mlp_fwd_bwd" + tail] == nb
+                assert launches["fused_mlp_wgrad_adam" + tail] == nb
+                assert launches["fused_adam"] == launches["fused_mlp_wgrad" + tail] == 0
+                assert train_epoch.graph.replays == e + 1 and train_epoch.graph.captures == 1
+            else:
+                assert launches["fused_adam"] == launches["fused_mlp_wgrad" + tail] == nb
+        wb = train_epoch.graph.bufs.scratch.wb.clone() if fused_adam else None
+        out[fused_adam] = (state, metrics, wb)
+    (s1, m1, wb), (s0, m0, _) = out[True], out[False]
+    for a, b in ((s1.params, s0.params), (s1.mu, s0.mu), (s1.nu, s0.nu)):
+        assert torch.equal(a, b)
+    assert torch.equal(wb, s1.params.to(torch.bfloat16))
+    for (l1, q1), (l0, q0) in zip(m1, m0):
+        assert torch.equal(l1, l0) and torch.equal(q1, q0)
+    assert s1.count == s0.count == 2 * nb
+
+
+def test_graph_epoch_recaptures_on_resume(cuda):
+    """A state rebuilt from its tensors (what a resume from checkpoint.pt
+    does) has new pointers: the graph is captured again, and the resumed
+    epoch equals the uninterrupted one to the bit."""
+    from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, TrainState,
+                                                               create_train_state, make_epoch_fns)
+
+    model, data = _epoch_data(cuda, False)
+    nb, B = 8, 1024
+    train_epoch, _ = make_epoch_fns(model, "L1", shuffle="blocks", fused=True)
+    state = create_train_state(model, AdamHyper(1e-3), cuda)
+    state, _ = train_epoch(state, np.arange(nb), data, nb, B)
+    resumed = TrainState(state.layout, state.params.clone(), state.mu.clone(), state.nu.clone(),
+                         state.count, AdamHyper(1e-3))
+    order = np.arange(nb)[::-1].copy()
+    state, m = train_epoch(state, order, data, nb, B)
+    assert train_epoch.graph.captures == 1
+    resumed, mr = train_epoch(resumed, order, data, nb, B)
+    torch.cuda.synchronize()
+    assert train_epoch.graph.captures == 2
+    for a, b in ((resumed.params, state.params), (resumed.mu, state.mu), (resumed.nu, state.nu)):
+        assert torch.equal(a, b)
+    assert torch.equal(mr["loss"], m["loss"])
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 4097, 234_515])
+def test_adam_kernel_with_a_tail_equals_twin(cuda, n):
+    """The standalone Adam kernel on n % 4 != 0 entries (its float4 body
+    and scalar tail): the twin's bits, its bf16 copy too; buffers off
+    16-byte boundaries are refused."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    p, grads, m = (torch.randn(n, generator=g, device=cuda) for _ in range(3))
+    v = torch.rand(n, generator=g, device=cuda) * 1e-6
+    wb = torch.zeros(n, dtype=torch.bfloat16, device=cuda)
+    hyper = adam_hyper_rows(torch.tensor([4]), 1e-3, device=cuda)[0]
+    want = adam_apply_plain(p, m, v, hyper, grads)
+    fused_adam_apply(p, m, v, hyper, grads, wb)
+    torch.cuda.synchronize()
+    for got, w in zip((p, m, v), want):
+        assert torch.equal(got, w)
+    assert torch.equal(wb, want[0].to(torch.bfloat16))
+    off = torch.zeros(n + 1, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        fused_adam_apply(off, m, v, hyper, grads)

@@ -150,24 +150,55 @@ def test_two_epochs_track_the_reference(models, fused_adam):
     assert st.count == adam["count"] == 8
 
 
+def test_two_epochs_with_an_lr_change_track_the_reference(models, monkeypatch):
+    """Two blocks epochs through the step's index arithmetic (block
+    order[i], targets and hyper row read at step i) with an explicit block
+    permutation each and the lr lowered between them (as the plateau
+    scheduler does), against the JAX package's blocks + fused + fused_adam
+    epoch on the same permutations: the steps take the blocks in the
+    permutation's order; losses and params held as in
+    test_two_epochs_track_the_reference."""
+    jmodel, variables, tmodel = models
+    checked = _check_weight_copy_every_step(monkeypatch)
+    jd, td = _datasets(1024, 120, 1, "bfloat16")
+    opt = optax.inject_hyperparams(optax.adam)(learning_rate=LR)
+    j_epoch, _ = jax_epoch_fns(jmodel, opt, "L1", shuffle="blocks", fused=True, fused_adam=True)
+    t_epoch, _ = make_epoch_fns(tmodel, "L1", shuffle="blocks", fused=True, fused_adam=True)
+    jst = _jax_state(variables, opt)
+    st = create_train_state(tmodel, AdamHyper(LR), "cpu")
+    perms = []
+    for e in range(2):
+        if e:
+            jst.opt_state.hyperparams["learning_rate"] = jnp.asarray(LR / 4, jnp.float32)
+            st.set_lr(LR / 4)
+        key = jax.random.PRNGKey(10 + e)
+        perms.append(np.asarray(jax.random.permutation(key, 4)))
+        jst, jm = j_epoch(jst, key, jd, 4, 256)
+        st, m = t_epoch(st, perms[-1], td, 4, 256)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=2e-3)
+    assert checked == [int(b) for p in perms for b in p]
+    assert _diffs(st.state_dict(), _params_sd(jst)).max() <= 2.5e-3
+    assert st.count == 8
+
+
 def _check_weight_copy_every_step(monkeypatch):
-    """Wrap train/steps.py's fused_train_adam: after each step the scratch's
-    bf16 weight copy (what the fwd_bwd kernel reads) must equal the params
-    rounded to bf16, bit for bit. Returns the list of checked steps."""
+    """Wrap train/steps.py's fused_train_adam_step (the epoch's step, its
+    block found at order[i]): after each step the scratch's bf16 weight
+    copy (what the fwd_bwd kernel reads) must equal the params rounded to bf16,
+    bit for bit. Returns the list of checked blocks."""
     from intrinsic_neural_fields_tpu_torch.train import steps
 
-    checked, inner = [], steps.fused_train_adam
+    checked, inner = [], steps.fused_train_adam_step
 
-    def step(layout, params, m, v, hyper, feats, gt, block, batch_size, loss_type="L1",
-             scratch=None, vencs=None):
-        out = inner(layout, params, m, v, hyper, feats, gt, block, batch_size, loss_type,
-                    scratch, vencs)
+    def step(layout, params, m, v, hyper_all, order, i, feats, targets, B, loss_type, scratch,
+             sums, acc, vencs=None):
+        inner(layout, params, m, v, hyper_all, order, i, feats, targets, B, loss_type, scratch,
+              sums, acc, vencs)
         assert scratch is not None and scratch.wb.dtype == torch.bfloat16
         assert torch.equal(scratch.wb, params.to(torch.bfloat16))
-        checked.append(block)
-        return out
+        checked.append(int(order[i]))
 
-    monkeypatch.setattr(steps, "fused_train_adam", step)
+    monkeypatch.setattr(steps, "fused_train_adam_step", step)
     return checked
 
 

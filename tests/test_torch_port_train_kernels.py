@@ -33,11 +33,17 @@ from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (
     fused_adam_apply,
     fused_apply_plain,
     fused_apply_trainable,
+    accumulate_loss,
     fused_train_adam,
+    fused_train_adam_step,
     fused_train_grads,
+    fwd_bwd_plain,
     kernel_launches,
+    make_train_scratch,
     pack_weights,
     train_grads_plain,
+    wgrad_adam_plain,
+    wgrad_plain,
 )
 from intrinsic_neural_fields_tpu_torch.utils.weights import state_dict_from_flax
 
@@ -282,3 +288,137 @@ def test_optax_matches_adam_plain_after_grads(setup):
     got = lay.state_dict(p)
     for name in want:
         np.testing.assert_allclose(got[name].numpy(), want[name].numpy(), rtol=0, atol=1e-7)
+
+
+def _random_moments(n, seed):
+    """Adam moments random over the whole flat buffer, pads included: an
+    entry an update skips keeps its m, one it updates twice gets another."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(size=n).astype(np.float32)) * 1e-4,
+            torch.from_numpy(rng.uniform(size=n).astype(np.float32)) * 1e-6)
+
+
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_wgrad_adam_plain_is_wgrad_then_adam(setup, table_dtype):
+    """The twin of wgrad with its Adam epilogue equals wgrad_plain then
+    adam_apply_plain, with the bf16 copy and the epoch accumulators, to the
+    bit; every m entry moves (none skipped)."""
+    s = setup
+    lay, flat = s["layout"], s["flat"]
+    x = torch.from_numpy(s["feats"][:B]).to(table_dtype)
+    acts, deltas, bsum, l, q = fwd_bwd_plain(lay, flat, x, torch.from_numpy(s["gt"][:B]), "L1")
+    m, v = _random_moments(lay.n, 1)
+    hyper = adam_hyper_rows(torch.tensor([3]), 1e-3)[0]
+    want = adam_apply_plain(flat, m, v, hyper, wgrad_plain(lay, x, acts, deltas, bsum))
+    p2, m2, v2 = flat.clone(), m.clone(), v.clone()
+    wb = torch.zeros(lay.n, dtype=torch.bfloat16)
+    acc = torch.tensor([0.25, 0.5])
+    wgrad_adam_plain(lay, x, acts, deltas, bsum, (l, q), p2, m2, v2, hyper, wb, acc)
+    for got, w in zip((p2, m2, v2), want):
+        assert torch.equal(got, w)
+    assert torch.equal(wb, want[0].to(torch.bfloat16))
+    assert torch.equal(acc, torch.tensor([0.25, 0.5]) + torch.stack((l / torch.tensor(3.0), q)))
+    assert (m2 != m).all()
+
+
+def test_step_with_device_indices_equals_host_step(setup):
+    """fused_train_adam_step finds step i's block at order[i] * B, its
+    targets in the whole table and its hyper row at hyper_all[i]: four
+    steps give the bits of fused_train_adam on blocks order[0..3], and the
+    accumulators those of accumulate_loss on its sums."""
+    s = setup
+    lay = s["layout"]
+    table = torch.from_numpy(s["feats"]).to(torch.bfloat16)
+    targets = torch.from_numpy(s["gt"])
+    order = torch.tensor([3, 1, 0, 2])
+    hyper_all = adam_hyper_rows(torch.arange(1, 5), 1e-3)
+    m, v = _random_moments(lay.n, 2)
+    p1, m1, v1 = s["flat"].clone(), m.clone(), v.clone()
+    p2, m2, v2 = s["flat"].clone(), m.clone(), v.clone()
+    sc1, sc2 = make_train_scratch(lay, B, p1), make_train_scratch(lay, B, p2)
+    sums, acc, want_acc = torch.zeros(2), torch.zeros(2), torch.zeros(2)
+    for i in range(4):
+        fused_train_adam_step(lay, p1, m1, v1, hyper_all, order, i, table, targets, B, "L1",
+                              sc1, sums, acc)
+        blk = int(order[i])
+        ls, ss = fused_train_adam(lay, p2, m2, v2, hyper_all[i], table,
+                                  targets[blk * B:(blk + 1) * B], blk, B, "L1", sc2)
+        accumulate_loss(want_acc, ls, ss)
+        assert torch.equal(sums, torch.stack((ls, ss)))
+    for a, b in ((p1, p2), (m1, m2), (v1, v2), (sc1.wb, sc2.wb), (acc, want_acc)):
+        assert torch.equal(a, b)
+
+
+def test_epoch_graph_key_follows_the_tensors(setup):
+    """The key an epoch graph is cached on: equal for the same tensors, B
+    and block count; another params tensor (a resume builds new ones),
+    other buffers, B or block count give another key."""
+    from types import SimpleNamespace
+
+    from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, EpochBuffers, TrainState,
+                                                               epoch_graph_key)
+
+    s = setup
+    lay = s["layout"]
+    params = s["flat"].clone()
+    state = TrainState(lay, params, torch.zeros(lay.n), torch.zeros(lay.n), 0, AdamHyper(1e-3))
+    data = SimpleNamespace(hit_features=torch.from_numpy(s["feats"]).to(torch.bfloat16),
+                           expected_rgbs=torch.from_numpy(s["gt"]))
+    bufs = EpochBuffers.make(lay, B, 4, params)
+    key = epoch_graph_key(state, data, bufs, B, 4, None)
+    assert epoch_graph_key(state, data, bufs, B, 4, None) == key
+    state.params = params.clone()
+    assert epoch_graph_key(state, data, bufs, B, 4, None) != key
+    state.params = params
+    assert epoch_graph_key(state, data, bufs, B, 4, None) == key
+    assert epoch_graph_key(state, data, EpochBuffers.make(lay, B, 4, params), B, 4, None) != key
+    assert epoch_graph_key(state, data, bufs, B, 3, None) != key
+    assert epoch_graph_key(state, data, bufs, 128, 4, None) != key
+    data.hit_features = data.hit_features.float()
+    assert epoch_graph_key(state, data, bufs, B, 4, None) != key
+
+
+def test_epoch_graph_counts_what_its_capture_recorded(setup, monkeypatch):
+    """An epoch graph's replay adds the launches the kernel wrappers counted
+    while it was captured, whatever they were, and the capture itself adds
+    none: a step that also launched the Adam kernel shows at every replay.
+    The capture and the replay are faked (no card here); the step is
+    replaced by one whose wrappers count two launches, and an Adam launch
+    at step 1."""
+    from contextlib import nullcontext
+    from types import SimpleNamespace
+
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import reset_kernel_launches
+    from intrinsic_neural_fields_tpu_torch.train import steps
+
+    class FakeGraph:
+        def replay(self):
+            pass
+
+    def step(layout, params, m, v, hyper_all, order, i, *rest):
+        counts = steps._launches
+        counts["fused_mlp_fwd_bwd"] += 1
+        counts["fused_mlp_wgrad_adam"] += 1
+        counts["fused_adam"] += i == 1
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda graph: nullcontext())
+    monkeypatch.setattr(steps, "prepare_train_kernels", lambda: None)
+    monkeypatch.setattr(steps, "fused_train_adam_step", step)
+    s, nb = setup, 4
+    lay = s["layout"]
+    state = steps.TrainState(lay, s["flat"].clone(), torch.zeros(lay.n), torch.zeros(lay.n), 0,
+                             steps.AdamHyper(1e-3))
+    data = SimpleNamespace(hit_features=torch.from_numpy(s["feats"]).to(torch.bfloat16),
+                           expected_rgbs=torch.from_numpy(s["gt"]))
+    hyper_all = adam_hyper_rows(torch.arange(1, nb + 1), 1e-3)
+    graph = steps.EpochGraph()
+    reset_kernel_launches()
+    for epoch in (1, 2):
+        graph.run(state, torch.arange(nb), data, nb, B, hyper_all, "L1", None)
+        counts = {k: n for k, n in kernel_launches().items() if n}
+        assert counts == {"fused_mlp_fwd_bwd": epoch * nb, "fused_mlp_wgrad_adam": epoch * nb,
+                          "fused_adam": epoch}
+    assert graph.captures == 1 and graph.replays == 2
+    assert graph.launches == {"fused_mlp_fwd_bwd": nb, "fused_mlp_wgrad_adam": nb,
+                              "fused_adam": 1}

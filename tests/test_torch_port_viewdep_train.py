@@ -363,24 +363,88 @@ def test_two_epochs_track_the_reference(setup, fused_adam):
     assert st.count == adam["count"] == 8
 
 
+def test_two_epochs_with_an_lr_change_track_the_reference(setup, monkeypatch):
+    """The tail layout through the step's index arithmetic: two blocks
+    epochs, an explicit block permutation each, the lr lowered between
+    them, against the JAX package's blocks + fused + fused_adam epoch on
+    the same permutations; the steps take the blocks in the permutation's
+    order; losses and params held as in test_two_epochs_track_the_reference."""
+    s = setup
+    checked = _check_weight_copy_every_step(monkeypatch)
+    jd, td = _with_jax_vencs(s, *_datasets(1024, 1, jax_icosphere(2).num_faces))
+    opt = optax.inject_hyperparams(optax.adam)(learning_rate=LR)
+    j_epoch, _ = jax_epoch_fns(s["jmodel"], opt, "L1", shuffle="blocks", fused=True,
+                               fused_adam=True)
+    t_epoch, _ = make_epoch_fns(s["model"], "L1", shuffle="blocks", fused=True, fused_adam=True)
+    jst = _jax_state(s, opt)
+    st = create_train_state(s["model"], AdamHyper(LR), "cpu")
+    perms = []
+    for e in range(2):
+        if e:
+            jst.opt_state.hyperparams["learning_rate"] = jnp.asarray(LR / 4, jnp.float32)
+            st.set_lr(LR / 4)
+        key = jax.random.PRNGKey(10 + e)
+        perms.append(np.asarray(jax.random.permutation(key, 4)))
+        jst, jm = j_epoch(jst, key, jd, 4, 256)
+        st, m = t_epoch(st, perms[-1], td, 4, 256)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=2e-3)
+    assert checked == [int(b) for p in perms for b in p]
+    diff = _diffs(st.state_dict(), _params_sd(s, jst))
+    assert (diff > 2.5e-3).mean() <= 1e-2 and diff.max() <= 2 * LR * 8
+    assert st.count == 8
+
+
+def test_tail_wgrad_adam_plain_is_wgrad_then_adam(setup):
+    """The tail layout's twin of wgrad with its Adam epilogue equals
+    wgrad_viewdep_plain then adam_apply_plain, with the bf16 copy and the
+    accumulators, to the bit; m and v random over the whole flat buffer
+    (pads included), every m entry moves."""
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (adam_apply_plain,
+                                                                 fwd_bwd_viewdep_plain,
+                                                                 wgrad_adam_plain,
+                                                                 wgrad_viewdep_plain)
+
+    s, B = setup, 256
+    lay, flat = s["lay"], s["flat"]
+    _, (t_table, t_vt) = _tables(s)
+    x, venc = t_table[:B], t_vt[:B]
+    acts, deltas, bsum, l, q = fwd_bwd_viewdep_plain(lay, flat, x, venc,
+                                                     torch.from_numpy(s["gt"][:B]), "L1")
+    rng = np.random.default_rng(3)
+    m = torch.from_numpy(rng.normal(size=lay.n).astype(np.float32)) * 1e-4
+    v = torch.from_numpy(rng.uniform(size=lay.n).astype(np.float32)) * 1e-6
+    hyper = adam_hyper_rows(torch.tensor([2]), 1e-3)[0]
+    want = adam_apply_plain(flat, m, v, hyper,
+                            wgrad_viewdep_plain(lay, x, venc, acts, deltas, bsum))
+    p2, m2, v2 = flat.clone(), m.clone(), v.clone()
+    wb = torch.zeros(lay.n, dtype=torch.bfloat16)
+    acc = torch.tensor([1.0, 2.0])
+    wgrad_adam_plain(lay, x, acts, deltas, bsum, (l, q), p2, m2, v2, hyper, wb, acc, venc)
+    for got, w in zip((p2, m2, v2), want):
+        assert torch.equal(got, w)
+    assert torch.equal(wb, want[0].to(torch.bfloat16))
+    assert torch.equal(acc, torch.tensor([1.0, 2.0]) + torch.stack((l / torch.tensor(3.0), q)))
+    assert (m2 != m).all()
+
+
 def _check_weight_copy_every_step(monkeypatch):
-    """Wrap train/steps.py's fused_train_adam: after each step the scratch's
-    bf16 weight copy (what the tail fwd_bwd kernel reads) must equal the
-    params rounded to bf16, bit for bit. Returns the list of checked steps."""
+    """Wrap train/steps.py's fused_train_adam_step (the epoch's step, its
+    block found at order[i]): after each step the scratch's bf16 weight
+    copy (what the tail fwd_bwd kernel reads) must equal the params rounded to bf16,
+    bit for bit. Returns the list of checked blocks."""
     from intrinsic_neural_fields_tpu_torch.train import steps
 
-    checked, inner = [], steps.fused_train_adam
+    checked, inner = [], steps.fused_train_adam_step
 
-    def step(layout, params, m, v, hyper, feats, gt, block, batch_size, loss_type="L1",
-             scratch=None, vencs=None):
-        out = inner(layout, params, m, v, hyper, feats, gt, block, batch_size, loss_type,
-                    scratch, vencs)
+    def step(layout, params, m, v, hyper_all, order, i, feats, targets, B, loss_type, scratch,
+             sums, acc, vencs=None):
+        inner(layout, params, m, v, hyper_all, order, i, feats, targets, B, loss_type, scratch,
+              sums, acc, vencs)
         assert layout.tail is not None and vencs is not None
         assert torch.equal(scratch.wb, params.to(torch.bfloat16))
-        checked.append(block)
-        return out
+        checked.append(int(order[i]))
 
-    monkeypatch.setattr(steps, "fused_train_adam", step)
+    monkeypatch.setattr(steps, "fused_train_adam_step", step)
     return checked
 
 

@@ -35,6 +35,19 @@ kernels (``fused_train_grads``: fwd_bwd + wgrad) and wgrad alone
 tail and k=1023, B=4096; with each output's largest difference to this
 tree's.
 
+``step`` (needs ``--parent`` for the comparison; alone it runs this tree
+twice): the train step end to end through each tree's ``make_epoch_fns``
+(blocks, fused), in subprocesses that import that tree, in the order
+parent, this, this, parent, on the same seeded data: the HQ shapes (k=512,
+184 steps of B=4096, bf16 table), the view-dependent ones (the same with
+the intrinsic view tail) and the bench shapes (k=1023, N=2^21, 512 steps);
+per step the wall ms (host clock around an epoch ending in a device sync,
+best and median of 5 epochs after a warm-up) and the device ms and busy
+share of one profiled epoch (torch.profiler). In a tree whose epoch is a
+graph replay it also runs the same epoch as the loop of its two launches
+per step from the host, without the graph (``loop``), so the graph's
+share is measured apart from the kernels'. Each epoch's loss is reported.
+
 ``sort`` (``csrc/bitonic_argsort.cu``): above 2^18 keys, the plan's run size
 (``ops/sort.py:sort_plan``'s ``run_log``, 2^11..2^18 words) on dense random
 keys of 2^18+1, 2^20 and 2^22; each plan's order must equal
@@ -62,7 +75,11 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 # The port's modules, from this tree or the one given by --time-tree.
 F = S = _build = make_model = None
 
-SECTIONS = ("fwd_bwd", "wgrad", "fwd", "parent", "sort")
+SECTIONS = ("fwd_bwd", "wgrad", "fwd", "parent", "step", "sort")
+# (leg, k, table rows, vertices, view tail) of the step section
+STEP_LEGS = (("hq", 512, 184 * 4096, 20_480, False), ("viewdep", 512, 184 * 4096, 20_480, True),
+             ("bench", 1023, 1 << 21, 30_000, False))
+STEP_EPOCHS = 5
 SORT_SIZES = ((1 << 18) + 1, 1 << 20, 1 << 22)
 SORT_RUN_LOGS = (11, 12, 14, 16, 18)
 SYNC_CP16 = '''__device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes = 16) {
@@ -341,6 +358,16 @@ def entry_rows(out_pt):
         base = {"viewdep": vd, "k": k, "B": 4096}
         rows += [{"entry": "_launch_wgrad", **base, "ms": cuda_ms(wgrad)},
                  {"entry": "fused_train_grads", **base, "ms": cuda_ms(train)}]
+        # the standalone Adam with the bf16 copy on this layout's flat buffer
+        g = torch.Generator(device="cuda").manual_seed(7)
+        p_, m_, v_ = params.clone(), torch.randn(layout.n, generator=g, device="cuda") * 1e-4, \
+            torch.rand(layout.n, generator=g, device="cuda") * 1e-6
+        wb = torch.empty(layout.n, dtype=torch.bfloat16, device="cuda")
+        hyper = F.adam_hyper_rows(torch.tensor([1000]), 1e-4, device="cuda")[0]
+        F.fused_adam_apply(p_, m_, v_, hyper, grads, wb)
+        outs[f"adam_vd{int(vd)}_k{k}"] = torch.cat([p_, m_, v_, wb.float()]).cpu()
+        rows.append({"entry": "fused_adam_apply", **base, "n": layout.n,
+                     "ms": cuda_ms(lambda: F.fused_adam_apply(p_, m_, v_, hyper, grads, wb))})
     for vd, k in ((False, 512), (True, 512), (False, 1023)):
         fw, x, venc = _fwd_inputs(vd, 8192, k)
 
@@ -372,6 +399,156 @@ def parent_rows(parent):
     for name, mine in outs["this"].items():
         rows.append({"output": name, "max_abs_diff_parent_to_this":
                      (outs["parent"][name] - mine).abs().max().item()})
+    return rows
+
+
+def _step_case(k, N, V, vd, seed=0):
+    """A seeded model of the HQ layout (with the intrinsic view tail) and its
+    data on the card: random normal features of V vertices, N hits with
+    random vertices and Dirichlet(1,1,1) weights, uniform targets, bf16
+    hit-feature table (and view-encoding table)."""
+    from intrinsic_neural_fields_tpu_torch.data.sampler import (RayData, precompute_hit_features,
+                                                                precompute_hit_vencs)
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
+    from intrinsic_neural_fields_tpu_torch.models import view_encoder_apply
+
+    cfg = {"k": k, "num_layers": 6, "mlp_hidden_dim": 128, "skip_layer_idx": 3}
+    mesh = icosphere(3)
+    if vd:
+        cfg["view_dependence"] = {"bottleneck_vec_dim": 128, "include_view_dir": True,
+                                  "embed_size": 4, "directional_hidden_dim": 128,
+                                  "in_dim_view_dir": 1, "strategy": "intrinsic"}
+    model = make_model(cfg, seed=seed, device="cuda", mesh=mesh if vd else None)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    feats = torch.randn(V, k, generator=g, device="cuda")
+    vids = torch.randint(0, V, (N, 3), generator=g, device="cuda")
+    e = -torch.log(torch.rand(N, 3, generator=g, device="cuda").clamp_min(1e-12))
+    rgbs = torch.rand(N, 3, generator=g, device="cuda")
+    dirs = torch.randn(N, 3, generator=g, device="cuda")
+    dirs = dirs / dirs.norm(dim=1, keepdim=True)
+    fids = torch.randint(0, mesh.num_faces, (N,), generator=g, device="cuda")
+    data = precompute_hit_features(RayData(feats, "efuncs", vids, e / e.sum(1, keepdim=True),
+                                           rgbs, dirs, fids), dtype=torch.bfloat16)
+    if vd:
+        data = precompute_hit_vencs(view_encoder_apply(model), data,
+                                    F.layout_for_model(model).tail.venc_w, dtype=torch.bfloat16)
+    return model, data
+
+
+def _loop_epoch_fn(loss_type="L1"):
+    """This tree's blocks + fused_adam epoch as a loop of its two launches
+    per step from the host (fused_train_adam_step on the epoch graph's
+    buffers), without the graph; None where the tree has no such step."""
+    from intrinsic_neural_fields_tpu_torch.train import steps
+
+    if not hasattr(steps, "EpochBuffers"):
+        return None
+    bufs = {}
+
+    def epoch(state, perm, data, nb, B):
+        params = state.params
+        b = bufs.get((nb, B))
+        if b is None:
+            b = bufs[(nb, B)] = steps.EpochBuffers.make(state.layout, B, nb, params)
+        F._sync_wb(b.scratch, params)
+        b.order.copy_(perm.to(torch.int32))
+        h = state.hyper
+        b.hyper.copy_(F.adam_hyper_rows(state.count + 1 + torch.arange(nb), h.learning_rate, h.b1,
+                                        h.b2, h.eps, h.eps_root, device=params.device))
+        b.acc.zero_()
+        vencs = data.hit_vencs if state.layout.tail is not None else None
+        for i in range(nb):
+            F.fused_train_adam_step(state.layout, params, state.mu, state.nu, b.hyper, b.order,
+                                    i, data.hit_features, data.expected_rgbs, B, loss_type,
+                                    b.scratch, b.sums, b.acc, vencs)
+        state.count += nb
+        # the epoch's division (by a device tensor: a correctly rounded quotient)
+        return b.acc[0] / torch.full((), float(nb * B), device=params.device)
+    return epoch
+
+
+def step_rows_of_tree(out_pt):
+    """This process's tree: the step section's legs (see the docstring);
+    each variant's final params, moments and losses saved to out_pt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, create_train_state,
+                                                               make_epoch_fns)
+
+    B, rows, outs = 4096, [], {}
+    for leg, k, N, V, vd in STEP_LEGS:
+        model, data = _step_case(k, N, V, vd)
+        nb = N // B
+        train_epoch, _ = make_epoch_fns(model, "L1", shuffle="blocks", fused=True)
+        loop = _loop_epoch_fn()
+        variants = [("epoch", lambda st, perm: train_epoch(st, perm, data, nb, B)[1]["loss"])]
+        if loop is not None:
+            variants.append(("loop", lambda st, perm: loop(st, perm, data, nb, B)))
+        for variant, run in variants:
+            state = create_train_state(model, AdamHyper(1e-4), "cuda")
+            perms = [torch.randperm(nb, generator=torch.Generator().manual_seed(e))
+                     for e in range(STEP_EPOCHS + 2)]
+            run(state, perms[0])  # warm-up: builds, captures
+            torch.cuda.synchronize()
+            walls, losses = [], []
+            for e in range(1, STEP_EPOCHS + 1):
+                t0 = time.perf_counter()
+                loss = float(run(state, perms[e]))
+                walls.append((time.perf_counter() - t0) * 1e3 / nb)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                float(run(state, perms[-1]))
+                wall_us = 1e6 * (time.perf_counter() - t0)
+            dev_us = 0.0
+            for ev in prof.key_averages():
+                us = getattr(ev, "self_device_time_total", None)
+                us = ev.self_cuda_time_total if us is None else us
+                if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+                    dev_us += us
+            outs[f"{leg}_{variant}"] = torch.cat([state.params, state.mu, state.nu,
+                                                  torch.tensor(losses, device="cuda")]).cpu()
+            walls_sorted = sorted(walls)
+            rows.append({"step": leg, "variant": variant, "k": k, "B": B, "steps": nb,
+                         "wall_ms_best": walls_sorted[0],
+                         "wall_ms_median": walls_sorted[len(walls) // 2],
+                         "rays_per_s_best": B / walls_sorted[0] * 1e3,
+                         "device_ms_per_step": dev_us / 1e3 / nb,
+                         "busy_share": dev_us / wall_us, "losses": losses})
+        del data, model
+        torch.cuda.empty_cache()
+    torch.save(outs, out_pt)
+    return rows
+
+
+def step_rows(parent):
+    """Both trees' train steps, each tree in its own processes; then each
+    final state's and loss list's largest difference to this tree's epoch
+    (params, m, v and the 5 losses, concatenated)."""
+    tmp = os.path.join(_build.BUILD_DIR, "ablate", "trees")
+    os.makedirs(tmp, exist_ok=True)
+    rows, outs = [], {}
+    order = (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent))
+    if parent is None:
+        order = (("this", ROOT), ("this", ROOT))
+    for i, (tree, root) in enumerate(order):
+        out_pt = os.path.join(tmp, f"step{i}.pt")
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-step-tree",
+                            os.path.abspath(root), "--out", out_pt], capture_output=True,
+                           text=True, cwd=root)
+        if p.returncode != 0:
+            raise RuntimeError(f"ab_port_kernels: the {tree} tree's step run failed:\n{p.stderr}")
+        rows += [{"tree": tree, "run": i, **json.loads(ln)} for ln in p.stdout.splitlines()
+                 if ln.startswith("{")]
+        outs.setdefault(tree, torch.load(out_pt))
+    for tree, got in outs.items():
+        for name, t in got.items():
+            ref = outs["this"][name.split("_")[0] + "_epoch"]
+            d = (t - ref).abs()
+            rows.append({"state": name, "tree": tree, "max_abs_diff_to_this_epoch":
+                         d[:-STEP_EPOCHS].max().item(),
+                         "loss_max_abs_diff": d[-STEP_EPOCHS:].max().item()})
     return rows
 
 
@@ -414,10 +591,15 @@ def main(argv=None):
                     help=f"comma-separated subset of {','.join(SECTIONS)}")
     ap.add_argument("--out", default=None, help="also write the JSON lines to this file")
     ap.add_argument("--time-tree", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--time-step-tree", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    _use_port(args.time_tree or ROOT)
+    _use_port(args.time_tree or args.time_step_tree or ROOT)
     if args.time_tree:  # one tree's entry points (the parent section's subprocess)
         for r in entry_rows(args.out):
+            print(json.dumps(r), flush=True)
+        return 0
+    if args.time_step_tree:  # one tree's train steps (the step section's subprocess)
+        for r in step_rows_of_tree(args.out):
             print(json.dumps(r), flush=True)
         return 0
     sections = args.sections.split(",")
@@ -433,7 +615,7 @@ def main(argv=None):
     rows = [{"card": torch.cuda.get_device_name(0), "sections": sections}]
     for name, fn in (("fwd_bwd", lambda: fwd_bwd_rows(csrc)), ("wgrad", lambda: wgrad_rows(csrc)),
                      ("fwd", lambda: fwd_rows(csrc)), ("parent", lambda: parent_rows(args.parent)),
-                     ("sort", sort_rows)):
+                     ("step", lambda: step_rows(args.parent)), ("sort", sort_rows)):
         if name in sections:
             t0 = time.perf_counter()
             new = fn()
