@@ -93,6 +93,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       chunks, a ragged B), one extrinsic batch (27 view lanes), Adam on
       the view-dependent buffer; the launch shapes and wgrad's bits across
       two launches as in (d) and (g); times beside bounds;
+  then the user's path with the HQ leg's trained model.pt (k=512, 6x128
+  skip 3) through the port's `-m` entry points (main(argv) in process), the
+  forward kernel's launches counted per path (counters set to 0 just
+  before each entry point, read just after):
+  (l) meshroom: the HQ train/val/test views as Meshroom-layout splits with
+      radial-k3 coefficients [0.05, -0.02, 0.01] (the pinhole images as
+      GT) and the test views again with zeros; the distorted views through
+      the kernel and the plain twin (equal masks, PSNR >= 50 dB), the zero
+      split against the pinhole renders (equal masks, PSNR >= 50 dB);
+      preprocess_dataset --dataset_type meshroom_radial_k3, 2 epochs of the
+      Trainer with the Meshroom vis renders every epoch (the vis scalars
+      written, loss falls), the eval CLI on the distorted test split;
+  (m) lpips: a seeded random AlexNet npz; LPIPS of the HQ eval leg's
+      (render, ground truth) pairs on the card and on the CPU within 1e-4
+      relative; the eval CLI with --lpips_weights gives a finite column;
+  (n) transfer: make_transfer_targets --targets coarse from the HQ basis
+      (a 512-function target basis, cut from 1024); identity
+      self-transfer against the source render (equal masks, PSNR >= 50
+      dB); texture_transfer --eval_dataset onto the coarse target against
+      the source test views, its renders through the kernel and the plain
+      twin (equal masks, PSNR >= 50 dB);
+  (o) bake: a per-face UV atlas of the HQ blob (20,480 faces),
+      bake_texture_field at 1024^2 through the kernel and bake_texture
+      through the plain twin, within 2/255 on every texel; the kernel
+      launched once per 8,192 texels;
+  (v) video: render_video --resolution 720p --fps 10 --duration 1 (10
+      frames of 1280x720 written) and the render loop alone; render_view at
+      640x360 of the HQ and the view-dependent leg's models, each within one
+      8-bit step of a direct render of the same camera;
   (j) profile: torch.profiler over 4 pipelined render frames and one
       epoch of each train leg (HQ, train throughput, view-dependent), whose
       port kernels, counted by name in the trace, must be exactly one
@@ -1312,14 +1341,17 @@ def _vd_train_config(p, out_name, epochs):
 
 def _render_vs_plain(r_kernel, r_plain, views):
     """Min over views of the kernel-vs-plain render PSNR on the hit pixels;
-    the hit masks must be equal."""
+    the hit masks must be equal. A view with distortion_params renders
+    through its undistorted coordinates."""
     from intrinsic_neural_fields_tpu_torch.evaluation.metrics import psnr
 
     H, W = r_kernel.H, r_kernel.W
     out = []
     for v in views:
-        img_k, hit_k = r_kernel.render(v["camCv2world"], v["K"], eval_render=True)
-        img_p, hit_p = r_plain.render(v["camCv2world"], v["K"], eval_render=True)
+        kw = {"eval_render": True, "distortion_coeffs": v.get("distortion_params"),
+              "distortion_type": v.get("distortion_type")}
+        img_k, hit_k = r_kernel.render(v["camCv2world"], v["K"], **kw)
+        img_p, hit_p = r_plain.render(v["camCv2world"], v["K"], **kw)
         check(np.array_equal(hit_k, hit_p), "kernel and plain renders disagree on the valid mask")
         check(np.isfinite(img_k).all() and img_k.shape == (H, W, 3), "bad kernel render")
         mask = np.zeros(H * W, bool)
@@ -1664,6 +1696,450 @@ def phase_viewdep_kernels(vd_leg, vd_render):
     return rows
 
 
+# ----------------------------------------------------------------------------
+# What users do with a trained field (the HQ leg's 5-epoch model.pt, k=512,
+# 6x128 skip 3): Meshroom renders and training, LPIPS, texture transfer,
+# baking, the turntable video and single views, each through the port's
+# `-m` entry points (main(argv) in process), the forward kernel's launches
+# counted per path.
+
+MESHROOM_COEFFS = [0.05, -0.02, 0.01]
+# The smoke's transfer target basis: 512 non-constant functions, cut from
+# the experiment's 1024 (scripts/run_transfer.sh) to keep the coarse
+# target's shift-invert solve to seconds; the full-length experiment
+# (tools/port_transfer_experiment.py) solves 1024.
+SMOKE_K_BASIS = 512
+BAKE_SIZE = 1024
+FWD_CHUNK = 8192   # rays / texels per forward launch (renderer and bake)
+
+
+def _write_meshroom_split(p, out_dir, split, src_split, coeffs):
+    """A Meshroom-layout copy of the HQ dataset's `src_split` views as
+    `split`: <split>_data.json (the shared K, the radial-k3 coefficients,
+    4x4 cam2world per view), the PNGs and .npy object masks. The images are
+    the pinhole ground truth, so a distorted split's PSNR measures the
+    pipeline, not the field's quality."""
+    import shutil
+
+    from intrinsic_neural_fields_tpu_torch.data.datasets import read_split_list
+    from intrinsic_neural_fields_tpu_torch.utils.io import imread, load_cameras
+
+    os.makedirs(out_dir, exist_ok=True)
+    views = []
+    for i, v in enumerate(read_split_list(p["data"], src_split)):
+        vp = os.path.join(p["data"], v)
+        cam, K = load_cameras(vp)
+        shutil.copy(os.path.join(vp, "image", "000.png"), os.path.join(out_dir, f"{split}{i}.png"))
+        np.save(os.path.join(out_dir, f"{split}{i}_mask.npy"),
+                imread(os.path.join(vp, "depth", "mask.png")) != 0)
+        cam44 = np.eye(4)
+        cam44[:3] = np.asarray(cam)[:3, :4]
+        views.append({"view_file": f"{split}{i}.png", "obj_mask_file": f"{split}{i}_mask.npy",
+                      "cam2world": cam44.tolist()})
+    with open(os.path.join(out_dir, f"{split}_data.json"), "w") as f:
+        json.dump({"K": np.asarray(K)[:3, :3].tolist(), "distortion_params": coeffs,
+                   "views": views}, f)
+
+
+def _write_config(root, name, config):
+    import yaml
+
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def phase_meshroom(p):
+    """The Meshroom (radial-k3) path: renders of a distorted split through
+    the kernel and the plain twin, a zero-coefficient split against the
+    pinhole renders, preprocessing, 2 epochs of training with the Meshroom
+    vis renders, and the eval CLI on the split."""
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import eval as eval_cli
+    from intrinsic_neural_fields_tpu_torch import preprocess_dataset
+    from intrinsic_neural_fields_tpu_torch.data.datasets import MeshroomRadialK3Dataset
+    from intrinsic_neural_fields_tpu_torch.evaluation.metrics import psnr
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh import load_mesh
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.render.renderer import make_renderer_from_config
+    from intrinsic_neural_fields_tpu_torch.train import (Trainer, get_data, get_model_and_optim,
+                                                         get_renderer)
+
+    root = p["root"]
+    mdir = os.path.join(root, "meshroom")
+    for split, src in (("train", "train"), ("val", "val"), ("test", "test")):
+        _write_meshroom_split(p, mdir, split, src, MESHROOM_COEFFS)
+    _write_meshroom_split(p, mdir, "zero", "test", [0.0, 0.0, 0.0])
+    config = _hq_train_config(p, "out", 5)  # the HQ leg's trained model.pt
+    H, W = 256, 256
+    views = list(MeshroomRadialK3Dataset(mdir, "test", H=H, W=W))
+    r_kernel = make_renderer_from_config(config)
+    r_plain = make_renderer_from_config(config, infer="plain")
+    psnr_kp = _render_vs_plain(r_kernel, r_plain, views)
+    check(psnr_kp >= PSNR_MIN, f"Meshroom kernel vs plain render PSNR {psnr_kp} < {PSNR_MIN}")
+    # zero coefficients: the undistorted grid is the pixel grid up to the
+    # bisection's 1e-8, so the render is the pinhole render's
+    zero_psnr = []
+    for v in MeshroomRadialK3Dataset(mdir, "zero", H=H, W=W):
+        img_z, hit_z = r_kernel.render(v["camCv2world"], v["K"], eval_render=True,
+                                       distortion_coeffs=v["distortion_params"],
+                                       distortion_type=v["distortion_type"])
+        img_p, hit_p = r_kernel.render(v["camCv2world"], v["K"], eval_render=True)
+        check(np.array_equal(hit_z, hit_p), "zero-coefficient and pinhole masks differ")
+        mask = np.zeros(H * W, bool)
+        mask[hit_p] = True
+        zero_psnr.append(psnr(img_z, img_p, mask))
+    check(min(zero_psnr) >= PSNR_MIN, f"zero-coefficient vs pinhole PSNR {min(zero_psnr)}")
+
+    pre = os.path.join(root, "meshroom_pre")
+    t0 = time.perf_counter()
+    for split in ("train", "val"):
+        preprocess_dataset.main([pre, p["mesh_path"], mdir, split, "--dataset_type",
+                                 "meshroom_radial_k3"])
+    prep_s = time.perf_counter() - t0
+    cfg = _hq_train_config(p, "meshroom_out", 2)
+    cfg["data"].update(type="meshroom_radial_k3", vis_dataset_path=mdir, vis_split="test",
+                       preproc_data_path_train=os.path.join(pre, "train"),
+                       preproc_data_path_eval=os.path.join(pre, "val"))
+    del cfg["data"]["preproc_data_path_test"]
+    cfg["training"]["render_every"] = 1
+    mesh = load_mesh(p["mesh_path"])
+    model, opt = get_model_and_optim(cfg, mesh)
+    data = get_data(cfg, mesh)
+    rec = Recorder()
+    trainer = Trainer(model, opt, "L1", get_renderer(cfg, model, mesh), data, mesh, cfg,
+                      writer=rec)
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = kernel_launches()
+    losses = rec.values("Train_Loss")
+    check(len(losses) == 2 and losses[1] < losses[0], f"Meshroom train loss did not fall: {losses}")
+    vis_tags = {f"meshroom_radial_k3_view_{i}_{s}" for i in range(len(views))
+                for s in ("psnr", "dist")}
+    tags = {t for t, _, _ in rec.scalars}
+    check(vis_tags <= tags and all(np.isfinite(v) for t, v, _ in rec.scalars if t in vis_tags),
+          f"the Meshroom vis scalars are missing or not finite: {sorted(tags)}")
+    check(train_launches["fused_mlp_fwd"] > 0 and train_launches["fused_mlp_fwd_bwd"] > 0,
+          f"the Meshroom run did not launch the kernels: {train_launches}")
+
+    cfg_path = _write_config(root, "meshroom_config.yaml", dict(config, data=dict(
+        config["data"], type="meshroom_radial_k3")))
+    out = os.path.join(root, "meshroom_eval")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    eval_cli.main([out, cfg_path, mdir, "test"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = kernel_launches()["fused_mlp_fwd"]
+    check(eval_launches > 0, "the Meshroom eval did not launch the forward kernel")
+    import pickle
+
+    with open(os.path.join(out, "evaluation_metrics.pkl"), "rb") as f:
+        metrics = pickle.load(f)
+    check(len(metrics) == len(views) and all(np.isfinite(m["psnr"]) for m in metrics.values()),
+          f"bad Meshroom eval {metrics}")
+    emit("meshroom", coeffs=MESHROOM_COEFFS, H=H, W=W, views=len(views),
+         psnr_kernel_vs_plain_min=psnr_kp, zero_coeffs_vs_pinhole_psnr_min=min(zero_psnr),
+         preprocess_s=prep_s, train_s=train_s, train_loss=losses,
+         vis_psnr=[v for t, v, _ in rec.scalars if t.endswith("_psnr") and "meshroom" in t],
+         eval_psnr=float(np.mean([m["psnr"] for m in metrics.values()])),
+         eval_dssim_rescaled=float(np.mean([m["dssim_rescaled"] for m in metrics.values()])),
+         eval_s=eval_s, eval_s_per_view=eval_s / len(views),
+         train_launches=train_launches, eval_launches=eval_launches)
+    return {"meshroom_train": train_launches["fused_mlp_fwd"], "meshroom_eval": eval_launches}
+
+
+def _random_alexnet_npz(path, seed=0):
+    """LPIPS weights of AlexNet's shapes, seeded random (no trained LPIPS
+    weights exist in the repo)."""
+    from intrinsic_neural_fields_tpu_torch.evaluation.lpips import ALEX_CFG
+
+    rng = np.random.default_rng(seed)
+    arrays, in_ch = {}, 3
+    for i, (out_ch, k, _, _, _) in enumerate(ALEX_CFG):
+        arrays[f"conv{i}_w"] = rng.normal(scale=0.05, size=(out_ch, in_ch, k, k)).astype(np.float32)
+        arrays[f"conv{i}_b"] = rng.normal(scale=0.02, size=out_ch).astype(np.float32)
+        arrays[f"lin{i}_w"] = np.abs(rng.normal(size=(1, out_ch, 1, 1))).astype(np.float32)
+        in_ch = out_ch
+    np.savez(path, **arrays)
+
+
+def phase_lpips(p, hq_leg):
+    """LPIPS on the HQ eval leg's (render, ground truth) pairs on the card
+    and on the CPU, then the eval CLI's LPIPS column."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import eval as eval_cli
+    from intrinsic_neural_fields_tpu_torch.evaluation.lpips import LPIPS
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+
+    r, cams, K = hq_leg
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lpips_alex.npz")
+        _random_alexnet_npz(path)
+        gpu, cpu = LPIPS(path), LPIPS(path, device="cpu")
+        rel, gpu_ms = [], []
+        for v in _gt_views(r, cams, K):
+            fake = r.render(v["camCv2world"], v["K"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = gpu(fake, v["img"])
+            gpu_ms.append(1e3 * (time.perf_counter() - t0))
+            b = cpu(fake, v["img"])
+            check(np.isfinite(a) and b > 0, f"bad LPIPS {a}, {b}")
+            rel.append(abs(a / b - 1))
+        check(max(rel) <= 1e-4, f"LPIPS on the card vs the CPU: relative {max(rel)} > 1e-4")
+        out = os.path.join(p["root"], "lpips_eval")
+        reset_kernel_launches()
+        eval_cli.main([out, os.path.join(p["root"], "hq_config.yaml"), p["data"], "test",
+                       "--lpips_weights", path])
+        torch.cuda.synchronize()
+        launches = kernel_launches()["fused_mlp_fwd"]
+    with open(os.path.join(out, "evaluation_metrics.pkl"), "rb") as f:
+        metrics = pickle.load(f)
+    col = [m["lpips_rescaled"] for m in metrics.values()]
+    check(len(col) == 2 and all(np.isfinite(c) for c in col), f"LPIPS column not finite: {col}")
+    emit("lpips", pairs=len(rel), size=[r.H, r.W], rel_card_vs_cpu_max=max(rel),
+         card_ms_per_pair_median=float(np.median(gpu_ms)), eval_lpips_rescaled=col,
+         eval_launches=launches)
+    return {"lpips_eval": launches}
+
+
+def phase_transfer(p):
+    """make_transfer_targets (coarse) from the HQ leg's basis, identity
+    self-transfer, and texture_transfer --eval_dataset onto the coarse
+    target through the kernel and the plain twin."""
+    import pickle
+
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import make_transfer_targets, texture_transfer
+    from intrinsic_neural_fields_tpu_torch.evaluation.eval_cli import evaluate_views
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.render.renderer import make_renderer_from_config
+
+    root = p["root"]
+    config = _hq_train_config(p, "out", 5)
+    cfg_path = os.path.join(root, "hq_config.yaml")
+    tdir = os.path.join(root, "transfer")
+    t0 = time.perf_counter()
+    make_transfer_targets.main(["--out_dir", tdir, "--src_dataset", p["data"], "--src_efuncs",
+                                p["efuncs_path"], "--src_subdivisions", "5", "--targets",
+                                "coarse", "--k_basis", str(SMOKE_K_BASIS)])
+    targets_s = time.perf_counter() - t0
+    src_full = os.path.join(tdir, "source_efuncs_full.npy")
+
+    # identity self-transfer: the source mesh, its spliced basis both ways
+    identity = os.path.join(tdir, "corr_identity.npy")
+    np.save(identity, np.arange(p["mesh"].num_vertices))
+    r_id = texture_transfer.build_transferred_renderer(config, p["mesh_path"], src_full,
+                                                       src_full, identity)
+    r_src = make_renderer_from_config(config)
+    test_views = _dataset_views(p, "test")
+    psnr_id = _render_vs_plain(r_id, r_src, test_views)
+    check(psnr_id >= PSNR_MIN, f"identity self-transfer PSNR {psnr_id} < {PSNR_MIN}")
+
+    args = [os.path.join(tdir, "coarse.obj"), src_full,
+            os.path.join(tdir, "efuncs_full_coarse.npy"), os.path.join(tdir, "corr_coarse.npy")]
+    out = os.path.join(root, "transfer_coarse")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    texture_transfer.main(["--config_path", cfg_path, "--target_mesh", args[0],
+                           "--source_efuncs_full", args[1], "--target_efuncs_full", args[2],
+                           "--correspondence", args[3], "--eval_dataset", p["data"],
+                           "--eval_split", "test", "--out_dir", out])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = kernel_launches()["fused_mlp_fwd"]
+    check(launches > 0, "the transfer eval did not launch the forward kernel")
+    with open(os.path.join(out, "evaluation_metrics.pkl"), "rb") as f:
+        metrics = pickle.load(f)
+    r_k = texture_transfer.build_transferred_renderer(config, *args)
+    r_p = texture_transfer.build_transferred_renderer(config, *args, infer="plain")
+    psnr_kp = _render_vs_plain(r_k, r_p, test_views)
+    check(psnr_kp >= PSNR_MIN, f"transfer kernel vs plain PSNR {psnr_kp} < {PSNR_MIN}")
+    means, _ = evaluate_views(None, config, test_views, renderer=r_p)
+    emit("transfer", target="coarse", target_vertices=int(np.load(args[3]).shape[0]),
+         k_basis=SMOKE_K_BASIS, targets_s=targets_s, identity_psnr_vs_source=psnr_id,
+         psnr_kernel_vs_plain_min=psnr_kp,
+         eval_psnr=float(np.mean([m["psnr"] for m in metrics.values()])),
+         eval_dssim_rescaled=float(np.mean([m["dssim_rescaled"] for m in metrics.values()])),
+         eval_psnr_plain=means["psnr"], cli_s=cli_s, launches=launches)
+    return {"transfer_eval": launches}
+
+
+def _write_atlas_uv_mesh(path, mesh):
+    """A UV-unwrapped copy of `mesh` as a per-face atlas: face f takes the
+    lower-left or upper-right half of grid cell f // 2 (inset by a tenth of
+    a cell), its three UV vertices at the field mesh's positions (written
+    exactly, so bake_texture's position match holds); <path>.mtl names the
+    diffuse map."""
+    F = mesh.num_faces
+    n = int(np.ceil(np.sqrt(F / 2)))
+    cell = np.arange(F) // 2
+    x0, y0 = (cell % n) / n, (cell // n) / n
+    e, d = 0.1 / n, 0.8 / n
+    lower = (np.arange(F) % 2 == 0)[:, None]
+    a = np.stack([x0 + e, y0 + e], -1)
+    corners = np.where(lower[..., None],
+                       np.stack([a, a + [d, 0], a + [0, d]], 1),
+                       np.stack([a + [d, 0], a + [d, d], a + [0, d]], 1))
+    with open(path, "w") as f:
+        f.write(f"mtllib {os.path.basename(path)}.mtl\n")
+        f.writelines(f"v {x!r} {y!r} {z!r}\n"
+                     for x, y, z in mesh.vertices[mesh.faces].reshape(-1, 3).tolist())
+        f.writelines(f"vt {u!r} {v!r}\n" for u, v in corners.reshape(-1, 2).tolist())
+        f.writelines(f"f {3 * i + 1}/{3 * i + 1} {3 * i + 2}/{3 * i + 2} {3 * i + 3}/{3 * i + 3}\n"
+                     for i in range(F))
+    with open(path + ".mtl", "w") as f:
+        f.write("newmtl material_0\nmap_Kd texture.png\n")
+
+
+def phase_bake(p):
+    """The HQ field baked into a per-face atlas of the HQ blob (20,480
+    faces) at 1024^2 through bake_texture_field (the kernel) and through
+    the plain twin; the kernel once per 8,192-texel chunk."""
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import bake_texture_field
+    from intrinsic_neural_fields_tpu_torch.bake import bake as bake_mod
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.utils.io import imread
+
+    root = p["root"]
+    uv = os.path.join(root, "blob_atlas.obj")
+    _write_atlas_uv_mesh(uv, p["mesh"])
+    cfg_path = os.path.join(root, "hq_config.yaml")
+    field_calls = []
+    field_rgbs = bake_mod._field_rgbs
+
+    def timed_field_rgbs(mesh, config, vids, bary, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = field_rgbs(mesh, config, vids, bary, **kw)
+        field_calls.append((len(vids), time.perf_counter() - t0))
+        return out
+
+    bake_mod._field_rgbs = timed_field_rgbs
+    try:
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        got_path = bake_texture_field.main(["--uv_mesh", uv, "--config_path", cfg_path,
+                                            "--out_dir", os.path.join(root, "bake_kernel"),
+                                            "--texture_size", str(BAKE_SIZE)])
+        torch.cuda.synchronize()
+        bake_s = time.perf_counter() - t0
+        launches = kernel_launches()["fused_mlp_fwd"]
+        want_path = bake_mod.bake_texture(os.path.join(root, "bake_plain"), uv, cfg_path,
+                                          texture_size=BAKE_SIZE, infer="plain")
+    finally:
+        bake_mod._field_rgbs = field_rgbs
+    (texels, field_s), (_, plain_field_s) = field_calls
+    got, want = imread(got_path).astype(int), imread(want_path).astype(int)
+    hit = want.any(-1) | got.any(-1)
+    diff = int(np.abs(got - want)[hit].max())
+    check(got.shape == (BAKE_SIZE, BAKE_SIZE, 3) and diff <= 2,
+          f"kernel and plain bakes differ by {diff}/255 > 2/255")
+    check(launches == -(-texels // FWD_CHUNK),
+          f"{launches} forward launches for {texels} texels, not one per {FWD_CHUNK}")
+    emit("bake", faces=p["mesh"].num_faces, texture_size=BAKE_SIZE, texels=texels,
+         covered_share=float(hit.mean()), max_abs_diff_255=diff, bake_s=bake_s,
+         field_s=field_s, texels_per_s_field=texels / field_s, texels_per_s_bake=texels / bake_s,
+         plain_field_s=plain_field_s, launches=launches)
+    return {"bake": launches}
+
+
+def phase_video(p):
+    """render_video at 720p (10 frames) and render_view on the HQ and the
+    view-dependent leg's models, each view held to a direct render."""
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import render_video, render_view
+    from intrinsic_neural_fields_tpu_torch.data.datasets import read_split_list
+    from intrinsic_neural_fields_tpu_torch.geometry.cameras import cam_resize
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.render.renderer import make_renderer_from_config
+    from intrinsic_neural_fields_tpu_torch.utils.io import imread, load_cameras
+
+    root = p["root"]
+    cam, K = load_cameras(os.path.join(p["data"], read_split_list(p["data"], "test")[0]))
+    cams = os.path.join(root, "video_camera.npz")
+    np.savez(cams, world_mat_0=cam, camera_mat_0=K)
+    cfg_dir = os.path.join(root, "hq_video")
+    os.makedirs(cfg_dir, exist_ok=True)
+    config = _hq_train_config(p, "out", 5)
+    cfg_path = _write_config(cfg_dir, "config.yaml", config)
+    out = os.path.join(root, "video")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    n = render_video.main(["--out_dir", out, "--config_path", cfg_path, "--cameras_path", cams,
+                           "--resolution", "720p", "--fps", "10", "--duration", "1"])
+    torch.cuda.synchronize()
+    video_s = time.perf_counter() - t0
+    video_launches = kernel_launches()["fused_mlp_fwd"]
+    frames = sorted(os.listdir(os.path.join(out, "images", "hq_video_720p")))
+    check(n == 10 and frames == [f"{i:04d}.jpg" for i in range(10)],
+          f"render_video wrote {frames}")
+    check(imread(os.path.join(out, "images", "hq_video_720p", frames[3])).shape == (720, 1280, 3),
+          "the frames are not 1280x720")
+    check(video_launches > 0, "render_video did not launch the forward kernel")
+    # the render loop alone, as the CLI runs it (uint8 wire, depth 2)
+    r = make_renderer_from_config(config, wire_u8=True)
+    fit = render_video.fit_camera_to_resolution(
+        {"K": K, "height": 256, "width": 256}, render_video.resolutions["720p"])
+    r.set_height(fit["height"])
+    r.set_width(fit["width"])
+    render_video.render_turntable(r, cam, fit["K"], [0.0, 10.0], lambda i, img: None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_video.render_turntable(r, cam, fit["K"], np.linspace(0, 720, 10),
+                                  lambda i, img: None)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+
+    views = {}
+    vd_config = _vd_train_config(p, "vd_out", 5)
+    for name, cfgd in (("hq", config), ("viewdep", vd_config)):
+        path = _write_config(root, f"{name}_view_config.yaml", cfgd)
+        png = os.path.join(root, f"view_{name}.png")
+        reset_kernel_launches()
+        render_view.main(["--output_path", png, "--config_path", path, "--cameras_path", cams,
+                          "--height", "360", "--width", "640"])
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        rr = make_renderer_from_config(cfgd)
+        rr.set_height(360)
+        rr.set_width(640)
+        want = rr.render(cam, cam_resize({"K": K, "height": 256, "width": 256}, 360, 640)["K"])
+        want = (want * 255.0 + 0.5).clip(0, 255).astype(int)
+        got = imread(png).astype(int)
+        diff = int(np.abs(got - want).max())
+        check(got.shape == (360, 640, 3) and diff <= 1,
+              f"render_view ({name}) differs from a direct render by {diff}/255")
+        kernel = "fused_mlp_fwd_viewdep" if name == "viewdep" else "fused_mlp_fwd"
+        check(launches[kernel] > 0, f"render_view ({name}) did not launch {kernel}")
+        views[name] = {"max_abs_diff_255": diff, "launches": launches[kernel]}
+    emit("video", resolution=[1280, 720], frames=n, cli_s=video_s,
+         frames_per_s_cli=n / video_s, frames_per_s_render=10 / loop_s,
+         rays_per_s_render=10 * 1280 * 720 / loop_s, launches=video_launches,
+         launches_per_frame=video_launches / n, render_view=views)
+    return {"video": video_launches, "render_view": views["hq"]["launches"]}, \
+        {"render_view": views["viewdep"]["launches"]}
+
+
 def profile_train_epoch(train_leg, leg):
     """Device time by kernel and busy share over one profiled epoch of a
     train leg; the port's kernels the profiler saw, by name, must be exactly
@@ -1802,6 +2278,13 @@ def main():
     vd_launches, vd_yard_launches, vd_leg, vd_render, vd_run = timed(
         "viewdep_train", lambda: phase_viewdep_train(pipe))
     vrows = timed("viewdep_kernels", lambda: phase_viewdep_kernels(vd_leg, vd_render))
+    # the user's path with a trained field: each phase's forward launches
+    user_paths = timed("meshroom", lambda: phase_meshroom(pipe))
+    user_paths.update(timed("lpips", lambda: phase_lpips(pipe, hq_leg)))
+    user_paths.update(timed("transfer", lambda: phase_transfer(pipe)))
+    user_paths.update(timed("bake", lambda: phase_bake(pipe)))
+    video_paths, vd_view_paths = timed("video", lambda: phase_video(pipe))
+    user_paths.update(video_paths)
     # Last: the profiler's hooks may slow host-bound torch code run after it.
     r, cams, K = tp_leg
     timed("profile", lambda: (profile_frames(r, cams[:4], K),
@@ -1820,7 +2303,7 @@ def main():
         "replaces": ref + "1278",
         "launches": train_launches["fused_mlp_fwd"],
         "launches_by_path": {"hq_eval": eval_launches,
-                             "hq_train": train_launches["fused_mlp_fwd"]},
+                             "hq_train": train_launches["fused_mlp_fwd"], **user_paths},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1884,6 +2367,8 @@ def main():
             kernels[-1]["redesigned"] = True
         if name == "fused_mlp_wgrad_viewdep":
             kernels[-1]["launches_path"] = "viewdep_train with training.fused_adam: false"
+        if name == "fused_mlp_fwd_viewdep":
+            kernels[-1]["launches_by_path"] = {"viewdep_train": launched, **vd_view_paths}
     # the sort: the 512^2 render leg's entry sort (2^18 padded) is the main
     # row; launches are the bitonic_vmem trace's (calls; CUDA launches beside)
     main = srows["render512_entry"]

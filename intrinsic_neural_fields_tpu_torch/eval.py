@@ -1,9 +1,14 @@
-"""Evaluation CLI of the port: renders a split on the GPU, computes masked
-PSNR / DSSIM (LPIPS column NaN), writes PNGs + evaluation_metrics.pkl and
-prints the split means.
+"""Evaluation CLI of the port (root eval.py): renders a split on the GPU,
+computes masked PSNR / DSSIM / LPIPS, writes PNGs + evaluation_metrics.pkl
+and prints the split means.
 
   python -m intrinsic_neural_fields_tpu_torch.eval output_path config.yaml \
-      dataset_path split [--weights model.pt] [--background white]
+      dataset_path split [--weights model.pt] [--background white] \
+      [--uv_mesh_path UV.obj] [--lpips_weights lpips_alex.npz] [--device cpu]
+
+--uv_mesh_path bakes the field into that UV layout first (into
+output_path, which must not exist yet). The LPIPS column is NaN unless
+--lpips_weights names an AlexNet npz (evaluation/lpips.py).
 
 The weights are a reference-layout model.pt (default
 <training.out_dir>/model.pt); export a JAX-trained out_dir with
@@ -22,6 +27,10 @@ def parse_args(argv=None):
                         help="reference-layout model.pt (default: "
                         "<training.out_dir>/model.pt)")
     parser.add_argument("--background", type=str, default="white")
+    parser.add_argument("--uv_mesh_path", type=str, default=None,
+                        help="bake the field into this UV mesh's layout before the eval")
+    parser.add_argument("--lpips_weights", type=str, default=None,
+                        help="LPIPS AlexNet weights (.npz); without it the column is NaN")
     parser.add_argument("--device", type=str, default="cuda")
     return parser.parse_args(argv)
 
@@ -45,11 +54,18 @@ def main(argv=None):
     from .render.renderer import make_renderer_from_config
 
     args = parse_args(argv)
+    if args.uv_mesh_path is not None:
+        from .bake.bake import bake_texture
+
+        print("Baking texture into UV-map...")
+        bake_texture(args.output_path, args.uv_mesh_path, args.config_path, device=args.device)
+        print("Done.")
     config = load_config(args.config_path)
     renderer = make_renderer_from_config(config, weights_path=args.weights,
                                          device=args.device)
     evaluate_views(args.output_path, config, args.dataset_path, args.split,
-                   renderer=renderer, background=args.background)
+                   renderer=renderer, background=args.background,
+                   lpips_weights_path=args.lpips_weights)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
-"""Evaluation loop: render every view of a split, compute masked PSNR and
-DSSIM, optionally save images + a metrics pickle, return the split means.
+"""Evaluation loop: render every view of a split, compute masked PSNR,
+DSSIM and LPIPS, optionally save images + a metrics pickle, return the
+split means (the JAX package's evaluation/eval_cli.py).
 
 Masking follows the reference: the metric mask is the logical AND of the
 dataset's object mask and the renderer's ray-hit mask; both images get a
-white background outside it. LPIPS is not ported yet: its column is NaN, as
-the reference package reports it without LPIPS weights.
+white background outside it. LPIPS needs a local weights npz
+(`lpips_weights_path`); without one its column is NaN, as in the JAX
+package. A Meshroom split (data.type: meshroom_radial_k3) renders each view
+through its undistorted pixel coordinates.
 """
 from __future__ import annotations
 
@@ -14,26 +17,32 @@ import pickle
 import numpy as np
 
 from ..utils.pipeline import pipelined_foreach
+from .lpips import LPIPS
 from .metrics import dssim, psnr
 
 
 def evaluate_views(output_path, config, dataset_or_views, split="test",
-                   renderer=None, background="white"):
+                   renderer=None, background="white", lpips_weights_path=None):
     """dataset_or_views: a MeshViews dataset directory (its `split` list is
     read) or an iterable of view dicts with camCv2world, K, img [H,W,3] and
-    obj_mask_1d. renderer: a pre-built Renderer (default: built from the
-    config and <training.out_dir>/model.pt, on the GPU). output_path: where PNGs and
-    evaluation_metrics.pkl go; None writes nothing.
+    obj_mask_1d (and, for a distorted view, distortion_params and
+    distortion_type). renderer: a pre-built Renderer (default: built from
+    the config and <training.out_dir>/model.pt, on the GPU). output_path:
+    where PNGs and evaluation_metrics.pkl go; None writes nothing.
+    lpips_weights_path: an LPIPS AlexNet npz (see evaluation/lpips.py).
 
     Returns (means, per_view) with keys psnr, dssim_rescaled, lpips_rescaled."""
     H, W = config["data"]["img_height"], config["data"]["img_width"]
     if isinstance(dataset_or_views, (str, os.PathLike)):
-        if config["data"].get("type") is not None:
-            raise NotImplementedError(
-                f"dataset type {config['data']['type']!r} is not ported yet")
-        from ..data.datasets import MeshViewsDataset
+        from ..data.datasets import MeshroomRadialK3Dataset, MeshViewsDataset
 
-        views = MeshViewsDataset(dataset_or_views, split, H=H, W=W, background=background)
+        dataset_type = config["data"].get("type")
+        if dataset_type is None:
+            views = MeshViewsDataset(dataset_or_views, split, H=H, W=W, background=background)
+        elif dataset_type == "meshroom_radial_k3":
+            views = MeshroomRadialK3Dataset(dataset_or_views, split, H=H, W=W)
+        else:
+            raise NotImplementedError(f"Unknown dataset type: {dataset_type}")
     else:
         views = dataset_or_views
     if renderer is None:
@@ -41,6 +50,9 @@ def evaluate_views(output_path, config, dataset_or_views, split="test",
 
         renderer = make_renderer_from_config(config)
     renderer.background = background
+    lpips_fn = LPIPS(lpips_weights_path, device=renderer.device)
+    if not lpips_fn.available():
+        print("WARNING: LPIPS weights not found; LPIPS column will be NaN.")
     if output_path is not None:
         from ..utils.io import imwrite
 
@@ -69,7 +81,8 @@ def evaluate_views(output_path, config, dataset_or_views, split="test",
         metrics = {
             "psnr": psnr(fake_img, real_img, obj_mask_1d),
             "dssim_rescaled": dssim(fake_img, real_img) * 100.0,
-            "lpips_rescaled": float("nan"),
+            "lpips_rescaled": (lpips_fn(fake_img, real_img) * 100.0 if lpips_fn.available()
+                               else float("nan")),
         }
         for k in totals:
             totals[k] += metrics[k]
@@ -81,7 +94,9 @@ def evaluate_views(output_path, config, dataset_or_views, split="test",
 
     def _dispatch(item):
         _, view = item
-        return renderer.render_async(view["camCv2world"], view["K"], eval_render=True)
+        return renderer.render_async(view["camCv2world"], view["K"], eval_render=True,
+                                     distortion_coeffs=view.get("distortion_params"),
+                                     distortion_type=view.get("distortion_type"))
 
     n = pipelined_foreach(enumerate(views), _dispatch, _finish, depth=1)
     if n == 0:

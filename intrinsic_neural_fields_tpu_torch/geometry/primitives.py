@@ -1,9 +1,29 @@
-"""Procedural test meshes with known analytic properties."""
+"""Procedural test meshes with known analytic properties (copies of the
+JAX package's geometry/primitives.py: `grid_mesh` :14, `icosphere`)."""
 from __future__ import annotations
 
 import numpy as np
 
 from .mesh import Mesh
+
+
+def grid_mesh(n=20, scale=1.0):
+    """Regular triangulated [0,scale]^2 grid in the z=0 plane.
+
+    The cotan Laplacian of this mesh discretizes the flat Laplacian with
+    natural (Neumann) boundary conditions: eigenvalues pi^2 (m^2 + n^2) on
+    the unit square.
+    """
+    xs = np.linspace(0.0, scale, n)
+    xx, yy = np.meshgrid(xs, xs, indexing="xy")
+    v = np.stack([xx.reshape(-1), yy.reshape(-1), np.zeros(n * n)], axis=-1)
+    faces = []
+    for r in range(n - 1):
+        for c in range(n - 1):
+            i = r * n + c
+            faces.append((i, i + 1, i + n))
+            faces.append((i + 1, i + n + 1, i + n))
+    return Mesh(vertices=v, faces=np.asarray(faces, dtype=np.int32))
 
 
 def icosphere(subdivisions=3, radius=1.0):

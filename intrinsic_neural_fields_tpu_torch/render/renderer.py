@@ -11,6 +11,11 @@ The host selects masked pixels up front (Morton-ordered, cached per pixel
 set) and scatters the returned colors into the image. Dispatch is
 asynchronous (`render_async` / `render_fetch`), so an eval or video loop
 can overlap one view's fetch with the next view's device work.
+
+Meshroom (AliceVision radial-k3) views are traced through undistorted,
+non-integer pixel coordinates: undistorted in f64 on the host, cast to f32
+and uploaded once per (pixel set, K, coefficients), as the JAX package's
+`Renderer._coords_for_view` (render/renderer.py:443-466) does.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..geometry.cameras import DistortionTypes, undistort_pixels_meshroom_radial_k3
 from ..models.texture_field import view_encoder_apply
 from ..ops.fused_mlp import (
     fused_apply,
@@ -37,12 +43,14 @@ from ..ops.raster import check_pinhole_K, intersect_coords_pinhole_core
 _INFER_CHUNK = 1 << 13     # rays per feature-gather + MLP launch
 _TRACE_CACHE_MAX = 8       # LRU bound on cached per-view traces
 _PIXEL_CACHE_MAX = 8       # LRU bound on cached per-view pixel bundles
+                           # (and on cached undistorted coordinates)
 
 
 class _PixelEntry(NamedTuple):
     """Per-(H, W, mask) pixel bundle, shared by every camera pose that
     renders the same pixel set."""
     mask_bits: bytes   # packed mask (b"" when unmasked): compared on a hit
+    pix_idx: object    # [L] host masked pixel ids in Morton order
     morton: object     # [L] host permutation (scatter-back order)
     L: int
     hull: object       # [2,2] f32 (cmin; cmax) pixel hull
@@ -75,9 +83,11 @@ class _PendingRender(NamedTuple):
     eval_render: bool
 
 
-def make_renderer_from_config(config, weights_path=None, device="cuda"):
+def make_renderer_from_config(config, weights_path=None, device="cuda", wire_u8=False,
+                              infer=None):
     """Renderer for an experiment config (the reference YAML schema) and a
-    reference-layout model.pt (default: <training.out_dir>/model.pt)."""
+    reference-layout model.pt (default: <training.out_dir>/model.pt).
+    wire_u8 and infer: as for Renderer."""
     import os
 
     from ..geometry.mesh import load_mesh
@@ -100,7 +110,8 @@ def make_renderer_from_config(config, weights_path=None, device="cuda"):
     model.load_state_dict(load_reference_weights(weights_path))
     return Renderer(
         model, mesh, efuncs, H=data["img_height"], W=data["img_width"],
-        feature_dtype=data.get("precompute_dtype"), device=device,
+        feature_dtype=data.get("precompute_dtype"), wire_u8=wire_u8, infer=infer,
+        device=device,
     )
 
 
@@ -143,7 +154,24 @@ class Renderer:
         self.set_eigenfunctions(eigenfunctions)
         self.update_variables(model.state_dict())
         self._pixel_cache = OrderedDict()
+        self._coords_cache = OrderedDict()
         self._refresh_geometry()
+
+    def set_height(self, height):
+        """Render at another height; the cached traces, pixel bundles and
+        undistorted coordinates were made for the old one."""
+        self.H = height
+        self._clear_view_caches()
+
+    def set_width(self, width):
+        """Render at another width (see set_height)."""
+        self.W = width
+        self._clear_view_caches()
+
+    def _clear_view_caches(self):
+        self._trace_cache.clear()
+        self._pixel_cache.clear()
+        self._coords_cache.clear()
 
     # ------------------------------------------------------------ state
 
@@ -200,8 +228,9 @@ class Renderer:
         xy = np.stack([pix_idx % W, pix_idx // W], axis=-1)
         morton = pixel_morton_order(xy)
         hull = np.stack([xy.min(0), xy.max(0)]).astype(np.float32)
-        idx_dev = torch.as_tensor(pix_idx[morton].astype(np.int64), device=self.device)
-        entry = _PixelEntry(mask_bits=bits, morton=morton, L=len(pix_idx),
+        pix_idx = pix_idx[morton]
+        idx_dev = torch.as_tensor(pix_idx.astype(np.int64), device=self.device)
+        entry = _PixelEntry(mask_bits=bits, pix_idx=pix_idx, morton=morton, L=len(pix_idx),
                             hull=hull, idx_dev=idx_dev)
         self._pixel_cache[key] = entry
         self._pixel_cache.move_to_end(key)
@@ -209,17 +238,41 @@ class Renderer:
             self._pixel_cache.popitem(last=False)
         return key, entry
 
-    def _trace(self, px, camCv2world, K, with_dirs):
+    def _coords_for_view(self, pix_key, px, K, distortion_coeffs):
+        """LRU-cached undistorted pixel coordinates [L,2] f32 on the device
+        and their [2,2] hull. Undistortion depends on the pixel set, K and
+        the coefficients, not on the pose: a sweep with one intrinsic block
+        undistorts and uploads once (JAX render/renderer.py:443-466)."""
+        key = (pix_key, px.mask_bits, np.asarray(K, np.float64).tobytes(),
+               np.asarray(distortion_coeffs, np.float64).tobytes())
+        hit = self._coords_cache.get(key)
+        if hit is not None:
+            self._coords_cache.move_to_end(key)
+            return hit
+        coords = np.stack([px.pix_idx % self.W, px.pix_idx // self.W], axis=-1).astype(np.float64)
+        coords = undistort_pixels_meshroom_radial_k3(coords, K, distortion_coeffs)
+        coords = coords.astype(np.float32)
+        hull = np.stack([coords.min(0), coords.max(0)])
+        entry = (torch.as_tensor(coords, device=self.device), hull)
+        self._coords_cache[key] = entry
+        while len(self._coords_cache) > _PIXEL_CACHE_MAX:
+            self._coords_cache.popitem(last=False)
+        return entry
+
+    def _trace(self, px, camCv2world, K, with_dirs, coords=None):
         """Pixel bundle + camera -> (vids [L,3], bary [L,3], dirs [L,3],
         original face ids [L], valid [L]); dirs and face ids are None
-        unless with_dirs (only the view-dependent field reads them)."""
+        unless with_dirs (only the view-dependent field reads them).
+        coords: (undistorted [L,2] coordinates, their hull) to trace in
+        place of the bundle's integer pixel grid."""
         W = self.W
-        x = (px.idx_dev % W).to(torch.float32)
-        y = torch.div(px.idx_dev, W, rounding_mode="floor").to(torch.float32)
-        coords = torch.stack([x, y], dim=-1)
+        if coords is None:
+            x = (px.idx_dev % W).to(torch.float32)
+            y = torch.div(px.idx_dev, W, rounding_mode="floor").to(torch.float32)
+            coords = (torch.stack([x, y], dim=-1), px.hull)
         out = intersect_coords_pinhole_core(
             self._verts, self._faces_sorted, np.asarray(camCv2world, np.float32),
-            np.asarray(K, np.float32), coords, W=W, H=self.H, coord_hull=px.hull,
+            np.asarray(K, np.float32), coords[0], W=W, H=self.H, coord_hull=coords[1],
             return_dirs=with_dirs,
         )
         hits, dirs = out if with_dirs else (out, None)
@@ -259,6 +312,12 @@ class Renderer:
         vids, bary, dirs, faces, valid = self._trace(px, camCv2world, K, with_dirs=True)
         return ViewTrace(vids, bary, valid, px.idx_dev, dirs, faces)
 
+    def set_mesh(self, mesh):
+        """Render the same field on another mesh (texture transfer): the
+        caller swaps in a feature table for it with set_eigenfunctions."""
+        self.mesh = mesh
+        self._refresh_geometry()
+
     def apply_mesh_transform(self, transform):
         """Transform the mesh in place (4x4) and refresh everything derived
         from it: vertices, the face order and, for the intrinsic view
@@ -272,9 +331,14 @@ class Renderer:
         hit_ray_idxs) when eval_render=True (hit_ray_idxs index the
         masked-pixel array, all pixels if no mask).
 
+        distortion_type: None (pinhole) or "meshroom_radial_k3", with its
+        three distortion_coeffs: the rays go through the undistorted pixel
+        coordinates.
+
         cache_key: optional hashable naming this (camera, mask) view; its
-        trace is reused by later renders of the same key (only inference
-        reruns). Reusing a key with another mask raises."""
+        trace is reused by later renders of the same key and the same
+        distortion (only inference reruns). Reusing a key with another mask
+        raises."""
         return self.render_fetch(self.render_async(
             camCv2world, K, obj_mask_1d=obj_mask_1d, eval_render=eval_render,
             distortion_coeffs=distortion_coeffs, distortion_type=distortion_type,
@@ -285,9 +349,11 @@ class Renderer:
                      distortion_coeffs=None, distortion_type=None, cache_key=None):
         """Enqueue one view's device work and return a pending handle;
         render_fetch(handle) completes it."""
-        if distortion_type is not None or distortion_coeffs is not None:
-            raise NotImplementedError(
-                "lens distortion (Meshroom radial k3) is not ported yet")
+        if distortion_type is not None:
+            if distortion_coeffs is None:
+                raise ValueError(f"distortion_type {distortion_type!r} needs distortion_coeffs")
+            if distortion_type != DistortionTypes.MESHROOM_RADIAL_K3:
+                raise ValueError(f"Unknown distortion type: {distortion_type}")
         # The binning projection assumes pinhole intrinsics: checked on every
         # render, the trace below would silently mis-bin otherwise.
         check_pinhole_K(K)
@@ -308,7 +374,11 @@ class Renderer:
                 )
         pix_key, px = self._pixels_for_view(obj_mask_1d)
 
-        full_key = None if cache_key is None else (cache_key, H, W)
+        # The coefficients are part of the key: a trace made through one
+        # set of undistorted coordinates is never served for another.
+        dist_key = (None if distortion_type is None
+                    else (distortion_type, np.asarray(distortion_coeffs, np.float64).tobytes()))
+        full_key = None if cache_key is None else (cache_key, H, W, dist_key)
         trace = None
         if full_key is not None and full_key in self._trace_cache:
             cached_key, cached_bits, trace = self._trace_cache[full_key]
@@ -319,7 +389,9 @@ class Renderer:
                 )
             self._trace_cache.move_to_end(full_key)
         if trace is None:
-            trace = self._trace(px, camCv2world, K, with_dirs=self.viewdep)
+            coords = (None if distortion_type is None
+                      else self._coords_for_view(pix_key, px, K, distortion_coeffs))
+            trace = self._trace(px, camCv2world, K, with_dirs=self.viewdep, coords=coords)
             if full_key is not None:
                 self._trace_cache[full_key] = (pix_key, px.mask_bits, trace)
                 while len(self._trace_cache) > _TRACE_CACHE_MAX:

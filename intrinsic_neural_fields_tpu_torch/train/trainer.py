@@ -95,8 +95,8 @@ class Trainer:
         self.use_lr_scheduler = config["training"].get("use_lr_scheduler", False)
         self.lr_scheduler = ReduceLROnPlateau(factor=0.2)
         self.dataset_type = config["data"].get("type")
-        if self.dataset_type is not None:
-            raise NotImplementedError(f"dataset type {self.dataset_type!r} is not ported yet")
+        if self.dataset_type not in (None, "meshroom_radial_k3"):
+            raise NotImplementedError(f"Unknown dataset type: {self.dataset_type}!")
         self.H = config["data"]["img_height"]
         self.W = config["data"]["img_width"]
         self.val_render_infos = list(zip(config["data"].get("eval_render_input_paths", []),
@@ -180,12 +180,30 @@ class Trainer:
         self.write_vis_metrics_to_tensorboard(img_name, rendered_img, gt_img.reshape(shape),
                                               obj_mask_1d, epoch)
 
+    def _render_views_for_tensorboard_meshroom(self, epoch):
+        """The vis views of a Meshroom run: every view of data.vis_split in
+        data.vis_dataset_path, rendered through the undistorted coordinates
+        (reference trainer.py:389-407)."""
+        from ..data.datasets import MeshroomRadialK3Dataset
+
+        vis = MeshroomRadialK3Dataset(self.config["data"]["vis_dataset_path"],
+                                      self.config["data"]["vis_split"], H=self.H, W=self.W)
+        for idx, item in enumerate(vis):
+            rendered = self.renderer.render(
+                item["camCv2world"], item["K"], distortion_coeffs=item["distortion_params"],
+                distortion_type=item["distortion_type"], cache_key=f"meshroom_vis_{idx}")
+            self.write_vis_metrics_to_tensorboard(f"meshroom_radial_k3_view_{idx}", rendered,
+                                                  item["img"], item["obj_mask_1d"], epoch)
+
     def _visualize(self, epoch):
         self.renderer.update_variables(self.state.state_dict())
         print("Visualizing...")
         vis_start = time.time()
-        for i, (input_path, _img_name) in enumerate(self.val_render_infos):
-            self._render_view_for_tensorboard(input_path, f"img{i:03d}", epoch)
+        if self.dataset_type == "meshroom_radial_k3":
+            self._render_views_for_tensorboard_meshroom(epoch)
+        else:
+            for i, (input_path, _img_name) in enumerate(self.val_render_infos):
+                self._render_view_for_tensorboard(input_path, f"img{i:03d}", epoch)
         print(f"Done with visualizations after {time.time() - vis_start} seconds.")
 
     # ------------------------------------------------------------ train

@@ -907,3 +907,158 @@ def test_adam_kernel_with_a_tail_equals_twin(cuda, n):
     off = torch.zeros(n + 1, device=cuda)[1:]
     with pytest.raises(ValueError, match="aligned"):
         fused_adam_apply(off, m, v, hyper, grads)
+
+
+# What users do with a trained field: bake, transfer, Meshroom renders and
+# LPIPS on the card, through the forward kernel, against the plain twin.
+
+def _trained_out_dir(tmp_path, mesh, k, seed=3, H=64, W=64):
+    """A config, an eigenfunction file and a random reference-layout
+    model.pt (k features, 6x128 skip 3) for `mesh`."""
+    import yaml
+
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh_io import write_obj
+    from intrinsic_neural_fields_tpu_torch.spectral.eigensolver import (
+        compute_first_k_eigenfunctions)
+
+    mesh_path = str(tmp_path / "mesh.obj")
+    write_obj(mesh_path, mesh.vertices, mesh.faces)
+    ef_path = str(tmp_path / "efuncs.npy")
+    np.save(ef_path, compute_first_k_eigenfunctions(mesh, k).astype(np.float32))
+    cfg = {"k": k, "num_layers": 6, "mlp_hidden_dim": 128, "skip_layer_idx": 3}
+    out_dir = tmp_path / "run"
+    out_dir.mkdir()
+    torch.save(make_model(cfg, seed=seed, device="cpu").state_dict(), out_dir / "model.pt")
+    config = {"data": {"mesh_path": mesh_path, "eigenfunctions_path": ef_path,
+                       "img_height": H, "img_width": W},
+              "model": cfg, "training": {"out_dir": str(out_dir)}}
+    cfg_path = str(tmp_path / "config.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(config, f)
+    return config, cfg_path
+
+
+def test_bake_kernel_matches_plain_twin(cuda, tmp_path):
+    """A grid's UV bake at 256^2 through the forward kernel against the
+    same bake through the plain twin: every texel within 2/255 (one
+    colour may land across an 8-bit edge either way); the kernel launched
+    once per 8,192-texel chunk, the last one ragged."""
+    from intrinsic_neural_fields_tpu_torch.bake import bake_texture
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import grid_mesh
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import reset_kernel_launches
+    from intrinsic_neural_fields_tpu_torch.utils.io import imread
+
+    mesh = grid_mesh(20)
+    _, cfg_path = _trained_out_dir(tmp_path, mesh, 32)
+    uv = str(tmp_path / "grid_uv.obj")
+    with open(uv, "w") as f:
+        f.write("mtllib grid_uv.obj.mtl\n")
+        f.writelines(f"v {v[0]} {v[1]} {v[2]}\n" for v in mesh.vertices)
+        f.writelines(f"vt {v[0]} {v[1]}\n" for v in mesh.vertices)
+        f.writelines(f"f {a + 1}/{a + 1} {b + 1}/{b + 1} {c + 1}/{c + 1}\n"
+                     for a, b, c in mesh.faces)
+    with open(uv + ".mtl", "w") as f:
+        f.write("newmtl material_0\nmap_Kd texture.png\n")
+    reset_kernel_launches()
+    got = imread(bake_texture(str(tmp_path / "k"), uv, cfg_path, texture_size=256)).astype(int)
+    torch.cuda.synchronize()
+    launches = kernel_launches()["fused_mlp_fwd"]
+    want = imread(bake_texture(str(tmp_path / "p"), uv, cfg_path, texture_size=256,
+                               infer="plain")).astype(int)
+    assert kernel_launches()["fused_mlp_fwd"] == launches
+    assert np.abs(got - want).max() <= 2
+    assert launches == -(-_hit_texels(uv, 256) // 8192)
+
+
+def _hit_texels(uv_path, size):
+    """Texels inside a UV triangle (the bake's own host lookup)."""
+    from intrinsic_neural_fields_tpu_torch.bake.bake import find_containing_triangles
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh_io import read_obj_with_uv
+
+    _, faces, uvs, _ = read_obj_with_uv(uv_path)
+    p = np.stack([(size - 1) * uvs[:, 0], (size - 1) * (1.0 - uvs[:, 1])], -1)
+    PX, PY = np.meshgrid(np.arange(size), np.arange(size))
+    pts = np.stack([PX.ravel(), PY.ravel()], -1).astype(np.float64)
+    idx = find_containing_triangles(pts, p[faces[:, 0]], p[faces[:, 1]], p[faces[:, 2]])
+    return int((idx >= 0).sum())
+
+
+def test_transfer_kernel_matches_plain_twin(cuda, tmp_path):
+    """The transferred field (icosphere 3 -> icosphere 2, an exact prefix
+    correspondence) rendered through the kernel and through the plain
+    twin: equal valid masks, PSNR >= 50 dB."""
+    from intrinsic_neural_fields_tpu_torch.evaluation.metrics import psnr
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh_io import write_obj
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
+    from intrinsic_neural_fields_tpu_torch.make_transfer_targets import (constant_eigenfunction,
+                                                                         spliced_full_basis)
+    from intrinsic_neural_fields_tpu_torch.geometry.laplacian import build_laplacian
+    from intrinsic_neural_fields_tpu_torch.texture_transfer import build_transferred_renderer
+
+    src, tgt = icosphere(3), icosphere(2)
+    config, _ = _trained_out_dir(tmp_path, src, 32)
+    _, M = build_laplacian(src, "cotan")
+    src_full = np.concatenate([constant_eigenfunction(M)[:, None],
+                               np.load(config["data"]["eigenfunctions_path"])], 1)
+    np.save(tmp_path / "src_full.npy", src_full)
+    np.save(tmp_path / "tgt_full.npy", spliced_full_basis(tgt, 48, "cotan")[0])
+    np.save(tmp_path / "corr.npy", np.arange(tgt.num_vertices))
+    write_obj(str(tmp_path / "tgt.obj"), tgt.vertices, tgt.faces)
+    args = (config, str(tmp_path / "tgt.obj"), str(tmp_path / "src_full.npy"),
+            str(tmp_path / "tgt_full.npy"), str(tmp_path / "corr.npy"))
+    rk = build_transferred_renderer(*args)
+    rp = build_transferred_renderer(*args, infer="plain")
+    assert rk.infer_mode == "kernel" and rp.infer_mode == "plain"
+    K = pinhole_K(64, 64)
+    for cam in ring_cameras(3):
+        img_k, hit_k = rk.render(cam, K, eval_render=True)
+        img_p, hit_p = rp.render(cam, K, eval_render=True)
+        np.testing.assert_array_equal(hit_k, hit_p)
+        mask = np.zeros(64 * 64, bool)
+        mask[hit_k] = True
+        assert mask.any() and psnr(img_k, img_p, mask) >= 50.0
+
+
+def test_distorted_render_on_card_matches_cpu(cuda):
+    """A radial-k3 render (1280x720, the coefficients of chip_smoke.py's
+    Meshroom phase) on the card through the kernel against the CPU render
+    through the plain twin: equal valid masks, colours within 2e-3."""
+    H, W = 720, 1280
+    mesh = blob_mesh(3)
+    efuncs = np.random.default_rng(0).normal(size=(mesh.num_vertices, 64)).astype(np.float32)
+    model = make_model({"k": 64, "num_layers": 6, "mlp_hidden_dim": 128, "skip_layer_idx": 3},
+                       seed=1, device="cpu")
+    K = np.array([[1.2 * H, 0, (W - 1) / 2], [0, 1.2 * H, (H - 1) / 2], [0, 0, 1]], np.float32)
+    cam = ring_cameras(4)[1]
+    kw = dict(eval_render=True, distortion_coeffs=[0.05, -0.02, 0.01],
+              distortion_type="meshroom_radial_k3")
+    img_g, hit_g = Renderer(model.to("cuda"), mesh, efuncs, H=H, W=W).render(cam, K, **kw)
+    img_c, hit_c = Renderer(model.to("cpu"), mesh, efuncs, H=H, W=W,
+                            device="cpu").render(cam, K, **kw)
+    np.testing.assert_array_equal(hit_g, hit_c)
+    assert np.abs(img_g - img_c).max() <= 2e-3
+
+
+def test_lpips_on_card_matches_cpu(cuda, tmp_path):
+    """LPIPS on the card (TF32 off in its convolutions) equals the CPU
+    metric within 1e-4 relative, at 256^2 with random AlexNet weights."""
+    from intrinsic_neural_fields_tpu_torch.evaluation.lpips import ALEX_CFG, LPIPS
+
+    rng = np.random.default_rng(0)
+    arrays, in_ch = {}, 3
+    for i, (out_ch, k, _, _, _) in enumerate(ALEX_CFG):
+        arrays[f"conv{i}_w"] = rng.normal(scale=0.05, size=(out_ch, in_ch, k, k)).astype(np.float32)
+        arrays[f"conv{i}_b"] = rng.normal(scale=0.02, size=out_ch).astype(np.float32)
+        arrays[f"lin{i}_w"] = np.abs(rng.normal(size=(1, out_ch, 1, 1))).astype(np.float32)
+        in_ch = out_ch
+    path = str(tmp_path / "w.npz")
+    np.savez(path, **arrays)
+    a = rng.random((256, 256, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(scale=0.05, size=a.shape), 0, 1).astype(np.float32)
+    torch.backends.cudnn.allow_tf32 = True  # the metric must not depend on it
+    try:
+        got = LPIPS(path)(a, b)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = LPIPS(path, device="cpu")(a, b)
+    assert abs(got / want - 1) <= 1e-4

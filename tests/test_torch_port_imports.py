@@ -25,7 +25,9 @@ bad = sorted(m for m in sys.modules
              if any(m == b or m.startswith(b + ".") for b in banned))
 new = ["ops.sort", "ops.launches", "geometry.cameras", "utils.exr", "utils.io",
        "data.preprocess", "native", "preprocess_dataset", "preprocess_eigenfunctions",
-       "make_synthetic_dataset"]
+       "make_synthetic_dataset", "evaluation.lpips", "transfer", "transfer.functional_map",
+       "bake", "bake.bake", "texture_transfer", "bake_texture_field", "render_view",
+       "render_video", "make_transfer_targets"]
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 print(len(names), "modules;", "banned:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
@@ -58,6 +60,30 @@ def test_eval_cli_parses_arguments():
       "device": "cuda"}),
 ])
 def test_preprocessing_clis_parse_the_reference_arguments(module, argv, want):
+    import importlib
+
+    args = importlib.import_module(f"intrinsic_neural_fields_tpu_torch.{module}").parse_args(argv)
+    assert {k: getattr(args, k) for k in want} == want
+
+
+@pytest.mark.parametrize("module,argv,want", [
+    ("render_view", ["--output_path", "v.png"], {"device": "cuda", "height": None}),
+    ("render_video", ["--out_dir", "o"],
+     {"device": "cuda", "resolution": "720p", "fps": 60, "duration": 15, "turns": 2}),
+    ("bake_texture_field", ["--config_path", "c.yaml", "--out_dir", "o"],
+     {"device": "cuda", "texture_size": None}),
+    ("texture_transfer", ["--config_path", "c", "--target_mesh", "t", "--source_efuncs_full",
+                          "s", "--target_efuncs_full", "t", "--correspondence", "c",
+                          "--out_dir", "o"],
+     {"device": "cuda", "laplacian_type": "cotan", "eval_split": "test"}),
+    ("make_transfer_targets", [],
+     {"device": "cuda", "tracer": "device", "k_basis": 1024,
+      "targets": ["coarse", "dense", "deformed"]}),
+    ("eval", ["out", "cfg.yaml", "data", "test"],
+     {"device": "cuda", "uv_mesh_path": None, "lpips_weights": None}),
+])
+def test_user_clis_parse_the_reference_arguments(module, argv, want):
+    """The root CLIs' arguments, and the card by default."""
     import importlib
 
     args = importlib.import_module(f"intrinsic_neural_fields_tpu_torch.{module}").parse_args(argv)

@@ -1,0 +1,110 @@
+#!/usr/bin/env python
+"""The HQ texture-transfer experiment (scripts/run_transfer.sh's intrinsic
+rows) through the port's `-m` CLIs on one NVIDIA GPU.
+
+  python tools/port_transfer_experiment.py [--seed 0] [--epochs 400]
+      [--targets coarse dense deformed] [--out out/transfer_experiment]
+
+1. The README's HQ recipe: its data (``data/synthetic_hq``, made once, as
+   tools/port_recipe_seeds.py makes it), then
+   ``configs/synthetic/intrinsic_blob_hq.yaml`` trained for --epochs at
+   --seed and evaluated on the test split (the source row).
+2. ``make_transfer_targets`` for the targets (1024-function target bases,
+   the carried-texture test views of ``deformed``).
+3. ``texture_transfer --eval_dataset`` onto each target: the source
+   dataset's test views for the re-discretizations, the carried-texture
+   views for ``deformed``.
+
+Prints one JSON line per row (test PSNR and DSSIM x100 from the eval's
+metrics pickle, the JAX CLIs' figures from RESULTS.md beside them and
+whether the two differ by more than 0.3 dB, seconds), then the card's
+name and power limit. Everything else goes under --out.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pickle
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from port_recipe_seeds import DATA, PKG, ROOT, make_data, write_config  # noqa: E402
+
+# RESULTS.md's transfer table (the JAX package's CLIs): test PSNR, DSSIM x100
+JAX_ROWS = {"source": (57.03, 0.013), "coarse": (50.20, 0.032), "dense": (45.95, 0.021),
+            "deformed": (56.45, 0.014)}
+
+
+def _run(cmd, log):
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        subprocess.run(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, check=True)
+    return time.perf_counter() - t0
+
+
+def _metrics(eval_dir):
+    with open(os.path.join(eval_dir, "evaluation_metrics.pkl"), "rb") as f:
+        per_view = pickle.load(f)
+    n = len(per_view)
+    return (sum(m["psnr"] for m in per_view.values()) / n,
+            sum(m["dssim_rescaled"] for m in per_view.values()) / n, n)
+
+
+def _row(name, eval_dir, seconds):
+    psnr, dssim, n = _metrics(eval_dir)
+    jax_psnr, jax_dssim = JAX_ROWS[name]
+    return {"row": name, "views": n, "test_psnr": psnr, "dssim_rescaled": dssim,
+            "jax_test_psnr": jax_psnr, "jax_dssim_rescaled": jax_dssim,
+            "differs_by_more_than_0.3_dB": bool(abs(psnr - jax_psnr) > 0.3), "seconds": seconds}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--epochs", type=int, default=400)
+    ap.add_argument("--targets", nargs="+", default=["coarse", "dense", "deformed"],
+                    choices=("coarse", "dense", "deformed"))
+    ap.add_argument("--out", default=os.path.join(ROOT, "out", "transfer_experiment"))
+    args = ap.parse_args(argv)
+    out = os.path.abspath(args.out)
+    os.makedirs(out, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    py = [sys.executable, "-m"]
+    make_data(out)
+
+    run_dir = os.path.join(out, "source")
+    cfg = write_config(os.path.join(out, "source.yaml"), run_dir, args.seed, args.epochs)
+    train_s = _run([*py, f"{PKG}.train", cfg], os.path.join(out, "train.log"))
+    eval_s = _run([*py, f"{PKG}.eval", os.path.join(out, "eval_source"), cfg, DATA, "test"],
+                  os.path.join(out, "eval_source.log"))
+    print(json.dumps(dict(_row("source", os.path.join(out, "eval_source"), eval_s),
+                          seed=args.seed, epochs=args.epochs, train_s=train_s)), flush=True)
+
+    tdir = os.path.join(out, "targets")
+    src_efuncs = os.path.join(DATA, "efuncs", "eigenfunctions_cotan_kmax512_skip_first_efuncs.npy")
+    targets_s = _run([*py, f"{PKG}.make_transfer_targets", "--out_dir", tdir, "--src_dataset",
+                      DATA, "--src_efuncs", src_efuncs, "--targets", *args.targets],
+                     os.path.join(out, "targets.log"))
+    print(json.dumps({"make_transfer_targets_s": targets_s, "targets": args.targets}), flush=True)
+    for name in args.targets:
+        views = os.path.join(tdir, "deformed_views") if name == "deformed" else DATA
+        eval_dir = os.path.join(out, f"transfer_{name}")
+        seconds = _run([*py, f"{PKG}.texture_transfer", "--config_path", cfg, "--target_mesh",
+                        os.path.join(tdir, f"{name}.obj"), "--source_efuncs_full",
+                        os.path.join(tdir, "source_efuncs_full.npy"), "--target_efuncs_full",
+                        os.path.join(tdir, f"efuncs_full_{name}.npy"), "--correspondence",
+                        os.path.join(tdir, f"corr_{name}.npy"), "--eval_dataset", views,
+                        "--eval_split", "test", "--out_dir", eval_dir],
+                       os.path.join(out, f"transfer_{name}.log"))
+        print(json.dumps(_row(name, eval_dir, seconds)), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
