@@ -122,8 +122,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       frames of 1280x720 written) and the render loop alone; render_view at
       640x360 of the HQ and the view-dependent leg's models, each within one
       8-bit step of a direct render of the same camera;
+  (r) families: configs/synthetic/{xyz_blob,tf_rff_blob}.yaml through the
+      Trainer on the HQ pipeline's caches (full width, 5 epochs, f32
+      embedded tables at k_in 3 and 515, fused_mlp, blocks), counters set
+      to 0 just before and read just after (one fwd_bwd and one wgrad_adam
+      per step, one graph replay per epoch, no eager step): the card's
+      embedded rows against the CPU's, loss falls, resume equal to the bit,
+      the eval CLI's test PSNR, kernel vs plain renders (equal masks,
+      >= 50 dB), rays/s beside the HQ leg's; hks_blob.yaml for 2 epochs
+      through the eager step (the standalone Adam once per step); an FF
+      field (10 log bands, 63 columns); a seeded view-dependent xyz field's
+      renders through fused_mlp_fwd_viewdep at k_in 3 against the plain
+      twin's; eval_on_mesh of the xyz field on
+      the transfer phase's coarse target; then the forward kernel against
+      its twin on each field's encoded hit rows and the train kernels on
+      each recipe's trained weights and f32 table, with (g)'s gates;
   (j) profile: torch.profiler over 4 pipelined render frames and one
-      epoch of each train leg (HQ, train throughput, view-dependent), whose
+      epoch of each train leg (HQ, train throughput, view-dependent, xyz,
+      tf_rff), whose
       port kernels, counted by name in the trace, must be exactly one
       fwd_bwd and one wgrad with Adam per step; before it an unprofiled
       epoch, CUDA events around its graph replay, against its wall time;
@@ -142,6 +158,7 @@ import time
 
 import numpy as np
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-3            # kernel vs plain twin, max abs error
 # The view-dependent forward on trained weights: a one-bf16-step flip of a
 # directional hidden value (the kernel and its twin sum the same bf16
@@ -219,7 +236,7 @@ REDESIGNED = ("fused_mlp_fwd_bwd", "fused_mlp_fwd_bwd_viewdep", "bitonic_argsort
 # feature tile fits in shared memory (k_w <= 512 here), else 64-row CTAs.
 # wgrad: one cluster of min(8, B/64) CTAs per 128-row gradient tile, 256
 # threads, a 3-stage ring of 32 KB chunks.
-FWD_ROWS = {512: 128, 1023: 64}
+FWD_ROWS = {512: 128, 1023: 64, 3: 128, 515: 128, 63: 128}
 WGRAD_SMEM = 3 * 32768
 # configs/synthetic/viewdep_intrinsic_blob.yaml's view_dependence section
 VIEWDEP = {"bottleneck_vec_dim": 128, "include_view_dir": True, "embed_size": 4,
@@ -317,15 +334,19 @@ def phase_device():
 
 def _feature_batches(renderer, cams, K, B_full, B_ragged):
     """The features the render path feeds the MLP: the hit rays'
-    interpolated rows of the renderer's feature table, view after view."""
+    interpolated rows of the renderer's feature table, view after view,
+    encoded by the model's encoder for an xyz / ff / rff field."""
     import torch
 
     from intrinsic_neural_fields_tpu_torch.ops.interpolate import interpolate_vertex_features
 
+    encode = renderer.field.encode or (lambda x: x)
     xs, n = [], 0
     for cam in cams:
         vids, bary, valid = renderer.trace_view(cam, K)[:3]
-        xs.append(interpolate_vertex_features(renderer.features, vids[valid], bary[valid]))
+        with torch.no_grad():
+            xs.append(encode(interpolate_vertex_features(renderer.features, vids[valid],
+                                                         bary[valid])))
         n += xs[-1].shape[0]
         if n >= B_full:
             break
@@ -377,6 +398,17 @@ def check_fwd_launch(launch, k, B, name):
           and launch["ctas"] == 2 * -(-B // rows) and launch["x_resident"] == 1,
           f"{name} (k={k}, B={B}) does not launch 2-CTA clusters of {rows}-row CTAs "
           f"with a resident feature tile: {launch}")
+
+
+def wgrad_tiles(layout):
+    """wgrad's 128-row gradient tiles: the head, one per h-matrix, and the
+    table rows of the input and skip matrices (k_w) in 128-row tiles."""
+    tiles = 1
+    for lay in layout.layers:
+        tiles += 0 if lay.h is None else 1
+        if lay.ext is not None:
+            tiles += -(-(layout.spec.k_w if lay.ext[3] == "x" else layout.tail.venc_w) // 128)
+    return tiles
 
 
 def check_wgrad_launch(launch, tiles, B, name):
@@ -953,6 +985,7 @@ def phase_hq_train(p):
     check(len(test_metrics) == 2 and np.isfinite(test_psnr), f"bad test eval {test_metrics}")
 
     rays = rec.values("Train Rays-per-sec")
+    p["hq_train_rays_per_s"] = (max(rays), float(np.median(rays)))
     emit("hq_train", n_train=n_rays["train"], n_val=n_rays["val"], n_test=n_rays["test"],
          test_psnr_eval_cli=test_psnr, steps_per_epoch=nb, setup_s=setup_s, path_s=path_s,
          epochs=5,
@@ -1218,10 +1251,10 @@ def phase_train_kernels(legs):
                                                                   sums)}
         check(mx <= WGRAD_TOL, f"{leg}: wgrad disagrees with its plain twin {wg}")
         check(wg["bit_equal_across_launches"], f"{leg}: two wgrad launches differ")
-        check_wgrad_launch(wg["launch"], {512: 13, 1023: 21}[spec.k_in], B, f"{leg}: wgrad")
+        check_wgrad_launch(wg["launch"], wgrad_tiles(layout), B, f"{leg}: wgrad")
         wa = _wgrad_adam_check(F, layout, table, x, B, sc, grads, sums, bsum, params)
         check(wa["bit_equal"], f"{leg}: wgrad_adam differs from the Adam twin on its gradients")
-        check_wgrad_launch(wa["launch"], {512: 13, 1023: 21}[spec.k_in], B, f"{leg}: wgrad_adam")
+        check_wgrad_launch(wa["launch"], wgrad_tiles(layout), B, f"{leg}: wgrad_adam")
 
         # the two together vs the whole plain twin: L1 (reported) and the
         # forward's VJP (gated), the backward of fused_apply_trainable
@@ -1299,8 +1332,9 @@ def phase_train_kernels(legs):
         A = sc.acts.view(L - 1, B, H)
         D = sc.deltas[:(L - 1) * B * H].view(L - 1, B, H)
         Dout = sc.deltas[(L - 1) * B * H:].view(B, F.OUT_PAD)
-        pairs = [(x if i == 0 else A[i - 1], D[i]) for i in range(L - 1)]
-        pairs += [(x, D[spec.skip_idx]), (A[L - 2], Dout)]
+        xl = x.to(torch.bfloat16)  # an f32 table's rows as the kernel rounds them
+        pairs = [(xl if i == 0 else A[i - 1], D[i]) for i in range(L - 1)]
+        pairs += [(xl, D[spec.skip_idx]), (A[L - 2], Dout)]
 
         def wgrad_library():  # torch.matmul per weight matrix, bf16 in, f32 accumulate
             for a, d in pairs:
@@ -1572,7 +1606,7 @@ def phase_viewdep_kernels(vd_leg, vd_render):
     for v in views:
         t = renderer.trace_view(v["camCv2world"], v["K"])
         xs.append(interpolate_vertex_features(renderer.features, t.vids[t.valid], t.bary[t.valid]))
-        vs.append(renderer._view_fn(t.dirs[t.valid], t.face_idxs[t.valid]))
+        vs.append(renderer.field.view_fn(t.dirs[t.valid], t.face_idxs[t.valid]))
         n += xs[-1].shape[0]
     check(n >= 8192, f"only {n} hit rays in the val views")
     X, V = torch.cat(xs), torch.cat(vs)
@@ -2140,6 +2174,295 @@ def phase_video(p):
         {"render_view": views["viewdep"]["launches"]}
 
 
+# ------------------------------------------------------------------ families
+
+# The pre-embed recipes (configs/synthetic/<name>.yaml) and the FF field the
+# smoke checks at its width (no shipped recipe: 10 log bands, 63 columns).
+FAMILY_RECIPES = ("xyz_blob", "tf_rff_blob")
+FF_FIELD = {"feature_strategy": "ff", "k": 10, "use_logspace": True, **HQ}
+
+
+def _family_config(p, recipe, out_name, epochs):
+    """configs/synthetic/<recipe>.yaml on the hq_pipeline's files: its model
+    and training sections (no precompute_dtype, so f32 tables), cut to
+    `epochs` epochs, checkpoints every 3 epochs, no vis views."""
+    import yaml
+
+    with open(os.path.join(REPO, "configs", "synthetic", f"{recipe}.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    data = {
+        "preproc_data_path_train": os.path.join(p["pre"], "train"),
+        "preproc_data_path_eval": os.path.join(p["pre"], "val"),
+        "preproc_data_path_test": os.path.join(p["pre"], "test"),
+        "eigenfunctions_path": p["efuncs_path"], "mesh_path": p["mesh_path"],
+        "img_height": 256, "img_width": 256,
+        "eval_render_input_paths": [], "eval_render_img_names": [],
+    }
+    if "embed_strategy" in cfg["data"]:
+        data["embed_strategy"] = cfg["data"]["embed_strategy"]
+        data["eigenvalues_path"] = p["efuncs_path"].replace("eigenfunctions_", "eigenvalues_")
+    cfg["data"] = data
+    cfg["training"].update(out_dir=os.path.join(p["root"], out_name), epochs=epochs,
+                           checkpoint_every=3, render_every=100, print_every=1)
+    return cfg
+
+
+def _embedding_vs_cpu(trainer, raw, n=1 << 16):
+    """The card's embedded rows of the first n train hits against the same
+    encoding on the CPU: (max |d|, gate). The interpolation and the phase
+    sums are the same elementwise f32 operations on both; cos and sin may
+    differ in the last bits, gated at two ulps of the largest phase (an
+    RFF phase ulp; 2.4e-7 for xyz)."""
+    import copy
+
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch.models.texture_field import input_encoder_apply
+    from intrinsic_neural_fields_tpu_torch.ops.interpolate import interpolate_vertex_features
+
+    model = copy.deepcopy(trainer.model).cpu()
+    sl = slice(0, n)
+    with torch.no_grad():
+        pos = interpolate_vertex_features(raw.features.cpu(), raw.vertex_idxs_of_hit_faces[sl].cpu(),
+                                          raw.barycentric_coords[sl].cpu())
+        phase = 1.0
+        if model.input_feature_embed == "rff":
+            B = model.embedding.B.double()
+            phase = ((2 * np.pi * pos.double()) @ B).abs().max().item()
+        want = input_encoder_apply(model)(pos)
+    got = trainer.train_data.hit_features[sl].cpu()
+    return (got - want).abs().max().item(), 2 * float(np.spacing(np.float32(phase)))
+
+
+def _family_leg(p, recipe, mesh, test_views, hq_rays):
+    """One pre-embed recipe through the port's Trainer on the card, counters
+    set to 0 just before and read just after; resume; the embedding against
+    the CPU; the eval CLI; kernel vs plain renders."""
+    import pickle
+    import shutil
+
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import eval as eval_cli
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.render.renderer import make_renderer_from_config
+    from intrinsic_neural_fields_tpu_torch.train import (Trainer, get_data, get_model_and_optim,
+                                                         get_renderer)
+    from intrinsic_neural_fields_tpu_torch.train.steps import eager_step
+
+    config = _family_config(p, recipe, recipe, 5)
+    model, opt = get_model_and_optim(config, mesh)
+    renderer = get_renderer(config, model, mesh)
+    t0 = time.perf_counter()
+    data = get_data(config, mesh)
+    rec = Recorder()
+    trainer = Trainer(model, opt, "L1", renderer, data, mesh, config, writer=rec)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(trainer.fused_mlp and trainer.epoch_model is not model,
+          f"{recipe}: the Trainer did not pre-embed the splits")
+    for d in (trainer.train_data, trainer.val_data, trainer.test_data):
+        check(d.hit_features.dtype == torch.float32 and d.hit_features.shape[1] == model.in_dim,
+              f"{recipe}: an embedded table is not f32 at width {model.in_dim}")
+    emb_err, emb_tol = _embedding_vs_cpu(trainer, data["train"])
+    check(emb_err <= emb_tol, f"{recipe}: embedded rows differ from the CPU's by {emb_err}")
+
+    reset_kernel_launches()
+    eager_step.launches = 0
+    t1 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t1
+    launches, eager = kernel_launches(), eager_step.launches
+    B = config["training"]["batch_size"]
+    nb = trainer.train_data.n // B
+    check(launches["fused_mlp_fwd_bwd"] == launches["fused_mlp_wgrad_adam"] == 5 * nb
+          and sum(launches.values()) == 10 * nb and eager == 0,
+          f"{recipe}: not one fwd_bwd and one wgrad_adam per step: {launches}, eager {eager}")
+    graph = _graph_stats(trainer, launches, 5 * nb, 5, ("fused_mlp_fwd_bwd",
+                                                          "fused_mlp_wgrad_adam"))
+    check(graph["host_dispatches_per_epoch"] == 1, f"{recipe}: not one replay per epoch {graph}")
+    losses = rec.values("Train_Loss")
+    check(len(losses) == 5 and losses[-1] < losses[0], f"{recipe}: loss did not fall {losses}")
+    check(all(torch.isfinite(t).all().item() for t in (trainer.state.params, trainer.state.mu,
+                                                       trainer.state.nu)), "non-finite state")
+
+    shutil.copytree(config["training"]["out_dir"], os.path.join(p["root"], recipe + "_resumed"))
+    cfg_r = _family_config(p, recipe, recipe + "_resumed", 5)
+    model_r, opt_r = get_model_and_optim(cfg_r, mesh)
+    resumed = Trainer(model_r, opt_r, "L1", get_renderer(cfg_r, model_r, mesh), get_data(cfg_r, mesh),
+                      mesh, cfg_r, writer=Recorder())
+    resumed.train()
+    for name in ("params", "mu", "nu"):
+        check(torch.equal(getattr(resumed.state, name), getattr(trainer.state, name)),
+              f"{recipe}: resumed {name} differs from the uninterrupted run")
+    check(all(torch.equal(resumed.state.buffers[k], v) for k, v in trainer.state.buffers.items()),
+          f"{recipe}: the resumed run's buffers differ")
+
+    cfg_path = _write_config(p["root"], f"{recipe}_config.yaml", config)
+    test_dir = os.path.join(p["root"], f"{recipe}_test_eval")
+    reset_kernel_launches()
+    eval_cli.main([test_dir, cfg_path, p["data"], "test"])
+    torch.cuda.synchronize()
+    eval_launches = kernel_launches()["fused_mlp_fwd"]
+    check(eval_launches > 0, f"{recipe}: the eval CLI did not launch the forward kernel")
+    with open(os.path.join(test_dir, "evaluation_metrics.pkl"), "rb") as f:
+        test_metrics = pickle.load(f)
+    test_psnr = float(np.mean([m["psnr"] for m in test_metrics.values()]))
+    check(np.isfinite(test_psnr), f"{recipe}: bad test eval {test_metrics}")
+    r_k = make_renderer_from_config(config)
+    r_p = make_renderer_from_config(config, infer="plain")
+    psnr_kp = _render_vs_plain(r_k, r_p, test_views)
+    check(psnr_kp >= PSNR_MIN, f"{recipe}: kernel vs plain render {psnr_kp} < {PSNR_MIN} dB")
+    rays = rec.values("Train Rays-per-sec")
+    emit("family_train", recipe=recipe, k_in=model.in_dim, table_dtype="float32",
+         steps_per_epoch=nb, epochs=5, setup_s=setup_s, path_s=path_s, train_loss=losses,
+         val_psnr=rec.values("Val Epoch-PSNR"), test_psnr_eval_cli=test_psnr,
+         train_rays_per_s_best=max(rays), train_rays_per_s_median=float(np.median(rays)),
+         hq_train_rays_per_s_best=hq_rays[0], hq_train_rays_per_s_median=hq_rays[1],
+         launches=launches, eager_steps=eager, resumed_bit_equal=True, **graph,
+         embedding_max_abs_vs_cpu=emb_err, embedding_tol=emb_tol,
+         psnr_kernel_vs_plain_min=psnr_kp, eval_launches=eval_launches)
+    st = trainer.state
+    leg = (st.layout, st.params.clone(), st.mu.clone(), st.nu.clone(),
+           trainer.train_data.hit_features, trainer.train_data.expected_rgbs)
+    run = (trainer.train_epoch_fn, trainer.state, trainer.train_data, nb, B)
+    return {"train": launches, "eval": eval_launches}, leg, run, (r_k, cfg_path)
+
+
+def _hks_leg(p, mesh):
+    """hks_blob.yaml (HKS features, no fused_mlp) for 2 epochs: the eager
+    step, whose Adam is the standalone kernel, counters set to 0 just
+    before and read just after."""
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.train import (Trainer, get_data, get_model_and_optim,
+                                                         get_renderer)
+    from intrinsic_neural_fields_tpu_torch.train.steps import eager_step
+
+    config = _family_config(p, "hks_blob", "hks_blob", 2)
+    model, opt = get_model_and_optim(config, mesh)
+    data = get_data(config, mesh)
+    rec = Recorder()
+    trainer = Trainer(model, opt, "L1", get_renderer(config, model, mesh), data, mesh, config,
+                      writer=rec)
+    reset_kernel_launches()
+    eager_step.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches, eager = kernel_launches(), eager_step.launches
+    nb = data["train"].n // config["training"]["batch_size"]
+    check(launches["fused_adam"] == eager == 2 * nb and sum(launches.values()) == 2 * nb,
+          f"hks_blob: not one eager step and one Adam launch per step: {launches}, {eager}")
+    losses = rec.values("Train_Loss")
+    check(len(losses) == 2 and losses[1] < losses[0], f"hks_blob: loss did not fall {losses}")
+    rays = rec.values("Train Rays-per-sec")
+    emit("family_train", recipe="hks_blob", k_in=model.in_dim, epochs=2, steps_per_epoch=nb,
+         path_s=path_s, train_loss=losses, val_psnr=rec.values("Val Epoch-PSNR"),
+         train_rays_per_s_best=max(rays), launches=launches, eager_steps=eager)
+    return launches
+
+
+def phase_families(p, hq_rays):
+    """The xyz and tf_rff recipes through the Trainer (pre-embedded, the
+    kernels at k_in 3 and 515 on f32 tables), hks_blob through the eager
+    step, eval_on_mesh of the xyz field on the transfer phase's coarse
+    target; returns each path's launches and the legs the kernel checks
+    take."""
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import eval_on_mesh
+    from intrinsic_neural_fields_tpu_torch.models import make_model
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.render.renderer import Renderer
+
+    mesh = p["mesh"]
+    test_views = _dataset_views(p, "test")
+    paths, train_legs, runs, fwd_legs = {}, {}, {}, {}
+    cams, K = [v["camCv2world"] for v in test_views], test_views[0]["K"]
+    for recipe in FAMILY_RECIPES:
+        launched, leg, run, (r_k, cfg_path) = _family_leg(p, recipe, mesh, test_views, hq_rays)
+        paths[recipe] = launched
+        train_legs[recipe] = leg
+        runs[recipe] = run
+        fwd_legs[recipe] = (r_k, cams, K)
+        if recipe == "xyz_blob":
+            xyz_cfg = cfg_path
+    paths["hks_blob"] = {"train": _hks_leg(p, mesh)}
+    ff = make_model(FF_FIELD, seed=0)
+    fwd_legs["ff_field"] = (Renderer(ff, mesh, None, H=256, W=256), cams, K)
+    paths["viewdep_xyz"], vd_row = _viewdep_xyz_check(mesh, test_views, cams, K)
+
+    coarse = os.path.join(p["root"], "transfer", "coarse.obj")
+    check(os.path.exists(coarse), "the transfer phase's coarse target is missing")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    means = eval_on_mesh.main(["--config_path", xyz_cfg, "--target_mesh", coarse,
+                               "--eval_dataset", p["data"], "--eval_split", "test", "--out_dir",
+                               os.path.join(p["root"], "xyz_on_coarse")])
+    torch.cuda.synchronize()
+    eom_launches = kernel_launches()["fused_mlp_fwd"]
+    check(eom_launches > 0 and np.isfinite(means["psnr"]),
+          f"eval_on_mesh: {eom_launches} forward launches, PSNR {means['psnr']}")
+    emit("eval_on_mesh", field="xyz_blob", target="coarse", psnr=means["psnr"],
+         dssim_rescaled=means["dssim_rescaled"], s=time.perf_counter() - t0,
+         launches=eom_launches)
+    paths["eval_on_mesh"] = {"eval": eom_launches}
+    return paths, train_legs, runs, fwd_legs, vd_row
+
+
+def _viewdep_xyz_check(mesh, test_views, cams, K):
+    """A seeded view-dependent field over xyz (viewdep_intrinsic_blob.yaml's
+    view_dependence section): its renders through fused_mlp_fwd_viewdep
+    at k_in 3 against the plain twin's (equal masks, >= 50 dB), the
+    kernel's launches counted just around the kernel renders; then the
+    kernel against its twin on 8,192 of its encoded hit rows, timed."""
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch.models import make_model
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (fused_apply_viewdep,
+                                                                 fused_apply_viewdep_plain,
+                                                                 kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.ops.interpolate import interpolate_vertex_features
+    from intrinsic_neural_fields_tpu_torch.render.renderer import Renderer
+
+    model = make_model({"feature_strategy": "xyz", **HQ, "view_dependence": VIEWDEP}, seed=0,
+                       mesh=mesh)
+    r_k = Renderer(model, mesh, None, H=256, W=256)
+    r_p = Renderer(model, mesh, None, H=256, W=256, infer="plain")
+    reset_kernel_launches()
+    for v in test_views:
+        r_k.render(v["camCv2world"], v["K"], eval_render=True)
+    torch.cuda.synchronize()
+    launches = kernel_launches()["fused_mlp_fwd_viewdep"]
+    check(launches > 0, "the view-dependent xyz field did not launch fused_mlp_fwd_viewdep")
+    psnr_kp = _render_vs_plain(r_k, r_p, test_views)
+    check(psnr_kp >= PSNR_MIN, f"view-dependent xyz kernel vs plain {psnr_kp} < {PSNR_MIN} dB")
+    vids, bary, valid, _, dirs, faces = r_k.trace_view(cams[0], K)
+    with torch.no_grad():
+        x = r_k.field.encode(interpolate_vertex_features(
+            r_k.features, vids[valid], bary[valid]))[:8192].contiguous()
+        venc = r_k.field.view_fn(dirs[valid], faces[valid])[:8192].contiguous()
+    fw, B = r_k.weights, x.shape[0]
+    check(B == 8192, f"only {B} hit rays in the view")
+    diff = (fused_apply_viewdep(fw, x, venc) - fused_apply_viewdep_plain(fw, x, venc)).abs()
+    check(diff.max().item() <= TOL, f"fused_mlp_fwd_viewdep at k_in 3: {diff.max().item()}")
+    bound, bound_by = mlp_bound_ms(fw, B)
+    row = {"k": 3, "B": B, "max_abs_err": diff.max().item(),
+           "ms": cuda_ms(lambda: fused_apply_viewdep(fw, x, venc)),
+           "plain_ms": cuda_ms(lambda: fused_apply_viewdep_plain(fw, x, venc)),
+           "bound_ms": bound, "bound_by": bound_by}
+    emit("viewdep_xyz", render_launches=launches, psnr_kernel_vs_plain_min=psnr_kp, **row)
+    return {"render": launches}, row
+
+
 def profile_train_epoch(train_leg, leg):
     """Device time by kernel and busy share over one profiled epoch of a
     train leg; the port's kernels the profiler saw, by name, must be exactly
@@ -2285,12 +2608,19 @@ def main():
     user_paths.update(timed("bake", lambda: phase_bake(pipe)))
     video_paths, vd_view_paths = timed("video", lambda: phase_video(pipe))
     user_paths.update(video_paths)
+    # the input families: each recipe's path with its counters set to 0 just
+    # before and read just after; then its kernels against their twins
+    fam_paths, fam_train_legs, fam_runs, fam_fwd_legs, vd_xyz = timed(
+        "families", lambda: phase_families(pipe, pipe["hq_train_rays_per_s"]))
+    frows = timed("family_kernels", lambda: phase_kernels(fam_fwd_legs))
+    ftrows = timed("family_train_kernels", lambda: phase_train_kernels(fam_train_legs))
     # Last: the profiler's hooks may slow host-bound torch code run after it.
     r, cams, K = tp_leg
     timed("profile", lambda: (profile_frames(r, cams[:4], K),
                               profile_train_epoch(hq_run, "hq_train"),
                               profile_train_epoch(tput_run, "train_throughput"),
-                              profile_train_epoch(vd_run, "viewdep_train")))
+                              profile_train_epoch(vd_run, "viewdep_train"),
+                              *(profile_train_epoch(fam_runs[f], f) for f in FAMILY_RECIPES)))
     check(not any(m.startswith(("jax", "flax", "optax", "intrinsic_neural_fields_tpu."))
                   or m in ("jax", "intrinsic_neural_fields_tpu") for m in sys.modules),
           "the port imported JAX or the JAX package")
@@ -2303,8 +2633,13 @@ def main():
         "replaces": ref + "1278",
         "launches": train_launches["fused_mlp_fwd"],
         "launches_by_path": {"hq_eval": eval_launches,
-                             "hq_train": train_launches["fused_mlp_fwd"], **user_paths},
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+                             "hq_train": train_launches["fused_mlp_fwd"], **user_paths,
+                             **{f"{f}_eval": fam_paths[f]["eval"] for f in FAMILY_RECIPES},
+                             "eval_on_mesh": fam_paths["eval_on_mesh"]["eval"]},
+        "max_abs_err": max(r["max_abs_err"] for r in rows + frows),
+        "families": {f'{r["leg"]}_B{r["B"]}': {k: r[k] for k in (
+            "k", "B", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            for r in frows},
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the whole MLP
@@ -2325,10 +2660,20 @@ def main():
             "name": name, "route": "cuda", "source": pkg + src, "replaces": ref + site,
             "also_replaces": [ref + a for a in also],
             "launches": off_main.get(name, train_launches)[name],
-            "max_abs_err": max(trows[leg][name]["max_abs_err"] for leg in trows),
+            "max_abs_err": max(rs[leg][name]["max_abs_err"] for rs in (trows, ftrows)
+                               for leg in rs),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            # the xyz and tf_rff recipes' shapes: k_in 3 and 515, f32 tables
+            "families": {leg: {"k": fam_train_legs[leg][0].spec.k_in,
+                               **{k: ftrows[leg][name][k] for k in (
+                                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "max_abs_err")}} for leg in ftrows},
         })
+        if name in ("fused_mlp_fwd_bwd", "fused_mlp_wgrad_adam"):
+            kernels[-1]["launches_by_path"] = {
+                "hq_train": train_launches[name],
+                **{f: fam_paths[f]["train"][name] for f in FAMILY_RECIPES}}
         if "fused_step_bound_ms" in main:
             kernels[-1]["fused_step_bound_ms"] = main["fused_step_bound_ms"]
         if name in REDESIGNED:
@@ -2338,7 +2683,8 @@ def main():
     kernels[-1]["launches_by_path"] = {
         "hq_train": train_launches["fused_adam"], "viewdep_train": vd_launches["fused_adam"],
         "hq_train_fused_adam_false": yard_launches["fused_adam"],
-        "viewdep_train_fused_adam_false": vd_yard_launches["fused_adam"]}
+        "viewdep_train_fused_adam_false": vd_yard_launches["fused_adam"],
+        "hks_blob": fam_paths["hks_blob"]["train"]["fused_adam"]}
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      vrows["fused_adam"]["max_abs_err"])
     kernels[-1]["viewdep"] = {k: vrows["fused_adam"][k] for k in
@@ -2368,7 +2714,11 @@ def main():
         if name == "fused_mlp_wgrad_viewdep":
             kernels[-1]["launches_path"] = "viewdep_train with training.fused_adam: false"
         if name == "fused_mlp_fwd_viewdep":
-            kernels[-1]["launches_by_path"] = {"viewdep_train": launched, **vd_view_paths}
+            kernels[-1]["launches_by_path"] = {"viewdep_train": launched, **vd_view_paths,
+                                               "viewdep_xyz_render":
+                                                   fam_paths["viewdep_xyz"]["render"]}
+            kernels[-1]["families"] = {"viewdep_xyz_B8192": vd_xyz}
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], vd_xyz["max_abs_err"])
     # the sort: the 512^2 render leg's entry sort (2^18 padded) is the main
     # row; launches are the bitonic_vmem trace's (calls; CUDA launches beside)
     main = srows["render512_entry"]

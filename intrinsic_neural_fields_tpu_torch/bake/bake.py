@@ -152,55 +152,51 @@ def _field_rgbs(mesh, config, vids, bary, chunk=_CHUNK, device="cuda", infer=Non
     """Evaluate the trained field (<training.out_dir>/model.pt, reference
     layout) at surface points given by (face vertex ids [n,3], barycentric
     coords [n,3]): `chunk` points per feature interpolation and fused MLP
-    call, on an f32 feature table (the JAX bake's). infer: "kernel" (the
-    default on CUDA) or "plain" (the default on the CPU, the kernel's plain
-    twin). Returns [n, 3] float32."""
+    call, on an f32 feature table (the JAX bake's, bake/bake.py:140-195):
+    the eigenfunctions, or for xyz / ff / rff the mesh's vertex positions,
+    encoded per chunk by the model's own encoder before the kernel. infer:
+    as for the Renderer (ops/field_infer.py): "kernel" (the default on
+    CUDA) or "plain" (the default on the CPU, the kernel's plain twin);
+    unset, a field the kernels do not compute (sine) runs its module's f32
+    forward, as the JAX bake's model.apply does. Returns [n, 3] float32."""
     import torch
 
     from .. import resolve_device
     from ..models.factory import make_model
-    from ..ops.fused_mlp import fused_apply, fused_apply_plain, layout_for_model
+    from ..ops.field_infer import FieldInfer
     from ..ops.interpolate import interpolate_vertex_features
     from ..spectral.features import load_first_k_eigenfunctions
     from ..utils.weights import load_reference_weights
 
     dev = resolve_device(device)
-    if infer is None:
-        infer = "kernel" if dev.type == "cuda" else "plain"
-    if infer not in ("kernel", "plain") or (infer == "kernel" and dev.type != "cuda"):
-        raise ValueError(f"infer={infer!r} on {dev}: 'kernel' needs CUDA, else 'plain'")
     feature_strategy = config["model"].get("feature_strategy", "efuncs")
     if config["model"].get("view_dependence") is not None:
         raise NotImplementedError("Texture baking does not support view dependence.")
-    if feature_strategy in ("xyz", "ff", "rff"):
-        raise NotImplementedError(
-            f"feature_strategy {feature_strategy!r}: the pre-embed families are not ported "
-            "yet (ROADMAP queue 1 item 4)")
-    if feature_strategy != "efuncs":
+    if feature_strategy == "efuncs":
+        features = load_first_k_eigenfunctions(
+            config["data"]["eigenfunctions_path"],
+            config["model"].get("k"),
+            rescale_strategy=config["data"].get("rescale_strategy", "standard"),
+            embed_strategy=config["data"].get("embed_strategy"),
+            eigenvalues_path=config["data"].get("eigenvalues_path"),
+            ts=config["model"].get("hks_timesteps", 128),
+        )
+    elif feature_strategy in ("xyz", "ff", "rff"):
+        features = mesh.vertices
+    else:
         raise ValueError(f"Unknown feature strategy: {feature_strategy}")
-
-    features = load_first_k_eigenfunctions(
-        config["data"]["eigenfunctions_path"],
-        config["model"].get("k"),
-        rescale_strategy=config["data"].get("rescale_strategy", "standard"),
-        embed_strategy=config["data"].get("embed_strategy"),
-        eigenvalues_path=config["data"].get("eigenvalues_path"),
-        ts=config["model"].get("hks_timesteps", 128),
-    )
     model = make_model(config["model"], device=dev, mesh=mesh)
-    layout = layout_for_model(model)
-    state_dict = load_reference_weights(os.path.join(config["training"]["out_dir"], "model.pt"))
-    fw = layout.pack(layout.flat_from_state_dict(state_dict, dev))
-    apply = fused_apply if infer == "kernel" else fused_apply_plain
+    model.load_state_dict(
+        load_reference_weights(os.path.join(config["training"]["out_dir"], "model.pt")))
+    field = FieldInfer(model, dev, infer)
 
     E = torch.as_tensor(np.asarray(features, np.float32), device=dev)
     vids_d = torch.as_tensor(np.asarray(vids, np.int64), device=dev)
     bary_d = torch.as_tensor(np.asarray(bary, np.float32), device=dev)
     out = torch.empty((vids_d.shape[0], 3), dtype=torch.float32, device=dev)
-    with torch.no_grad():
-        for s in range(0, vids_d.shape[0], chunk):
-            sl = slice(s, s + chunk)
-            out[sl] = apply(fw, interpolate_vertex_features(E, vids_d[sl], bary_d[sl]))
+    for s in range(0, vids_d.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        out[sl] = field(interpolate_vertex_features(E, vids_d[sl], bary_d[sl]))
     return out.cpu().numpy()
 
 

@@ -7,6 +7,12 @@ contiguous blocks are uniform samples, the precondition of the streaming
 interpolates the features at every hit once (``precompute_hit_features``):
 the training loop then reads one row per sample, or streams contiguous
 batches straight out of the table.
+
+The xyz / ff / rff families take the mesh's f32 vertex positions as the
+per-vertex table (JAX data/sampler.py:214-227), and their batches carry
+the interpolated position under "xyz". ``pre_embed_ray_data`` replaces a
+split's table by the model's encoding of every hit (JAX :142-180), which
+the train kernels then stream like eigenfunction rows.
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ PRECOMPUTE_BYTES_LIMIT = 6 << 30
 class RayData:
     """All ray-hit supervision records, on one device."""
 
-    features: torch.Tensor                  # [V,k] eigenfeatures
-    feature_strategy: str                   # "efuncs"
+    features: torch.Tensor                  # [V,k] eigenfeatures or [V,3] vertices
+    feature_strategy: str                   # "efuncs" | "xyz" | "ff" | "rff"
     vertex_idxs_of_hit_faces: torch.Tensor  # [N,3] int64
     barycentric_coords: torch.Tensor        # [N,3] f32
     expected_rgbs: torch.Tensor             # [N,3] f32
@@ -91,24 +97,63 @@ def precompute_hit_vencs(view_encoder, data, venc_w, chunk=1 << 16, dtype=None):
     return replace(data, hit_vencs=table)
 
 
+@torch.no_grad()
+def pre_embed_ray_data(encoder, data, chunk=1 << 16, dtype=None):
+    """RayData whose hit_features hold the model's embedded MLP input, one
+    row per cached hit: encoder(interpolated position), in chunks on the
+    data's device, stored as `dtype` (None: f32). encoder:
+    models.input_encoder_apply(model).
+
+    The position is interpolated from the f32 vertex table (never from a
+    bf16 precomputed table), so the encoding sees full precision. The
+    result reports feature_strategy "efuncs" (its rows feed the MLP as
+    they are, under the "eigenfunctions" batch key, as the model's
+    mlp_core_view takes them) and a [1, emb_dim] zero placeholder as its
+    per-vertex table: its width is the kernels' k_in, and interpolating a
+    nonlinear encoding per vertex would be wrong."""
+    if data.feature_strategy not in ("xyz", "ff", "rff") or data.features.shape[1] != 3:
+        raise ValueError(f"pre-embedding needs a [V, 3] vertex table of an xyz/ff/rff split, "
+                         f"got {data.feature_strategy!r} {tuple(data.features.shape)}")
+    dtype = torch.float32 if dtype is None else dtype
+    verts = data.features.to(torch.float32)
+    table = None
+    for s in range(0, data.n, chunk):
+        emb = encoder(interpolate_vertex_features(
+            verts, data.vertex_idxs_of_hit_faces[s:s + chunk],
+            data.barycentric_coords[s:s + chunk]))
+        if table is None:
+            table = torch.empty((data.n, emb.shape[1]), dtype=dtype, device=verts.device)
+        table[s:s + chunk] = emb.to(dtype)
+    if table is None:
+        raise ValueError("pre-embedding an empty split")
+    return replace(data, features=torch.zeros((1, table.shape[1]), dtype=torch.float32,
+                                              device=verts.device),
+                   feature_strategy="efuncs", hit_features=table)
+
+
 def create_ray_data(preproc_data_path, eigenfunctions_path, k, feature_strategy="efuncs",
                     mesh=None, rescale_strategy="standard", embed_strategy=None,
                     eigenvalues_path=None, hks_timesteps=128, precompute="auto",
                     precompute_dtype=None, shuffle_once=True, seed=0, perm=None,
                     device="cuda"):
     """RayData for one split of a 5-npy ray cache (reference
-    ray_dataloader.py:7-54).
+    ray_dataloader.py:7-54). The per-vertex table is the eigenfunctions
+    for "efuncs", the mesh's f32 vertex positions for "xyz", "ff", "rff".
 
     shuffle_once: permute the records once, by `perm` when given (an [N]
     index array, e.g. a replayed ``jax.random.permutation``), else by
     ``torch.randperm`` from a generator seeded with `seed`."""
     dev = resolve_device(device)
-    if feature_strategy != "efuncs":
-        raise NotImplementedError(
-            f"feature_strategy {feature_strategy!r} is not ported yet (efuncs only)")
-    features = load_first_k_eigenfunctions(
-        eigenfunctions_path, k, rescale_strategy=rescale_strategy,
-        embed_strategy=embed_strategy, eigenvalues_path=eigenvalues_path, ts=hks_timesteps)
+    if feature_strategy == "efuncs":
+        features = load_first_k_eigenfunctions(
+            eigenfunctions_path, k, rescale_strategy=rescale_strategy,
+            embed_strategy=embed_strategy, eigenvalues_path=eigenvalues_path, ts=hks_timesteps)
+    elif feature_strategy in ("xyz", "ff", "rff"):
+        if mesh is None:
+            raise ValueError(f"feature_strategy {feature_strategy!r} needs the mesh")
+        features = np.asarray(mesh.vertices, dtype=np.float32)
+    else:
+        raise ValueError(f"Unknown input feature strategy: {feature_strategy}")
     raw = load_preprocessed_data(preproc_data_path)
     n = raw["vertex_idxs_of_hit_faces"].shape[0]
     order = None
@@ -149,14 +194,21 @@ def num_train_batches(n, batch_size, drop_last=True):
     return n // batch_size if drop_last else -(-n // batch_size)
 
 
+def feature_key(data):
+    """The batch key of a split's features: "eigenfunctions", or "xyz" for
+    the position families (JAX data/sampler.py:_feature_key)."""
+    return "eigenfunctions" if data.feature_strategy == "efuncs" else "xyz"
+
+
 def gather_batch(data, idx):
     """Batch dict for the index tensor `idx` (on the data's device): one row
     gather of the precomputed table, or three vertex rows interpolated."""
     batch = {"expected_rgbs": data.expected_rgbs.index_select(0, idx)}
+    key = feature_key(data)
     if data.hit_features is not None:
-        batch["eigenfunctions"] = data.hit_features.index_select(0, idx)
+        batch[key] = data.hit_features.index_select(0, idx)
     else:
-        batch["eigenfunctions"] = interpolate_vertex_features(
+        batch[key] = interpolate_vertex_features(
             data.features, data.vertex_idxs_of_hit_faces.index_select(0, idx),
             data.barycentric_coords.index_select(0, idx))
     if data.unit_ray_dirs is not None:
@@ -173,7 +225,7 @@ def slice_batch(data, start, batch_size):
     if start < 0 or start + batch_size > data.n:
         raise ValueError(f"batch [{start}, {start + batch_size}) outside [0, {data.n})")
     sl = slice(start, start + batch_size)
-    batch = {"expected_rgbs": data.expected_rgbs[sl], "eigenfunctions": data.hit_features[sl]}
+    batch = {"expected_rgbs": data.expected_rgbs[sl], feature_key(data): data.hit_features[sl]}
     if data.unit_ray_dirs is not None:
         batch["unit_ray_dirs"] = data.unit_ray_dirs[sl]
         batch["hit_face_idxs"] = data.face_idxs[sl]

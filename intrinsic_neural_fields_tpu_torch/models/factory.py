@@ -1,10 +1,21 @@
 """Model factory: config dict -> TextureField, or TextureFieldWithViewDependency
-when the config has a ``view_dependence`` section (reference model.py:199-258).
+when the config has a ``view_dependence`` section (reference model.py:199-258;
+JAX package models/factory.py:23-75).
+
+``feature_strategy`` "xyz" / "ff" / "rff" feed the position (raw, or encoded
+by the model's own encoder, width from ``k``, ``embed_include_input``,
+``embed_std``, ``use_logspace`` and ``max_freq``); anything else is the
+intrinsic eigenfunction path. ``activation`` is "relu" or "sine".
 
 Every Linear weight is Xavier-uniform and every bias zero, drawn from a
 seeded torch.Generator in module order (the reference package's init; the
 two frameworks' random streams differ, so equal seeds do not give equal
-weights).
+weights); RFF's B is drawn from a second generator seeded seed + 1, as the
+JAX package draws its buffers from PRNGKey(seed + 1).
+
+``batchnorm: true`` raises: the port's train state is the flat parameters
+in the kernels' padded layout, which has no place for BatchNorm's scale,
+bias and running statistics (ROADMAP queue 1 item 7, with sync-BN).
 """
 from __future__ import annotations
 
@@ -12,10 +23,21 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .texture_field import TextureField, TextureFieldWithViewDependency
+from .encoders import fourier_feat_dim
+from .texture_field import ENCODER_FAMILIES, TextureField, TextureFieldWithViewDependency
 
 
 def in_dim_from_config(model_config):
+    """The MLP's input width: 3 for xyz, the encoder's width for ff / rff,
+    hks_timesteps when configured, else k (or len(k) for an index list)."""
+    strategy = model_config.get("feature_strategy", "efuncs")
+    include = model_config.get("embed_include_input", True)
+    if strategy == "xyz":
+        return 3
+    if strategy == "ff":
+        return fourier_feat_dim(3, model_config["k"], include)
+    if strategy == "rff":
+        return 2 * model_config["k"] + (3 if include else 0)
     if "hks_timesteps" in model_config:
         return model_config["hks_timesteps"]
     k = model_config["k"]
@@ -28,17 +50,30 @@ def make_model(model_config, seed=0, device="cuda", mesh=None):
     device). `mesh` supplies the face normals of the intrinsic view
     strategy."""
     dev = resolve_device(device)
-    unsupported = [key for key in ("batchnorm", "type") if model_config.get(key)]
-    strategy = model_config.get("feature_strategy", "efuncs")
-    if unsupported or strategy != "efuncs" or model_config.get("activation", "relu") != "relu":
+    if model_config.get("batchnorm"):
         raise NotImplementedError(
-            "the port covers the efuncs/relu texture fields only "
-            f"(got feature_strategy={strategy!r}, extra keys {unsupported})"
-        )
+            "batchnorm: true is not ported: the train state is the flat parameters in the "
+            "kernels' padded layout, with no place for BatchNorm's scale, bias and running "
+            "statistics (ROADMAP queue 1 item 7, with sync-BN)")
+    if model_config.get("type"):
+        raise NotImplementedError(f"model type {model_config['type']!r} is not ported "
+                                  "(NeuTex: ROADMAP queue 1 item 6)")
+    strategy = model_config.get("feature_strategy", "efuncs")
+    activation = model_config.get("activation", "relu")
+    if activation not in ("relu", "sine"):
+        raise NotImplementedError(f"Activation function {activation} not implemented.")
     common = dict(in_dim=in_dim_from_config(model_config),
                   num_layers=model_config["num_layers"],
                   hidden_dim=model_config["mlp_hidden_dim"],
-                  skip_layer_idx=model_config["skip_layer_idx"])
+                  skip_layer_idx=model_config["skip_layer_idx"],
+                  input_feature_embed=strategy if strategy in ENCODER_FAMILIES else None,
+                  embed_dim=model_config.get("k"),
+                  embed_include_input=model_config.get("embed_include_input", True),
+                  embed_std=model_config.get("embed_std", 1.0),
+                  embed_use_logspace=model_config.get("use_logspace", True),
+                  embed_max_freq=model_config.get("max_freq"),
+                  activation=activation,
+                  generator=torch.Generator().manual_seed(seed + 1))
     vd = model_config.get("view_dependence")
     if vd is None:
         model = TextureField(**common)

@@ -1,16 +1,29 @@
-"""The texture fields as nn.Modules (efuncs input, relu, one input skip).
+"""The texture fields as nn.Modules (JAX package models/texture_field.py:35-170).
 
 TextureField: the skip-MLP with a sigmoid RGB head, or a relu feature head
-(``return_rgb=False``, the bottleneck of the view-dependent family).
+(``return_rgb=False``, the bottleneck of the view-dependent family), fed by
+one of four inputs: eigenfunction features (``input_feature_embed=None``,
+the intrinsic path), the raw hit position ("xyz"), or its Fourier ("ff")
+or random Fourier ("rff") encoding, computed by the module itself from the
+position (the encoder is registered as ``embedding``); the hidden layers
+use ``activation`` "relu" or "sine".
 TextureFieldWithViewDependency: a TextureField producing a bottleneck
 vector, concatenated with an encoded view direction and fed through a
 small directional MLP (reference model.py:123-191).
+
+The input encodings are fixed functions of the position (the RFF
+projection is a buffer), so ``input_encoder_apply`` evaluates them outside
+the network and ``mlp_core_view`` is the same network over pre-embedded
+rows: the renderer encodes each chunk before the forward kernel, and the
+Trainer embeds every cached hit once so the train kernels stream the rows
+(JAX ``input_encoder_apply`` / ``mlp_core_view``, :118-170).
 
 State-dict keys are the upstream torch implementation's, so its model.pt
 files (and the reference package's exports) load directly:
   layers.{i}.0.{weight,bias}       Linear of a plain layer (and the head)
   layers.{skip}.Lx / .Ly           skip layer: Lx on h, Ly on the input
   spatial_mlp.layers.* + directional_mlp.{0,2}.*   the view-dependent field
+  embedding.B (spatial_mlp.embedding.B)             the RFF projection
 """
 from __future__ import annotations
 
@@ -18,56 +31,138 @@ import numpy as np
 import torch
 from torch import nn
 
-from .encoders import fourier_feat_dim, fourier_feat_enc
+from .encoders import FourierFeatEnc, RandomFourierFeatEnc, fourier_feat_dim, fourier_feat_enc
 
 RGB_COLOR_DIM = 3
+ENCODER_FAMILIES = ("xyz", "ff", "rff")
+
+
+class Sine(nn.Module):
+    def forward(self, x):
+        return torch.sin(x)
+
+
+def _activation_module(name):
+    if name == "relu":
+        return nn.ReLU()
+    if name == "sine":
+        return Sine()
+    raise NotImplementedError(f"Activation function {name} not implemented.")
 
 
 class _SkipLayer(nn.Module):
     """act(Lx(h) + Ly(features))."""
 
-    def __init__(self, hidden, in_dim):
+    def __init__(self, hidden, in_dim, activation="relu"):
         super().__init__()
         self.Lx = nn.Linear(hidden, hidden)
         self.Ly = nn.Linear(in_dim, hidden)
+        self.act = _activation_module(activation)
 
     def forward(self, h, features):
-        return torch.relu(self.Lx(h) + self.Ly(features))
+        return self.act(self.Lx(h) + self.Ly(features))
+
+
+def _make_encoder(input_feature_embed, embed_dim=None, include_input=True, std=1.0,
+                 use_logspace=True, max_freq=None, generator=None):
+    """The encoder module of an input family: FourierFeatEnc ("ff"),
+    RandomFourierFeatEnc ("rff", B drawn from `generator`), or None (raw
+    eigenfunctions or xyz)."""
+    if input_feature_embed == "ff":
+        return FourierFeatEnc(embed_dim, include_input=include_input,
+                              use_logspace=use_logspace, max_freq=max_freq)
+    if input_feature_embed == "rff":
+        return RandomFourierFeatEnc(embed_dim, std=std, include_input=include_input,
+                                    generator=generator)
+    if input_feature_embed in (None, "efuncs", "xyz"):
+        return None
+    raise ValueError(f"Unknown input feature embed: {input_feature_embed}")
 
 
 class TextureField(nn.Module):
-    """MLP texture field with one input skip, full f32."""
+    """MLP texture field with one input skip, full f32.
+
+    in_dim: the MLP's input width (the encoder's output width for "ff" and
+    "rff", 3 for "xyz"). input_feature_embed: None / "efuncs" (features
+    come in as they are), "xyz", "ff" or "rff" (the input is the [N, 3]
+    position); the embed_* arguments configure the encoder as in the JAX
+    TextureField, `generator` draws RFF's B."""
 
     def __init__(self, in_dim, num_layers, hidden_dim, skip_layer_idx,
-                 out_dim=RGB_COLOR_DIM, return_rgb=True):
+                 out_dim=RGB_COLOR_DIM, return_rgb=True, input_feature_embed=None,
+                 embed_dim=None, embed_include_input=True, embed_std=1.0,
+                 embed_use_logspace=True, embed_max_freq=None, activation="relu",
+                 generator=None):
         super().__init__()
         if not (num_layers > 2 and 0 < skip_layer_idx < num_layers - 1):
             raise ValueError(
                 f"need num_layers > 2 and 0 < skip_layer_idx < num_layers-1, "
                 f"got {num_layers}, {skip_layer_idx}"
             )
+        if input_feature_embed == "efuncs":
+            input_feature_embed = None
+        embedding = _make_encoder(input_feature_embed, embed_dim, embed_include_input, embed_std,
+                                 embed_use_logspace, embed_max_freq, generator)
+        want = 3 if input_feature_embed == "xyz" else getattr(embedding, "out_dim", in_dim)
+        if in_dim != want:
+            raise ValueError(f"input {input_feature_embed!r} feeds the MLP {want} columns, "
+                             f"got in_dim={in_dim}")
         self.in_dim = in_dim
         self.num_layers = num_layers
         self.hidden_dim = hidden_dim
         self.skip_layer_idx = skip_layer_idx
         self.out_dim = out_dim
         self.return_rgb = return_rgb
+        self.input_feature_embed = input_feature_embed
+        self.activation = activation
+        if embedding is not None:
+            self.embedding = embedding
         layers = []
         for i in range(num_layers - 1):
             d_in = in_dim if i == 0 else hidden_dim
             if i == skip_layer_idx:
-                layers.append(_SkipLayer(hidden_dim, in_dim))
+                layers.append(_SkipLayer(hidden_dim, in_dim, activation))
             else:
-                layers.append(nn.Sequential(nn.Linear(d_in, hidden_dim), nn.ReLU()))
+                layers.append(nn.Sequential(nn.Linear(d_in, hidden_dim),
+                                            _activation_module(activation)))
         head = nn.Sigmoid() if return_rgb else nn.ReLU()
         layers.append(nn.Sequential(nn.Linear(hidden_dim, out_dim), head))
         self.layers = nn.ModuleList(layers)
 
     def forward(self, features):
-        h = features
+        """features: [N, in_dim] eigenfunction rows, or [N, 3] positions for
+        an encoder family."""
+        encode = input_encoder_apply(self)
+        x = features if encode is None else encode(features)
+        h = x
         for i, layer in enumerate(self.layers):
-            h = layer(h, features) if i == self.skip_layer_idx else layer(h)
+            h = layer(h, x) if i == self.skip_layer_idx else layer(h)
         return h
+
+
+def input_encoder_apply(model):
+    """The fixed [N, 3] position -> MLP input function of a TextureField
+    (the spatial field of a view-dependent one), or None when it takes its
+    features as they are (JAX ``input_encoder_apply``). It reads the
+    model's current buffers when called."""
+    m = getattr(model, "spatial_mlp", model)
+    embed = getattr(m, "input_feature_embed", None)
+    if embed is None:
+        return None
+    if embed == "xyz":
+        return lambda x: x
+    return m.embedding
+
+
+def mlp_core_view(model):
+    """The same TextureField over pre-embedded rows: no encoder, the same
+    Linear modules (shared, so one set of parameters serves both; JAX
+    ``mlp_core_view``). Feed it input_encoder_apply(model)(positions)."""
+    view = TextureField(model.in_dim, model.num_layers, model.hidden_dim,
+                        model.skip_layer_idx, out_dim=model.out_dim,
+                        return_rgb=model.return_rgb, activation=model.activation)
+    view.layers = model.layers
+    return view
 
 
 def calculate_angle_between_vectors(a, b):
@@ -85,11 +180,15 @@ class TextureFieldWithViewDependency(nn.Module):
     view_dir_strategy "intrinsic" encodes the angle between the flipped ray
     and the hit face's normal (face normals are a non-persistent f32 buffer
     from the mesh, so the state dict holds the upstream keys only);
-    "extrinsic" encodes the unit ray direction itself."""
+    "extrinsic" encodes the unit ray direction itself. The spatial field
+    takes `activation` and the input family (``input_feature_embed`` and
+    the embed_* keywords of TextureField, B drawn from `generator`), as in
+    the JAX package; the directional hidden layer takes `activation` too."""
 
     def __init__(self, in_dim, num_layers, hidden_dim, skip_layer_idx, bottleneck_vec_dim,
                  in_dim_view_dir, include_view_dir, view_dir_embedding_size,
-                 directional_hidden_dim, face_normals=None, view_dir_strategy="intrinsic"):
+                 directional_hidden_dim, face_normals=None, view_dir_strategy="intrinsic",
+                 activation="relu", generator=None, **embed):
         super().__init__()
         want = {"intrinsic": 1, "extrinsic": 3}.get(view_dir_strategy)
         if want is None:
@@ -110,10 +209,14 @@ class TextureFieldWithViewDependency(nn.Module):
         self.view_dir_strategy = view_dir_strategy
         self.venc_dim = fourier_feat_dim(in_dim_view_dir, view_dir_embedding_size,
                                          include_view_dir)
+        self.activation = activation
         self.spatial_mlp = TextureField(in_dim, num_layers, hidden_dim, skip_layer_idx,
-                                        out_dim=bottleneck_vec_dim, return_rgb=False)
+                                        out_dim=bottleneck_vec_dim, return_rgb=False,
+                                        activation=activation, generator=generator, **embed)
+        self.input_feature_embed = self.spatial_mlp.input_feature_embed
         self.directional_mlp = nn.Sequential(
-            nn.Linear(bottleneck_vec_dim + self.venc_dim, directional_hidden_dim), nn.ReLU(),
+            nn.Linear(bottleneck_vec_dim + self.venc_dim, directional_hidden_dim),
+            _activation_module(activation),
             nn.Linear(directional_hidden_dim, RGB_COLOR_DIM), nn.Sigmoid())
         normals = None if face_normals is None else torch.as_tensor(
             np.asarray(face_normals, np.float32))

@@ -16,6 +16,17 @@ Meshroom (AliceVision radial-k3) views are traced through undistorted,
 non-integer pixel coordinates: undistorted in f64 on the host, cast to f32
 and uploaded once per (pixel set, K, coefficients), as the JAX package's
 `Renderer._coords_for_view` (render/renderer.py:443-466) does.
+
+The xyz / ff / rff fields take the mesh's f32 vertex positions as their
+per-vertex table (it follows the mesh through set_mesh and
+apply_mesh_transform): each chunk's interpolated positions are encoded by
+the model's own encoder, then run through the forward kernel at the
+embedded width (JAX render/renderer.py:221-262, 283-300), the
+view-dependent kernel for a view-dependent field. How the field runs is
+``ops/field_infer.FieldInfer``'s decision: a field the kernels do not
+compute (a sine field) runs its module's f32 forward when ``infer`` is
+left unset, as the JAX renderer's ``infer="auto"`` takes its XLA path,
+and an explicit ``infer="kernel"`` for it raises.
 """
 from __future__ import annotations
 
@@ -28,14 +39,7 @@ import torch
 
 from .. import resolve_device
 from ..geometry.cameras import DistortionTypes, undistort_pixels_meshroom_radial_k3
-from ..models.texture_field import view_encoder_apply
-from ..ops.fused_mlp import (
-    fused_apply,
-    fused_apply_plain,
-    fused_apply_viewdep,
-    fused_apply_viewdep_plain,
-    layout_for_model,
-)
+from ..ops.field_infer import FieldInfer
 from ..ops.interpolate import interpolate_vertex_features
 from ..ops.morton import face_morton_order, pixel_morton_order
 from ..ops.raster import check_pinhole_K, intersect_coords_pinhole_core
@@ -97,13 +101,15 @@ def make_renderer_from_config(config, weights_path=None, device="cuda", wire_u8=
 
     data, model_cfg = config["data"], config["model"]
     mesh = load_mesh(data["mesh_path"])
-    efuncs = load_first_k_eigenfunctions(
-        data["eigenfunctions_path"], model_cfg.get("k"),
-        rescale_strategy=data.get("rescale_strategy", "standard"),
-        embed_strategy=data.get("embed_strategy"),
-        eigenvalues_path=data.get("eigenvalues_path"),
-        ts=model_cfg.get("hks_timesteps", 128),
-    )
+    efuncs = None
+    if model_cfg.get("feature_strategy", "efuncs") == "efuncs":
+        efuncs = load_first_k_eigenfunctions(
+            data["eigenfunctions_path"], model_cfg.get("k"),
+            rescale_strategy=data.get("rescale_strategy", "standard"),
+            embed_strategy=data.get("embed_strategy"),
+            eigenvalues_path=data.get("eigenvalues_path"),
+            ts=model_cfg.get("hks_timesteps", 128),
+        )
     model = make_model(model_cfg, device=device, mesh=mesh)
     if weights_path is None:
         weights_path = os.path.join(config["training"]["out_dir"], "model.pt")
@@ -118,30 +124,26 @@ def make_renderer_from_config(config, weights_path=None, device="cuda", wire_u8=
 class Renderer:
     """Renders views of a trained texture field (plain or view-dependent)."""
 
-    def __init__(self, model, mesh, eigenfunctions, background="white", *, H, W,
+    def __init__(self, model, mesh, eigenfunctions=None, background="white", *, H, W,
                  feature_dtype=None, wire_u8=False, infer=None, device="cuda"):
         """model: a TextureField or TextureFieldWithViewDependency (its
         weights are packed for the kernel here and on every
-        update_variables). eigenfunctions: [V, k] per-vertex
-        features. feature_dtype: "bfloat16" stores the feature table in bf16
-        (as a precompute_dtype: bfloat16 training run saw it); interpolation
-        stays f32. wire_u8: ship uint8 colors instead of f16 (8-bit sinks).
-        infer: "kernel" (default on CUDA) or "plain" (default on CPU, the
-        kernel's plain torch twin)."""
+        update_variables). eigenfunctions: [V, k] per-vertex features of an
+        eigenfunction field (None for xyz / ff / rff, which read the mesh's
+        vertices). feature_dtype: "bfloat16" stores the eigenfunction table
+        in bf16 (as a precompute_dtype: bfloat16 training run saw it);
+        interpolation stays f32, and positions stay f32. wire_u8: ship uint8
+        colors instead of f16 (8-bit sinks). infer: "kernel" (default on
+        CUDA) or "plain" (default on CPU, the kernel's plain torch twin);
+        unset, a field the kernels do not compute runs its module's f32
+        forward, and an explicit "kernel" or "plain" for it raises
+        (ops/field_infer.py)."""
         self.device = resolve_device(device)
-        if infer is None:
-            infer = "kernel" if self.device.type == "cuda" else "plain"
-        if infer not in ("kernel", "plain"):
-            raise ValueError(f"infer must be 'kernel' or 'plain', got {infer!r}")
-        if infer == "kernel" and self.device.type != "cuda":
-            raise ValueError("infer='kernel' needs a CUDA device")
-        self.layout = layout_for_model(model)
-        self.spec = self.layout.spec
-        self.viewdep = self.layout.tail is not None
-        kernel, plain = ((fused_apply_viewdep, fused_apply_viewdep_plain) if self.viewdep
-                         else (fused_apply, fused_apply_plain))
-        self._apply = kernel if infer == "kernel" else plain
-        self.infer_mode = infer
+        self.field = FieldInfer(model, self.device, infer)
+        self.spec = self.field.layout.spec
+        self.viewdep = self.field.viewdep
+        self.feature_strategy = ("efuncs" if self.field.encode is None
+                                 else getattr(model, "spatial_mlp", model).input_feature_embed)
         self.model = model
         self.mesh = mesh
         self.H, self.W = H, W
@@ -151,8 +153,11 @@ class Renderer:
             torch.bfloat16 if feature_dtype in ("bfloat16", torch.bfloat16)
             else torch.float32
         )
-        self.set_eigenfunctions(eigenfunctions)
-        self.update_variables(model.state_dict())
+        if self.feature_strategy == "efuncs":
+            self.set_eigenfunctions(eigenfunctions)
+        elif eigenfunctions is not None:
+            raise ValueError(f"a {self.feature_strategy} field reads the mesh's vertices, "
+                             "not an eigenfunction table")
         self._pixel_cache = OrderedDict()
         self._coords_cache = OrderedDict()
         self._refresh_geometry()
@@ -175,13 +180,27 @@ class Renderer:
 
     # ------------------------------------------------------------ state
 
+    @property
+    def infer_mode(self):
+        """How the field runs: "kernel", "plain" or "module"
+        (ops/field_infer.py)."""
+        return self.field.mode
+
+    @property
+    def weights(self):
+        """The kernel's packed weights (None in "module" mode)."""
+        return self.field.weights
+
     def update_variables(self, state_dict):
-        """Point the renderer at new weights (the model's state dict);
-        packs them for the kernel once."""
-        self.weights = self.layout.pack(self.layout.flat_from_state_dict(state_dict, self.device))
+        """Point the renderer at new weights (the model's whole state dict,
+        RFF's embedding.B included): see FieldInfer.update_variables."""
+        self.field.update_variables(state_dict)
 
     def set_eigenfunctions(self, eigenfunctions):
         """Swap the per-vertex feature table (same k)."""
+        if self.feature_strategy != "efuncs":
+            raise ValueError(f"a {self.feature_strategy} field reads the mesh's vertices: "
+                             "use set_mesh")
         E = torch.as_tensor(np.asarray(eigenfunctions, np.float32))
         if E.ndim != 2 or E.shape[1] != self.spec.k_in:
             raise ValueError(
@@ -196,9 +215,10 @@ class Renderer:
         if getattr(self.model, "view_dir_strategy", None) == "intrinsic":
             self.model.face_normals = torch.as_tensor(
                 np.asarray(self.mesh.face_normals, np.float32), device=self.device)
-        self._view_fn = view_encoder_apply(self.model) if self.viewdep else None
         self._verts = torch.as_tensor(
             np.asarray(self.mesh.vertices, np.float32), device=self.device)
+        if self.feature_strategy != "efuncs":
+            self.features = self._verts  # positions: f32, whatever feature_dtype says
         # Faces sorted spatially (Morton) so tracer packets stay compact;
         # _face_orig_ids maps a sorted hit id back to the mesh's face id.
         order = face_morton_order(self.mesh.vertices, self.mesh.faces)
@@ -288,11 +308,8 @@ class Renderer:
         for s in range(0, L, _INFER_CHUNK):
             sl = slice(s, s + _INFER_CHUNK)
             feats = interpolate_vertex_features(self.features, vids[sl], bary[sl])
-            if self.viewdep:
-                venc = self._view_fn(dirs[sl], faces[sl]).contiguous()
-                preds[sl] = self._apply(self.weights, feats, venc)
-            else:
-                preds[sl] = self._apply(self.weights, feats)
+            preds[sl] = (self.field(feats, dirs[sl], faces[sl]) if self.viewdep
+                         else self.field(feats))
         # Composite the background on the device: the wire carries one
         # ready-to-scatter array. f16 quantization (~5e-4 in [0,1]) is far
         # below the 8-bit image grid.
@@ -313,8 +330,10 @@ class Renderer:
         return ViewTrace(vids, bary, valid, px.idx_dev, dirs, faces)
 
     def set_mesh(self, mesh):
-        """Render the same field on another mesh (texture transfer): the
-        caller swaps in a feature table for it with set_eigenfunctions."""
+        """Render the same field on another mesh (texture transfer,
+        eval_on_mesh): an eigenfunction field's caller swaps in a feature
+        table for it with set_eigenfunctions; an xyz / ff / rff field reads
+        the new mesh's vertices."""
         self.mesh = mesh
         self._refresh_geometry()
 

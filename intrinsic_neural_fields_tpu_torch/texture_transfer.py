@@ -77,6 +77,10 @@ def build_transferred_renderer(config, target_mesh_path, source_efuncs_full,
     from .render.renderer import make_renderer_from_config
     from .transfer import check_source_basis_matches_trained, map_eigenfunctions_p2p
 
+    strategy = config["model"].get("feature_strategy", "efuncs")
+    if strategy != "efuncs":
+        raise ValueError(f"a {strategy} field has no basis to map: evaluate it on the target "
+                         "with eval_on_mesh")
     k = config["model"]["k"]
     target_mesh = load_mesh(target_mesh_path)
     E_src_full = np.load(source_efuncs_full)

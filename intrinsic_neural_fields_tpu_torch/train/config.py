@@ -8,8 +8,13 @@ Differences from the JAX package's config.py:
   - ``training.fused_interleave`` is read and ignored: on the TPU it split
     a batch tile into independent chains, which only changes the f32
     summation order;
-  - ``training.sorted_gather: true`` and ``training.profile_dir`` raise
-    NotImplementedError (not ported yet);
+  - ``training.sorted_gather`` is read and ignored, for the same reason:
+    on the TPU it sorted each full-shuffle batch's rows for gather
+    locality, which changes only the f32 summation order, and it lost
+    there at the widths the configs use (JAX train/steps.py:279-288);
+  - ``training.profile_dir`` (with ``profile_epoch``, default 1) writes a
+    torch.profiler trace of that epoch where the JAX Trainer writes a
+    jax.profiler trace;
   - there is no ``--num_devices``: one GPU.
 """
 from __future__ import annotations
@@ -66,22 +71,13 @@ def get_seed(config):
     return config.get("seed", 0)
 
 
-def check_training_config(config):
-    """Raise on training options the port does not have yet."""
-    training = config["training"]
-    if training.get("sorted_gather", False):
-        raise NotImplementedError("training.sorted_gather is not ported yet")
-    if training.get("profile_dir") is not None:
-        raise NotImplementedError("training.profile_dir is not ported yet")
-    # training.fused_interleave: a TPU schedule knob, ignored (see above)
-
-
-def _make_split_data(config, split_key, device):
+def _make_split_data(config, mesh, split_key, device):
     return create_ray_data(
         config["data"][split_key],
         config["data"].get("eigenfunctions_path"),
         config["model"].get("k"),
         config["model"].get("feature_strategy", "efuncs"),
+        mesh=mesh,
         rescale_strategy=config["data"].get("rescale_strategy", "standard"),
         embed_strategy=config["data"].get("embed_strategy"),
         eigenvalues_path=config["data"].get("eigenvalues_path"),
@@ -94,14 +90,20 @@ def _make_split_data(config, split_key, device):
 
 
 def get_data(config, mesh=None, device="cuda"):
-    """RayData per split on `device` (reference config.py:56-99); `mesh`
-    is unused by the efuncs strategy and kept for the reference signature."""
+    """RayData per split on `device` (reference config.py:56-99). The
+    xyz / ff / rff strategies take the mesh's vertex positions as their
+    table (loaded from data.mesh_path when `mesh` is None)."""
+    strategy = config["model"].get("feature_strategy", "efuncs")
+    if mesh is None and strategy != "efuncs":
+        from ..geometry.mesh import load_mesh
+
+        mesh = load_mesh(config["data"]["mesh_path"])
     data = {
-        "train": _make_split_data(config, "preproc_data_path_train", device),
-        "val": _make_split_data(config, "preproc_data_path_eval", device),
+        "train": _make_split_data(config, mesh, "preproc_data_path_train", device),
+        "val": _make_split_data(config, mesh, "preproc_data_path_eval", device),
     }
     if "preproc_data_path_test" in config["data"]:
-        data["test"] = _make_split_data(config, "preproc_data_path_test", device)
+        data["test"] = _make_split_data(config, mesh, "preproc_data_path_test", device)
     return data
 
 
@@ -113,11 +115,16 @@ def get_model_and_optim(config, mesh=None, device="cuda"):
 
 
 def get_renderer(config, model, mesh, device="cuda"):
+    """The Trainer's vis renderer (JAX train/config.py:137-165): the
+    eigenfunction table, or for xyz / ff / rff the mesh's vertices."""
     from ..render.renderer import Renderer
 
     feature_strategy = config["model"].get("feature_strategy", "efuncs")
+    if feature_strategy in ("xyz", "ff", "rff"):
+        return Renderer(model, mesh, None, H=config["data"]["img_height"],
+                        W=config["data"]["img_width"], device=device)
     if feature_strategy != "efuncs":
-        raise NotImplementedError(f"feature_strategy {feature_strategy!r} is not ported yet")
+        raise ValueError(f"Unknown feature strategy: {feature_strategy}")
     E = load_first_k_eigenfunctions(
         config["data"]["eigenfunctions_path"],
         config["model"]["k"],

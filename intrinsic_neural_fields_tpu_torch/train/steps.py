@@ -23,8 +23,15 @@ updated in place, plus the step count and the hyperparameters. An epoch:
     (``train_drop_last: false``): the eager step — an f32 forward with
     autograd and the weighted mean loss of the reference (the
     view-dependent field encodes the batch's ray directions and face ids
-    itself, as its module does), then the Adam kernel. On the CPU every
-    kernel call runs its plain twin.
+    itself, as its module does; a field over xyz / ff / rff encodes the
+    batch's positions with its own encoder unless the split was
+    pre-embedded; a sine field takes sin), then the Adam kernel. On the
+    CPU every kernel call runs its plain twin.
+
+The kernels take a field as it is only when it is ``fused_mlp_eligible``
+(or ``fused_viewdep_eligible``): relu, no encoder. The Trainer makes an
+xyz / ff / rff field eligible by pre-embedding its splits and training
+its ``mlp_core_view``.
 
 Adam numerics are ``optax.inject_hyperparams(optax.adam)``'s: per-step
 hyper rows (lr, bias corrections) come from ``adam_hyper_rows``, the lr is
@@ -40,14 +47,14 @@ per-sample MSE summed over the 3 channels).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 from torch.autograd.graph import increment_version
 
 from ..data.sampler import gather_batch, slice_batch
-from ..models.texture_field import view_encoder_apply
+from ..models.texture_field import input_encoder_apply, view_encoder_apply
 from ..ops.fused_mlp import (
     LOSS_MODES,
     ParamLayout,
@@ -57,8 +64,10 @@ from ..ops.fused_mlp import (
     adam_hyper_rows,
     check_epoch_operands,
     fused_adam_apply,
+    fused_mlp_eligible,
     fused_train_adam_step,
     fused_train_grads,
+    fused_viewdep_eligible,
     kernel_launches,
     layout_for_model,
     make_train_scratch,
@@ -91,10 +100,16 @@ class TrainState:
     nu: torch.Tensor       # Adam second moment
     count: int             # Adam steps taken
     hyper: AdamHyper
+    # the model's buffers that are part of its state dict (RFF's
+    # embedding.B): fixed, carried into model.pt and checkpoint.pt
+    buffers: dict = field(default_factory=dict)
 
     def state_dict(self, device=None):
-        """The parameters as a torch-layout state dict (contiguous copies)."""
-        return self.layout.state_dict(self.params, device)
+        """The parameters (and buffers) as a torch-layout state dict
+        (contiguous copies)."""
+        sd = {k: v.detach().clone().to(device) for k, v in self.buffers.items()}
+        sd.update(self.layout.state_dict(self.params, device))
+        return sd
 
     def set_lr(self, lr):
         self.hyper.learning_rate = float(np.float32(lr))
@@ -107,26 +122,39 @@ class TrainState:
         hyper = AdamHyper(adam["lr"], adam["b1"], adam["b2"], adam["eps"],
                           adam.get("eps_root", 0.0))
         return cls(layout, flat(model_state_dict), flat(adam["mu"]), flat(adam["nu"]),
-                   int(adam["count"]), hyper)
+                   int(adam["count"]), hyper, buffers_of(layout, model_state_dict, device))
+
+
+def buffers_of(layout, state_dict, device=None):
+    """The entries of a torch-layout state dict that are not the layout's
+    parameters (RFF's embedding.B), as f32 copies on `device`."""
+    params = {e.prefix + s for e in layout.entries for s in (".weight", ".bias")}
+    return {k: v.detach().to(device=device, dtype=torch.float32).clone()
+            for k, v in state_dict.items() if k not in params}
 
 
 def create_train_state(model, optimizer, device=None):
-    """Fresh state: the model's weights, zero moments, count 0."""
+    """Fresh state: the model's weights and buffers, zero moments, count 0."""
     layout = layout_for_model(model)
-    params = layout.flat_from_state_dict(model.state_dict(), device)
+    sd = model.state_dict()
+    params = layout.flat_from_state_dict(sd, device)
     return TrainState(layout, params, torch.zeros_like(params), torch.zeros_like(params),
-                      0, AdamHyper(**vars(optimizer)))
+                      0, AdamHyper(**vars(optimizer)), buffers_of(layout, sd, params.device))
 
 
-def forward_f32(layout, params, x, venc=None):
+def forward_f32(layout, params, x, venc=None, activation="relu"):
     """The model's forward in full f32 on the flat parameters (views, so
     autograd gives the flat gradient with zeros at the pads), in the
     module's expression order: the skip layer is Lx(h) + Ly(x), the
-    view-dependent concat layer one Linear on [bottleneck | venc]."""
+    view-dependent concat layer one Linear on [bottleneck | venc].
+    activation: "relu" or "sine" on the hidden and directional layers
+    (the bottleneck head stays relu, as in the module)."""
     mats, biases = layout.mats(params), layout.biases(params)
     src = {"x": x, "v": venc}
+    act = torch.sin if activation == "sine" else torch.relu
+    bneck = None if layout.tail is None else len(layout.layers) - 2
     h = None
-    for lay in layout.layers:
+    for li, lay in enumerate(layout.layers):
         if lay.h is None:  # the input layer
             e, r0, n, s = lay.ext
             pre = src[s][:, :n] @ mats[e][r0:r0 + n] + biases[e]
@@ -141,18 +169,18 @@ def forward_f32(layout, params, x, venc=None):
             (e, r0, n), (_, x0, nx, s) = lay.h, lay.ext
             pre = torch.cat([h, src[s][:, :nx]], 1) @ torch.cat(
                 [mats[e][r0:r0 + n], mats[e][x0:x0 + nx]]) + biases[e]
-        h = torch.relu(pre)
+        h = torch.relu(pre) if li == bneck else act(pre)
     e = layout.head
     out = 3 if layout.tail is None else layout.tail.rgb_dim
     return torch.sigmoid(h @ mats[e][:, :out] + biases[e][:out])
 
 
-def eager_step(state, hyper_row, x, gt, w, loss_elem, venc=None):
+def eager_step(state, hyper_row, x, gt, w, loss_elem, venc=None, activation="relu"):
     """One autograd step on a gathered batch: weighted mean loss (w masks
     the duplicated rows of a ragged tail), grads, Adam in place. Returns
     (loss, sum over rows of the per-sample squared error, sum of w)."""
     p = state.params.detach().requires_grad_()
-    pred = forward_f32(state.layout, p, x.to(torch.float32), venc)
+    pred = forward_f32(state.layout, p, x.to(torch.float32), venc, activation)
     n_b = w.sum()
     loss = (loss_elem(pred, gt).mean(-1) * w).sum() / n_b
     loss.backward()
@@ -279,7 +307,9 @@ class EpochGraph:
 
 def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=True):
     """(train_epoch, val_epoch) for a TextureField or a
-    TextureFieldWithViewDependency.
+    TextureFieldWithViewDependency. `fused` needs a fused_mlp_eligible or
+    fused_viewdep_eligible model (raises otherwise, as the JAX package
+    asserts).
 
     train_epoch(state, generator_or_order, data, num_batches, batch_size)
         -> (state, {"loss", "sq_err_per_sample"}: 0-dim device tensors)
@@ -295,6 +325,13 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
     layout = layout_for_model(model)
     viewdep = layout.tail is not None
     view_fn = view_encoder_apply(model) if viewdep else None
+    encode = input_encoder_apply(model)
+    activation = model.activation
+    if fused and not (fused_mlp_eligible(model) or fused_viewdep_eligible(model)):
+        raise ValueError(
+            "training.fused_mlp needs a plain TextureField (eigenfunction input, relu, "
+            "sigmoid RGB head, hidden width a multiple of 128; an xyz/ff/rff field once the "
+            "Trainer pre-embeds it) or a fused-eligible view-dependent field")
     if fused and viewdep:
         sp = layout.spec
         if not sp.hidden == sp.out_dim == layout.tail.d_hidden:
@@ -308,6 +345,16 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
             raise ValueError("the view-dependent field needs the cached ray directions and "
                              "face ids (unit_ray_dirs.npy, face_idxs.npy)")
         return view_fn(batch["unit_ray_dirs"], batch["hit_face_idxs"])
+
+    def features_of(batch):
+        """The MLP input of a batch: its eigenfunction (or pre-embedded)
+        rows, or the model's encoding of its positions."""
+        key = "eigenfunctions" if encode is None else "xyz"
+        if key not in batch:
+            raise ValueError(f"the model takes {key!r} rows, the split holds "
+                             f"{sorted(k for k in batch if k in ('eigenfunctions', 'xyz'))}")
+        x = batch[key]
+        return x if encode is None else encode(x.to(torch.float32))
 
     graph = EpochGraph()
 
@@ -355,8 +402,10 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         use_blocks = shuffle == "blocks" and data.hit_features is not None and not has_tail
         perm = _order(order, num_batches if use_blocks else n)
         use_fused = fused and not has_tail
-        if viewdep:  # the tail kernels stream pre-encoded view directions
-            use_fused = use_fused and use_blocks and data.hit_vencs is not None
+        if viewdep:  # the tail kernels stream pre-encoded view directions and
+            # the spatial input as it is (an encoder family trains eagerly)
+            use_fused = (use_fused and use_blocks and data.hit_vencs is not None
+                         and encode is None)
         vencs = data.hit_vencs if viewdep else None
         dev = state.params.device
         h = state.hyper
@@ -397,8 +446,8 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
                 accumulate_loss(acc, loss_sum, sq_sum)
                 acc_n = acc_n + float(B)
             else:
-                loss, sq, n_b = eager_step(state, hyper_all[i], batch["eigenfunctions"], gt,
-                                           w, loss_elem, venc_of(batch))
+                loss, sq, n_b = eager_step(state, hyper_all[i], features_of(batch), gt,
+                                           w, loss_elem, venc_of(batch), activation)
                 acc += torch.stack((loss * n_b, sq))
                 acc_n = acc_n + n_b
         state.count += num_batches
@@ -414,8 +463,8 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         for s in range(0, n, batch_size):
             batch = gather_batch(data, torch.arange(s, min(s + batch_size, n), device=dev))
             gt = batch["expected_rgbs"]
-            pred = forward_f32(layout, state.params, batch["eigenfunctions"].to(torch.float32),
-                               venc_of(batch))
+            pred = forward_f32(layout, state.params, features_of(batch).to(torch.float32),
+                               venc_of(batch), activation)
             # per-sample loss = channel mean (the reference's accounting)
             acc_loss = acc_loss + loss_elem(pred, gt).mean(-1).sum()
             acc_sq = acc_sq + ((pred - gt) ** 2).sum(-1).sum()

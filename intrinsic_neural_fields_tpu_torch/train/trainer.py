@@ -7,29 +7,47 @@ As in the JAX package, min_val_loss starts at +inf, not 1.0 (reference
 trainer.py:237). The batch order of epoch e comes from a generator seeded
 with (config seed, e), so a resumed run replays the uninterrupted run's
 order; the checkpoint needs no RNG state.
+
+An xyz / ff / rff TextureField with ``training.fused_mlp`` trains as the
+JAX Trainer trains it (JAX train/trainer.py:91-121, 201-257): every split
+is embedded once by the model's own encoder and the epochs run its
+``mlp_core_view`` through the kernels; the renders keep the model itself.
+A restore whose RFF projection differs from the one the splits were
+embedded with embeds them again. When all splits' embedded tables would
+exceed ``PRECOMPUTE_BYTES_LIMIT`` the Trainer says so and keeps the
+in-forward path (the eager step), the one switch the JAX Trainer makes.
+``training.profile_dir`` writes a torch.profiler trace of epoch
+``training.profile_epoch`` (default 1) there.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
+from dataclasses import replace
 
 import numpy as np
+import torch
 
 from .. import resolve_device
-from ..data.sampler import num_train_batches, parse_precompute_dtype, precompute_hit_vencs
+from ..data.sampler import (
+    PRECOMPUTE_BYTES_LIMIT,
+    num_train_batches,
+    parse_precompute_dtype,
+    pre_embed_ray_data,
+    precompute_hit_vencs,
+)
 from ..evaluation.metrics import epoch_psnr, psnr
-from ..models.texture_field import view_encoder_apply
+from ..models.texture_field import input_encoder_apply, mlp_core_view, view_encoder_apply
+from ..ops.fused_mlp import fused_pre_embed_eligible, fused_viewdep_eligible
 from ..utils.checkpoint import load_train_checkpoint, save_model, save_train_checkpoint
-from .config import check_training_config
 from .plateau import ReduceLROnPlateau
 from .steps import TrainState, create_train_state, make_epoch_fns
 
 
 def epoch_generator(seed, epoch):
     """The torch.Generator that shuffles epoch `epoch` of a run seeded `seed`."""
-    import torch
-
     return torch.Generator().manual_seed((int(seed) * 0x9E3779B97F4A7C15 + int(epoch)) % 2**64)
 
 
@@ -68,7 +86,6 @@ class Trainer:
         train.steps.AdamHyper; data: {"train", "val"[, "test"]} RayData on
         `device`; writer: anything with add_scalar/add_image (default:
         ``default_writer`` on <out_dir>/logs)."""
-        check_training_config(config)
         self.device = resolve_device(device)
         self.model = model
         self.loss_type = loss_type
@@ -81,7 +98,21 @@ class Trainer:
         self.train_data = data["train"]
         self.val_data = data["val"]
         self.test_data = data.get("test")
-        if self.fused_mlp and hasattr(model, "spatial_mlp"):
+        # The model the epochs run: for a pre-embedded xyz/ff/rff field its
+        # mlp_core_view (the same parameters) on the embedded splits.
+        self.epoch_model = model
+        self._pre_embed_buffers = None
+        if self.fused_mlp and fused_pre_embed_eligible(model):
+            self._pre_embed_dtype = parse_precompute_dtype(config["data"].get("precompute_dtype"))
+            # the raw splits are kept for a re-embed after a restore; the
+            # embedding reads the vertex table, never their hit tables
+            strip = lambda d: None if d is None else replace(d, hit_features=None)  # noqa: E731
+            self._raw_splits = tuple(strip(d) for d in (self.train_data, self.val_data,
+                                                        self.test_data))
+            if self._apply_pre_embedding():
+                self.epoch_model = mlp_core_view(model)
+        if (self.fused_mlp and fused_viewdep_eligible(model)
+                and self.train_data.feature_strategy == "efuncs"):
             # The view-dependent field's encoding is a fixed function of each
             # cached hit: encode it once, so the train kernels stream it
             # beside the hit features (reference trainer.py:122-150).
@@ -89,7 +120,7 @@ class Trainer:
                 view_encoder_apply(model), self.train_data, self.state.layout.tail.venc_w,
                 dtype=parse_precompute_dtype(config["data"].get("precompute_dtype")))
         self.train_epoch_fn, self.val_epoch_fn = make_epoch_fns(
-            model, loss_type, shuffle=self.shuffle, fused=self.fused_mlp,
+            self.epoch_model, loss_type, shuffle=self.shuffle, fused=self.fused_mlp,
             fused_adam=config["training"].get("fused_adam", True))
 
         self.use_lr_scheduler = config["training"].get("use_lr_scheduler", False)
@@ -119,6 +150,44 @@ class Trainer:
         self.best_state_dict = self.state.state_dict()
         self.seed = config.get("seed", 0)
 
+    # ------------------------------------------------------------ pre-embedding
+
+    def _apply_pre_embedding(self):
+        """Embed every split with the model's encoder as its buffers stand
+        (JAX Trainer._apply_pre_embedding). Returns False, leaving the
+        splits and the in-forward path, when the tables would exceed the
+        precompute budget."""
+        dtype = self._pre_embed_dtype
+        rows = sum(d.n for d in self._raw_splits if d is not None)
+        itemsize = 2 if dtype == torch.bfloat16 else 4
+        if rows * self.model.in_dim * itemsize > PRECOMPUTE_BYTES_LIMIT:
+            print("fused_mlp: pre-embedded feature tables (all splits) would exceed the "
+                  "precompute budget — keeping the in-forward path")
+            self.fused_mlp = False
+            return False
+        enc = input_encoder_apply(self.model)
+        train_raw, val_raw, test_raw = self._raw_splits
+        self.train_data = pre_embed_ray_data(enc, train_raw, dtype=dtype)
+        self.val_data = pre_embed_ray_data(enc, val_raw, dtype=dtype)
+        if test_raw is not None:
+            self.test_data = pre_embed_ray_data(enc, test_raw, dtype=dtype)
+        self._pre_embed_buffers = {k: v.clone() for k, v in self.state.buffers.items()}
+        return True
+
+    def _refresh_pre_embedding_after_restore(self):
+        """A restored state may carry another RFF projection than the one
+        the splits were embedded with (a reference-trained checkpoint brings
+        its own B): the model takes the restored buffers, and the splits are
+        embedded again when they differ, or the kernels would train against
+        the wrong encoding (JAX train/trainer.py:236-257)."""
+        self.model.load_state_dict(self.state.buffers, strict=False)
+        if self._pre_embed_buffers is None:
+            return
+        was, now = self._pre_embed_buffers, self.state.buffers
+        if set(was) != set(now) or not all(torch.equal(was[k], now[k]) for k in was):
+            print("Encoder buffers changed on restore — re-embedding splits...")
+            self._apply_pre_embedding()
+
     # ------------------------------------------------------------ checkpoints
 
     def _init_or_load_checkpoint(self):
@@ -128,8 +197,10 @@ class Trainer:
             return 0
         print("Restoring from checkpoint...")
         ckpt = load_train_checkpoint(self.checkpoint_path)
+        buffers = self.state.buffers
         self.state = TrainState.from_torch(self.state.layout, ckpt["model_state_dict"],
                                            ckpt["adam"], self.device)
+        self.state.buffers = {**buffers, **self.state.buffers}
         print("Done.")
         return ckpt["epoch"] + 1
 
@@ -149,7 +220,8 @@ class Trainer:
             return None
         best = TrainState(self.state.layout,
                           self.state.layout.flat_from_state_dict(self.best_state_dict, self.device),
-                          self.state.mu, self.state.nu, self.state.count, self.state.hyper)
+                          self.state.mu, self.state.nu, self.state.count, self.state.hyper,
+                          self.state.buffers)
         test_loss = float(self.val_epoch_fn(best, self.test_data, self.batch_size)["loss"])
         self.writer.add_scalar("Test Loss", test_loss)
         print(f"Test Loss: {test_loss}")
@@ -208,23 +280,42 @@ class Trainer:
 
     # ------------------------------------------------------------ train
 
+    def _profiler(self):
+        """A torch.profiler over the host and, on the card, the device."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities)
+
     def train(self):
         print("Starting training...")
         epoch_start_idx = self._init_or_load_checkpoint()
+        self._refresh_pre_embedding_after_restore()
         n = self.train_data.n
         num_batches = num_train_batches(n, self.batch_size, self.drop_last)
         if num_batches <= 0:
             raise ValueError("training set smaller than one batch")
         min_val_loss = float("inf")
+        profile_dir = self.config["training"].get("profile_dir")
+        profile_epoch = self.config["training"].get("profile_epoch", 1)
 
         for epoch in range(epoch_start_idx, self.epochs):
-            t0 = time.time()
-            self.state, metrics = self.train_epoch_fn(
-                self.state, epoch_generator(self.seed, epoch), self.train_data, num_batches,
-                self.batch_size)
-            train_loss = float(metrics["loss"])  # waits for the epoch's device work
-            train_mse = float(metrics["sq_err_per_sample"])
-            t1 = time.time()
+            profiling = profile_dir is not None and epoch == profile_epoch
+            with (self._profiler() if profiling else contextlib.nullcontext()) as prof:
+                t0 = time.time()
+                self.state, metrics = self.train_epoch_fn(
+                    self.state, epoch_generator(self.seed, epoch), self.train_data,
+                    num_batches, self.batch_size)
+                train_loss = float(metrics["loss"])  # waits for the epoch's device work
+                train_mse = float(metrics["sq_err_per_sample"])
+                t1 = time.time()
+            if profiling:
+                os.makedirs(profile_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(profile_dir,
+                                                      f"epoch_{epoch:04d}.pt.trace.json"))
+                print(f"Wrote profiler trace for epoch {epoch} to {profile_dir}")
 
             rays_per_sec = num_batches * self.batch_size / max(t1 - t0, 1e-9)
             self.writer.add_scalar("Train Rays-per-sec", rays_per_sec, epoch)

@@ -1,7 +1,8 @@
 """Checkpoints in the upstream torch layout, written atomically.
 
   model.pt, model_last_epoch.pt, best_model_checkpoint_<e>.pt
-      a raw state dict (Linear weights [out, in]);
+      a raw state dict (Linear weights [out, in]; an RFF field's projection
+      as ``embedding.B``, a buffer, so no optimizer state refers to it);
   checkpoint.pt, checkpoint_<e>.pt
       {"epoch", "model_state_dict", "optimizer_state_dict"}, the optimizer
       state in torch.optim.Adam's layout: state[i] = {step, exp_avg,

@@ -49,22 +49,36 @@ def _texture_field_sd(params, model_config, prefix=""):
     return sd
 
 
+def _rff_buffer_sd(buffers, prefix):
+    """{prefix + "embedding.B": B} from a flax "buffers" collection holding
+    RandomFourierFeatEnc_0/B (JAX utils/torch_convert.py:117-118), else {}."""
+    rff = buffers.get("RandomFourierFeatEnc_0") if buffers else None
+    if rff is None:
+        return {}
+    return {prefix + "embedding.B": torch.from_numpy(np.asarray(rff["B"], np.float32).copy())}
+
+
 def state_dict_from_flax(params, model_config):
     """Flax TextureField[WithViewDependency] params (nested dicts of numpy
-    arrays: Dense_{c} with kernel [in, out] and bias) -> the port's state
-    dict (f32 tensors), in module registration order. The view-dependent
-    tree is {"spatial_mlp": {...}, "Dense_0", "Dense_1"}: the spatial field
-    under ``spatial_mlp.`` and the directional Linears as
-    ``directional_mlp.0`` and ``directional_mlp.2`` (the JAX package's
-    export_reference_state_dict)."""
+    arrays: Dense_{c} with kernel [in, out] and bias), or the whole
+    variables dict {"params", "buffers"} -> the port's state dict (f32
+    tensors). The view-dependent tree is {"spatial_mlp": {...}, "Dense_0",
+    "Dense_1"}: the spatial field under ``spatial_mlp.`` and the directional
+    Linears as ``directional_mlp.0`` and ``directional_mlp.2`` (the JAX
+    package's export_reference_state_dict). An RFF field's projection,
+    ``buffers/RandomFourierFeatEnc_0/B``, goes to ``embedding.B``
+    (``spatial_mlp.embedding.B`` for a view-dependent field)."""
     if model_config.get("batchnorm"):
-        raise NotImplementedError("BatchNorm texture fields are not ported")
+        raise NotImplementedError("BatchNorm texture fields are not ported "
+                                  "(ROADMAP queue 1 item 7)")
+    buffers = params.get("buffers", {}) if "params" in params else {}
     params = params.get("params", params)
     if model_config.get("view_dependence") is None:
-        return _texture_field_sd(params, model_config)
+        return {**_rff_buffer_sd(buffers, ""), **_texture_field_sd(params, model_config)}
     if set(params) != {"spatial_mlp", "Dense_0", "Dense_1"}:
         raise ValueError(f"flax params {sorted(params)} are not a view-dependent field's")
-    sd = _texture_field_sd(params["spatial_mlp"], model_config, prefix="spatial_mlp.")
+    sd = _rff_buffer_sd(buffers.get("spatial_mlp", {}), "spatial_mlp.")
+    sd.update(_texture_field_sd(params["spatial_mlp"], model_config, prefix="spatial_mlp."))
     for c, name in enumerate(("directional_mlp.0", "directional_mlp.2")):
         p = params[f"Dense_{c}"]
         sd[name + ".weight"] = torch.from_numpy(

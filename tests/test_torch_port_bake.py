@@ -94,7 +94,8 @@ def test_bake_matches_jax(port_setup):
 def test_field_rgbs_chunks_and_refusals(port_setup):
     """_field_rgbs evaluates ragged 8,192-point chunks like one call (the
     plain twin is row-independent), refuses view dependence as the JAX bake
-    does, and names the queue item for the unported pre-embed families."""
+    does, and chunks a sine field's module forward the same way (the
+    families bake: tests/test_torch_port_families.py)."""
     from intrinsic_neural_fields_tpu_torch.bake.bake import _field_rgbs
     from intrinsic_neural_fields_tpu_torch.train.config import load_config
 
@@ -114,9 +115,9 @@ def test_field_rgbs_chunks_and_refusals(port_setup):
     vd = dict(config, model=dict(config["model"], view_dependence={"strategy": "intrinsic"}))
     with pytest.raises(NotImplementedError, match="view dependence"):
         _field_rgbs(mesh, vd, vids, bary, device="cpu")
-    xyz = dict(config, model=dict(config["model"], feature_strategy="xyz"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        _field_rgbs(mesh, xyz, vids, bary, device="cpu")
+    sine = dict(config, model=dict(config["model"], activation="sine"))
+    np.testing.assert_array_equal(_field_rgbs(mesh, sine, vids, bary, device="cpu"),
+                                  _field_rgbs(mesh, sine, vids, bary, chunk=n, device="cpu"))
 
 
 def test_viridis_fit():

@@ -77,13 +77,16 @@ def _fwd_launch_as_designed(layout, B):
 
 
 @pytest.mark.parametrize("k,B", [(512, 8192), (1023, 8192), (512, 1000), (512, 1), (16, 1),
-                                 (2048, 8192), (2048, 1000)])
+                                 (2048, 8192), (2048, 1000), (3, 8192), (3, 1000), (3, 1),
+                                 (515, 8192), (515, 1000), (515, 1)])
 def test_kernel_matches_plain_twin(cuda, k, B):
     """HQ layout (6 x 128, skip 3), feature-like inputs (range 1 per
     column). Tolerance 2e-3: f32 summation order and rare bf16
     re-rounding of a hidden activation only. Two launches give the same
     bits; the launch has the designed shape (k=2048: the skip layer
-    streams the features again)."""
+    streams the features again). k=3 and 515 are the xyz and tf_rff_blob
+    fields' embedded widths (3 real columns of a 64-wide chunk; rows off
+    16-byte boundaries)."""
     cfg = {"k": k, "num_layers": 6, "mlp_hidden_dim": 128, "skip_layer_idx": 3}
     fw = pack_weights(FusedMLPSpec(6, k, 128, 3), make_model(cfg, seed=4).state_dict(),
                       device=cuda)
@@ -313,7 +316,9 @@ def test_train_epoch_on_card_tracks_cpu(cuda):
 # 1e-3 (ACT_TOL of chip_smoke.py); cotangent mode (a continuous seed): the
 # deltas <= 5e-2 and the bias sums <= 2e-2 (DELTA_TOL, BIAS_TOL); a second
 # run gives the same bits.
-FB_SHAPES = [(B, k) for B in (1, 64, 65, 1000, 4096) for k in (16, 100, 512, 1023)]
+FB_SHAPES = ([(B, k) for B in (1, 64, 65, 1000, 4096) for k in (16, 100, 512, 1023)]
+             # the xyz and tf_rff_blob fields' embedded widths
+             + [(B, k) for B in (1, 1000, 4096) for k in (3, 515)])
 
 
 @pytest.mark.parametrize("vd", [False, True], ids=["plain", "viewdep"])
@@ -422,7 +427,9 @@ def _vd_setup(cuda, strategy, k=512, N=8192, dtype=torch.bfloat16, seed=1):
 
 @pytest.mark.parametrize("strategy,B,k", [("intrinsic", 8192, 512), ("intrinsic", 1000, 512),
                                           ("intrinsic", 1, 512), ("extrinsic", 8192, 512),
-                                          ("intrinsic", 8192, 2048), ("extrinsic", 1000, 2048)])
+                                          ("intrinsic", 8192, 2048), ("extrinsic", 1000, 2048),
+                                          ("extrinsic", 8192, 3), ("intrinsic", 1000, 3),
+                                          ("extrinsic", 1, 3)])
 def test_viewdep_forward_kernel_matches_plain_twin(cuda, strategy, B, k):
     from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (fused_apply_viewdep,
                                                                  fused_apply_viewdep_plain)
@@ -656,7 +663,9 @@ def test_preprocessing_on_card_matches_cpu(cuda, tmp_path):
 # gives the same bits; the launch has the designed shape: one cluster of
 # min(8, B/64) CTAs per 128-row gradient tile.
 WG_CASES = ([(k, B, torch.bfloat16) for k in (512, 1023) for B in (4096, 1000, 64)]
-            + [(512, 4096, torch.float32), (512, 3000, torch.bfloat16)])
+            + [(512, 4096, torch.float32), (512, 3000, torch.bfloat16)]
+            # the xyz and tf_rff_blob fields: f32 tables at k_in 3 and 515
+            + [(k, B, torch.float32) for k in (3, 515) for B in (4096, 1000, 1)])
 
 
 @pytest.mark.parametrize("vd", [False, True], ids=["plain", "viewdep"])
@@ -719,12 +728,13 @@ def _random_moments(layout, cuda, seed=5):
 
 
 @pytest.mark.parametrize("vd", [False, True], ids=["plain", "viewdep"])
-@pytest.mark.parametrize("k,dtype", [(512, torch.bfloat16), (1023, torch.bfloat16),
-                                     (512, torch.float32), (1023, torch.float32)])
-def test_wgrad_adam_kernel_equals_twin(cuda, k, dtype, vd):
+@pytest.mark.parametrize("k,dtype,B", [(512, torch.bfloat16, 4096), (1023, torch.bfloat16, 4096),
+                                       (512, torch.float32, 4096), (1023, torch.float32, 4096)]
+                         + [(k, torch.float32, B) for k in (3, 515) for B in (4096, 1000, 1)])
+def test_wgrad_adam_kernel_equals_twin(cuda, k, dtype, B, vd):
     from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
 
-    B, blk = 4096, 1
+    blk = 1
     N = 2 * B
     if vd:
         layout, params, feats, _, vtable, gt = _vd_setup(cuda, "intrinsic", k=k, N=N, dtype=dtype)
@@ -757,7 +767,8 @@ def test_wgrad_adam_kernel_equals_twin(cuda, k, dtype, vd):
         assert torch.equal(got, w)
     assert torch.equal(sc.wb, want[0].to(torch.bfloat16))
     assert torch.equal(sums2, sums) and torch.equal(acc, want_acc)
-    assert F.last_wgrad_launch()["ctas"] % 8 == 0  # the grads-only kernel's shape
+    # the grads-only kernel's shape: clusters of min(8, B/64) CTAs
+    assert F.last_wgrad_launch()["ctas"] % min(8, -(-B // 64)) == 0
 
 
 @pytest.mark.parametrize("vd", [False, True], ids=["plain", "viewdep"])

@@ -27,7 +27,7 @@ new = ["ops.sort", "ops.launches", "geometry.cameras", "utils.exr", "utils.io",
        "data.preprocess", "native", "preprocess_dataset", "preprocess_eigenfunctions",
        "make_synthetic_dataset", "evaluation.lpips", "transfer", "transfer.functional_map",
        "bake", "bake.bake", "texture_transfer", "bake_texture_field", "render_view",
-       "render_video", "make_transfer_targets"]
+       "render_video", "make_transfer_targets", "eval_on_mesh", "models.encoders"]
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 print(len(names), "modules;", "banned:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
@@ -81,6 +81,9 @@ def test_preprocessing_clis_parse_the_reference_arguments(module, argv, want):
       "targets": ["coarse", "dense", "deformed"]}),
     ("eval", ["out", "cfg.yaml", "data", "test"],
      {"device": "cuda", "uv_mesh_path": None, "lpips_weights": None}),
+    ("eval_on_mesh", ["--config_path", "c", "--target_mesh", "t", "--eval_dataset", "d",
+                      "--out_dir", "o"],
+     {"device": "cuda", "eval_split": "test", "efuncs": None, "background": "white"}),
 ])
 def test_user_clis_parse_the_reference_arguments(module, argv, want):
     """The root CLIs' arguments, and the card by default."""

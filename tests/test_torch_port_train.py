@@ -582,5 +582,8 @@ def test_entry_points_default_to_cuda(experiment):
     for call in (lambda: get_data(cfg), lambda: get_model_and_optim(cfg)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
-    with pytest.raises(NotImplementedError, match="sorted_gather"):
-        _port_trainer(config("sg", 1, sorted_gather=True), Recorder())
+    # the one model option still refused, with its reason
+    bn = config("bn", 1)
+    bn["model"]["batchnorm"] = True
+    with pytest.raises(NotImplementedError, match="batchnorm: true is not ported"):
+        _port_trainer(bn, Recorder())

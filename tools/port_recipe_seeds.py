@@ -3,13 +3,14 @@
 trees of the port, on one NVIDIA GPU.
 
   python tools/port_recipe_seeds.py --seeds 0,1,2,3 [--tree NAME=DIR ...]
-      [--epochs 400] [--out DIR]
+      [--epochs 400] [--config configs/synthetic/<recipe>.yaml] [--out DIR]
 
 Makes the recipe's data once in this tree (``data/synthetic_hq`` through
 the README's generator, eigenfunction and cache CLIs; skipped when its test
 cache exists). Then, for each seed, trains and evaluates
-``configs/synthetic/intrinsic_blob_hq.yaml`` with ``seed`` set to it (the
-seed draws the initial weights and every epoch's batch order) through each
+``configs/synthetic/intrinsic_blob_hq.yaml`` (or the recipe --config names,
+on the same data) with ``seed`` set to it (the seed draws the initial
+weights, an RFF field's projection and every epoch's batch order) through each
 tree's own ``python -m`` CLIs, run from that tree's root. The trees of one
 seed run side by side as concurrent processes: the chain is deterministic,
 so a result does not depend on what else runs (the times do). ``--tree``
@@ -60,10 +61,11 @@ def make_data(out):
         _run(cmd, ROOT, os.path.join(out, f"prep_{i}.log"))
 
 
-def write_config(path, out_dir, seed, epochs):
-    """The HQ config with this seed, its data paths absolute, its outputs
-    in out_dir (which the train CLI must not find), written to path."""
-    with open(CONFIG) as f:
+def write_config(path, out_dir, seed, epochs, config=CONFIG):
+    """The HQ config (or another recipe's, `config`) with this seed, its
+    data paths absolute, its outputs in out_dir (which the train CLI must
+    not find), written to path."""
+    with open(config) as f:
         cfg = yaml.safe_load(f)
     cfg["seed"] = seed
     cfg["training"]["epochs"] = epochs
@@ -79,12 +81,13 @@ def write_config(path, out_dir, seed, epochs):
     return path
 
 
-def run_seed(trees, seed, epochs, out):
+def run_seed(trees, seed, epochs, out, config=CONFIG):
     """Train every tree on this seed concurrently, then evaluate each."""
     runs = {}
     for name, root in trees.items():
         run_dir = os.path.join(out, f"{name}_s{seed}")
-        cfg = write_config(os.path.join(out, f"{name}_s{seed}.yaml"), run_dir, seed, epochs)
+        cfg = write_config(os.path.join(out, f"{name}_s{seed}.yaml"), run_dir, seed, epochs,
+                           config)
         log = open(os.path.join(out, f"{name}_s{seed}_train.log"), "w")
         p = subprocess.Popen([sys.executable, "-m", f"{PKG}.train", cfg], cwd=root, stdout=log,
                              stderr=subprocess.STDOUT)
@@ -112,6 +115,7 @@ def main(argv=None):
     ap.add_argument("--seeds", default="0,1,2,3")
     ap.add_argument("--tree", action="append", default=None, help="NAME=DIR (repeatable)")
     ap.add_argument("--epochs", type=int, default=400)
+    ap.add_argument("--config", default=CONFIG, help="the recipe's YAML (default: the HQ one)")
     ap.add_argument("--out", default=os.path.join(ROOT, "out", "recipe_seeds"))
     args = ap.parse_args(argv)
     trees = dict(t.split("=", 1) for t in args.tree) if args.tree else {"this": ROOT}
@@ -123,7 +127,7 @@ def main(argv=None):
     make_data(out)
     rows = []
     for seed in (int(s) for s in args.seeds.split(",")):
-        for r in run_seed(trees, seed, args.epochs, out):
+        for r in run_seed(trees, seed, args.epochs, out, os.path.abspath(args.config)):
             print(json.dumps(r), flush=True)
             rows.append(r)
     for name in trees:

@@ -1,19 +1,27 @@
 #!/usr/bin/env python
-"""The HQ texture-transfer experiment (scripts/run_transfer.sh's intrinsic
-rows) through the port's `-m` CLIs on one NVIDIA GPU.
+"""The HQ texture-transfer experiment (scripts/run_transfer.sh) and the
+baseline families (scripts/run_model_families.sh's xyz, tf_rff and hks
+recipes) through the port's `-m` CLIs on one NVIDIA GPU.
 
   python tools/port_transfer_experiment.py [--seed 0] [--epochs 400]
-      [--targets coarse dense deformed] [--out out/transfer_experiment]
+      [--targets coarse dense deformed] [--families xyz_blob tf_rff_blob hks_blob]
+      [--out out/transfer_experiment]
 
 1. The README's HQ recipe: its data (``data/synthetic_hq``, made once, as
    tools/port_recipe_seeds.py makes it), then
    ``configs/synthetic/intrinsic_blob_hq.yaml`` trained for --epochs at
    --seed and evaluated on the test split (the source row).
-2. ``make_transfer_targets`` for the targets (1024-function target bases,
+2. Each of --families (``configs/synthetic/<name>.yaml``) trained and
+   evaluated the same way (one row each).
+3. ``make_transfer_targets`` for the targets (1024-function target bases,
    the carried-texture test views of ``deformed``).
-3. ``texture_transfer --eval_dataset`` onto each target: the source
+4. ``texture_transfer --eval_dataset`` onto each target: the source
    dataset's test views for the re-discretizations, the carried-texture
    views for ``deformed``.
+5. The control rows through ``eval_on_mesh`` (no functional map): the xyz
+   field (when xyz_blob is among --families) on the deformed target and
+   on the dense one, and the HQ field with the dense target's own basis
+   (the direct swap).
 
 Prints one JSON line per row (test PSNR and DSSIM x100 from the eval's
 metrics pickle, the JAX CLIs' figures from RESULTS.md beside them and
@@ -34,9 +42,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from port_recipe_seeds import DATA, PKG, ROOT, make_data, write_config  # noqa: E402
 
-# RESULTS.md's transfer table (the JAX package's CLIs): test PSNR, DSSIM x100
+# RESULTS.md's tables (the JAX package's CLIs): test PSNR, DSSIM x100 — the
+# transfer rows (:150-157) and the families (:105-107)
 JAX_ROWS = {"source": (57.03, 0.013), "coarse": (50.20, 0.032), "dense": (45.95, 0.021),
-            "deformed": (56.45, 0.014)}
+            "deformed": (56.45, 0.014), "deformed_xyz": (18.40, 2.603),
+            "dense_xyz": (55.23, 0.017), "dense_directswap": (15.59, 4.207),
+            "xyz_blob": (55.31, 0.017), "tf_rff_blob": (34.83, 1.807),
+            "hks_blob": (17.54, 4.885)}
+FAMILIES = ("xyz_blob", "tf_rff_blob", "hks_blob")
 
 
 def _run(cmd, log):
@@ -62,12 +75,27 @@ def _row(name, eval_dir, seconds):
             "differs_by_more_than_0.3_dB": bool(abs(psnr - jax_psnr) > 0.3), "seconds": seconds}
 
 
+def _train_and_eval(py, out, name, recipe, seed, epochs):
+    """Train `recipe` at this seed and epochs, evaluate it on the test
+    split; print its row; returns its config path."""
+    cfg = write_config(os.path.join(out, f"{name}.yaml"), os.path.join(out, name), seed, epochs,
+                       config=recipe)
+    train_s = _run([*py, f"{PKG}.train", cfg], os.path.join(out, f"train_{name}.log"))
+    eval_dir = os.path.join(out, f"eval_{name}")
+    eval_s = _run([*py, f"{PKG}.eval", eval_dir, cfg, DATA, "test"],
+                  os.path.join(out, f"eval_{name}.log"))
+    print(json.dumps(dict(_row(name, eval_dir, eval_s), seed=seed, epochs=epochs,
+                          train_s=train_s)), flush=True)
+    return cfg
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--epochs", type=int, default=400)
-    ap.add_argument("--targets", nargs="+", default=["coarse", "dense", "deformed"],
+    ap.add_argument("--targets", nargs="*", default=["coarse", "dense", "deformed"],
                     choices=("coarse", "dense", "deformed"))
+    ap.add_argument("--families", nargs="*", default=list(FAMILIES), choices=FAMILIES)
     ap.add_argument("--out", default=os.path.join(ROOT, "out", "transfer_experiment"))
     args = ap.parse_args(argv)
     out = os.path.abspath(args.out)
@@ -77,13 +105,14 @@ def main(argv=None):
     py = [sys.executable, "-m"]
     make_data(out)
 
-    run_dir = os.path.join(out, "source")
-    cfg = write_config(os.path.join(out, "source.yaml"), run_dir, args.seed, args.epochs)
-    train_s = _run([*py, f"{PKG}.train", cfg], os.path.join(out, "train.log"))
-    eval_s = _run([*py, f"{PKG}.eval", os.path.join(out, "eval_source"), cfg, DATA, "test"],
-                  os.path.join(out, "eval_source.log"))
-    print(json.dumps(dict(_row("source", os.path.join(out, "eval_source"), eval_s),
-                          seed=args.seed, epochs=args.epochs, train_s=train_s)), flush=True)
+    recipes = os.path.join(ROOT, "configs", "synthetic")
+    cfg = _train_and_eval(py, out, "source", os.path.join(recipes, "intrinsic_blob_hq.yaml"),
+                          args.seed, args.epochs)
+    family_cfgs = {f: _train_and_eval(py, out, f, os.path.join(recipes, f"{f}.yaml"), args.seed,
+                                      args.epochs) for f in args.families}
+    if not args.targets:
+        print(smi, flush=True)
+        return 0
 
     tdir = os.path.join(out, "targets")
     src_efuncs = os.path.join(DATA, "efuncs", "eigenfunctions_cotan_kmax512_skip_first_efuncs.npy")
@@ -91,20 +120,37 @@ def main(argv=None):
                       DATA, "--src_efuncs", src_efuncs, "--targets", *args.targets],
                      os.path.join(out, "targets.log"))
     print(json.dumps({"make_transfer_targets_s": targets_s, "targets": args.targets}), flush=True)
+    views = {name: os.path.join(tdir, "deformed_views") if name == "deformed" else DATA
+             for name in args.targets}
     for name in args.targets:
-        views = os.path.join(tdir, "deformed_views") if name == "deformed" else DATA
         eval_dir = os.path.join(out, f"transfer_{name}")
         seconds = _run([*py, f"{PKG}.texture_transfer", "--config_path", cfg, "--target_mesh",
                         os.path.join(tdir, f"{name}.obj"), "--source_efuncs_full",
                         os.path.join(tdir, "source_efuncs_full.npy"), "--target_efuncs_full",
                         os.path.join(tdir, f"efuncs_full_{name}.npy"), "--correspondence",
-                        os.path.join(tdir, f"corr_{name}.npy"), "--eval_dataset", views,
+                        os.path.join(tdir, f"corr_{name}.npy"), "--eval_dataset", views[name],
                         "--eval_split", "test", "--out_dir", eval_dir],
                        os.path.join(out, f"transfer_{name}.log"))
         print(json.dumps(_row(name, eval_dir, seconds)), flush=True)
+
+    # the controls: no functional map
+    controls = []
+    if "xyz_blob" in family_cfgs:
+        controls += [(f"{t}_xyz", family_cfgs["xyz_blob"], t, []) for t in ("deformed", "dense")
+                     if t in args.targets]
+    if "dense" in args.targets:
+        controls.append(("dense_directswap", cfg, "dense",
+                         ["--efuncs", os.path.join(tdir, "efuncs_skip_dense.npy")]))
+    for row, config, target, extra in controls:
+        eval_dir = os.path.join(out, row)
+        seconds = _run([*py, f"{PKG}.eval_on_mesh", "--config_path", config, "--target_mesh",
+                        os.path.join(tdir, f"{target}.obj"), "--eval_dataset", views[target],
+                        "--eval_split", "test", "--out_dir", eval_dir, *extra],
+                       os.path.join(out, f"{row}.log"))
+        print(json.dumps(_row(row, eval_dir, seconds)), flush=True)
     print(smi, flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(argv=None))
