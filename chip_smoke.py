@@ -137,6 +137,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       the transfer phase's coarse target; then the forward kernel against
       its twin on each field's encoded hit rows and the train kernels on
       each recipe's trained weights and f32 table, with (g)'s gates;
+  (w) spectral: the native local-triangulation and iDT cores loaded from
+      the port's build; CheFSI (method="chefsi", device="cuda", the
+      all-f64 polish) at the HQ solve, k+1 = 513 on the blob's cotan
+      operator, against hq_prep's shift-invert files (eigenvalues within
+      1e-4 of the largest, M-orthonormal 1e-10, relative residual 1e-6,
+      principal angles on the gap-separated leading span within 1 degree),
+      its device loop and host polish timed apart, its peak device memory;
+      its padded-ELL gather product against cuSPARSE's CSR product at the
+      loop's [n, m]; dense inside its device window on a 5,000-point cloud
+      of the blob through pc_vert_robust, k=65 (f32 eigh within 16 eps32
+      ||C|| of shift_invert, its time and peak memory); LOBPCG at k=10 on
+      icosphere(2), tests/test_spectral.py's gate;
+  (x) cloud: make_transfer_targets --targets cloud (the blob's vertices as
+      a faceless PLY, locally triangulated, pc_vert_robust, a 512-function
+      basis), the triangulation and the iDT timed alone (faces, flips),
+      texture_transfer onto cloud.ply with --laplacian_type pc_vert_robust
+      (the forward's launches counted) and its renders through the kernel
+      and the plain twin (equal masks, >= 50 dB), its eval PSNR beside the
+      coarse target's; compute_shot on the blob and shot_blob.yaml for 2
+      epochs through the eager step (one standalone Adam launch per step,
+      loss falls), the eval CLI through the forward kernel; then the
+      forward kernel against its twin on SHOT rows (k_in 352);
   (j) profile: torch.profiler over 4 pipelined render frames and one
       epoch of each train leg (HQ, train throughput, view-dependent, xyz,
       tf_rff), whose
@@ -236,7 +258,7 @@ REDESIGNED = ("fused_mlp_fwd_bwd", "fused_mlp_fwd_bwd_viewdep", "bitonic_argsort
 # feature tile fits in shared memory (k_w <= 512 here), else 64-row CTAs.
 # wgrad: one cluster of min(8, B/64) CTAs per 128-row gradient tile, 256
 # threads, a 3-stage ring of 32 KB chunks.
-FWD_ROWS = {512: 128, 1023: 64, 3: 128, 515: 128, 63: 128}
+FWD_ROWS = {512: 128, 1023: 64, 3: 128, 515: 128, 63: 128, 352: 128}
 WGRAD_SMEM = 3 * 32768
 # configs/synthetic/viewdep_intrinsic_blob.yaml's view_dependence section
 VIEWDEP = {"bottleneck_vec_dim": 128, "include_view_dir": True, "embed_size": 4,
@@ -2004,6 +2026,7 @@ def phase_transfer(p):
     psnr_kp = _render_vs_plain(r_k, r_p, test_views)
     check(psnr_kp >= PSNR_MIN, f"transfer kernel vs plain PSNR {psnr_kp} < {PSNR_MIN}")
     means, _ = evaluate_views(None, config, test_views, renderer=r_p)
+    p["coarse_eval_psnr"] = float(np.mean([m["psnr"] for m in metrics.values()]))
     emit("transfer", target="coarse", target_vertices=int(np.load(args[3]).shape[0]),
          k_basis=SMOKE_K_BASIS, targets_s=targets_s, identity_psnr_vs_source=psnr_id,
          psnr_kernel_vs_plain_min=psnr_kp,
@@ -2417,6 +2440,317 @@ def phase_families(p, hq_rays):
     return paths, train_legs, runs, fwd_legs, vd_row
 
 
+# The spectral phase's gates. CheFSI (f32 device loop, f64 host polish)
+# against the hq_prep shift-invert solve: eigenvalues within EIG_REL of
+# the largest, M-orthonormal within ORTH_TOL, relative residual
+# ||L phi - lambda M phi||_{M^-1} / max|lambda| within RES_TOL; principal
+# angles within ANGLE_DEG on the leading span that a spectral gap of
+# SPAN_GAP (of the largest eigenvalue) separates from the rest. The solve
+# polishes with refine_filter="host": with the default f32 device
+# pre-filter the top of the 513-function window does not converge (one
+# degree-60 pass spans ~e^30 across the window, beyond f32), measured on
+# the CPU at 1.45e-4 of the largest (the JAX package: 9.4e-5), residual
+# 0.03; the all-f64 polish reaches 3e-15 and 5e-9. The dense path's f32
+# eigh is backward stable: |d lambda| <= DENSE_EPS_MULT * eps32 * ||C||
+# (Gershgorin); measured on blob clouds through pc_vert_robust, k=65: the
+# CPU's LAPACK 2.0-2.3 eps ||C|| at 5,000 points, the H100's cuSOLVER 4.9
+# at 5,000, 7.9 at 6,000 and 3.7 at 20,000 (700 W; 1.2-15% of lambda_65).
+# LOBPCG: tests/test_spectral.py's rtol 1e-3, atol 1e-4.
+EIG_REL, ORTH_TOL, RES_TOL, ANGLE_DEG, SPAN_GAP = 1e-4, 1e-10, 1e-6, 1.0, 1e-3
+DENSE_EPS_MULT = 16.0
+DENSE_POINTS, DENSE_K = 5000, 65
+
+
+def _blob_samples(mesh, n, seed):
+    """n points uniform by area on the mesh's faces (seeded)."""
+    rng = np.random.default_rng(seed)
+    tri = mesh.vertices[mesh.faces]
+    area = np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=1)
+    fidx = rng.choice(len(mesh.faces), size=n, p=area / area.sum())
+    r1, r2 = rng.random(n), rng.random(n)
+    s = np.sqrt(r1)
+    w = np.stack([1.0 - s, s * (1.0 - r2), s * r2], axis=-1)
+    return np.einsum("nk,nkd->nd", w, tri[fidx])
+
+
+def _eig_quality(L, M, ev, phi):
+    """(max |phi^T M phi - I|, max_i ||L phi_i - ev_i M phi_i||_M^-1 / max|ev|)."""
+    Md = M.diagonal()
+    orth = np.abs((phi * Md[:, None]).T @ phi - np.eye(phi.shape[1])).max()
+    R = (L @ phi - (M @ phi) * ev[None, :]) / np.sqrt(Md)[:, None]
+    return float(orth), float(np.linalg.norm(R, axis=0).max() / np.abs(ev).max())
+
+
+def _angles_deg(phi_ref, phi, Md):
+    s = np.linalg.svd((phi_ref * Md[:, None]).T @ phi, compute_uv=False)
+    return np.degrees(np.arccos(np.clip(s, 0.0, 1.0)))
+
+
+def phase_spectral(p):
+    """The device eigensolvers on the card: CheFSI at the HQ recipe's solve
+    (k+1 = 513 on the blob's cotan operator) against hq_prep's shift-invert
+    files (the all-f64 polish), its device loop and host polish timed
+    apart, its ELL product
+    against cuSPARSE's CSR product at the same shapes; dense inside its
+    device window on a 5,000-point cloud through pc_vert_robust; LOBPCG
+    at k=10 on icosphere(2); the native triangulation and iDT cores
+    loaded from the port's build."""
+    import scipy.sparse as sparse
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch.geometry.laplacian import (build_laplacian,
+                                                                      robust_laplacian)
+    from intrinsic_neural_fields_tpu_torch.geometry.pointcloud import local_triangulation
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
+    from intrinsic_neural_fields_tpu_torch.native import load_idt, load_localtri
+    from intrinsic_neural_fields_tpu_torch.ops._build import BUILD_DIR
+    from intrinsic_neural_fields_tpu_torch.spectral.eigensolver import (
+        DENSE_DEVICE_WINDOW, _ell_arrays, ell_spmv, shift_invert_eigenpairs,
+        solve_generalized_eigenproblem)
+
+    libs = {name: load()._name for name, load in (("localtri", load_localtri), ("idt", load_idt))}
+    check(all(os.path.dirname(v) == BUILD_DIR for v in libs.values()),
+          f"the native cores did not load from the port's build: {libs}")
+
+    # CheFSI at the HQ solve
+    L, M = build_laplacian(p["mesh"], "cotan")
+    Md = M.diagonal()
+    ref_phi = np.load(p["efuncs_path"]).astype(np.float64)
+    ref_ev = np.load(p["efuncs_path"].replace("eigenfunctions_", "eigenvalues_")).astype(
+        np.float64)
+    k = ref_ev.shape[0] + 1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # the earlier phases' live tensors
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    ev, phi = solve_generalized_eigenproblem(L, M, k, method="chefsi", device="cuda",
+                                             refine_filter="host", stats=stats)
+    chefsi_s = time.perf_counter() - t0
+    chefsi_peak = torch.cuda.max_memory_allocated() - base
+    rel = float(np.abs(ev[1:] - ref_ev).max() / np.abs(ref_ev).max())
+    orth, res = _eig_quality(L, M, ev, phi)
+    angles = _angles_deg(ref_phi, phi[:, 1:], Md)
+    gaps = np.diff(ref_ev) / ref_ev.max()
+    span = int(np.nonzero(gaps > SPAN_GAP)[0].max()) + 1
+    span_angle = float(_angles_deg(ref_phi[:, :span], phi[:, 1:span + 1], Md).max())
+    check(rel <= EIG_REL, f"chefsi eigenvalues {rel} off shift_invert (> {EIG_REL})")
+    check(orth <= ORTH_TOL, f"chefsi not M-orthonormal: {orth}")
+    check(res <= RES_TOL, f"chefsi relative residual {res} > {RES_TOL}")
+    check(span_angle <= ANGLE_DEG, f"chefsi's first {span} functions {span_angle} deg off")
+    check(stats["device_spmv_calls"] > 0 and chefsi_peak > 0, f"chefsi ran no device loop {stats}")
+
+    # the ELL product against cuSPARSE's CSR product, at the loop's [n, m]
+    inv_sqrt = 1.0 / np.sqrt(Md)
+    idx, w = _ell_arrays(L, inv_sqrt)
+    n, m = L.shape[0], stats["m"]
+    spmv, _ = ell_spmv(idx, w, m, 2 << 30, "cuda")
+    C = (sparse.diags(inv_sqrt) @ L @ sparse.diags(inv_sqrt)).tocsr()
+    C_t = torch.sparse_csr_tensor(torch.as_tensor(C.indptr, dtype=torch.int64),
+                                  torch.as_tensor(C.indices, dtype=torch.int64),
+                                  torch.as_tensor(C.data, dtype=torch.float32), C.shape,
+                                  device="cuda", check_invariants=False)
+    X = torch.randn(n, m, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    spmv_err = (spmv(X) - C_t @ X).abs().max().item()
+    check(spmv_err <= 1e-5 * float(np.abs(C).max()) * X.abs().max().item() * idx.shape[1],
+          f"the ELL product and cuSPARSE's differ by {spmv_err}")
+    # least time of C @ X: CSR values and column ids, row pointers, X read
+    # once, the product written once; 2 nnz m f32 operations
+    spmv_bound, spmv_by = _bound(0.0, C.nnz * 8 + (n + 1) * 8 + 2 * n * m * 4,
+                                 f32_flops=2.0 * C.nnz * m)
+    spmv_row = {"n": n, "m": m, "dmax": int(idx.shape[1]), "nnz": int(C.nnz),
+                "ell_ms": cuda_ms(lambda: spmv(X)), "cusparse_csr_ms": cuda_ms(lambda: C_t @ X),
+                "bound_ms": spmv_bound, "bound_by": spmv_by, "max_abs_diff": spmv_err}
+
+    # dense in its device window: a cloud on the blob through pc_vert_robust
+    pts = _blob_samples(p["mesh"], DENSE_POINTS, seed=0)
+    check(DENSE_DEVICE_WINDOW[0] < DENSE_POINTS <= DENSE_DEVICE_WINDOW[1], "not in the window")
+    Ld, Mdn = robust_laplacian(pts, local_triangulation(pts))
+    ev_h, _ = shift_invert_eigenpairs(Ld, Mdn, DENSE_K)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev_d, phi_d = solve_generalized_eigenproblem(Ld, Mdn, DENSE_K, method="dense", device="cuda")
+    dense_s = time.perf_counter() - t0
+    dense_peak = torch.cuda.max_memory_allocated() - base
+    inv_d = 1.0 / np.sqrt(Mdn.diagonal())
+    c_norm = float(abs(sparse.diags(inv_d) @ Ld @ sparse.diags(inv_d)).sum(axis=1).max())
+    dense_err = float(np.abs(ev_d - ev_h).max())
+    dense_orth, _ = _eig_quality(Ld, Mdn, ev_d, phi_d)
+    eps32 = float(np.finfo(np.float32).eps)
+    check(dense_peak >= 4 * DENSE_POINTS ** 2, f"dense ran no device eigh (peak {dense_peak} B)")
+    check(dense_err <= DENSE_EPS_MULT * eps32 * c_norm,
+          f"dense eigenvalues {dense_err} off (> {DENSE_EPS_MULT} eps32 ||C|| = "
+          f"{DENSE_EPS_MULT * eps32 * c_norm})")
+
+    # LOBPCG at k=10, f32 on a sparse CUDA tensor
+    Li, Mi = build_laplacian(icosphere(2), "cotan")
+    t0 = time.perf_counter()
+    ev_l, _ = solve_generalized_eigenproblem(Li, Mi, 10, method="lobpcg", tol=1e-7,
+                                             device="cuda")
+    lobpcg_s = time.perf_counter() - t0
+    ev_li = shift_invert_eigenpairs(Li, Mi, 10)[0]
+    lob_err = np.abs(ev_l - ev_li)
+    check(np.all(lob_err <= 1e-3 * np.abs(ev_li) + 1e-4), f"lobpcg off shift_invert: {lob_err}")
+
+    emit("spectral", native_libs=libs,
+         chefsi={"n": n, "k": k, "s": chefsi_s, **stats,
+                 "peak_device_bytes_beyond_base": chefsi_peak, "eig_rel_err": rel,
+                 "eig_rel_tol": EIG_REL, "m_orth_err": orth, "rel_residual": res,
+                 "max_principal_angle_deg": float(angles.max()), "separated_span": span,
+                 "span_max_angle_deg": span_angle},
+         spmv=spmv_row,
+         dense={"n": DENSE_POINTS, "k": DENSE_K, "s": dense_s,
+               "peak_device_bytes_beyond_base": dense_peak,
+                "max_abs_err": dense_err, "rel_err_of_largest": dense_err / ev_h.max(),
+                "bound": DENSE_EPS_MULT * eps32 * c_norm, "c_norm_gershgorin": c_norm,
+                "m_orth_err": dense_orth},
+         lobpcg={"n": Li.shape[0], "k": 10, "s": lobpcg_s, "max_abs_err": float(lob_err.max())})
+
+
+def _shot_leg(p, mesh):
+    """compute_shot on the HQ blob, then shot_blob.yaml (SHOT rows, k_in
+    352, no fused_mlp) for 2 epochs through the eager step, counters set to
+    0 just before and read just after, and the eval CLI on the test split
+    through the forward kernel."""
+    import pickle
+
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import compute_shot
+    from intrinsic_neural_fields_tpu_torch import eval as eval_cli
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.render.renderer import make_renderer_from_config
+    from intrinsic_neural_fields_tpu_torch.train import (Trainer, get_data, get_model_and_optim,
+                                                         get_renderer)
+    from intrinsic_neural_fields_tpu_torch.train.steps import eager_step
+
+    shot_path = os.path.join(p["root"], "shot", "blob_shot.npy")
+    t0 = time.perf_counter()
+    E = compute_shot.main([shot_path, p["mesh_path"]])
+    shot_s = time.perf_counter() - t0
+    check(E.shape == (mesh.num_vertices, 352) and np.isfinite(E).all(), f"SHOT {E.shape}")
+    config = _family_config(p, "shot_blob", "shot_blob", 2)
+    config["data"]["eigenfunctions_path"] = shot_path
+    model, opt = get_model_and_optim(config, mesh)
+    data = get_data(config, mesh)
+    rec = Recorder()
+    trainer = Trainer(model, opt, "L1", get_renderer(config, model, mesh), data, mesh, config,
+                      writer=rec)
+    check(model.in_dim == 352 and not trainer.fused_mlp, "shot_blob: not the eager k_in 352 leg")
+    reset_kernel_launches()
+    eager_step.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches, eager = kernel_launches(), eager_step.launches
+    nb = data["train"].n // config["training"]["batch_size"]
+    check(launches["fused_adam"] == eager == 2 * nb and sum(launches.values()) == 2 * nb,
+          f"shot_blob: not one eager step and one Adam launch per step: {launches}, {eager}")
+    losses = rec.values("Train_Loss")
+    check(len(losses) == 2 and losses[1] < losses[0], f"shot_blob: loss did not fall {losses}")
+
+    cfg_path = _write_config(p["root"], "shot_blob_config.yaml", config)
+    test_dir = os.path.join(p["root"], "shot_blob_test_eval")
+    reset_kernel_launches()
+    eval_cli.main([test_dir, cfg_path, p["data"], "test"])
+    torch.cuda.synchronize()
+    eval_launches = kernel_launches()["fused_mlp_fwd"]
+    check(eval_launches > 0, "shot_blob: the eval CLI did not launch the forward kernel")
+    with open(os.path.join(test_dir, "evaluation_metrics.pkl"), "rb") as f:
+        test_psnr = float(np.mean([m["psnr"] for m in pickle.load(f).values()]))
+    test_views = _dataset_views(p, "test")
+    r_k = make_renderer_from_config(config)
+    psnr_kp = _render_vs_plain(r_k, make_renderer_from_config(config, infer="plain"), test_views)
+    check(psnr_kp >= PSNR_MIN, f"shot_blob: kernel vs plain render {psnr_kp} < {PSNR_MIN} dB")
+    rays = rec.values("Train Rays-per-sec")
+    emit("family_train", recipe="shot_blob", k_in=model.in_dim, epochs=2, steps_per_epoch=nb,
+         compute_shot_s=shot_s, path_s=path_s, train_loss=losses,
+         val_psnr=rec.values("Val Epoch-PSNR"), test_psnr_eval_cli=test_psnr,
+         train_rays_per_s_best=max(rays), launches=launches, eager_steps=eager,
+         psnr_kernel_vs_plain_min=psnr_kp, eval_launches=eval_launches)
+    leg = (r_k, [v["camCv2world"] for v in test_views], test_views[0]["K"])
+    return launches["fused_adam"], eval_launches, leg
+
+
+def phase_cloud(p):
+    """The point-cloud path: make_transfer_targets --targets cloud (the
+    HQ blob's 10,242 vertices as a faceless PLY, its local triangulation,
+    the pc_vert_robust operator, a SMOKE_K_BASIS shift-invert basis), the
+    triangulation and the iDT timed alone on the native cores, then
+    texture_transfer onto cloud.ply with --laplacian_type pc_vert_robust
+    through the kernel (launches counted) and the plain twin; then the SHOT
+    leg. Returns each path's forward launches, shot_blob's Adam launches
+    and the SHOT forward leg."""
+    import pickle
+
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import make_transfer_targets, texture_transfer
+    from intrinsic_neural_fields_tpu_torch.geometry.intrinsic_delaunay import (
+        build_double_cover, intrinsic_delaunay)
+    from intrinsic_neural_fields_tpu_torch.geometry.laplacian import (_edge_lengths,
+                                                                      _mollify_lengths)
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh import load_mesh
+    from intrinsic_neural_fields_tpu_torch.geometry.pointcloud import local_triangulation
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+
+    root = p["root"]
+    tdir = os.path.join(root, "transfer")
+    t0 = time.perf_counter()
+    make_transfer_targets.main(["--out_dir", tdir, "--src_dataset", p["data"], "--src_efuncs",
+                                p["efuncs_path"], "--src_subdivisions", "5", "--targets",
+                                "cloud", "--k_basis", str(SMOKE_K_BASIS)])
+    targets_s = time.perf_counter() - t0
+    cloud = os.path.join(tdir, "cloud.ply")
+    pts = load_mesh(cloud).vertices
+    t0 = time.perf_counter()
+    faces = local_triangulation(pts)
+    localtri_s = time.perf_counter() - t0
+    fc, lc = build_double_cover(faces.astype(np.int64),
+                                _mollify_lengths(_edge_lengths(pts, faces.astype(np.int64))))
+    t0 = time.perf_counter()
+    _, _, flips = intrinsic_delaunay(fc, lc)
+    idt_s = time.perf_counter() - t0
+
+    config = _hq_train_config(p, "out", 5)
+    cfg_path = os.path.join(root, "hq_config.yaml")
+    args = [cloud, os.path.join(tdir, "source_efuncs_full.npy"),
+            os.path.join(tdir, "efuncs_full_cloud.npy"), os.path.join(tdir, "corr_cloud.npy")]
+    out = os.path.join(root, "transfer_cloud")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    texture_transfer.main(["--config_path", cfg_path, "--target_mesh", args[0],
+                           "--laplacian_type", "pc_vert_robust", "--source_efuncs_full", args[1],
+                           "--target_efuncs_full", args[2], "--correspondence", args[3],
+                           "--eval_dataset", p["data"], "--eval_split", "test", "--out_dir", out])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = kernel_launches()["fused_mlp_fwd"]
+    check(launches > 0, "the cloud transfer eval did not launch the forward kernel")
+    with open(os.path.join(out, "evaluation_metrics.pkl"), "rb") as f:
+        metrics = pickle.load(f)
+    eval_psnr = float(np.mean([m["psnr"] for m in metrics.values()]))
+    check(np.isfinite(eval_psnr), f"cloud transfer eval {metrics}")
+    r_k = texture_transfer.build_transferred_renderer(config, *args, "pc_vert_robust")
+    r_p = texture_transfer.build_transferred_renderer(config, *args, "pc_vert_robust",
+                                                      infer="plain")
+    psnr_kp = _render_vs_plain(r_k, r_p, _dataset_views(p, "test"))
+    check(psnr_kp >= PSNR_MIN, f"cloud transfer kernel vs plain PSNR {psnr_kp} < {PSNR_MIN}")
+    emit("cloud", target="cloud", points=int(pts.shape[0]), k_basis=SMOKE_K_BASIS,
+         targets_s=targets_s, localtri_s=localtri_s, localtri_faces=int(faces.shape[0]),
+         idt_s=idt_s, idt_cover_faces=int(fc.shape[0]), idt_flips=int(flips),
+         eval_psnr=eval_psnr, coarse_eval_psnr=p["coarse_eval_psnr"],
+         eval_dssim_rescaled=float(np.mean([m["dssim_rescaled"] for m in metrics.values()])),
+         psnr_kernel_vs_plain_min=psnr_kp, cli_s=cli_s, launches=launches)
+    shot_adam, shot_eval, shot_leg = _shot_leg(p, p["mesh"])
+    return {"cloud_transfer_eval": launches, "shot_eval": shot_eval}, shot_adam, shot_leg
+
+
 def _viewdep_xyz_check(mesh, test_views, cams, K):
     """A seeded view-dependent field over xyz (viewdep_intrinsic_blob.yaml's
     view_dependence section): its renders through fused_mlp_fwd_viewdep
@@ -2614,6 +2948,11 @@ def main():
         "families", lambda: phase_families(pipe, pipe["hq_train_rays_per_s"]))
     frows = timed("family_kernels", lambda: phase_kernels(fam_fwd_legs))
     ftrows = timed("family_train_kernels", lambda: phase_train_kernels(fam_train_legs))
+    # the point-cloud path and the device eigensolvers
+    timed("spectral", lambda: phase_spectral(pipe))
+    cloud_paths, shot_adam, shot_leg = timed("cloud", lambda: phase_cloud(pipe))
+    user_paths.update(cloud_paths)
+    crows = timed("cloud_kernels", lambda: phase_kernels({"shot_blob": shot_leg}))
     # Last: the profiler's hooks may slow host-bound torch code run after it.
     r, cams, K = tp_leg
     timed("profile", lambda: (profile_frames(r, cams[:4], K),
@@ -2636,10 +2975,10 @@ def main():
                              "hq_train": train_launches["fused_mlp_fwd"], **user_paths,
                              **{f"{f}_eval": fam_paths[f]["eval"] for f in FAMILY_RECIPES},
                              "eval_on_mesh": fam_paths["eval_on_mesh"]["eval"]},
-        "max_abs_err": max(r["max_abs_err"] for r in rows + frows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + frows + crows),
         "families": {f'{r["leg"]}_B{r["B"]}': {k: r[k] for k in (
             "k", "B", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-            for r in frows},
+            for r in frows + crows},
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the whole MLP
@@ -2684,7 +3023,7 @@ def main():
         "hq_train": train_launches["fused_adam"], "viewdep_train": vd_launches["fused_adam"],
         "hq_train_fused_adam_false": yard_launches["fused_adam"],
         "viewdep_train_fused_adam_false": vd_yard_launches["fused_adam"],
-        "hks_blob": fam_paths["hks_blob"]["train"]["fused_adam"]}
+        "hks_blob": fam_paths["hks_blob"]["train"]["fused_adam"], "shot_blob": shot_adam}
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      vrows["fused_adam"]["max_abs_err"])
     kernels[-1]["viewdep"] = {k: vrows["fused_adam"][k] for k in

@@ -1,10 +1,18 @@
-"""Cotan Laplace-Beltrami stiffness and mixed-Voronoi mass (host, scipy).
+"""Laplace-Beltrami operators on the host (numpy + scipy.sparse).
 
 Conventions match the reference package: the stiffness matrix is POSITIVE
-semi-definite (== -igl.cotmatrix) and the mass matrix is the diagonal
-"mixed Voronoi" mass of Meyer et al. (igl MASSMATRIX_TYPE_VORONOI).
-Only the "cotan" Laplacian is ported; the robust and point-cloud operators
-stay in the reference package for now.
+semi-definite (== -igl.cotmatrix) and the mass matrix is diagonal: the
+"mixed Voronoi" mass of Meyer et al. (igl MASSMATRIX_TYPE_VORONOI) for
+"cotan", the lumped (barycentric) mass of the intrinsic Delaunay metric for
+"robust" and "pc_vert_robust".
+
+The robust operator is Sharp & Crane's, "A Laplacian for Nonmanifold
+Triangle Meshes" (2020): intrinsic mollification (edge lengths lengthened
+so every triangle satisfies the triangle inequality with slack delta), the
+tufted double cover (every face duplicated with reversed orientation, so
+every edge becomes interior; the VERTEX set stays the input's, so the
+operators are halved) and intrinsic Delaunay edge flips: an M-matrix even
+on meshes with boundary, skinny triangles or nonmanifold edges.
 """
 from __future__ import annotations
 
@@ -40,21 +48,89 @@ def _cotangents_from_lengths(l, area):
     return cots / denom
 
 
-def cotan_laplacian(vertices, faces):
-    """Positive semi-definite cotan stiffness matrix (csr)."""
-    vertices = np.asarray(vertices, dtype=np.float64)
-    faces = np.asarray(faces, dtype=np.int64)
-    l = _edge_lengths(vertices, faces)
-    cots = _cotangents_from_lengths(l, _heron_area(l))
-    # W_ij += cot(c) / 2 for the edge (i, j) opposite corner c; L = D - W.
+def _mollify_lengths(l, rel_delta=1e-6):
+    """Intrinsic mollification (Sharp & Crane 2020, section 3.3): the
+    smallest eps such that every triangle satisfies l_i + l_j >= l_k +
+    delta, added to all edge lengths."""
+    delta = rel_delta * np.mean(l)
+    needed = np.concatenate([
+        delta + l[:, 0] - l[:, 1] - l[:, 2],
+        delta + l[:, 1] - l[:, 2] - l[:, 0],
+        delta + l[:, 2] - l[:, 0] - l[:, 1],
+    ])
+    eps = max(0.0, float(needed.max()))
+    return l + eps
+
+
+def _assemble_cotan(faces, cots, n_vertices):
+    """PSD stiffness from per-corner cotangents: W_ij += cot(c) / 2 for the
+    edge (i, j) opposite corner c; L = D - W."""
     ii = np.concatenate([faces[:, 1], faces[:, 2], faces[:, 0]])
     jj = np.concatenate([faces[:, 2], faces[:, 0], faces[:, 1]])
     ww = 0.5 * np.concatenate([cots[:, 0], cots[:, 1], cots[:, 2]])
     rows = np.concatenate([ii, jj, ii, jj])
     cols = np.concatenate([jj, ii, ii, jj])
     vals = np.concatenate([-ww, -ww, ww, ww])
+    return sparse.coo_matrix((vals, (rows, cols)), shape=(n_vertices, n_vertices)).tocsr()
+
+
+def _lumped_mass(faces, area, n_vertices):
+    m = np.zeros(n_vertices)
+    for c in range(3):
+        np.add.at(m, faces[:, c], area / 3.0)
+    return sparse.diags(m).tocsr()
+
+
+def cotan_laplacian_from_lengths(faces, lengths, n_vertices):
+    """PSD cotan stiffness from an INTRINSIC metric (faces + edge lengths)."""
+    faces = np.asarray(faces, dtype=np.int64)
+    cots = _cotangents_from_lengths(lengths, _heron_area(lengths))
+    return _assemble_cotan(faces, cots, n_vertices)
+
+
+def barycentric_mass_from_lengths(faces, lengths, n_vertices):
+    """Diagonal lumped mass from an intrinsic metric."""
+    return _lumped_mass(np.asarray(faces, dtype=np.int64), _heron_area(lengths), n_vertices)
+
+
+def cotan_laplacian(vertices, faces, mollify=False):
+    """Positive semi-definite cotan stiffness matrix (csr)."""
+    vertices = np.asarray(vertices, dtype=np.float64)
+    faces = np.asarray(faces, dtype=np.int64)
+    l = _edge_lengths(vertices, faces)
+    if mollify:
+        l = _mollify_lengths(l)
+    cots = _cotangents_from_lengths(l, _heron_area(l))
+    return _assemble_cotan(faces, cots, vertices.shape[0])
+
+
+def robust_laplacian(vertices, faces):
+    """(L PSD csr, M diagonal csr), Sharp & Crane's robust operator:
+    mollification -> tufted double cover -> intrinsic Delaunay flips (the
+    native core) -> cotan stiffness and lumped mass of the flipped metric,
+    halved."""
+    from .intrinsic_delaunay import build_double_cover, intrinsic_delaunay
+
+    vertices = np.asarray(vertices, dtype=np.float64)
+    faces = np.asarray(faces, dtype=np.int64)
+    l = _mollify_lengths(_edge_lengths(vertices, faces))
+    faces_cov, l_cov = build_double_cover(faces, l)
+    faces_idt, l_idt, _ = intrinsic_delaunay(faces_cov, l_cov)
     n = vertices.shape[0]
-    return sparse.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    L = 0.5 * cotan_laplacian_from_lengths(faces_idt, l_idt, n)
+    M = (0.5 * barycentric_mass_from_lengths(faces_idt, l_idt, n)).tocsr()
+    d = M.diagonal()
+    if d.min() <= 0:
+        eps = 1e-12 * d[d > 0].mean()
+        M = sparse.diags(np.maximum(d, eps)).tocsr()
+    return L.tocsr(), M
+
+
+def barycentric_mass_matrix(vertices, faces):
+    """Diagonal lumped mass: one third of incident face area per vertex."""
+    vertices = np.asarray(vertices, dtype=np.float64)
+    faces = np.asarray(faces, dtype=np.int64)
+    return _lumped_mass(faces, _heron_area(_edge_lengths(vertices, faces)), vertices.shape[0])
 
 
 def voronoi_mass_matrix(vertices, faces):
@@ -87,12 +163,15 @@ def voronoi_mass_matrix(vertices, faces):
 
 
 def build_laplacian(mesh, laplacian_type="cotan"):
-    """(L PSD csr, M diagonal csr) for a mesh."""
-    if laplacian_type != "cotan":
-        raise NotImplementedError(
-            f"Laplacian type {laplacian_type!r} is not ported yet (only 'cotan')"
-        )
-    return (
-        cotan_laplacian(mesh.vertices, mesh.faces),
-        voronoi_mass_matrix(mesh.vertices, mesh.faces),
-    )
+    """(L PSD csr, M diagonal csr) for a mesh, by the reference's
+    laplacian_type switch."""
+    if laplacian_type == "cotan":
+        return (cotan_laplacian(mesh.vertices, mesh.faces),
+                voronoi_mass_matrix(mesh.vertices, mesh.faces))
+    if laplacian_type == "robust":
+        return robust_laplacian(mesh.vertices, mesh.faces)
+    if laplacian_type == "pc_vert_robust":
+        from .pointcloud import point_cloud_laplacian
+
+        return point_cloud_laplacian(mesh.vertices)
+    raise RuntimeError(f"Laplacian type {laplacian_type} not implemented.")

@@ -1,12 +1,22 @@
-"""Host triangle-mesh container (numpy), preserving file vertex/face order."""
+"""Host triangle-mesh container (numpy) and loading, preserving file
+vertex/face order. Point-cloud files (no faces) are loaded and locally
+triangulated (geometry/pointcloud.py), so the ray tracer and the
+barycentric interpolation treat them as meshes."""
 from __future__ import annotations
 
-import os
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from .mesh_io import read_obj
+from .mesh_io import read_mesh_file
+
+
+@functools.lru_cache(maxsize=8)
+def is_pointcloud_file(path):
+    """True if the file stores points without faces."""
+    _, faces = read_mesh_file(path)
+    return faces.shape[0] == 0
 
 
 @dataclass
@@ -48,6 +58,14 @@ class Mesh:
             self._cache["face_normals"] = n / np.maximum(norm, 1e-300)
         return self._cache["face_normals"]
 
+    @property
+    def face_areas(self):
+        if "face_areas" not in self._cache:
+            t = self.triangles
+            n = np.cross(t[:, 1] - t[:, 0], t[:, 2] - t[:, 0])
+            self._cache["face_areas"] = 0.5 * np.linalg.norm(n, axis=-1)
+        return self._cache["face_areas"]
+
     def apply_transform(self, T):
         """Apply a 4x4 homogeneous transform in place."""
         T = np.asarray(T, dtype=np.float64)
@@ -57,12 +75,22 @@ class Mesh:
         return self
 
 
+def load_pointcloud(path, n_neighbors=16):
+    """Load a point-cloud file and build a local triangulation around the
+    points. Invalid faces are dropped; point order preserved."""
+    from .pointcloud import local_triangulation
+
+    pts, _ = read_mesh_file(path)
+    return Mesh(vertices=pts, faces=local_triangulation(pts, n_neighbors=n_neighbors))
+
+
 def load_mesh(path):
-    """Load a triangle mesh from an OBJ file, preserving vertex/face order."""
-    if os.path.splitext(path)[1].lower() != ".obj":
-        raise NotImplementedError(
-            f"{path}: the port reads OBJ meshes only (convert PLY/OFF/point "
-            "clouds with the reference package first)"
-        )
-    v, f = read_obj(path)
+    """Load a triangle mesh (OBJ, PLY, OFF) or a point cloud (a faceless PLY
+    or OFF, or .xyz), preserving vertex/face order. One parse: a faceless
+    file is detected from the same read and locally triangulated."""
+    v, f = read_mesh_file(path)
+    if f.shape[0] == 0:
+        from .pointcloud import local_triangulation
+
+        return Mesh(vertices=v, faces=local_triangulation(v))
     return Mesh(vertices=v, faces=f)

@@ -1,11 +1,16 @@
-"""Host-side Wavefront OBJ read/write (numpy only).
+"""Host-side mesh file IO: OBJ, PLY (ascii and binary, faceless point
+clouds included) and OFF (numpy only; copies of the JAX package's
+geometry/mesh_io.py).
 
 Vertex and face order are preserved exactly as stored in the file. Polygons
 are fan-triangulated. `read_obj` ignores texture/normal indices and other
-records; `read_obj_with_uv` keeps the texture coordinates (a copy of the JAX
-package's geometry/mesh_io.py:68-126, wedge splitting included).
+records; `read_obj_with_uv` keeps the texture coordinates (wedge splitting
+included).
 """
 from __future__ import annotations
+
+import os
+import struct
 
 import numpy as np
 
@@ -38,6 +43,18 @@ def read_obj(path):
     v = np.asarray(vertices, dtype=np.float64).reshape(-1, 3)
     f = np.asarray(faces, dtype=np.int32).reshape(-1, 3)
     return v, f
+
+
+_PLY_DTYPES = {
+    "char": "i1", "int8": "i1",
+    "uchar": "u1", "uint8": "u1",
+    "short": "i2", "int16": "i2",
+    "ushort": "u2", "uint16": "u2",
+    "int": "i4", "int32": "i4",
+    "uint": "u4", "uint32": "u4",
+    "float": "f4", "float32": "f4",
+    "double": "f8", "float64": "f8",
+}
 
 
 def read_obj_with_uv(path):
@@ -99,9 +116,191 @@ def read_obj_with_uv(path):
     )
 
 
+def read_ply(path):
+    """Parse a PLY file (ascii, binary_little_endian, or binary_big_endian).
+
+    Returns (vertices f64 [V,3], faces i32 [F,3]). Faces may be empty
+    ([0,3]) for point-cloud PLYs. Extra vertex properties (normals, colors,
+    quality, even list-typed ones) are skipped; unknown property dtypes and
+    formats raise with an actionable message.
+    """
+    with open(path, "rb") as f:
+        magic = f.readline().strip()
+        if magic != b"ply":
+            raise ValueError(f"{path}: not a PLY file (missing 'ply' magic)")
+        fmt = None
+        elements = []  # list of (name, count, [(prop_name, dtype) or ('list', count_dt, item_dt, name)])
+        cur = None
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError(f"{path}: unexpected EOF in PLY header")
+            tokens = line.decode("ascii", errors="replace").split()
+            if not tokens:
+                continue
+            if tokens[0] == "format":
+                fmt = tokens[1]
+            elif tokens[0] == "comment" or tokens[0] == "obj_info":
+                continue
+            elif tokens[0] == "element":
+                cur = {"name": tokens[1], "count": int(tokens[2]), "props": []}
+                elements.append(cur)
+            elif tokens[0] == "property":
+                try:
+                    if tokens[1] == "list":
+                        cur["props"].append(("list", _PLY_DTYPES[tokens[2]], _PLY_DTYPES[tokens[3]], tokens[4]))
+                    else:
+                        cur["props"].append((tokens[2], _PLY_DTYPES[tokens[1]]))
+                except KeyError as e:
+                    raise NotImplementedError(
+                        f"{path}: PLY property type {e} not supported "
+                        f"(known: {sorted(_PLY_DTYPES)})"
+                    ) from None
+            elif tokens[0] == "end_header":
+                break
+
+        if fmt not in ("ascii", "binary_little_endian", "binary_big_endian"):
+            raise NotImplementedError(
+                f"{path}: PLY format '{fmt}' not supported (ascii, "
+                "binary_little_endian, binary_big_endian are)"
+            )
+        bo = ">" if fmt == "binary_big_endian" else "<"
+
+        vertices = np.zeros((0, 3), dtype=np.float64)
+        faces = np.zeros((0, 3), dtype=np.int32)
+
+        for elem in elements:
+            name, count, props = elem["name"], elem["count"], elem["props"]
+            has_list = any(p[0] == "list" for p in props)
+            if fmt == "ascii":
+                rows = [f.readline().decode("ascii").split() for _ in range(count)]
+                if name == "vertex":
+                    names = [p[0] for p in props]
+                    ix, iy, iz = names.index("x"), names.index("y"), names.index("z")
+                    vertices = np.array(
+                        [[float(r[ix]), float(r[iy]), float(r[iz])] for r in rows], dtype=np.float64
+                    ).reshape(-1, 3)
+                elif name == "face":
+                    polys = [[int(t) for t in r[1 : 1 + int(r[0])]] for r in rows]
+                    tris = []
+                    for p in polys:
+                        tris.extend(_triangulate_fan(p))
+                    faces = np.asarray(tris, dtype=np.int32).reshape(-1, 3)
+            else:  # binary (either endianness)
+                if not has_list:
+                    dt = np.dtype([(p[0], bo + p[1]) for p in props])
+                    data = np.frombuffer(f.read(dt.itemsize * count), dtype=dt, count=count)
+                    if name == "vertex":
+                        vertices = np.stack(
+                            [data["x"], data["y"], data["z"]], axis=-1
+                        ).astype(np.float64)
+                else:
+                    # generic item-by-item path for elements with list
+                    # properties: collects face polygons AND vertex x/y/z
+                    # (a vertex element can legally carry a list property)
+                    tris = []
+                    verts = []
+                    for _ in range(count):
+                        row_polys = None
+                        row_xyz = {}
+                        for p in props:
+                            if p[0] == "list":
+                                cnt_dt, item_dt = np.dtype(bo + p[1]), np.dtype(bo + p[2])
+                                n = int(np.frombuffer(f.read(cnt_dt.itemsize), dtype=cnt_dt)[0])
+                                items = np.frombuffer(f.read(item_dt.itemsize * n), dtype=item_dt, count=n)
+                                if p[3] in ("vertex_indices", "vertex_index"):
+                                    row_polys = [int(x) for x in items]
+                            else:
+                                dt = np.dtype(bo + p[1])
+                                raw = np.frombuffer(f.read(dt.itemsize), dtype=dt)
+                                if p[0] in ("x", "y", "z"):
+                                    row_xyz[p[0]] = float(raw[0])
+                        if name == "face" and row_polys is not None:
+                            tris.extend(_triangulate_fan(row_polys))
+                        if name == "vertex" and len(row_xyz) == 3:
+                            verts.append((row_xyz["x"], row_xyz["y"], row_xyz["z"]))
+                    if name == "face":
+                        faces = np.asarray(tris, dtype=np.int32).reshape(-1, 3)
+                    if name == "vertex" and verts:
+                        vertices = np.asarray(verts, dtype=np.float64).reshape(-1, 3)
+    return vertices, faces
+
+
+def read_off(path):
+    """Parse an OFF file. Returns (vertices f64 [V,3], faces i32 [F,3]).
+
+    Tolerates '#' comments (full-line or trailing) and the header keyword
+    fused with the counts line ('OFF 8 12 18'). COFF/NOFF/STOFF variants
+    carry extra per-vertex fields this parser does not model — rejected
+    with an actionable error rather than misparsed.
+    """
+    lines = []
+    with open(path, "r", errors="replace") as f:
+        for raw in f:
+            line = raw.split("#", 1)[0].strip()
+            if line:
+                lines.append(line)
+    tokens = " ".join(lines).split()
+    i = 0
+    if tokens and tokens[i].upper().endswith("OFF") and not tokens[i].lstrip("+-").replace(".", "").isdigit():
+        if tokens[i] != "OFF":
+            raise NotImplementedError(
+                f"{path}: OFF variant '{tokens[i]}' carries extra per-vertex "
+                "fields (colors/normals); only plain OFF is supported"
+            )
+        i += 1
+    nv, nf = int(tokens[i]), int(tokens[i + 1])
+    i += 3  # skip edge count
+    v = np.array(tokens[i : i + 3 * nv], dtype=np.float64).reshape(nv, 3)
+    i += 3 * nv
+    tris = []
+    for _ in range(nf):
+        n = int(tokens[i])
+        poly = [int(t) for t in tokens[i + 1 : i + 1 + n]]
+        tris.extend(_triangulate_fan(poly))
+        i += 1 + n
+    return v, np.asarray(tris, dtype=np.int32).reshape(-1, 3)
+
+
+def read_mesh_file(path):
+    """Dispatch by extension. Returns (vertices f64 [V,3], faces i32 [F,3])."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".obj":
+        return read_obj(path)
+    if ext == ".ply":
+        return read_ply(path)
+    if ext == ".off":
+        return read_off(path)
+    if ext == ".xyz":
+        pts = np.loadtxt(path, dtype=np.float64)[:, :3]
+        return pts.reshape(-1, 3), np.zeros((0, 3), dtype=np.int32)
+    raise ValueError(f"Unsupported mesh format: {path}")
+
+
 def write_obj(path, vertices, faces):
     with open(path, "w") as f:
         for v in np.asarray(vertices):
             f.write(f"v {v[0]:.9g} {v[1]:.9g} {v[2]:.9g}\n")
         for face in np.asarray(faces):
             f.write(f"f {face[0] + 1} {face[1] + 1} {face[2] + 1}\n")
+
+
+def write_ply(path, vertices, faces):
+    vertices = np.asarray(vertices)
+    faces = np.asarray(faces)
+    with open(path, "wb") as f:
+        header = [
+            "ply",
+            "format binary_little_endian 1.0",
+            f"element vertex {len(vertices)}",
+            "property float x",
+            "property float y",
+            "property float z",
+            f"element face {len(faces)}",
+            "property list uchar int vertex_indices",
+            "end_header",
+        ]
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(vertices.astype("<f4").tobytes())
+        for face in faces:
+            f.write(struct.pack("<Biii", 3, int(face[0]), int(face[1]), int(face[2])))

@@ -5,7 +5,7 @@ eigenbases and carried-texture ground-truth views.
 
   python -m intrinsic_neural_fields_tpu_torch.make_transfer_targets \
       [--out_dir data/transfer_hq] [--src_dataset data/synthetic_hq] \
-      [--src_efuncs <trained k=512 basis>] [--targets coarse dense deformed] \
+      [--src_efuncs <trained k=512 basis>] [--targets coarse dense cloud deformed] \
       [--tracer device|host] [--device cuda]
 
 The SOURCE is the HQ synthetic blob (icosphere subdivision 5, 10,242
@@ -17,15 +17,17 @@ vertices); the TARGETS re-discretize or deform the same surface:
   dense     the subdivision-6 blob (40,962 vertices); the first 10,242
             correspond exactly, the edge midpoints map to the nearest
             source vertex.
+  cloud     the source's 10,242 vertices as a FACELESS point cloud
+            (cloud.ply): load_mesh triangulates it locally and its basis
+            comes from the pc_vert_robust point-cloud Laplacian, a
+            different discretization pipeline; correspondence = identity.
   deformed  the source under a smooth z-twist (non-rigid, near-isometric;
             vertex order kept, correspondence = identity), with test views
             whose texture is CARRIED along the deformation (the colour of a
             deformed point is the procedural texture at its source position).
-  cloud     (not ported: the PLY reader, the local triangulation and the
-            pc_vert_robust Laplacian are ROADMAP queue 1 item 5) raises.
 
-Written per target: <name>.obj, corr_<name>.npy (target -> source ids,
-int64), efuncs_full_<name>.npy ([V, 1 + k_basis] unrescaled: the analytic
+Written per target: <name>.obj (or cloud.ply), corr_<name>.npy (target ->
+source ids, int64), efuncs_full_<name>.npy ([V, 1 + k_basis] unrescaled: the analytic
 constant phi0 = 1/sqrt(1^T M 1) spliced in front of a deterministic
 skip-first shift-invert solve) and efuncs_skip_<name>.npy; plus
 source_efuncs_full.npy (the TRAINED basis behind the constant, the
@@ -80,6 +82,20 @@ def nearest_vertex_correspondence(target_verts, source_verts):
     return cKDTree(source_verts).query(target_verts)[1].astype(np.int64)
 
 
+def write_cloud_ply(path, points):
+    """Faceless binary PLY: is_pointcloud_file() detects it and load_mesh
+    runs the local triangulation."""
+    with open(path, "wb") as f:
+        hdr = (
+            "ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {len(points)}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            "element face 0\nproperty list uchar int vertex_indices\nend_header\n"
+        )
+        f.write(hdr.encode())
+        f.write(np.asarray(points, dtype="<f4").tobytes())
+
+
 def make_deformed_views(out_dir, deformed_mesh, source_verts, src_dataset, split,
                         tracer="device", device="cuda"):
     """Carried-texture GT views of the deformed mesh through the SOURCE
@@ -120,8 +136,7 @@ def parse_args(argv=None):
                    help="non-constant target basis size (richer than the trained k, so "
                         "the mapped functions are well represented)")
     p.add_argument("--twist_rate", type=float, default=0.6)
-    p.add_argument("--targets", nargs="+", choices=TARGETS,
-                   default=["coarse", "dense", "deformed"])
+    p.add_argument("--targets", nargs="+", choices=TARGETS, default=list(TARGETS))
     p.add_argument("--tracer", default="device", choices=("host", "device"))
     p.add_argument("--device", default="cuda", help="device of --tracer device")
     return p.parse_args(argv)
@@ -129,15 +144,11 @@ def parse_args(argv=None):
 
 def main(argv=None):
     from .geometry.laplacian import build_laplacian
-    from .geometry.mesh import Mesh
+    from .geometry.mesh import Mesh, load_mesh
     from .geometry.mesh_io import write_obj
     from .geometry.synthetic import blob_mesh
 
     args = parse_args(argv)
-    if "cloud" in args.targets:
-        raise NotImplementedError(
-            "the cloud target needs the PLY reader, the local triangulation and the "
-            "pc_vert_robust Laplacian, not ported yet (ROADMAP queue 1 item 5)")
     out = args.out_dir
     os.makedirs(out, exist_ok=True)
     source = blob_mesh(subdivisions=args.src_subdivisions)
@@ -180,6 +191,14 @@ def main(argv=None):
         corr[:n_src] = np.arange(n_src)  # prefix is exact
         np.save(os.path.join(out, "corr_dense.npy"), corr)
         solve_and_save("dense", dense, "cotan")
+
+    if "cloud" in args.targets:
+        cloud_path = os.path.join(out, "cloud.ply")
+        write_cloud_ply(cloud_path, source.vertices)
+        cloud_mesh = load_mesh(cloud_path)  # local triangulation
+        assert np.allclose(cloud_mesh.vertices, source.vertices, atol=1e-6)
+        np.save(os.path.join(out, "corr_cloud.npy"), np.arange(n_src, dtype=np.int64))
+        solve_and_save("cloud", cloud_mesh, "pc_vert_robust")
 
     if "deformed" in args.targets:
         deformed = Mesh(vertices=twist_deform(source.vertices, rate=args.twist_rate),

@@ -1,12 +1,15 @@
 """Native (C++) host components, loaded through ctypes.
 
-``bvh.cpp`` (a copy of the JAX package's source) is compiled with g++ at
-first use into the package's ignored ``_build/``; the library name carries
-a hash of the source, the flags and the host CPU, so an edited source is
-rebuilt, and so is a library built with -march=native on another CPU. Each
-native core has a numpy reference beside it (``ops/intersect.py:
-intersect_rays_numpy`` for the BVH), which callers use when no compiler is
-available.
+``bvh.cpp``, ``localtri.cpp`` and ``idt.cpp`` (byte-for-byte copies of the
+JAX package's sources) are compiled with g++ at first use into the
+package's ignored ``_build/``; the library name carries a hash of the
+source, the flags and the host CPU, so an edited source is rebuilt, and so
+is a library built with -march=native on another CPU. Each native core has
+a Python reference beside it (``ops/intersect.py:intersect_rays_numpy``
+for the BVH, which callers use when no compiler is available; the Python
+loops of ``geometry/pointcloud.py`` and ``geometry/intrinsic_delaunay.py``,
+which run only when asked for: ``load_localtri`` and ``load_idt`` raise
+when their library cannot be built).
 """
 from __future__ import annotations
 
@@ -18,12 +21,14 @@ import subprocess
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 # -ffp-contract=off: the BVH keeps exact parity with the numpy f64 oracle
-# (hit and tie structure); FMA contraction under -march=native would change
-# the last bits of its dot/cross chains and break argmin ties that numpy
-# resolves differently.
+# (hit and tie structure), the iDT core with its Python flip predicates;
+# FMA contraction under -march=native would change the last bits of their
+# dot/cross chains and break ties that numpy resolves differently.
 _CXX_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared", "-std=c++17"]
 
 _bvh_lib = None
+_localtri_lib = None
+_idt_lib = None
 
 
 def _host_cpu():
@@ -87,3 +92,34 @@ def load_bvh():
     ]
     _bvh_lib = lib
     return lib
+
+
+def load_localtri():
+    """ctypes handle to the local-triangulation core; raises RuntimeError
+    when it cannot be built."""
+    global _localtri_lib
+    if _localtri_lib is None:
+        c = ctypes
+        lib = c.CDLL(_build("localtri.cpp"))
+        lib.local_triangulation.restype = c.c_int64
+        lib.local_triangulation.argtypes = [
+            c.c_int64, c.POINTER(c.c_double), c.c_int64, c.POINTER(c.c_int32), c.c_int64,
+        ]
+        _localtri_lib = lib
+    return _localtri_lib
+
+
+def load_idt():
+    """ctypes handle to the intrinsic-Delaunay flip core; raises
+    RuntimeError when it cannot be built."""
+    global _idt_lib
+    if _idt_lib is None:
+        c = ctypes
+        lib = c.CDLL(_build("idt.cpp"))
+        lib.idt_flip.restype = c.c_int64
+        lib.idt_flip.argtypes = [
+            c.c_int64, c.POINTER(c.c_int64), c.POINTER(c.c_double),
+            c.POINTER(c.c_int64), c.POINTER(c.c_double), c.c_int64,
+        ]
+        _idt_lib = lib
+    return _idt_lib

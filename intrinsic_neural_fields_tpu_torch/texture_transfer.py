@@ -20,8 +20,10 @@ images and the metrics pickle) instead of rendering bare cameras.
 the constant eigenfunction spliced in front (an independent re-solve
 rotates degenerate eigenvalue shells; `build_transferred_renderer` refuses
 it). `python -m intrinsic_neural_fields_tpu_torch.make_transfer_targets`
-writes both sides in this format. --laplacian_type keeps the root CLI's
-choices; only cotan is ported (robust and pc_vert_robust raise).
+writes both sides in this format. --laplacian_type (cotan, robust,
+pc_vert_robust) is the Laplacian whose mass matrix weighs the functional
+map on the target; it must be the one the target basis was solved with
+(pc_vert_robust for a point-cloud target such as cloud.ply).
 """
 import argparse
 import os

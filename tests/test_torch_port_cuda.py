@@ -1073,3 +1073,103 @@ def test_lpips_on_card_matches_cpu(cuda, tmp_path):
         torch.backends.cudnn.allow_tf32 = False
     want = LPIPS(path, device="cpu")(a, b)
     assert abs(got / want - 1) <= 1e-4
+
+
+def _eig_gates(L, M, k, ev, phi, rel_tol, orth_tol):
+    from intrinsic_neural_fields_tpu_torch.spectral.eigensolver import shift_invert_eigenpairs
+
+    ev_h, phi_h = shift_invert_eigenpairs(L, M, k)
+    Md = M.diagonal()
+    assert np.abs(ev - ev_h).max() / np.abs(ev_h).max() < rel_tol
+    assert np.abs((phi * Md[:, None]).T @ phi - np.eye(k)).max() < orth_tol
+    return ev_h, phi_h
+
+
+@pytest.mark.parametrize("budget,refine_filter", [(2 << 30, "device"), (1 << 12, "host")],
+                         ids=["one_shot_device_polish", "chunked_host_polish"])
+def test_chefsi_on_card_matches_shift_invert(cuda, budget, refine_filter):
+    """CheFSI's device loop on the card (f32, TF32 off), at icosphere(4),
+    k=64: eigenvalues within 1e-4 of the largest (the device-filtered
+    polish's gate; the host polish reaches 1e-8), M-orthonormal to 1e-10,
+    principal angles below 1 degree."""
+    from intrinsic_neural_fields_tpu_torch.geometry.laplacian import build_laplacian
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
+    from intrinsic_neural_fields_tpu_torch.spectral.eigensolver import (
+        solve_generalized_eigenproblem)
+
+    L, M = build_laplacian(icosphere(4), "cotan")
+    stats = {}
+    ev, phi = solve_generalized_eigenproblem(L, M, 64, method="chefsi", device="cuda",
+                                             spmv_bytes_budget=budget,
+                                             refine_filter=refine_filter, stats=stats)
+    ev_h, phi_h = _eig_gates(L, M, 64, ev, phi, 1e-8 if refine_filter == "host" else 1e-4,
+                             1e-10)
+    s = np.linalg.svd((phi_h * M.diagonal()[:, None]).T @ phi, compute_uv=False)
+    assert np.degrees(np.arccos(np.clip(s, 0.0, 1.0))).max() < 1.0
+    assert stats["device_spmv_calls"] > 0 and stats["device_s"] > 0
+
+
+def test_ell_spmv_on_card_matches_scipy(cuda):
+    """The gather product on the card, one-shot and chunked, against
+    scipy's f64 CSR product: within f32 rounding of dmax terms."""
+    import scipy.sparse as sparse
+
+    from intrinsic_neural_fields_tpu_torch.geometry.laplacian import build_laplacian
+    from intrinsic_neural_fields_tpu_torch.spectral.eigensolver import _ell_arrays, ell_spmv
+
+    L, M = build_laplacian(blob_mesh(4), "cotan")
+    inv_sqrt = 1.0 / np.sqrt(M.diagonal())
+    idx, w = _ell_arrays(L, inv_sqrt)
+    C = (sparse.diags(inv_sqrt) @ L @ sparse.diags(inv_sqrt)).tocsr()
+    X = np.random.default_rng(0).standard_normal((L.shape[0], 80)).astype(np.float32)
+    want = C @ X.astype(np.float64)
+    for budget in (2 << 30, 1 << 12):
+        spmv, _ = ell_spmv(idx, w, 80, budget, cuda)
+        got = spmv(torch.from_numpy(X).to(cuda)).cpu().numpy()
+        assert np.abs(got - want).max() < 1e-5 * np.abs(C).max() * np.abs(X).max() * idx.shape[1]
+
+
+def test_lobpcg_on_card_matches_shift_invert(cuda):
+    """torch.lobpcg on a sparse CUDA tensor, f32, at icosphere(2), k=10:
+    tests/test_spectral.py's gate (rtol 1e-3, atol 1e-4)."""
+    from intrinsic_neural_fields_tpu_torch.geometry.laplacian import build_laplacian
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
+    from intrinsic_neural_fields_tpu_torch.spectral.eigensolver import (
+        shift_invert_eigenpairs, solve_generalized_eigenproblem)
+
+    L, M = build_laplacian(icosphere(2), "cotan")
+    ev, _ = solve_generalized_eigenproblem(L, M, 10, method="lobpcg", tol=1e-7, device="cuda")
+    np.testing.assert_allclose(ev, shift_invert_eigenpairs(L, M, 10)[0], rtol=1e-3, atol=1e-4)
+
+
+def test_dense_window_on_card(cuda):
+    """5,041 rows (a 70x70 grid), inside the dense path's device window:
+    the f32 eigh on the card; eigenvalues within 1e-4 of the largest,
+    M-orthonormal to 1e-4 (f32 eigenvectors)."""
+    from intrinsic_neural_fields_tpu_torch.geometry.laplacian import build_laplacian
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import grid_mesh
+    from intrinsic_neural_fields_tpu_torch.spectral.eigensolver import (
+        DENSE_DEVICE_WINDOW, solve_generalized_eigenproblem)
+
+    L, M = build_laplacian(grid_mesh(70), "cotan")
+    assert DENSE_DEVICE_WINDOW[0] < L.shape[0] <= DENSE_DEVICE_WINDOW[1]
+    ev, phi = solve_generalized_eigenproblem(L, M, 20, method="dense", device="cuda")
+    _eig_gates(L, M, 20, ev, phi, 1e-4, 1e-4)
+
+
+def test_cloud_eigenbasis_on_card(cuda, tmp_path):
+    """preprocess_eigenfunctions on a faceless PLY with pc_vert_robust and
+    chefsi on the card: eigenvalues within 1e-4 of the largest of the
+    shift-invert CLI's."""
+    from intrinsic_neural_fields_tpu_torch import make_transfer_targets, preprocess_eigenfunctions
+
+    cloud = str(tmp_path / "cloud.ply")
+    make_transfer_targets.write_cloud_ply(cloud, blob_mesh(3).vertices)
+    base = "pc_vert_robust_kmax24_skip_first_efuncs"
+    evs = {}
+    for method in ("shift_invert", "chefsi"):
+        out = tmp_path / method
+        preprocess_eigenfunctions.main([str(out), cloud, "24", "--laplacian_type",
+                                        "pc_vert_robust", "--method", method])
+        evs[method] = np.load(out / f"eigenvalues_{base}.npy")
+    assert np.abs(evs["chefsi"] - evs["shift_invert"]).max() < 1e-4 * evs["shift_invert"].max()

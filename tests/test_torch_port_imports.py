@@ -27,7 +27,9 @@ new = ["ops.sort", "ops.launches", "geometry.cameras", "utils.exr", "utils.io",
        "data.preprocess", "native", "preprocess_dataset", "preprocess_eigenfunctions",
        "make_synthetic_dataset", "evaluation.lpips", "transfer", "transfer.functional_map",
        "bake", "bake.bake", "texture_transfer", "bake_texture_field", "render_view",
-       "render_video", "make_transfer_targets", "eval_on_mesh", "models.encoders"]
+       "render_video", "make_transfer_targets", "eval_on_mesh", "models.encoders",
+       "geometry.pointcloud", "geometry.intrinsic_delaunay", "geometry.shot",
+       "spectral.eigensolver", "compute_shot"]
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 print(len(names), "modules;", "banned:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
@@ -54,7 +56,8 @@ def test_eval_cli_parses_arguments():
      {"device": "cuda", "intersector": "device", "tracer": "raster", "dataset_type": None}),
     ("preprocess_eigenfunctions", ["out", "m.obj", "512"],
      {"k_max": 512, "laplacian_type": "cotan", "method": "shift_invert",
-      "keep_first_efunc": False}),
+      "keep_first_efunc": False, "device": "cuda"}),
+    ("compute_shot", ["out.npy", "m.obj"], {"radius": None, "min_neighbors": 5}),
     ("make_synthetic_dataset", ["out"],
      {"H": 128, "W": 128, "n_train": 10, "subdivisions": 4, "tracer": "host",
       "device": "cuda"}),
@@ -78,7 +81,7 @@ def test_preprocessing_clis_parse_the_reference_arguments(module, argv, want):
      {"device": "cuda", "laplacian_type": "cotan", "eval_split": "test"}),
     ("make_transfer_targets", [],
      {"device": "cuda", "tracer": "device", "k_basis": 1024,
-      "targets": ["coarse", "dense", "deformed"]}),
+      "targets": ["coarse", "dense", "cloud", "deformed"]}),
     ("eval", ["out", "cfg.yaml", "data", "test"],
      {"device": "cuda", "uv_mesh_path": None, "lpips_weights": None}),
     ("eval_on_mesh", ["--config_path", "c", "--target_mesh", "t", "--eval_dataset", "d",
@@ -93,17 +96,25 @@ def test_user_clis_parse_the_reference_arguments(module, argv, want):
     assert {k: getattr(args, k) for k in want} == want
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"method": "dense"}, "queue 1, item 9"),
-    ({"method": "lobpcg"}, "queue 1, item 9"),
-    ({"laplacian_type": "robust"}, "queue 1, item 9"),
-    ({"laplacian_type": "pc_vert_robust"}, "queue 1, item 9"),
+@pytest.mark.parametrize("kwargs,exc,match", [
+    ({"method": "arpack"}, ValueError, "Unknown eigensolver method"),
+    ({"laplacian_type": "igl"}, RuntimeError, "not implemented"),
+    ({"method": "chefsi"}, RuntimeError, "CUDA is not available"),
+    ({"method": "dense"}, RuntimeError, "CUDA is not available"),
 ])
-def test_unported_eigensolvers_raise(kwargs, match):
+def test_eigenfunction_processor_refuses_what_it_cannot_run(tmp_path, monkeypatch, kwargs, exc,
+                                                            match):
+    """An unknown method or Laplacian raises as in the JAX package, and a
+    device method on "cuda" without a card (hidden here) raises."""
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh_io import write_obj
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
     from intrinsic_neural_fields_tpu_torch.spectral.eigensolver import EigenfuncsProcessor
 
-    with pytest.raises(NotImplementedError, match=match):
-        EigenfuncsProcessor("unused.obj", 8, **kwargs)
+    m = icosphere(1)
+    write_obj(str(tmp_path / "m.obj"), m.vertices, m.faces)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(exc, match=match):
+        EigenfuncsProcessor(str(tmp_path / "m.obj"), 8, **kwargs)
 
 
 def test_preprocessor_defaults_to_the_gpu(tmp_path):

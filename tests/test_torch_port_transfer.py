@@ -141,8 +141,8 @@ def test_make_transfer_targets_matches_the_tools_module(experiment, tmp_path):
     """The port's CLI against tools/make_transfer_targets.py's functions on
     the same meshes: the correspondences exactly, the spliced bases within
     1e-6 (the same deterministic solve), the source basis exactly, and the
-    carried-texture GT views of `deformed` equal to the bit; `cloud`
-    raises, naming its queue item."""
+    carried-texture GT views of `deformed` equal to the bit (`cloud`:
+    tests/test_torch_port_cloud.py)."""
     from tools.make_synthetic_dataset import blob_mesh as tools_blob
 
     t = experiment["targets"]
@@ -186,8 +186,7 @@ def test_make_transfer_targets_matches_the_tools_module(experiment, tmp_path):
         for rel in (("image", "000.png"), ("depth", "mask.png")):
             np.testing.assert_array_equal(imread(os.path.join(port_views, name, *rel)),
                                           imread(os.path.join(jax_views, name, *rel)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        make_transfer_targets.main(["--out_dir", str(tmp_path / "c"), "--targets", "cloud"])
+    assert not os.path.exists(os.path.join(t, "cloud.ply"))  # only the targets asked for
 
 
 def _write_tools_obj(tmp_path, v, f):
@@ -254,8 +253,9 @@ def test_texture_transfer_cli(experiment, tmp_path):
     """`python -m ...texture_transfer --eval_dataset` onto `deformed`
     against its carried-texture views scores like the JAX package's
     evaluate_views on the root CLI's renderer (per-view PSNR within 0.1 dB,
-    DSSIM x100 within 0.05); render mode writes one PNG per camera; the
-    robust Laplacians fail loudly."""
+    DSSIM x100 within 0.05); render mode writes one PNG per camera; with
+    the robust and point-cloud Laplacians' target mass the mapped features
+    are the root CLI's within 1e-6."""
     from intrinsic_neural_fields_tpu.evaluation.eval_cli import (
         evaluate_views as jax_evaluate_views)
 
@@ -286,6 +286,12 @@ def test_texture_transfer_cli(experiment, tmp_path):
     assert sorted(os.listdir(tmp_path / "r")) == [
         "source_000.png", "source_001.png", "transfer_000.png", "transfer_001.png"]
     for lap in ("robust", "pc_vert_robust"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            texture_transfer.main(argv + ["--cameras_path", cams, "--laplacian_type", lap,
-                                          "--out_dir", str(tmp_path / lap)])
+        texture_transfer.main(argv + ["--cameras_path", cams, "--laplacian_type", lap,
+                                      "--out_dir", str(tmp_path / lap)])
+        assert sorted(os.listdir(tmp_path / lap)) == ["transfer_000.png", "transfer_001.png"]
+        pr = texture_transfer.build_transferred_renderer(experiment["config"], mesh, src_full,
+                                                         tgt_full, corr, lap, device="cpu")
+        jr = root_tt.build_transferred_renderer(experiment["config"], mesh, src_full, tgt_full,
+                                                corr, lap)
+        np.testing.assert_allclose(pr.features.numpy(), np.asarray(jr.features), rtol=0,
+                                   atol=1e-6)

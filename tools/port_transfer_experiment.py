@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """The HQ texture-transfer experiment (scripts/run_transfer.sh) and the
-baseline families (scripts/run_model_families.sh's xyz, tf_rff and hks
-recipes) through the port's `-m` CLIs on one NVIDIA GPU.
+baseline families (scripts/run_model_families.sh's xyz, tf_rff, hks and
+shot recipes) through the port's `-m` CLIs on one NVIDIA GPU.
 
   python tools/port_transfer_experiment.py [--seed 0] [--epochs 400]
-      [--targets coarse dense deformed] [--families xyz_blob tf_rff_blob hks_blob]
+      [--targets coarse dense cloud deformed]
+      [--families xyz_blob tf_rff_blob hks_blob shot_blob]
       [--out out/transfer_experiment]
 
 1. The README's HQ recipe: its data (``data/synthetic_hq``, made once, as
@@ -12,12 +13,15 @@ recipes) through the port's `-m` CLIs on one NVIDIA GPU.
    ``configs/synthetic/intrinsic_blob_hq.yaml`` trained for --epochs at
    --seed and evaluated on the test split (the source row).
 2. Each of --families (``configs/synthetic/<name>.yaml``) trained and
-   evaluated the same way (one row each).
+   evaluated the same way (one row each); shot_blob's SHOT matrix is made
+   first by ``compute_shot`` (``data/synthetic_hq/efuncs/blob_shot.npy``,
+   as scripts/run_model_families.sh makes it).
 3. ``make_transfer_targets`` for the targets (1024-function target bases,
    the carried-texture test views of ``deformed``).
 4. ``texture_transfer --eval_dataset`` onto each target: the source
    dataset's test views for the re-discretizations, the carried-texture
-   views for ``deformed``.
+   views for ``deformed``; the point cloud (``cloud.ply``, locally
+   triangulated) with ``--laplacian_type pc_vert_robust``.
 5. The control rows through ``eval_on_mesh`` (no functional map): the xyz
    field (when xyz_blob is among --families) on the deformed target and
    on the dense one, and the HQ field with the dense target's own basis
@@ -43,13 +47,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from port_recipe_seeds import DATA, PKG, ROOT, make_data, write_config  # noqa: E402
 
 # RESULTS.md's tables (the JAX package's CLIs): test PSNR, DSSIM x100 — the
-# transfer rows (:150-157) and the families (:105-107)
+# transfer rows (:150-157) and the families (:105-108)
 JAX_ROWS = {"source": (57.03, 0.013), "coarse": (50.20, 0.032), "dense": (45.95, 0.021),
-            "deformed": (56.45, 0.014), "deformed_xyz": (18.40, 2.603),
-            "dense_xyz": (55.23, 0.017), "dense_directswap": (15.59, 4.207),
-            "xyz_blob": (55.31, 0.017), "tf_rff_blob": (34.83, 1.807),
-            "hks_blob": (17.54, 4.885)}
-FAMILIES = ("xyz_blob", "tf_rff_blob", "hks_blob")
+            "cloud": (57.02, 0.013), "deformed": (56.45, 0.014),
+            "deformed_xyz": (18.40, 2.603), "dense_xyz": (55.23, 0.017),
+            "dense_directswap": (15.59, 4.207), "xyz_blob": (55.31, 0.017),
+            "tf_rff_blob": (34.83, 1.807), "hks_blob": (17.54, 4.885),
+            "shot_blob": (18.98, 12.546)}
+FAMILIES = ("xyz_blob", "tf_rff_blob", "hks_blob", "shot_blob")
+TARGETS = ("coarse", "dense", "cloud", "deformed")
+SHOT = os.path.join(DATA, "efuncs", "blob_shot.npy")
 
 
 def _run(cmd, log):
@@ -93,8 +100,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--epochs", type=int, default=400)
-    ap.add_argument("--targets", nargs="*", default=["coarse", "dense", "deformed"],
-                    choices=("coarse", "dense", "deformed"))
+    ap.add_argument("--targets", nargs="*", default=list(TARGETS), choices=TARGETS)
     ap.add_argument("--families", nargs="*", default=list(FAMILIES), choices=FAMILIES)
     ap.add_argument("--out", default=os.path.join(ROOT, "out", "transfer_experiment"))
     args = ap.parse_args(argv)
@@ -104,6 +110,9 @@ def main(argv=None):
                          capture_output=True, text=True, check=True).stdout.strip()
     py = [sys.executable, "-m"]
     make_data(out)
+    if "shot_blob" in args.families and not os.path.exists(SHOT):
+        _run([*py, f"{PKG}.compute_shot", SHOT, os.path.join(DATA, "blob.obj")],
+             os.path.join(out, "compute_shot.log"))
 
     recipes = os.path.join(ROOT, "configs", "synthetic")
     cfg = _train_and_eval(py, out, "source", os.path.join(recipes, "intrinsic_blob_hq.yaml"),
@@ -124,8 +133,10 @@ def main(argv=None):
              for name in args.targets}
     for name in args.targets:
         eval_dir = os.path.join(out, f"transfer_{name}")
+        mesh, lap = ("cloud.ply", "pc_vert_robust") if name == "cloud" else (f"{name}.obj",
+                                                                             "cotan")
         seconds = _run([*py, f"{PKG}.texture_transfer", "--config_path", cfg, "--target_mesh",
-                        os.path.join(tdir, f"{name}.obj"), "--source_efuncs_full",
+                        os.path.join(tdir, mesh), "--laplacian_type", lap, "--source_efuncs_full",
                         os.path.join(tdir, "source_efuncs_full.npy"), "--target_efuncs_full",
                         os.path.join(tdir, f"efuncs_full_{name}.npy"), "--correspondence",
                         os.path.join(tdir, f"corr_{name}.npy"), "--eval_dataset", views[name],
