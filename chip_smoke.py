@@ -137,6 +137,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       the transfer phase's coarse target; then the forward kernel against
       its twin on each field's encoded hit rows and the train kernels on
       each recipe's trained weights and f32 table, with (g)'s gates;
+  (y) neutex: pretrain_neutex_mapping (main(argv) in process) on the HQ
+      blob for 300 iterations of 25,000 sphere points (one Adam launch per
+      iteration; chamfer and cycle fall; its npz loads into the port's
+      factory); configs/synthetic/neutex_blob.yaml with the repo's mapping
+      through the Trainer at full width (k=170: a 1,023-wide encoding,
+      793,482 parameters) for 2 epochs, counters set to 0 just before and
+      read just after: one eager step and one fused_adam launch per step
+      and no other kernel, loss falls; one eager step on the card against
+      the CPU from the trained state (gates at NEUTEX_*_TOL); the standalone
+      Adam at 793,482 parameters against its twin and torch's fused Adam;
+      the eval CLI on the test split through the module forward (no kernel
+      launch), a finite PSNR; in (j), a profile of 20 eager steps;
   (w) spectral: the native local-triangulation and iDT cores loaded from
       the port's build; CheFSI (method="chefsi", device="cuda", the
       all-f64 polish) at the HQ solve, k+1 = 513 on the blob's cotan
@@ -159,9 +171,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       epochs through the eager step (one standalone Adam launch per step,
       loss falls), the eval CLI through the forward kernel; then the
       forward kernel against its twin on SHOT rows (k_in 352);
-  (j) profile: torch.profiler over 4 pipelined render frames and one
+  (j) profile: torch.profiler over 4 pipelined render frames, one
       epoch of each train leg (HQ, train throughput, view-dependent, xyz,
-      tf_rff), whose
+      tf_rff) and 20 NeuTex eager steps (exactly one fused_adam each), whose
       port kernels, counted by name in the trace, must be exactly one
       fwd_bwd and one wgrad with Adam per step; before it an unprofiled
       epoch, CUDA events around its graph replay, against its wall time;
@@ -308,6 +320,26 @@ def _macs(layout):
         if lay.ext is not None:
             fwd += lay.ext[2] * H
     return fwd + 3 * H, bwd + 3 * H
+
+
+def cuda_ms_cold(fn, iters=20, warmup=3):
+    """Mean device time of fn() in ms with the 50 MB L2 flushed before each
+    call (a 128 MB write), CUDA events around each call alone: the time a
+    caller whose buffers left the L2 sees."""
+    import torch
+
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    pairs = []
+    for i in range(warmup + iters):
+        flush.zero_()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        if i >= warmup:
+            pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def _bound(flops, nbytes, flops_rate=H100_BF16_FLOPS, f32_flops=0.0):
@@ -2440,6 +2472,195 @@ def phase_families(p, hq_rays):
     return paths, train_legs, runs, fwd_legs, vd_row
 
 
+# ------------------------------------------------------------------ neutex
+
+# The NeuTex eager step on the card against the same step on the CPU, from
+# the state the 2 trained epochs leave and the first 4,096 train rows: f32
+# autograd on both (TF32 off), then the Adam kernel on the card's flat
+# gradient against adam_apply_plain on the CPU's. Gates (set before any card
+# run): loss within NEUTEX_LOSS_TOL relative, RGB within NEUTEX_RGB_TOL
+# absolute, the flat gradient within NEUTEX_GRAD_TOL (norm, relative: cuBLAS
+# and the CPU's BLAS sum in other orders), the parameter update within
+# NEUTEX_UPDATE_TOL (norm, relative) and no parameter further apart than two
+# steps of lr (a coordinate whose gradient and moments sit at rounding level
+# may take Adam's step either way: on the CPU, JAX's and the port's runs
+# part so, tests/test_torch_port_neutex.py); the kernel within 1 ulp of its
+# twin on the same gradient.
+NEUTEX_LOSS_TOL, NEUTEX_RGB_TOL, NEUTEX_GRAD_TOL, NEUTEX_UPDATE_TOL = 1e-4, 1e-4, 1e-3, 1e-2
+NEUTEX_PRETRAIN_ITERS = 300   # the mapping pretraining's iterations (25,000 points each)
+NEUTEX_PROFILE_STEPS = 20
+
+
+def _neutex_config(p, out_name, epochs):
+    """configs/synthetic/neutex_blob.yaml on the hq_pipeline's files (see
+    _family_config), its pretrained mapping the repo's npz."""
+    cfg = _family_config(p, "neutex_blob", out_name, epochs)
+    cfg["model"]["pretrained_path"] = os.path.join(REPO, cfg["model"]["pretrained_path"])
+    return cfg
+
+
+def _neutex_step_vs_cpu(trainer):
+    """One eager NeuTex step on the card against the CPU from the trained
+    state (gates above); returns the comparison and the card's gradient."""
+    import copy
+
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
+    from intrinsic_neural_fields_tpu_torch.train.steps import self_loss_fn
+
+    st, model, B = trainer.state, trainer.model, trainer.batch_size
+    layout = st.layout
+    xyz = trainer.train_data.hit_features[:B].float()
+    gt = trainer.train_data.expected_rgbs[:B]
+    hyper = F.adam_hyper_rows(torch.tensor([st.count + 1]), st.hyper.learning_rate,
+                              device="cuda")[0]
+
+    def grad_step(mdl, params, x, g):
+        p = params.detach().clone().requires_grad_()
+        loss, pred = self_loss_fn(mdl, layout, x, g)(p)
+        loss.backward()
+        return loss.detach(), pred.detach(), p.grad
+
+    loss_c, pred_c, grad_c = grad_step(model, st.params, xyz, gt)
+    p_k, m_k, v_k = st.params.clone(), st.mu.clone(), st.nu.clone()
+    F.fused_adam_apply(p_k, m_k, v_k, hyper, grad_c)
+    want = F.adam_apply_plain(st.params, st.mu, st.nu, hyper, grad_c)
+    torch.cuda.synchronize()
+    ulp = max((a.view(torch.int32) - b.view(torch.int32)).abs().max().item()
+              for a, b in zip((p_k, m_k, v_k), want))
+    kernel_err = max((a - b).abs().max().item() for a, b in zip((p_k, m_k, v_k), want))
+    cpu = copy.deepcopy(model).cpu()
+    loss_h, pred_h, grad_h = grad_step(cpu, st.params.cpu(), xyz.cpu(), gt.cpu())
+    p_h, _, _ = F.adam_apply_plain(st.params.cpu(), st.mu.cpu(), st.nu.cpu(), hyper.cpu(), grad_h)
+    p0 = st.params.cpu()
+    upd_c, upd_h = p_k.cpu() - p0, p_h - p0
+    cmp = {"loss_rel": abs(loss_c.item() - loss_h.item()) / abs(loss_h.item()),
+           "rgb_max_abs": (pred_c.cpu() - pred_h).abs().max().item(),
+           "grad_norm_rel": ((grad_c.cpu() - grad_h).norm() / grad_h.norm()).item(),
+           "update_norm_rel": ((upd_c - upd_h).norm() / upd_h.norm()).item(),
+           "params_max_abs": (upd_c - upd_h).abs().max().item(),
+           "kernel_vs_twin_ulp": ulp, "kernel_vs_twin_max_abs": kernel_err,
+           "gates": {"loss_rel": NEUTEX_LOSS_TOL, "rgb_max_abs": NEUTEX_RGB_TOL,
+                     "grad_norm_rel": NEUTEX_GRAD_TOL, "update_norm_rel": NEUTEX_UPDATE_TOL,
+                     "params_max_abs": 2 * st.hyper.learning_rate, "kernel_vs_twin_ulp": 1}}
+    check(all(cmp[k] <= g for k, g in cmp["gates"].items()),
+          f"neutex: the card's step differs from the CPU's {cmp}")
+    return cmp, grad_c, hyper
+
+
+def phase_neutex(p):
+    """NeuTex on the card: the mapping pretraining CLI on the pipeline's
+    blob (chamfer and cycle fall; its npz loads in the port); then
+    neutex_blob.yaml with the repo's mapping through the Trainer for 2
+    epochs at full width, counters set to 0 just before and read just
+    after (one eager step and one fused_adam launch per step, no other
+    kernel; loss falls); one step against the CPU; the Adam kernel at the
+    model's 793,482 parameters against its twin and torch's fused Adam;
+    the eval CLI on the test split (module forward: no kernel launch)."""
+    import pickle
+
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import eval as eval_cli
+    from intrinsic_neural_fields_tpu_torch import pretrain_neutex_mapping
+    from intrinsic_neural_fields_tpu_torch.models import make_model
+    from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.train import (Trainer, get_data, get_model_and_optim,
+                                                         get_renderer)
+    from intrinsic_neural_fields_tpu_torch.train.steps import ModuleLayout, eager_step
+
+    mesh = p["mesh"]
+    npz = os.path.join(p["root"], "neutex", "mapping.npz")
+    iters = NEUTEX_PRETRAIN_ITERS
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    hist = pretrain_neutex_mapping.main([p["mesh_path"], npz, "--iterations", str(iters),
+                                         "--steps_per_call", "50", "--print_every", "100"])
+    torch.cuda.synchronize()
+    pretrain_s = time.perf_counter() - t0
+    pre_launches = kernel_launches()
+    check(pre_launches["fused_adam"] == iters and sum(pre_launches.values()) == iters,
+          f"neutex pretraining: not one Adam launch per iteration: {pre_launches}")
+    first, last = hist[:20].mean(0), hist[-20:].mean(0)
+    check(np.isfinite(hist).all() and last[1] < first[1] and last[2] < first[2],
+          f"neutex pretraining: chamfer / cycle did not fall: {first} -> {last}")
+    model_cfg = dict(_neutex_config(p, "neutex_unused", 1)["model"], pretrained_path=npz)
+    pre_model = make_model(model_cfg)
+    check(all(torch.isfinite(t).all().item() for t in pre_model.state_dict().values()),
+          "neutex: the pretrained npz loads non-finite weights")
+    emit("neutex_pretrain", iterations=iters, points=25_000, seconds=pretrain_s,
+         it_per_s=iters / pretrain_s, loss_first20=first.tolist(), loss_last20=last.tolist(),
+         launches=pre_launches)
+
+    config = _neutex_config(p, "neutex_blob", 2)
+    model, opt = get_model_and_optim(config, mesh)
+    data = get_data(config, mesh)
+    rec = Recorder()
+    trainer = Trainer(model, opt, config["training"]["loss_type"],
+                      get_renderer(config, model, mesh), data, mesh, config, writer=rec)
+    check(isinstance(trainer.state.layout, ModuleLayout) and trainer.state.layout.n == 793_482,
+          f"neutex: not the recipe's 793,482-parameter state ({trainer.state.layout.n})")
+    reset_kernel_launches()
+    eager_step.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches, eager = kernel_launches(), eager_step.launches
+    B = config["training"]["batch_size"]
+    nb = data["train"].n // B
+    check(launches["fused_adam"] == eager == 2 * nb and sum(launches.values()) == 2 * nb,
+          f"neutex_blob: not one eager step and one Adam launch per step: {launches}, {eager}")
+    losses = rec.values("Train_Loss")
+    check(len(losses) == 2 and losses[1] < losses[0], f"neutex_blob: loss did not fall {losses}")
+    check(all(torch.isfinite(t).all().item() for t in (trainer.state.params, trainer.state.mu,
+                                                       trainer.state.nu)), "non-finite state")
+    cmp, grad, hyper = _neutex_step_vs_cpu(trainer)
+
+    # the standalone Adam at the model's size: kernel, twin, torch's fused Adam
+    st = trainer.state
+    n = st.layout.n
+    p2, m2, v2 = st.params.clone(), st.mu.clone(), st.nu.clone()
+    # its 22.2 MB stay in the 50 MB L2 between back-to-back calls: timed
+    # both so and with the L2 flushed before each call (the eager step's
+    # own traffic evicts them between its Adam launches)
+    adam = {"n": n, "ms": cuda_ms(lambda: F.fused_adam_apply(p2, m2, v2, hyper, grad)),
+            "ms_l2_flushed": cuda_ms_cold(lambda: F.fused_adam_apply(p2, m2, v2, hyper, grad)),
+            "plain_ms": cuda_ms(lambda: F.adam_apply_plain(p2, m2, v2, hyper, grad))}
+    p_lib = torch.nn.Parameter(st.params.clone())
+    p_lib.grad = grad.clone()
+    adam["library_ms"] = cuda_ms(torch.optim.Adam([p_lib], lr=1e-4, fused=True).step)
+    # params, m, v, the gradient read; params, m, v written; ~12 f32 operations each
+    adam["bound_ms"], adam["bound_by"] = _bound(0.0, 7 * n * 4 + 7 * 4, f32_flops=12.0 * n)
+    adam["max_abs_err"] = cmp["kernel_vs_twin_max_abs"]
+
+    cfg_path = _write_config(p["root"], "neutex_blob_config.yaml", config)
+    test_dir = os.path.join(p["root"], "neutex_blob_test_eval")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    eval_cli.main([test_dir, cfg_path, p["data"], "test"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = sum(kernel_launches().values())
+    check(eval_launches == 0, f"neutex_blob: the eval CLI launched a kernel: {kernel_launches()}")
+    with open(os.path.join(test_dir, "evaluation_metrics.pkl"), "rb") as f:
+        test_psnr = float(np.mean([m["psnr"] for m in pickle.load(f).values()]))
+    check(np.isfinite(test_psnr), f"neutex_blob: test PSNR {test_psnr}")
+    rays = rec.values("Train Rays-per-sec")
+    emit("family_train", recipe="neutex_blob", params=n, epochs=2, steps_per_epoch=nb,
+         path_s=path_s, train_loss=losses, val_psnr=rec.values("Val Epoch-PSNR"),
+         test_psnr_eval_cli=test_psnr, eval_s=eval_s, eval_launches=eval_launches,
+         train_rays_per_s_best=max(rays), train_rays_per_s_median=float(np.median(rays)),
+         step_ms_best=1e3 * B / max(rays), launches=launches, eager_steps=eager,
+         step_vs_cpu=cmp)
+    emit("kernel_check", name="fused_adam", leg="neutex_blob", **adam)
+    run = (trainer.train_epoch_fn, trainer.state, trainer.train_data, B)
+    return {"train": launches["fused_adam"], "pretrain": pre_launches["fused_adam"]}, adam, run
+
+
 # The spectral phase's gates. CheFSI (f32 device loop, f64 host polish)
 # against the hq_prep shift-invert solve: eigenvalues within EIG_REL of
 # the largest, M-orthonormal within ORTH_TOL, relative residual
@@ -2851,6 +3072,39 @@ def profile_train_epoch(train_leg, leg):
          top_kernels_ms_per_step=[[name[:70], us / 1e3 / nb] for name, us in top])
 
 
+def profile_eager_steps(run, leg, steps=NEUTEX_PROFILE_STEPS):
+    """Device time by kernel and busy share over `steps` eager steps of a
+    self-loss leg (autograd, then the standalone Adam kernel): the port's
+    kernels the profiler saw must be exactly one fused_adam per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
+
+    train_epoch, state, data, B = run
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = train_epoch(state, epoch_generator(0, 97), data, steps, B)
+        float(m["loss"])
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_kernel, counts = _device_us_by_kernel(prof, with_counts=True)
+    device_us = sum(by_kernel.values())
+    check(device_us > 0, f"{leg}: the profiler saw no device time")
+    port = {}
+    for name, n in counts.items():
+        kernel = _port_kernel(name)
+        if kernel is not None:
+            port[kernel] = port.get(kernel, 0) + n
+    check(port == {"fused_adam": steps},
+          f"{leg}: the profiled steps ran other than {steps} fused_adam: {port}")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    emit("profile_train", leg=leg, steps=steps, wall_ms_per_step=wall_us / 1e3 / steps,
+         device_ms_per_step=device_us / 1e3 / steps, device_busy_share=device_us / wall_us,
+         port_kernels_seen=port, device_kernels_per_step=sum(counts.values()) / steps,
+         top_kernels_ms_per_step=[[name[:70], us / 1e3 / steps] for name, us in top])
+
+
 def _port_kernel(name):
     """Which of the port's train kernels a profiler kernel name is (wgrad's
     Adam instantiation apart from its grads-only one), or None."""
@@ -2948,6 +3202,8 @@ def main():
         "families", lambda: phase_families(pipe, pipe["hq_train_rays_per_s"]))
     frows = timed("family_kernels", lambda: phase_kernels(fam_fwd_legs))
     ftrows = timed("family_train_kernels", lambda: phase_train_kernels(fam_train_legs))
+    # NeuTex: the mapping pretraining and the recipe's eager step, its own counters
+    neutex_paths, neutex_adam, neutex_run = timed("neutex", lambda: phase_neutex(pipe))
     # the point-cloud path and the device eigensolvers
     timed("spectral", lambda: phase_spectral(pipe))
     cloud_paths, shot_adam, shot_leg = timed("cloud", lambda: phase_cloud(pipe))
@@ -2959,7 +3215,8 @@ def main():
                               profile_train_epoch(hq_run, "hq_train"),
                               profile_train_epoch(tput_run, "train_throughput"),
                               profile_train_epoch(vd_run, "viewdep_train"),
-                              *(profile_train_epoch(fam_runs[f], f) for f in FAMILY_RECIPES)))
+                              *(profile_train_epoch(fam_runs[f], f) for f in FAMILY_RECIPES),
+                              profile_eager_steps(neutex_run, "neutex_blob")))
     check(not any(m.startswith(("jax", "flax", "optax", "intrinsic_neural_fields_tpu."))
                   or m in ("jax", "intrinsic_neural_fields_tpu") for m in sys.modules),
           "the port imported JAX or the JAX package")
@@ -3023,11 +3280,16 @@ def main():
         "hq_train": train_launches["fused_adam"], "viewdep_train": vd_launches["fused_adam"],
         "hq_train_fused_adam_false": yard_launches["fused_adam"],
         "viewdep_train_fused_adam_false": vd_yard_launches["fused_adam"],
-        "hks_blob": fam_paths["hks_blob"]["train"]["fused_adam"], "shot_blob": shot_adam}
+        "hks_blob": fam_paths["hks_blob"]["train"]["fused_adam"], "shot_blob": shot_adam,
+        "neutex_blob": neutex_paths["train"], "neutex_pretrain": neutex_paths["pretrain"]}
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
-                                     vrows["fused_adam"]["max_abs_err"])
+                                     vrows["fused_adam"]["max_abs_err"], neutex_adam["max_abs_err"])
     kernels[-1]["viewdep"] = {k: vrows["fused_adam"][k] for k in
                               ("ms", "plain_ms", "bound_ms", "library_ms", "n")}
+    # at the NeuTex model's 793,482 parameters (its eager step's one launch)
+    kernels[-1]["neutex_blob"] = {k: neutex_adam[k] for k in
+                                  ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "n")}
     # the slice's kernels: the view-dependent path's shapes (k=512; B=8192
     # render chunks for the forward, B=4096 train blocks)
     vd_sources = {"fused_mlp_fwd_viewdep": ("fused_mlp_fwd.cu", "1240", []),

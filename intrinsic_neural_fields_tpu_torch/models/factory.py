@@ -1,6 +1,7 @@
 """Model factory: config dict -> TextureField, or TextureFieldWithViewDependency
-when the config has a ``view_dependence`` section (reference model.py:199-258;
-JAX package models/factory.py:23-75).
+when the config has a ``view_dependence`` section, or the NeuTex train
+wrapper for ``type: neutex`` (reference model.py:199-258; JAX package
+models/factory.py:23-110).
 
 ``feature_strategy`` "xyz" / "ff" / "rff" feed the position (raw, or encoded
 by the model's own encoder, width from ``k``, ``embed_include_input``,
@@ -13,9 +14,13 @@ two frameworks' random streams differ, so equal seeds do not give equal
 weights); RFF's B is drawn from a second generator seeded seed + 1, as the
 JAX package draws its buffers from PRNGKey(seed + 1).
 
-``batchnorm: true`` raises: the port's train state is the flat parameters
-in the kernels' padded layout, which has no place for BatchNorm's scale,
-bias and running statistics (ROADMAP queue 1 item 7, with sync-BN).
+``type: neutex`` builds ``models/neutex.NeuTexTrainWrapper`` (num_freqs
+from ``k``), initializes it from the seeded generator (Xavier-uniform with
+the reference's per-layer gains) and loads ``pretrained_path``'s mapping
+networks, which must exist. Any other ``type`` raises.
+
+``batchnorm: true`` raises: no train state of the port holds BatchNorm's
+running statistics yet (ROADMAP queue 1 item 7, with sync-BN).
 """
 from __future__ import annotations
 
@@ -52,12 +57,18 @@ def make_model(model_config, seed=0, device="cuda", mesh=None):
     dev = resolve_device(device)
     if model_config.get("batchnorm"):
         raise NotImplementedError(
-            "batchnorm: true is not ported: the train state is the flat parameters in the "
-            "kernels' padded layout, with no place for BatchNorm's scale, bias and running "
-            "statistics (ROADMAP queue 1 item 7, with sync-BN)")
+            "batchnorm: true is not ported: no train state of the port holds BatchNorm's "
+            "running statistics (ROADMAP queue 1 item 7, with sync-BN)")
+    if model_config.get("type") == "neutex":
+        from .neutex import (init_neutex_weights, load_pretrained_mapping,
+                             make_neutex_train_wrapper_default)
+
+        model = make_neutex_train_wrapper_default(model_config)
+        init_neutex_weights(model, torch.Generator().manual_seed(seed))
+        load_pretrained_mapping(model, model_config["pretrained_path"])
+        return model.to(dev)
     if model_config.get("type"):
-        raise NotImplementedError(f"model type {model_config['type']!r} is not ported "
-                                  "(NeuTex: ROADMAP queue 1 item 6)")
+        raise NotImplementedError(f"model type {model_config['type']!r} is not ported")
     strategy = model_config.get("feature_strategy", "efuncs")
     activation = model_config.get("activation", "relu")
     if activation not in ("relu", "sine"):

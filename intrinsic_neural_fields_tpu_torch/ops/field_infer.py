@@ -10,10 +10,13 @@ decides how the field runs.
   - "plain": the kernel's plain torch twin, the same steps; the default on
     the CPU;
   - "module": the module's f32 forward, encoder inside, for a field the
-    kernels do not compute (a sine field). It is taken only when the
-    caller leaves ``infer`` unset, as the JAX renderer's ``infer="auto"``
-    takes its XLA path for such a field; an explicit "kernel" or "plain"
-    for it raises, as the JAX renderer's ``infer="fused"`` asserts.
+    kernels do not compute (a sine field; NeuTex, ``model(xyz)`` on the
+    interpolated hit positions, as the JAX renderer's XLA path applies it,
+    render/renderer.py:603-612 there). It is taken only when the caller
+    leaves ``infer`` unset, as the JAX renderer's ``infer="auto"`` takes
+    its XLA path for such a field; an explicit "kernel" or "plain" for it
+    raises, as the JAX renderer's ``infer="fused"`` asserts. No kernel
+    layout is built in this mode.
 """
 from __future__ import annotations
 
@@ -34,11 +37,12 @@ from .fused_mlp import (
 
 class FieldInfer:
     """``field(features [n, k_in] f32[, dirs [n, 3], faces [n]])`` -> [n, 3]
-    f32 RGB of a TextureField or TextureFieldWithViewDependency (dirs and
-    faces: the unit ray directions and original face ids of the hits, for
-    a view-dependent field). ``mode``: "kernel", "plain" or "module" (see
-    the module docstring); ``weights``: the kernel's packed weights (None
-    in "module" mode), repacked by ``update_variables``."""
+    f32 RGB of a TextureField, a TextureFieldWithViewDependency (dirs and
+    faces: the unit ray directions and original face ids of the hits) or
+    a NeuTex model (features: the hit positions). ``mode``: "kernel",
+    "plain" or "module" (see the module docstring); ``layout`` and
+    ``weights``: the kernel's parameter layout and packed weights (None in
+    "module" mode), repacked by ``update_variables``."""
 
     def __init__(self, model, device, infer=None):
         eligible = (fused_mlp_eligible(model) or fused_pre_embed_eligible(model)
@@ -58,8 +62,8 @@ class FieldInfer:
         self.mode = infer
         self.model = model
         self.device = device
-        self.layout = layout_for_model(model)
-        self.viewdep = self.layout.tail is not None
+        self.layout = None if infer == "module" else layout_for_model(model)
+        self.viewdep = hasattr(model, "spatial_mlp")
         self.encode = input_encoder_apply(model)
         self.view_fn = view_encoder_apply(model) if self.viewdep else None
         kernel, plain = ((fused_apply_viewdep, fused_apply_viewdep_plain) if self.viewdep

@@ -134,16 +134,21 @@ def fused_mlp_eligible(model):
     they are (no encoder), relu, sigmoid RGB head, 3 outputs, hidden width
     a multiple of 128 (JAX train/steps.py:57-72; the port has no
     BatchNorm)."""
-    return (not hasattr(model, "spatial_mlp") and model.input_feature_embed is None
-            and _relu_rgb_field(model))
+    return _plain_field(model) and model.input_feature_embed is None and _relu_rgb_field(model)
 
 
 def fused_pre_embed_eligible(model):
     """A TextureField over xyz / ff / rff positions that the kernels compute
     once its input is embedded (``models.texture_field.mlp_core_view`` on
     ``input_encoder_apply`` rows; JAX train/steps.py:75-92)."""
-    return (not hasattr(model, "spatial_mlp")
-            and model.input_feature_embed in ("xyz", "ff", "rff") and _relu_rgb_field(model))
+    return (_plain_field(model) and model.input_feature_embed in ("xyz", "ff", "rff")
+            and _relu_rgb_field(model))
+
+
+def _plain_field(model):
+    """A TextureField: not a view-dependent one, and not a model that
+    computes its own loss (NeuTex), which no kernel computes."""
+    return not (hasattr(model, "spatial_mlp") or getattr(model, "computes_loss", False))
 
 
 def fused_viewdep_eligible(model):
@@ -249,6 +254,10 @@ class ParamLayout:
                                  (j + 1, spec.out_dim, tail.venc_in, "v"), (j + 1,)))  # concat
             j += 2
         self.layers, self.head = layers, j
+
+    def param_names(self):
+        """The state-dict keys of the parameters, in entry order."""
+        return [e.prefix + s for e in self.entries for s in (".weight", ".bias")]
 
     def mats(self, flat):
         """[rows_pad, cols_pad] views of the matrices, in entry order."""

@@ -126,9 +126,10 @@ class Renderer:
 
     def __init__(self, model, mesh, eigenfunctions=None, background="white", *, H, W,
                  feature_dtype=None, wire_u8=False, infer=None, device="cuda"):
-        """model: a TextureField or TextureFieldWithViewDependency (its
+        """model: a TextureField, TextureFieldWithViewDependency (its
         weights are packed for the kernel here and on every
-        update_variables). eigenfunctions: [V, k] per-vertex features of an
+        update_variables) or NeuTex train wrapper (its module forward on
+        the hit positions). eigenfunctions: [V, k] per-vertex features of an
         eigenfunction field (None for xyz / ff / rff, which read the mesh's
         vertices). feature_dtype: "bfloat16" stores the eigenfunction table
         in bf16 (as a precompute_dtype: bfloat16 training run saw it);
@@ -140,7 +141,6 @@ class Renderer:
         (ops/field_infer.py)."""
         self.device = resolve_device(device)
         self.field = FieldInfer(model, self.device, infer)
-        self.spec = self.field.layout.spec
         self.viewdep = self.field.viewdep
         self.feature_strategy = ("efuncs" if self.field.encode is None
                                  else getattr(model, "spatial_mlp", model).input_feature_embed)
@@ -202,9 +202,9 @@ class Renderer:
             raise ValueError(f"a {self.feature_strategy} field reads the mesh's vertices: "
                              "use set_mesh")
         E = torch.as_tensor(np.asarray(eigenfunctions, np.float32))
-        if E.ndim != 2 or E.shape[1] != self.spec.k_in:
+        if E.ndim != 2 or E.shape[1] != self.model.in_dim:
             raise ValueError(
-                f"eigenfunctions must be [V, {self.spec.k_in}], got {tuple(E.shape)}"
+                f"eigenfunctions must be [V, {self.model.in_dim}], got {tuple(E.shape)}"
             )
         self.features = E.to(device=self.device, dtype=self._feature_dtype)
 

@@ -2,7 +2,10 @@
 
 The train state is the network's parameters and optax-Adam moments as flat
 f32 buffers in the kernels' padded layout (``ops/fused_mlp.ParamLayout``),
-updated in place, plus the step count and the hyperparameters. An epoch:
+updated in place, plus the step count and the hyperparameters. A model
+that computes its own loss (``computes_loss``: NeuTex) is no kernel chain:
+its state holds every parameter in module order (``ModuleLayout``). An
+epoch:
 
   - blocks shuffle + ``fused`` (the HQ recipe): each step streams one
     shuffled batch-sized block of the precomputed hit-feature table through
@@ -27,6 +30,15 @@ updated in place, plus the step count and the hyperparameters. An epoch:
     batch's positions with its own encoder unless the split was
     pre-embedded; a sine field takes sin), then the Adam kernel. On the
     CPU every kernel call runs its plain twin.
+
+A self-loss model (NeuTex) always takes the eager step: autograd through
+its ``loss_and_rgbs`` by ``torch.func.functional_call`` on views of the
+flat parameters, then the Adam kernel on the flat gradient (one launch per
+step). Its loss is the batch mean over all B rows, a ragged tail's
+duplicates included, as in the JAX package's self-loss branch (JAX
+train/steps.py:591-601); the squared error is still weighted by the row
+mask. It validates through its forward (RGB only) under the config's
+``loss_type``; ``fused`` raises for it.
 
 The kernels take a field as it is only when it is ``fused_mlp_eligible``
 (or ``fused_viewdep_eligible``): relu, no encoder. The Trainer makes an
@@ -92,9 +104,55 @@ class AdamHyper:
             setattr(self, name, float(np.float32(getattr(self, name))))
 
 
+class ModuleLayout:
+    """The flat f32 layout of any module's parameters: ``named_parameters()``
+    in module order, each parameter's elements contiguous, no padding. The
+    buffer is allocated whole (16-byte aligned, as the Adam kernel needs);
+    the part of ``ParamLayout``'s interface the train state, the Trainer
+    and the checkpoints use: ``n``, ``spec`` (comparable), ``state_dict``,
+    ``flat_from_state_dict``, ``param_names`` and per-parameter ``views``."""
+
+    def __init__(self, model):
+        self.names, self.shapes = [], []
+        for name, p in model.named_parameters():
+            self.names.append(name)
+            self.shapes.append(tuple(p.shape))
+        self.sizes = [int(np.prod(s)) for s in self.shapes]
+        self.n = sum(self.sizes)
+        self.spec = (type(model).__name__, tuple(zip(self.names, self.shapes)))
+
+    def param_names(self):
+        return list(self.names)
+
+    def views(self, flat):
+        """{name: view of flat at the parameter's shape}; one split, so the
+        autograd backward of all views is one concatenation into the flat
+        gradient."""
+        return {name: t.view(shape) for name, shape, t in
+                zip(self.names, self.shapes, flat.split(self.sizes))}
+
+    @torch.no_grad()
+    def flat_from_state_dict(self, state_dict, device=None):
+        """Torch state dict -> flat f32 (every parameter must be present)."""
+        device = (state_dict[self.names[0]].device if device is None
+                  else torch.device(device))
+        flat = torch.empty(self.n, dtype=torch.float32, device=device)
+        for name, v in self.views(flat).items():
+            w = state_dict[name]
+            if tuple(w.shape) != v.shape:
+                raise ValueError(f"{name}: shape {tuple(w.shape)}, the model's {tuple(v.shape)}")
+            v.copy_(w.detach().to(device=device, dtype=torch.float32))
+        return flat
+
+    @torch.no_grad()
+    def state_dict(self, flat, device=None):
+        """Flat buffer -> state dict of contiguous copies, in module order."""
+        return {name: v.clone().to(device) for name, v in self.views(flat).items()}
+
+
 @dataclass
 class TrainState:
-    layout: ParamLayout
+    layout: ParamLayout    # or a ModuleLayout (a self-loss model)
     params: torch.Tensor   # flat f32, padded layout
     mu: torch.Tensor       # Adam first moment, same layout
     nu: torch.Tensor       # Adam second moment
@@ -128,14 +186,17 @@ class TrainState:
 def buffers_of(layout, state_dict, device=None):
     """The entries of a torch-layout state dict that are not the layout's
     parameters (RFF's embedding.B), as f32 copies on `device`."""
-    params = {e.prefix + s for e in layout.entries for s in (".weight", ".bias")}
+    params = set(layout.param_names())
     return {k: v.detach().to(device=device, dtype=torch.float32).clone()
             for k, v in state_dict.items() if k not in params}
 
 
 def create_train_state(model, optimizer, device=None):
-    """Fresh state: the model's weights and buffers, zero moments, count 0."""
-    layout = layout_for_model(model)
+    """Fresh state: the model's weights and buffers, zero moments, count 0;
+    a self-loss model's in a ModuleLayout, any other's in the kernels'
+    padded ParamLayout."""
+    layout = (ModuleLayout(model) if getattr(model, "computes_loss", False)
+              else layout_for_model(model))
     sd = model.state_dict()
     params = layout.flat_from_state_dict(sd, device)
     return TrainState(layout, params, torch.zeros_like(params), torch.zeros_like(params),
@@ -175,19 +236,37 @@ def forward_f32(layout, params, x, venc=None, activation="relu"):
     return torch.sigmoid(h @ mats[e][:, :out] + biases[e][:out])
 
 
-def eager_step(state, hyper_row, x, gt, w, loss_elem, venc=None, activation="relu"):
-    """One autograd step on a gathered batch: weighted mean loss (w masks
-    the duplicated rows of a ragged tail), grads, Adam in place. Returns
-    (loss, sum over rows of the per-sample squared error, sum of w)."""
+def eager_step(state, hyper_row, loss_and_pred, gt, w):
+    """One autograd step on a gathered batch: loss_and_pred(p) -> (loss,
+    pred [B, 3]) on a leaf copy p of the flat parameters (the forward reads
+    views of it, so autograd gives the flat gradient), then Adam in place
+    (the standalone kernel). w masks the duplicated rows of a ragged tail
+    in the squared error. Returns (loss, sum over rows of w times the
+    per-sample squared error, sum of w)."""
     p = state.params.detach().requires_grad_()
-    pred = forward_f32(state.layout, p, x.to(torch.float32), venc, activation)
-    n_b = w.sum()
-    loss = (loss_elem(pred, gt).mean(-1) * w).sum() / n_b
+    loss, pred = loss_and_pred(p)
     loss.backward()
     fused_adam_apply(state.params, state.mu, state.nu, hyper_row, p.grad)
     eager_step.launches += 1
     sq = (((pred.detach() - gt) ** 2).sum(-1) * w).sum()
-    return loss.detach(), sq, n_b
+    return loss.detach(), sq, w.sum()
+
+
+def weighted_loss_fn(layout, x, gt, w, loss_elem, venc=None, activation="relu"):
+    """loss_and_pred for a texture field: its f32 forward on the flat
+    parameters, the weighted mean of the per-sample loss (w masks the
+    duplicated rows of a ragged tail)."""
+    def fn(p):
+        pred = forward_f32(layout, p, x.to(torch.float32), venc, activation)
+        return (loss_elem(pred, gt).mean(-1) * w).sum() / w.sum(), pred
+    return fn
+
+
+def self_loss_fn(model, layout, xyz, gt):
+    """loss_and_pred for a self-loss model (NeuTex): its ``loss_and_rgbs``
+    on the batch, through ``torch.func.functional_call`` on views of the
+    flat parameters (the batch mean over every row)."""
+    return lambda p: torch.func.functional_call(model, layout.views(p), (xyz, gt))
 
 
 eager_step.launches = 0  # eager steps since the last reset
@@ -321,6 +400,8 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
     """
     if shuffle not in ("full", "blocks"):
         raise ValueError(f"shuffle must be 'full' or 'blocks', got {shuffle!r}")
+    if getattr(model, "computes_loss", False):
+        return _self_loss_epoch_fns(model, loss_type, shuffle, fused)
     loss_elem = elementwise_loss(loss_type)
     layout = layout_for_model(model)
     viewdep = layout.tail is not None
@@ -394,8 +475,7 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
 
     def train_epoch(state, order, data, num_batches, batch_size):
         n, B = data.n, batch_size
-        if not (0 < num_batches and (num_batches * B <= n or num_batches == -(-n // B))):
-            raise ValueError(f"num_batches {num_batches} inconsistent with n={n}, batch={B}")
+        _check_epoch(data, num_batches, B)
         if state.layout.spec != layout.spec:
             raise ValueError("the state's layout is not this model's")
         has_tail = num_batches * B > n
@@ -408,10 +488,7 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
                          and encode is None)
         vencs = data.hit_vencs if viewdep else None
         dev = state.params.device
-        h = state.hyper
-        hyper_all = adam_hyper_rows(state.count + 1 + torch.arange(num_batches),
-                                    h.learning_rate, h.b1, h.b2, h.eps, h.eps_root,
-                                    device=dev)
+        hyper_all = _adam_rows(state, num_batches)
         if use_fused and use_blocks:
             # stream block perm[i] of the table through the kernels
             if not (0 <= int(perm.min()) and int(perm.max()) < num_batches):
@@ -446,8 +523,9 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
                 accumulate_loss(acc, loss_sum, sq_sum)
                 acc_n = acc_n + float(B)
             else:
-                loss, sq, n_b = eager_step(state, hyper_all[i], features_of(batch), gt,
-                                           w, loss_elem, venc_of(batch), activation)
+                loss, sq, n_b = eager_step(state, hyper_all[i], weighted_loss_fn(
+                    layout, features_of(batch), gt, w, loss_elem, venc_of(batch), activation),
+                    gt, w)
                 acc += torch.stack((loss * n_b, sq))
                 acc_n = acc_n + n_b
         state.count += num_batches
@@ -471,4 +549,84 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         return {"loss": acc_loss / n, "sq_err_per_sample": acc_sq / n}
 
     train_epoch.graph = graph
+    return train_epoch, val_epoch
+
+
+def _adam_rows(state, num_batches):
+    h = state.hyper
+    return adam_hyper_rows(state.count + 1 + torch.arange(num_batches), h.learning_rate, h.b1,
+                           h.b2, h.eps, h.eps_root, device=state.params.device)
+
+
+def _check_epoch(data, num_batches, batch_size):
+    n = data.n
+    if not (0 < num_batches and (num_batches * batch_size <= n
+                                 or num_batches == -(-n // batch_size))):
+        raise ValueError(f"num_batches {num_batches} inconsistent with n={n}, "
+                         f"batch={batch_size}")
+
+
+def _self_loss_epoch_fns(model, loss_type, shuffle, fused):
+    """make_epoch_fns for a model that computes its own loss (NeuTex): the
+    eager step on its ModuleLayout state, reading each batch's positions."""
+    if fused:
+        raise ValueError("training.fused_mlp: the kernels cannot compute a self-loss model "
+                         f"({type(model).__name__}: three networks and its own loss); it "
+                         "trains through the eager step")
+    loss_elem = elementwise_loss(loss_type)
+    layout = ModuleLayout(model)
+
+    def xyz_of(batch):
+        if "xyz" not in batch:
+            raise ValueError(f"{type(model).__name__} reads the hit positions ('xyz' rows, "
+                             "feature_strategy: xyz), the split holds "
+                             f"{sorted(k for k in batch if k != 'expected_rgbs')}")
+        return batch["xyz"].to(torch.float32)
+
+    def train_epoch(state, order, data, num_batches, batch_size):
+        n, B = data.n, batch_size
+        _check_epoch(data, num_batches, B)
+        if state.layout.spec != layout.spec:
+            raise ValueError("the state's layout is not this model's")
+        use_blocks = (shuffle == "blocks" and data.hit_features is not None
+                      and num_batches * B <= n)
+        perm = _order(order, num_batches if use_blocks else n)
+        dev = state.params.device
+        hyper_all = _adam_rows(state, num_batches)
+        acc = torch.zeros(2, dtype=torch.float32, device=dev)  # loss, squared error
+        acc_n = torch.zeros((), dtype=torch.float32, device=dev)
+        perm_dev = perm.to(dev)
+        for i in range(num_batches):
+            if use_blocks:
+                batch = slice_batch(data, int(perm[i]) * B, B)
+                w = torch.ones(B, dtype=torch.float32, device=dev)
+            else:
+                pos = i * B + torch.arange(B, device=dev)
+                w = (pos < n).to(torch.float32)
+                batch = gather_batch(data, perm_dev[torch.clamp(pos, max=n - 1)])
+            gt = batch["expected_rgbs"]
+            loss, sq, n_b = eager_step(state, hyper_all[i],
+                                       self_loss_fn(model, layout, xyz_of(batch), gt), gt, w)
+            acc += torch.stack((loss * n_b, sq))
+            acc_n = acc_n + n_b
+        state.count += num_batches
+        means = acc / acc_n
+        return state, {"loss": means[0], "sq_err_per_sample": means[1]}
+
+    @torch.no_grad()
+    def val_epoch(state, data, batch_size):
+        n = data.n
+        dev = state.params.device
+        params = layout.views(state.params)
+        acc_loss = torch.zeros((), dtype=torch.float32, device=dev)
+        acc_sq = torch.zeros((), dtype=torch.float32, device=dev)
+        for s in range(0, n, batch_size):
+            batch = gather_batch(data, torch.arange(s, min(s + batch_size, n), device=dev))
+            gt = batch["expected_rgbs"]
+            pred = torch.func.functional_call(model, params, (xyz_of(batch),))
+            acc_loss = acc_loss + loss_elem(pred, gt).mean(-1).sum()
+            acc_sq = acc_sq + ((pred - gt) ** 2).sum(-1).sum()
+        return {"loss": acc_loss / n, "sq_err_per_sample": acc_sq / n}
+
+    train_epoch.graph = None  # no CUDA graph: one eager step per batch
     return train_epoch, val_epoch

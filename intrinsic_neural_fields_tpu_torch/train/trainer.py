@@ -16,6 +16,10 @@ A restore whose RFF projection differs from the one the splits were
 embedded with embeds them again. When all splits' embedded tables would
 exceed ``PRECOMPUTE_BYTES_LIMIT`` the Trainer says so and keeps the
 in-forward path (the eager step), the one switch the JAX Trainer makes.
+A NeuTex model (``type: neutex``) is never pre-embedded: its state holds
+all three networks in module order (``steps.ModuleLayout``), it trains
+through the eager step and its vis renders run its module forward on the
+mesh's vertex positions.
 ``training.profile_dir`` writes a torch.profiler trace of epoch
 ``training.profile_epoch`` (default 1) there.
 """
@@ -81,8 +85,8 @@ def default_writer(log_dir):
 class Trainer:
     def __init__(self, model, optimizer, loss_type, renderer, data, mesh, config,
                  writer=None, device="cuda"):
-        """model: the TextureField[WithViewDependency] (its weights start
-        the run); optimizer:
+        """model: the TextureField[WithViewDependency] or NeuTex train
+        wrapper (its weights start the run); optimizer:
         train.steps.AdamHyper; data: {"train", "val"[, "test"]} RayData on
         `device`; writer: anything with add_scalar/add_image (default:
         ``default_writer`` on <out_dir>/logs)."""

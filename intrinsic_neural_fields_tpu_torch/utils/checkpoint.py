@@ -13,11 +13,21 @@ The reference package's ``load_reference_train_checkpoint`` reads these
 files, and this module reads its exports, so training moves between the
 two packages in both directions. Adam's eps_root is not part of torch's
 state: the port's optimizer keeps it at 0, as optax.adam does by default.
+
+A NeuTex model's train state holds all its parameters in module order
+(train/steps.py:ModuleLayout), so its checkpoint.pt's state[i] follow
+``named_parameters()``.
+
+``save_npz_pytree`` / ``load_npz_pytree`` are the JAX package's
+template-free format (utils/checkpoint.py:67-96 there): nested dicts of
+arrays as an .npz with '/'-joined keys, the pretrained NeuTex mapping's
+file in both packages.
 """
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 
@@ -97,3 +107,32 @@ def load_train_checkpoint(path):
     return {"epoch": int(obj["epoch"]), "model_state_dict": sd,
             "adam": {"count": steps.pop(), "mu": mu, "nu": nu, "lr": float(group["lr"]),
                      "b1": float(b1), "b2": float(b2), "eps": float(group["eps"])}}
+
+
+def save_npz_pytree(path, tree):
+    """Nested dicts of arrays -> an .npz whose keys are the '/'-joined paths."""
+    flat = {}
+
+    def rec(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(f"{prefix}/{k}" if prefix else str(k), v)
+        else:
+            flat[prefix] = np.asarray(node)
+
+    rec("", tree)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+
+
+def load_npz_pytree(path):
+    """Inverse of save_npz_pytree: .npz -> nested dicts of numpy arrays."""
+    out = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            node = out
+            parts = key.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = flat[key]
+    return out

@@ -9,6 +9,10 @@ is exported to that layout by the reference package's own exporter
 ``load_reference_weights`` reads; ``state_dict_from_flax`` performs the same
 mapping in-process from flax parameters already converted to numpy, and
 ``adam_state_from_optax`` carries the optimizer state with them.
+
+A NeuTex model (``type: neutex``) crosses under ``neutex.`` in the keys of
+``models/neutex.py``: its mapping networks in the reference torch names,
+its texture network's ``Dense_{j}`` as ``textures.{i}.dense.{j}``.
 """
 from __future__ import annotations
 
@@ -58,6 +62,32 @@ def _rff_buffer_sd(buffers, prefix):
     return {prefix + "embedding.B": torch.from_numpy(np.asarray(rff["B"], np.float32).copy())}
 
 
+def _neutex_sd(params):
+    """Flax NeuTexTrainWrapper params ({"neutex": {net_inverse_atlasnet_3d_to_uv,
+    net_atlasnet_uv_to_3d, net_texture}}) -> the port's state dict."""
+    from ..models.neutex import mapping_state_dicts_from_flax
+
+    root = params.get("neutex", params)
+    nets = ("net_inverse_atlasnet_3d_to_uv", "net_atlasnet_uv_to_3d", "net_texture")
+    if set(root) != set(nets):
+        raise ValueError(f"flax params {sorted(root)} are not a NeuTex model's")
+    inverse, atlas = mapping_state_dicts_from_flax(root[nets[0]], root[nets[1]])
+    sd = {f"neutex.{nets[0]}.{k}": v for k, v in inverse.items()}
+    sd.update({f"neutex.{nets[1]}.{k}": v for k, v in atlas.items()})
+    for tex, dense in root[nets[2]].items():
+        i = tex[len("texture_"):]
+        for name, p in dense.items():
+            j = name[len("Dense_"):]
+            if not (tex.startswith("texture_") and name.startswith("Dense_") and i.isdigit()
+                    and j.isdigit()):
+                raise ValueError(f"unexpected texture module {tex}/{name}")
+            key = f"neutex.{nets[2]}.textures.{i}.dense.{j}"
+            sd[key + ".weight"] = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(p["kernel"], np.float32).T))
+            sd[key + ".bias"] = torch.from_numpy(np.asarray(p["bias"], np.float32).copy())
+    return sd
+
+
 def state_dict_from_flax(params, model_config):
     """Flax TextureField[WithViewDependency] params (nested dicts of numpy
     arrays: Dense_{c} with kernel [in, out] and bias), or the whole
@@ -67,7 +97,10 @@ def state_dict_from_flax(params, model_config):
     Linears as ``directional_mlp.0`` and ``directional_mlp.2`` (the JAX
     package's export_reference_state_dict). An RFF field's projection,
     ``buffers/RandomFourierFeatEnc_0/B``, goes to ``embedding.B``
-    (``spatial_mlp.embedding.B`` for a view-dependent field)."""
+    (``spatial_mlp.embedding.B`` for a view-dependent field). A NeuTex
+    model's tree (``type: neutex``) maps to ``models/neutex.py``'s keys."""
+    if model_config.get("type") == "neutex":
+        return _neutex_sd(params.get("params", params))
     if model_config.get("batchnorm"):
         raise NotImplementedError("BatchNorm texture fields are not ported "
                                   "(ROADMAP queue 1 item 7)")

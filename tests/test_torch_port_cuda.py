@@ -308,6 +308,78 @@ def test_train_epoch_on_card_tracks_cpu(cuda):
     assert diff.max() <= 2 * 1e-3 * 8
 
 
+def test_neutex_eager_step_on_card_tracks_cpu(cuda):
+    """The NeuTex recipe's model (k=170, the repo's blob mapping): three
+    eager steps on the card (f32 autograd through loss_and_rgbs, then the
+    fused_adam kernel: exactly one launch per step) on batches of 4,096
+    blob hits; from the state they leave, one more step on the card and on
+    the CPU on the same batch: loss within 1e-4 relative; the card's flat
+    gradient no further (norm) from an f64 autograd's than twice the CPU's
+    f32 one is (here, a random texture net over phases up to 201 rad, f32
+    itself is far from f64: the CPU's f32 gradient lies 4.6e-3 off it,
+    the card's 1.6e-3 off the CPU's; on the recipe's trained state
+    chip_smoke.py measured 3.3e-6 between card and CPU); the kernel's
+    params and moments within 1 ulp of adam_apply_plain on the card's
+    gradient; no weight more than 2*lr from the CPU step's (a coordinate
+    whose gradient sits at rounding level may take Adam's step either
+    way)."""
+    import os
+
+    from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, create_train_state,
+                                                               eager_step, self_loss_fn)
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    mapping = os.path.join(repo, "pretrained", "blob_pretrained_neutex_mapping.npz")
+    cfg = {"type": "neutex", "feature_strategy": "xyz", "k": 170, "use_logspace": False,
+           "max_freq": 6, "pretrained_path": mapping}
+    mesh = blob_mesh(4)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(4):
+        faces = mesh.faces[rng.integers(0, mesh.num_faces, 4096)]
+        bary = rng.dirichlet(np.ones(3), size=4096)
+        xyz = np.einsum("nk,nkd->nd", bary, mesh.vertices[faces]).astype(np.float32)
+        batches.append((torch.as_tensor(xyz), torch.as_tensor(
+            rng.uniform(size=(4096, 3)).astype(np.float32))))
+    lr = 1e-4
+    model = make_model(cfg, device="cuda")
+    state = create_train_state(model, AdamHyper(lr), "cuda")
+    w = torch.ones(4096, device="cuda")
+    before, eager0 = kernel_launches()["fused_adam"], eager_step.launches
+    for i, (x, g) in enumerate(batches[:3]):
+        x, g = x.cuda(), g.cuda()
+        hyper = adam_hyper_rows(torch.tensor([i + 1]), lr, device="cuda")[0]
+        eager_step(state, hyper, self_loss_fn(model, state.layout, x, g), g, w)
+    assert eager_step.launches == eager0 + 3
+    assert kernel_launches()["fused_adam"] == before + 3
+
+    def grad_step(mdl, dev, dtype=torch.float32):
+        x, g = (t.to(dev, dtype) for t in batches[3])
+        p = state.params.detach().to(dev, dtype).clone().requires_grad_()
+        loss, _ = self_loss_fn(mdl.to(dtype), state.layout, x, g)(p)
+        loss.backward()
+        return float(loss.detach()), p.grad
+
+    (l_c, g_c), (l_h, g_h) = grad_step(model, "cuda"), grad_step(make_model(cfg, device="cpu"),
+                                                                 "cpu")
+    _, g64 = grad_step(make_model(cfg, device="cpu"), "cpu", torch.float64)
+    assert abs(l_c / l_h - 1) <= 1e-4, (l_c, l_h)
+
+    def off64(grad):
+        return float((grad.cpu().double() - g64).norm() / g64.norm())
+
+    assert off64(g_c) <= 2 * off64(g_h) + 1e-6, (off64(g_c), off64(g_h))
+    hyper = adam_hyper_rows(torch.tensor([4]), lr, device="cuda")[0]
+    got = [t.clone() for t in (state.params, state.mu, state.nu)]
+    fused_adam_apply(*got, hyper, g_c)
+    want = adam_apply_plain(state.params, state.mu, state.nu, hyper, g_c)
+    for a, b in zip(got, want):
+        assert (a.view(torch.int32) - b.view(torch.int32)).abs().max() <= 1
+    cpu_p, _, _ = adam_apply_plain(state.params.cpu(), state.mu.cpu(), state.nu.cpu(),
+                                   hyper.cpu(), g_h)
+    assert float((got[0].cpu() - cpu_p).abs().max()) <= 2 * lr
+
+
 # The fwd_bwd kernel alone against its plain twin on every shape its
 # contract takes: batch sizes from one row to 64 clusters (ragged ones too),
 # feature widths that are and are not whole 16-byte rows (16, 100, 512,

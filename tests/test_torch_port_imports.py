@@ -29,7 +29,7 @@ new = ["ops.sort", "ops.launches", "geometry.cameras", "utils.exr", "utils.io",
        "bake", "bake.bake", "texture_transfer", "bake_texture_field", "render_view",
        "render_video", "make_transfer_targets", "eval_on_mesh", "models.encoders",
        "geometry.pointcloud", "geometry.intrinsic_delaunay", "geometry.shot",
-       "spectral.eigensolver", "compute_shot"]
+       "spectral.eigensolver", "compute_shot", "models.neutex", "pretrain_neutex_mapping"]
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 print(len(names), "modules;", "banned:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
@@ -58,6 +58,9 @@ def test_eval_cli_parses_arguments():
      {"k_max": 512, "laplacian_type": "cotan", "method": "shift_invert",
       "keep_first_efunc": False, "device": "cuda"}),
     ("compute_shot", ["out.npy", "m.obj"], {"radius": None, "min_neighbors": 5}),
+    ("pretrain_neutex_mapping", ["m.obj", "out.npz"],
+     {"iterations": 200_000, "points": 25_000, "max_mesh_points": 30_000, "lr": 1e-4,
+      "seed": 0, "print_every": 500, "steps_per_call": 50, "device": "cuda"}),
     ("make_synthetic_dataset", ["out"],
      {"H": 128, "W": 128, "n_train": 10, "subdivisions": 4, "tracer": "host",
       "device": "cuda"}),

@@ -1,11 +1,13 @@
 #!/usr/bin/env python
 """The HQ texture-transfer experiment (scripts/run_transfer.sh) and the
-baseline families (scripts/run_model_families.sh's xyz, tf_rff, hks and
-shot recipes) through the port's `-m` CLIs on one NVIDIA GPU.
+baseline families (scripts/run_model_families.sh's xyz, tf_rff, hks, shot,
+view-dependent and NeuTex recipes) through the port's `-m` CLIs on one
+NVIDIA GPU.
 
   python tools/port_transfer_experiment.py [--seed 0] [--epochs 400]
       [--targets coarse dense cloud deformed]
-      [--families xyz_blob tf_rff_blob hks_blob shot_blob]
+      [--families xyz_blob tf_rff_blob hks_blob shot_blob neutex_blob
+                  viewdep_intrinsic_blob viewdep_extrinsic_blob]
       [--out out/transfer_experiment]
 
 1. The README's HQ recipe: its data (``data/synthetic_hq``, made once, as
@@ -15,7 +17,8 @@ shot recipes) through the port's `-m` CLIs on one NVIDIA GPU.
 2. Each of --families (``configs/synthetic/<name>.yaml``) trained and
    evaluated the same way (one row each); shot_blob's SHOT matrix is made
    first by ``compute_shot`` (``data/synthetic_hq/efuncs/blob_shot.npy``,
-   as scripts/run_model_families.sh makes it).
+   as scripts/run_model_families.sh makes it); neutex_blob reads the
+   repository's pretrained mapping (``pretrained/``).
 3. ``make_transfer_targets`` for the targets (1024-function target bases,
    the carried-texture test views of ``deformed``).
 4. ``texture_transfer --eval_dataset`` onto each target: the source
@@ -47,14 +50,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from port_recipe_seeds import DATA, PKG, ROOT, make_data, write_config  # noqa: E402
 
 # RESULTS.md's tables (the JAX package's CLIs): test PSNR, DSSIM x100 — the
-# transfer rows (:150-157) and the families (:105-108)
+# transfer rows (:150-157) and the families (:105-111)
 JAX_ROWS = {"source": (57.03, 0.013), "coarse": (50.20, 0.032), "dense": (45.95, 0.021),
             "cloud": (57.02, 0.013), "deformed": (56.45, 0.014),
             "deformed_xyz": (18.40, 2.603), "dense_xyz": (55.23, 0.017),
             "dense_directswap": (15.59, 4.207), "xyz_blob": (55.31, 0.017),
             "tf_rff_blob": (34.83, 1.807), "hks_blob": (17.54, 4.885),
-            "shot_blob": (18.98, 12.546)}
-FAMILIES = ("xyz_blob", "tf_rff_blob", "hks_blob", "shot_blob")
+            "shot_blob": (18.98, 12.546), "neutex_blob": (51.43, 0.034),
+            "viewdep_intrinsic_blob": (56.62, 0.014), "viewdep_extrinsic_blob": (52.73, 0.017)}
+FAMILIES = ("xyz_blob", "tf_rff_blob", "hks_blob", "shot_blob", "neutex_blob",
+            "viewdep_intrinsic_blob", "viewdep_extrinsic_blob")
 TARGETS = ("coarse", "dense", "cloud", "deformed")
 SHOT = os.path.join(DATA, "efuncs", "blob_shot.npy")
 
