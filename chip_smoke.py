@@ -149,6 +149,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       Adam at 793,482 parameters against its twin and torch's fused Adam;
       the eval CLI on the test split through the module forward (no kernel
       launch), a finite PSNR; in (j), a profile of 20 eager steps;
+  (z) dp: data-parallel training over the device list ["cuda:0",
+      "cuda:0"] (two replicas on the card): the HQ recipe through the
+      Trainer swapped by parallelize_trainer, 2 epochs, counters set to 0
+      just before and read just after (fwd_bwd, the grads-only wgrad and
+      the standalone Adam once per replica per step, wgrad with Adam never,
+      no epoch graph), loss falls, the replicas' params and moments equal
+      to the bit; one DP step against the one-device fused_adam: false step
+      on the same 4096 rows (gates DP_*); the train kernels against their
+      twins at a replica's 2048 rows (as (g)), the all-reduce timed; the HQ
+      recipe with batchnorm: true, fused_mlp: false through the one-device
+      Trainer for 2 epochs (one eager step and one Adam launch per step,
+      loss falls) and one sync-BN DP step against the one-device BatchNorm
+      step; the DP-trained field's test and val views rendered D-way
+      (image, hit set and metrics equal to the one-device render, the
+      forward kernel's launches counted); -m train and -m eval with
+      --num_devices 2 raise the device-count error on a one-card machine;
+      in (j), a profile of one DP epoch;
   (w) spectral: the native local-triangulation and iDT cores loaded from
       the port's build; CheFSI (method="chefsi", device="cuda", the
       all-f64 polish) at the HQ solve, k+1 = 513 on the blob's cotan
@@ -173,10 +190,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       forward kernel against its twin on SHOT rows (k_in 352);
   (j) profile: torch.profiler over 4 pipelined render frames, one
       epoch of each train leg (HQ, train throughput, view-dependent, xyz,
-      tf_rff) and 20 NeuTex eager steps (exactly one fused_adam each), whose
-      port kernels, counted by name in the trace, must be exactly one
-      fwd_bwd and one wgrad with Adam per step; before it an unprofiled
-      epoch, CUDA events around its graph replay, against its wall time;
+      tf_rff), whose port kernels, counted by name in the trace, must be
+      exactly one fwd_bwd and one wgrad with Adam per step (before it an
+      unprofiled epoch, CUDA events around its graph replay, against its
+      wall time), 20 eager steps each of NeuTex and the BatchNorm field
+      (exactly one fused_adam each), and one data-parallel epoch (per
+      replica per step one fwd_bwd, one grads-only wgrad and one
+      fused_adam);
   (k) the kernels summary line, the nvidia-smi line, and the result line.
       The train kernels' bound_ms counts the activations and deltas their
       two-launch split writes; their fused_step_bound_ms is the bound of
@@ -1221,16 +1241,16 @@ def _wgrad_adam_check(F, layout, table, x, B, sc, grads, sums, bsum, params, vta
     return r
 
 
-def phase_train_kernels(legs):
+def phase_train_kernels(legs, B=4096):
     """Each train kernel against its plain twin on the batch each train leg
-    feeds it (block 0 of its table, B=4096), and timed."""
+    feeds it (block 0 of its table, B rows: 4096, or a data-parallel
+    replica's B/D), and timed."""
     import torch
 
     from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
 
     rows = {}
     for leg, (layout, params, mu, nu, table, gt_table) in legs.items():
-        B = 4096
         x, gt = table[:B], gt_table[:B].contiguous()
         spec = layout.spec
         nblk, nbp = -(-B // F.BLOCK_ROWS), spec.hidden * (spec.num_layers - 1) + F.OUT_PAD
@@ -1377,7 +1397,7 @@ def phase_train_kernels(legs):
             fb["cited_ms_before_redesign"] = CITED_BEFORE_REDESIGN["fused_mlp_fwd_bwd"]
         fb["plain_ms"] = cuda_ms(lambda: F.fwd_bwd_plain(layout, params, x, gt, "L1"))
         fb["library_ms"] = None  # no single PyTorch call computes forward+loss+deltas
-        check(fb["launch"]["ctas"] == 2 * nblk == 128 and fb["launch"]["cluster"] == 2,
+        check(fb["launch"]["ctas"] == 2 * nblk and fb["launch"]["cluster"] == 2,
               f"{leg}: fwd_bwd does not launch 2-CTA clusters per 64 rows: {fb['launch']}")
         wg["ms"] = cuda_ms(lambda: F._launch_wgrad(layout, table, 0, B, sc, grads, sums))
         if leg == "hq_train":
@@ -2661,6 +2681,236 @@ def phase_neutex(p):
     return {"train": launches["fused_adam"], "pretrain": pre_launches["fused_adam"]}, adam, run
 
 
+# The data-parallel phase runs its replicas on one card, the device
+# repeated (a run across distinct cards needs a machine with more than one).
+DP_DEVICES = ["cuda:0", "cuda:0"]
+# One DP step against the one-device step on the same global batch (the
+# union of the replicas' local blocks), from the same state. The gradients
+# differ by f32 summation order only (two half-block sums, averaged, against
+# one whole-block sum): Adam's first moment after one step (0.1 g) within
+# DP_GRAD_REL of its largest entry, the loss within DP_LOSS_REL; the params
+# within DP_PARAM_ATOL, as a gradient within rounding of 0 may flip the sign
+# of Adam's first update (lr each way). The BatchNorm step (sync-BN, f32
+# autograd) is held to the same gates, its running statistics to
+# DP_STATS_REL of their largest entry. Measured on an H100 at 700 W: the
+# kernel step's loss equal, first moment 3.4e-8, params 2.2e-8; the
+# BatchNorm step's loss equal, first moment 4.3e-7, statistics 2.3e-7.
+DP_GRAD_REL, DP_LOSS_REL, DP_STATS_REL = 1e-4, 1e-5, 1e-5
+DP_PARAM_ATOL = 2 * 1e-4 + 1e-6
+
+
+def _dp_step_vs_one_device(make, dp_kw, sd_kw, data, lr=1e-4):
+    """One DP step (block 0 of each replica's shard) and one one-device
+    step (block 0 of the table: the same 4096 rows) from the same fresh
+    state, counters set to 0 just before the DP step and read just after.
+    Returns (the comparison, the DP step's launches)."""
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.parallel import make_dp_epoch_fns
+    from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, create_train_state,
+                                                               make_epoch_fns)
+
+    D = len(DP_DEVICES)
+    model = make()
+    st_dp, st_sd = (create_train_state(model, AdamHyper(lr)) for _ in range(2))
+    dp_train, _ = make_dp_epoch_fns(model, "L1", DP_DEVICES, shuffle="blocks", **dp_kw)
+    sd_train, _ = make_epoch_fns(model, "L1", shuffle="blocks", **sd_kw)
+    reset_kernel_launches()
+    _, m_dp = dp_train(st_dp, np.zeros((D, 1), np.int64), data, 1, 4096)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    _, m_sd = sd_train(st_sd, np.zeros(1, np.int64), data, 1, 4096)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
+    cmp = {"loss_rel": abs(float(m_dp["loss"]) / float(m_sd["loss"]) - 1),
+           "mu_rel": rel(st_dp.mu, st_sd.mu), "nu_rel": rel(st_dp.nu, st_sd.nu),
+           "params_max_abs": (st_dp.params - st_sd.params).abs().max().item(),
+           "replicas_bit_equal": _replicas_bit_equal(dp_train)}
+    if st_sd.batch_stats:
+        cmp["stats_rel"] = max(rel(st_dp.batch_stats[k].float(), v.float())
+                               for k, v in st_sd.batch_stats.items() if v.is_floating_point())
+    check(cmp["loss_rel"] <= DP_LOSS_REL and cmp["mu_rel"] <= DP_GRAD_REL
+          and cmp["params_max_abs"] <= DP_PARAM_ATOL and cmp["replicas_bit_equal"]
+          and cmp.get("stats_rel", 0.0) <= DP_STATS_REL,
+          f"the DP step does not follow the one-device step: {cmp}")
+    return cmp, launches
+
+
+def _replicas_bit_equal(train_epoch):
+    import torch
+
+    states = train_epoch.replicas.states
+    return all(torch.equal(getattr(r, n), getattr(states[0], n)) for r in states[1:]
+               for n in ("params", "mu", "nu")) and all(
+        torch.equal(r.batch_stats[k], states[0].batch_stats[k])
+        for r in states[1:] for k in states[0].batch_stats)
+
+
+def phase_dp(p):
+    """Data-parallel training and the D-way render over DP_DEVICES (one
+    card, two replicas): the HQ recipe through the Trainer swapped by
+    parallelize_trainer for 2 epochs, counters set to 0 just before and
+    read just after (fwd_bwd, the grads-only wgrad and the Adam kernel once
+    per replica per step, wgrad with Adam never, no epoch graph), loss falls,
+    the replicas' params and moments equal to the bit; one DP step against
+    the one-device fused_adam: false step on the same global batch; the
+    train kernels against their twins at a replica's 2048 rows, the
+    all-reduce timed; the HQ recipe with batchnorm: true and fused_mlp:
+    false through the one-device Trainer for 2 epochs (one eager step and
+    one Adam launch per step), then one sync-BN DP step against the
+    one-device BatchNorm step; the trained field's test and val views
+    rendered D-way (image and hit set equal to the one-device render, the
+    forward kernel's launches counted); --num_devices 2 raises on a
+    one-card machine."""
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import eval as eval_cli
+    from intrinsic_neural_fields_tpu_torch.evaluation.eval_cli import evaluate_views
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.parallel import parallelize_trainer
+    from intrinsic_neural_fields_tpu_torch.parallel.data_parallel import mean_all_reduce
+    from intrinsic_neural_fields_tpu_torch.render.renderer import make_renderer_from_config
+    from intrinsic_neural_fields_tpu_torch.train import (Trainer, get_data, get_model_and_optim,
+                                                         get_renderer)
+    from intrinsic_neural_fields_tpu_torch.train.__main__ import main as train_main
+    from intrinsic_neural_fields_tpu_torch.train.steps import eager_step
+
+    D = len(DP_DEVICES)
+    mesh = p["mesh"]
+    config = _hq_train_config(p, "dp_out", 2)
+    data = get_data(config, mesh)
+    nb = data["train"].n // 4096
+    model, opt = get_model_and_optim(config, mesh)
+    rec = Recorder()
+    trainer = Trainer(model, opt, "L1", get_renderer(config, model, mesh), data, mesh, config,
+                      writer=rec)
+    parallelize_trainer(trainer, DP_DEVICES)
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    dp_kernels = ("fused_mlp_fwd_bwd", "fused_mlp_wgrad", "fused_adam")
+    check(all(launches[k] == 2 * nb * D for k in dp_kernels)
+          and not any(n for k, n in launches.items() if k not in dp_kernels),
+          f"dp_train: not one fwd_bwd, wgrad and Adam per replica per step: {launches}")
+    check(trainer.train_epoch_fn.graph is None and launches["fused_mlp_wgrad_adam"] == 0,
+          "dp_train: an epoch graph ran")
+    losses = rec.values("Train_Loss")
+    check(len(losses) == 2 and losses[1] < losses[0], f"dp_train: loss did not fall {losses}")
+    check(_replicas_bit_equal(trainer.train_epoch_fn), "dp_train: the replicas differ")
+    rays = rec.values("Train Rays-per-sec")
+    make = lambda: get_model_and_optim(config, mesh)[0]  # noqa: E731
+    step_cmp, _ = _dp_step_vs_one_device(make, {"fused": True},
+                                         {"fused": True, "fused_adam": False}, data["train"])
+
+    # the path's kernels at a replica's rows, on the trained replica 0
+    st = trainer.state
+    leg = (st.layout, st.params.clone(), st.mu.clone(), st.nu.clone(),
+           data["train"].hit_features, data["train"].expected_rgbs)
+    krows = phase_train_kernels({"dp_train": leg}, B=4096 // D)["dp_train"]
+    g = [torch.randn(st.layout.n, device="cuda") for _ in range(D)]
+    allreduce = {"n": st.layout.n, "ms": cuda_ms(lambda: mean_all_reduce(g))}
+    # D buffers read, the mean written (the sum stays in one pass's registers)
+    allreduce["bound_ms"], allreduce["bound_by"] = _bound(
+        0.0, (D + 1) * st.layout.n * 4, f32_flops=float(D * st.layout.n))
+    emit("dp_train", devices=DP_DEVICES, steps_per_epoch=nb, epochs=2, path_s=path_s,
+         train_loss=losses, val_psnr=rec.values("Val Epoch-PSNR"), launches=launches,
+         train_rays_per_s=rays, step_wall_ms=[4096e3 / r for r in rays],
+         cited_one_device_graph_step_wall_ms=[0.0853, 0.0873],
+         replicas_bit_equal=True, step_vs_one_device=step_cmp, allreduce=allreduce,
+         gates={"grad_rel": DP_GRAD_REL, "loss_rel": DP_LOSS_REL, "param_atol": DP_PARAM_ATOL})
+
+    # BatchNorm: the one-device Trainer, then one sync-BN DP step
+    bn_cfg = _hq_train_config(p, "bn_out", 2)
+    bn_cfg["model"]["batchnorm"] = True
+    bn_cfg["training"]["fused_mlp"] = False
+    bn_model, bn_opt = get_model_and_optim(bn_cfg, mesh)
+    bn_rec = Recorder()
+    bn_trainer = Trainer(bn_model, bn_opt, "L1", get_renderer(bn_cfg, bn_model, mesh), data,
+                         mesh, bn_cfg, writer=bn_rec)
+    reset_kernel_launches()
+    eager_step.launches = 0
+    t0 = time.perf_counter()
+    bn_trainer.train()
+    torch.cuda.synchronize()
+    bn_s = time.perf_counter() - t0
+    bn_launches, bn_eager = kernel_launches(), eager_step.launches
+    check(bn_launches["fused_adam"] == bn_eager == 2 * nb
+          and sum(bn_launches.values()) == 2 * nb,
+          f"bn_train: not one eager step and one Adam launch per step: {bn_launches}")
+    bn_losses = bn_rec.values("Train_Loss")
+    check(len(bn_losses) == 2 and bn_losses[1] < bn_losses[0],
+          f"bn_train: loss did not fall {bn_losses}")
+    bn_make = lambda: get_model_and_optim(bn_cfg, mesh)[0]  # noqa: E731
+    bn_cmp, dp_bn_launches = _dp_step_vs_one_device(bn_make, {}, {}, data["train"])
+    check(dp_bn_launches["fused_adam"] == D and sum(dp_bn_launches.values()) == D,
+          f"dp_bn: not one Adam launch per replica: {dp_bn_launches}")
+    bn_rays = bn_rec.values("Train Rays-per-sec")
+    emit("dp_bn", epochs=2, steps_per_epoch=nb, path_s=bn_s, train_loss=bn_losses,
+         train_rays_per_s=bn_rays, step_wall_ms=[4096e3 / r for r in bn_rays],
+         val_psnr=bn_rec.values("Val Epoch-PSNR"), launches=bn_launches, eager_steps=bn_eager,
+         dp_step_launches=dp_bn_launches, dp_step_vs_one_device=bn_cmp,
+         stats_gate=DP_STATS_REL)
+
+    # the D-way render of the DP-trained field (its model.pt), user path
+    views = _dataset_views(p, "test") + _dataset_views(p, "val")
+    one = make_renderer_from_config(config)
+    dway = make_renderer_from_config(config, devices=DP_DEVICES)
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    means_d, per_d = evaluate_views(None, config, views, renderer=dway)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    render_launches = kernel_launches()["fused_mlp_fwd"]
+    reset_kernel_launches()
+    means_1, per_1 = evaluate_views(None, config, views, renderer=one)
+    torch.cuda.synchronize()
+    one_launches = kernel_launches()["fused_mlp_fwd"]
+    same = all(per_d[v][k] == per_1[v][k] for v in per_1 for k in ("psnr", "dssim_rescaled"))
+    check(render_launches > 0 and set(per_d) == set(per_1) and same,
+          f"dp_render: metrics differ or no launch: {per_d}, {per_1}, {render_launches}")
+    equal = []
+    for v in views:
+        a, ha = one.render(v["camCv2world"], v["K"], obj_mask_1d=v["obj_mask_1d"],
+                           eval_render=True)
+        b, hb = dway.render(v["camCv2world"], v["K"], obj_mask_1d=v["obj_mask_1d"],
+                            eval_render=True)
+        equal.append(bool(np.array_equal(a, b) and np.array_equal(ha, hb)))
+    check(all(equal), f"dp_render: the D-way render differs from the one-device render {equal}")
+    shards = [len(dway._shards(int(v["obj_mask_1d"].sum()))) for v in views]
+
+    # --num_devices 2 on a one-card machine: the device-count error
+    refused = {}
+    if torch.cuda.device_count() == 1:
+        cfg_path = _write_config(p["root"], "dp_refused.yaml", _hq_train_config(p, "dp_no", 1))
+        for name, call in (
+                ("train", lambda: train_main([cfg_path, "--num_devices", "2"])),
+                ("eval", lambda: eval_cli.main([os.path.join(p["root"], "dp_no_eval"), cfg_path,
+                                                p["data"], "test", "--num_devices", "2"]))):
+            try:
+                call()
+                refused[name] = None
+            except RuntimeError as e:
+                refused[name] = str(e)
+        check(all(m and "only 1 CUDA device" in m for m in refused.values())
+              and not os.path.exists(os.path.join(p["root"], "dp_no")),
+              f"--num_devices 2 on one card did not raise the device-count error: {refused}")
+    emit("dp_render", views=len(views), shards_per_view=shards, bit_equal=equal,
+         psnr=means_d["psnr"], launches=render_launches, one_device_launches=one_launches,
+         seconds=render_s,
+         num_devices_2_refused=refused)
+    paths = {"dp_train": {k: launches[k] for k in dp_kernels},
+             "bn_train": bn_launches["fused_adam"], "dp_bn": dp_bn_launches["fused_adam"],
+             "dp_render": render_launches}
+    run = (trainer.train_epoch_fn, trainer.state, trainer.train_data, nb, 4096)
+    bn_run = (bn_trainer.train_epoch_fn, bn_trainer.state, bn_trainer.train_data, 4096)
+    return paths, krows, run, bn_run
+
+
 # The spectral phase's gates. CheFSI (f32 device loop, f64 host polish)
 # against the hq_prep shift-invert solve: eigenvalues within EIG_REL of
 # the largest, M-orthonormal within ORTH_TOL, relative residual
@@ -3074,8 +3324,9 @@ def profile_train_epoch(train_leg, leg):
 
 def profile_eager_steps(run, leg, steps=NEUTEX_PROFILE_STEPS):
     """Device time by kernel and busy share over `steps` eager steps of a
-    self-loss leg (autograd, then the standalone Adam kernel): the port's
-    kernels the profiler saw must be exactly one fused_adam per step."""
+    self-loss or BatchNorm leg (autograd, then the standalone Adam kernel):
+    the port's kernels the profiler saw must be exactly one fused_adam per
+    step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3103,6 +3354,46 @@ def profile_eager_steps(run, leg, steps=NEUTEX_PROFILE_STEPS):
          device_ms_per_step=device_us / 1e3 / steps, device_busy_share=device_us / wall_us,
          port_kernels_seen=port, device_kernels_per_step=sum(counts.values()) / steps,
          top_kernels_ms_per_step=[[name[:70], us / 1e3 / steps] for name, us in top])
+
+
+def profile_dp_epoch(run, leg):
+    """Device time by kernel and busy share over one profiled data-parallel
+    epoch (a per-step host loop): the port's kernels the profiler saw must
+    be D num_batches each of fwd_bwd, the grads-only wgrad and the Adam
+    kernel; the unprofiled epoch's wall time beside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
+
+    train_epoch, state, data, nb, B = run
+    D = len(train_epoch.devices)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = train_epoch(state, epoch_generator(0, 98), data, nb, B)
+    float(m["loss"])
+    plain_wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = train_epoch(state, epoch_generator(0, 99), data, nb, B)
+        float(m["loss"])
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_kernel, counts = _device_us_by_kernel(prof, with_counts=True)
+    device_us = sum(by_kernel.values())
+    check(device_us > 0, f"{leg}: the profiler saw no device time")
+    port = {}
+    for name, n in counts.items():
+        kernel = _port_kernel(name)
+        if kernel is not None:
+            port[kernel] = port.get(kernel, 0) + n
+    check(port == {"fwd_bwd": D * nb, "wgrad": D * nb, "fused_adam": D * nb},
+          f"{leg}: the profiled epoch ran other than {D * nb} of each DP kernel: {port}")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit("profile_train", leg=leg, steps=nb, replicas=D, wall_ms_per_step=wall_us / 1e3 / nb,
+         device_ms_per_step=device_us / 1e3 / nb, device_busy_share=device_us / wall_us,
+         unprofiled_wall_ms_per_step=plain_wall_ms / nb, port_kernels_seen=port,
+         device_kernels_per_step=sum(counts.values()) / nb,
+         top_kernels_ms_per_step=[[name[:70], us / 1e3 / nb] for name, us in top])
 
 
 def _port_kernel(name):
@@ -3204,6 +3495,8 @@ def main():
     ftrows = timed("family_train_kernels", lambda: phase_train_kernels(fam_train_legs))
     # NeuTex: the mapping pretraining and the recipe's eager step, its own counters
     neutex_paths, neutex_adam, neutex_run = timed("neutex", lambda: phase_neutex(pipe))
+    # data-parallel training over a device list, sync-BN and the D-way render
+    dp_paths, dp_rows, dp_run, bn_run = timed("dp", lambda: phase_dp(pipe))
     # the point-cloud path and the device eigensolvers
     timed("spectral", lambda: phase_spectral(pipe))
     cloud_paths, shot_adam, shot_leg = timed("cloud", lambda: phase_cloud(pipe))
@@ -3216,7 +3509,9 @@ def main():
                               profile_train_epoch(tput_run, "train_throughput"),
                               profile_train_epoch(vd_run, "viewdep_train"),
                               *(profile_train_epoch(fam_runs[f], f) for f in FAMILY_RECIPES),
-                              profile_eager_steps(neutex_run, "neutex_blob")))
+                              profile_eager_steps(neutex_run, "neutex_blob"),
+                              profile_dp_epoch(dp_run, "dp_train"),
+                              profile_eager_steps(bn_run, "bn_train")))
     check(not any(m.startswith(("jax", "flax", "optax", "intrinsic_neural_fields_tpu."))
                   or m in ("jax", "intrinsic_neural_fields_tpu") for m in sys.modules),
           "the port imported JAX or the JAX package")
@@ -3231,7 +3526,8 @@ def main():
         "launches_by_path": {"hq_eval": eval_launches,
                              "hq_train": train_launches["fused_mlp_fwd"], **user_paths,
                              **{f"{f}_eval": fam_paths[f]["eval"] for f in FAMILY_RECIPES},
-                             "eval_on_mesh": fam_paths["eval_on_mesh"]["eval"]},
+                             "eval_on_mesh": fam_paths["eval_on_mesh"]["eval"],
+                             "dp_render": dp_paths["dp_render"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows + frows + crows),
         "families": {f'{r["leg"]}_B{r["B"]}': {k: r[k] for k in (
             "k", "B", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
@@ -3270,6 +3566,13 @@ def main():
             kernels[-1]["launches_by_path"] = {
                 "hq_train": train_launches[name],
                 **{f: fam_paths[f]["train"][name] for f in FAMILY_RECIPES}}
+        if name in dp_paths["dp_train"]:
+            kernels[-1].setdefault("launches_by_path", {})["dp_train"] = dp_paths["dp_train"][name]
+            # a data-parallel replica's shape: k=512, B=2048 (4096 over two replicas)
+            kernels[-1]["dp_train_B2048"] = {k: dp_rows[name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             dp_rows[name]["max_abs_err"])
         if "fused_step_bound_ms" in main:
             kernels[-1]["fused_step_bound_ms"] = main["fused_step_bound_ms"]
         if name in REDESIGNED:
@@ -3281,7 +3584,9 @@ def main():
         "hq_train_fused_adam_false": yard_launches["fused_adam"],
         "viewdep_train_fused_adam_false": vd_yard_launches["fused_adam"],
         "hks_blob": fam_paths["hks_blob"]["train"]["fused_adam"], "shot_blob": shot_adam,
-        "neutex_blob": neutex_paths["train"], "neutex_pretrain": neutex_paths["pretrain"]}
+        "neutex_blob": neutex_paths["train"], "neutex_pretrain": neutex_paths["pretrain"],
+        "dp_train": dp_paths["dp_train"]["fused_adam"], "bn_train": dp_paths["bn_train"],
+        "dp_bn": dp_paths["dp_bn"]}
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      vrows["fused_adam"]["max_abs_err"], neutex_adam["max_abs_err"])
     kernels[-1]["viewdep"] = {k: vrows["fused_adam"][k] for k in

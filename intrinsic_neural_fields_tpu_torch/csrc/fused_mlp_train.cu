@@ -867,13 +867,20 @@ bool bad_net(int B, int k_in, int k_w, int L, int skip, int venc_in, int venc_w)
 
 constexpr int WG_SMEM = WG_STAGES * STAGE_BYTES;
 
-// Raise every kernel's dynamic shared memory ceiling once per process to the
-// most any of its launches takes (fwd_bwd: the limit; wgrad: its ring), so
-// that no launch, and none captured into a CUDA graph, calls
-// cudaFuncSetAttribute. It also loads every kernel of the library.
+// Raise every kernel's dynamic shared memory ceiling once per device (the
+// attribute belongs to the current device) to the most any of its launches
+// takes (fwd_bwd: the limit; wgrad: its ring), so that no launch, and none
+// captured into a CUDA graph, calls cudaFuncSetAttribute. It also loads
+// every kernel of the library.
+constexpr int MAX_DEVICES = 64;
+
 int prepare_kernels() {
-  static bool done = false;
-  if (done) return 0;
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  const cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (done[dev]) return 0;
   const void* fb[] = {(const void*)fwd_bwd_kernel<__nv_bfloat16, false>,
                       (const void*)fwd_bwd_kernel<__nv_bfloat16, true>,
                       (const void*)fwd_bwd_kernel<float, false>,
@@ -892,7 +899,7 @@ int prepare_kernels() {
         cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
     if (err != cudaSuccess) return (int)err;
   }
-  done = true;
+  done[dev] = true;
   return 0;
 }
 

@@ -4,11 +4,14 @@ and prints the split means.
 
   python -m intrinsic_neural_fields_tpu_torch.eval output_path config.yaml \
       dataset_path split [--weights model.pt] [--background white] \
-      [--uv_mesh_path UV.obj] [--lpips_weights lpips_alex.npz] [--device cpu]
+      [--uv_mesh_path UV.obj] [--lpips_weights lpips_alex.npz] [--device cpu] \
+      [--num_devices 1]
 
 --uv_mesh_path bakes the field into that UV layout first (into
 output_path, which must not exist yet). The LPIPS column is NaN unless
---lpips_weights names an AlexNet npz (evaluation/lpips.py).
+--lpips_weights names an AlexNet npz (evaluation/lpips.py). --num_devices D
+> 1 renders each view D-way over cuda:0 ... cuda:D-1 (the CPU D times with
+--device cpu); it raises when fewer devices exist.
 
 The weights are a reference-layout model.pt (default
 <training.out_dir>/model.pt); export a JAX-trained out_dir with
@@ -32,6 +35,8 @@ def parse_args(argv=None):
     parser.add_argument("--lpips_weights", type=str, default=None,
                         help="LPIPS AlexNet weights (.npz); without it the column is NaN")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--num_devices", type=int, default=1,
+                        help="render each view D-way over this many devices")
     return parser.parse_args(argv)
 
 
@@ -51,9 +56,11 @@ def load_config(path):
 
 def main(argv=None):
     from .evaluation.eval_cli import evaluate_views
+    from .parallel import cli_devices
     from .render.renderer import make_renderer_from_config
 
     args = parse_args(argv)
+    devices = cli_devices(args.device, args.num_devices)
     if args.uv_mesh_path is not None:
         from .bake.bake import bake_texture
 
@@ -62,7 +69,7 @@ def main(argv=None):
         print("Done.")
     config = load_config(args.config_path)
     renderer = make_renderer_from_config(config, weights_path=args.weights,
-                                         device=args.device)
+                                         device=args.device, devices=devices)
     evaluate_views(args.output_path, config, args.dataset_path, args.split,
                    renderer=renderer, background=args.background,
                    lpips_weights_path=args.lpips_weights)

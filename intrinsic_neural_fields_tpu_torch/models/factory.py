@@ -19,8 +19,9 @@ from ``k``), initializes it from the seeded generator (Xavier-uniform with
 the reference's per-layer gains) and loads ``pretrained_path``'s mapping
 networks, which must exist. Any other ``type`` raises.
 
-``batchnorm: true`` raises: no train state of the port holds BatchNorm's
-running statistics yet (ROADMAP queue 1 item 7, with sync-BN).
+``batchnorm: true`` puts BatchNorm after every hidden activation
+(models/texture_field.py); such a field trains through the eager step, as
+in the JAX package (the kernels have no batch statistics).
 """
 from __future__ import annotations
 
@@ -55,10 +56,6 @@ def make_model(model_config, seed=0, device="cuda", mesh=None):
     device). `mesh` supplies the face normals of the intrinsic view
     strategy."""
     dev = resolve_device(device)
-    if model_config.get("batchnorm"):
-        raise NotImplementedError(
-            "batchnorm: true is not ported: no train state of the port holds BatchNorm's "
-            "running statistics (ROADMAP queue 1 item 7, with sync-BN)")
     if model_config.get("type") == "neutex":
         from .neutex import (init_neutex_weights, load_pretrained_mapping,
                              make_neutex_train_wrapper_default)
@@ -84,6 +81,7 @@ def make_model(model_config, seed=0, device="cuda", mesh=None):
                   embed_use_logspace=model_config.get("use_logspace", True),
                   embed_max_freq=model_config.get("max_freq"),
                   activation=activation,
+                  batchnorm=bool(model_config.get("batchnorm", False)),
                   generator=torch.Generator().manual_seed(seed + 1))
     vd = model_config.get("view_dependence")
     if vd is None:

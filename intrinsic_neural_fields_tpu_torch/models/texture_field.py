@@ -18,10 +18,30 @@ rows: the renderer encodes each chunk before the forward kernel, and the
 Trainer embeds every cached hit once so the train kernels stream the rows
 (JAX ``input_encoder_apply`` / ``mlp_core_view``, :118-170).
 
+``batchnorm=True`` puts a BatchNorm after the activation of every hidden
+layer (after act(Lx(h) + Ly(x)) at the skip layer), none on the head (JAX
+texture_field.py:89-110). Its numerics are flax.linen.BatchNorm's, not
+torch's BatchNorm1d's: momentum 0.9 on the running average (running = 0.9
+running + 0.1 batch), eps 1e-5, and the BIASED batch variance E[x^2] -
+E[x]^2 clamped at 0, for normalising and for the running update alike.
+The forward takes ``train`` as the JAX module does: False normalises with
+the running statistics, True with the batch's and updates the running
+ones in place. ``num_batches_tracked`` stays 0, as the JAX exporter writes
+it (flax keeps no step counter).
+
+The forward is written once, as a generator (``steps``) that yields at every
+BatchNorm and takes the normalised rows back: ``run_field`` drives one field,
+``run_fields_synced`` drives several replicas in step so that their
+BatchNorms normalise with statistics over all replicas' rows (sync-BN, the
+data-parallel path's; JAX :116-123, the module's ``bn_axis_name``).
+
 State-dict keys are the upstream torch implementation's, so its model.pt
 files (and the reference package's exports) load directly:
   layers.{i}.0.{weight,bias}       Linear of a plain layer (and the head)
+  layers.{i}.2.*                   its BatchNorm (weight, bias, running_mean,
+                                   running_var, num_batches_tracked)
   layers.{skip}.Lx / .Ly           skip layer: Lx on h, Ly on the input
+  layers.{skip}.batchnorm.*        the skip layer's BatchNorm
   spatial_mlp.layers.* + directional_mlp.{0,2}.*   the view-dependent field
   embedding.B (spatial_mlp.embedding.B)             the RFF projection
 """
@@ -35,6 +55,8 @@ from .encoders import FourierFeatEnc, RandomFourierFeatEnc, fourier_feat_dim, fo
 
 RGB_COLOR_DIM = 3
 ENCODER_FAMILIES = ("xyz", "ff", "rff")
+BN_MOMENTUM = 0.9
+BN_EPS = 1e-5
 
 
 class Sine(nn.Module):
@@ -50,17 +72,95 @@ def _activation_module(name):
     raise NotImplementedError(f"Activation function {name} not implemented.")
 
 
-class _SkipLayer(nn.Module):
-    """act(Lx(h) + Ly(features))."""
+def batch_moments(h):
+    """[2, C]: the mean over the batch rows of h and of h^2."""
+    return torch.stack((h.mean(0), (h * h).mean(0)))
 
-    def __init__(self, hidden, in_dim, activation="relu"):
+
+class BatchNorm(nn.Module):
+    """flax.linen.BatchNorm over the batch axis (see the module docstring),
+    holding BatchNorm1d's parameters and buffers."""
+
+    def __init__(self, width):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(width))
+        self.bias = nn.Parameter(torch.zeros(width))
+        self.register_buffer("running_mean", torch.zeros(width))
+        self.register_buffer("running_var", torch.ones(width))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def normalize(self, h, mean, var):
+        """flax's expression order: (h - mean) * (rsqrt(var + eps) * weight) + bias."""
+        return (h - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias
+
+    def batch_stats(self, moments):
+        """(mean, biased variance) from batch moments [2, C] (one replica's
+        or the mean of all replicas'); the running statistics take them in
+        place."""
+        mean = moments[0]
+        var = torch.clamp(moments[1] - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                    + (1.0 - BN_MOMENTUM) * mean.detach())
+            self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                   + (1.0 - BN_MOMENTUM) * var.detach())
+        return mean, var
+
+    def forward(self, h, train=False):
+        if train:
+            return self.normalize(h, *self.batch_stats(batch_moments(h)))
+        return self.normalize(h, self.running_mean, self.running_var)
+
+
+class _SkipLayer(nn.Module):
+    """act(Lx(h) + Ly(features)); its BatchNorm (``batchnorm``) is applied
+    by the field's forward."""
+
+    def __init__(self, hidden, in_dim, activation="relu", batchnorm=False):
         super().__init__()
         self.Lx = nn.Linear(hidden, hidden)
         self.Ly = nn.Linear(in_dim, hidden)
         self.act = _activation_module(activation)
+        if batchnorm:
+            self.batchnorm = BatchNorm(hidden)
 
     def forward(self, h, features):
         return self.act(self.Lx(h) + self.Ly(features))
+
+
+def run_field(steps, train=False):
+    """Drive one field's forward generator: each BatchNorm normalises with
+    its batch's statistics (train) or its running ones."""
+    h_out = None
+    try:
+        while True:
+            bn, h = steps.send(h_out)
+            h_out = bn(h, train)
+    except StopIteration as stop:
+        return stop.value
+
+
+def run_fields_synced(steps, mean_moments):
+    """Drive D replicas' forward generators in step, in train mode with
+    sync-BN: at each BatchNorm, mean_moments([each replica's batch_moments])
+    returns the moments over all replicas (one copy on each replica's
+    device, differentiable); every replica normalises with them and updates
+    its running statistics from them. Returns the D outputs."""
+    outs = [None] * len(steps)
+    while True:
+        items = []
+        for i, s in enumerate(steps):
+            try:
+                items.append(s.send(outs[i]))
+            except StopIteration as stop:
+                items.append(stop)
+        ended = [isinstance(it, StopIteration) for it in items]
+        if all(ended):
+            return [it.value for it in items]
+        if any(ended):
+            raise RuntimeError("the replicas' forwards went out of step")
+        moments = mean_moments([batch_moments(h) for _, h in items])
+        outs = [bn.normalize(h, *bn.batch_stats(m)) for (bn, h), m in zip(items, moments)]
 
 
 def _make_encoder(input_feature_embed, embed_dim=None, include_input=True, std=1.0,
@@ -92,7 +192,7 @@ class TextureField(nn.Module):
                  out_dim=RGB_COLOR_DIM, return_rgb=True, input_feature_embed=None,
                  embed_dim=None, embed_include_input=True, embed_std=1.0,
                  embed_use_logspace=True, embed_max_freq=None, activation="relu",
-                 generator=None):
+                 batchnorm=False, generator=None):
         super().__init__()
         if not (num_layers > 2 and 0 < skip_layer_idx < num_layers - 1):
             raise ValueError(
@@ -115,28 +215,40 @@ class TextureField(nn.Module):
         self.return_rgb = return_rgb
         self.input_feature_embed = input_feature_embed
         self.activation = activation
+        self.batchnorm = bool(batchnorm)
         if embedding is not None:
             self.embedding = embedding
         layers = []
         for i in range(num_layers - 1):
             d_in = in_dim if i == 0 else hidden_dim
             if i == skip_layer_idx:
-                layers.append(_SkipLayer(hidden_dim, in_dim, activation))
+                layers.append(_SkipLayer(hidden_dim, in_dim, activation, batchnorm))
             else:
-                layers.append(nn.Sequential(nn.Linear(d_in, hidden_dim),
-                                            _activation_module(activation)))
+                mods = [nn.Linear(d_in, hidden_dim), _activation_module(activation)]
+                layers.append(nn.Sequential(*mods, *([BatchNorm(hidden_dim)] if batchnorm
+                                                     else [])))
         head = nn.Sigmoid() if return_rgb else nn.ReLU()
         layers.append(nn.Sequential(nn.Linear(hidden_dim, out_dim), head))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, features):
+    def forward(self, features, train=False):
         """features: [N, in_dim] eigenfunction rows, or [N, 3] positions for
-        an encoder family."""
+        an encoder family. train: BatchNorm on the batch's statistics."""
+        return run_field(self.steps(features), train)
+
+    def steps(self, features):
+        """The forward as a generator: yields (BatchNorm, its input rows) at
+        each BatchNorm, takes the normalised rows back, returns the output."""
         encode = input_encoder_apply(self)
         x = features if encode is None else encode(features)
         h = x
         for i, layer in enumerate(self.layers):
-            h = layer(h, x) if i == self.skip_layer_idx else layer(h)
+            if i == self.skip_layer_idx:
+                h, bn = layer(h, x), getattr(layer, "batchnorm", None)
+            else:
+                h, bn = layer[1](layer[0](h)), (layer[2] if len(layer) > 2 else None)
+            if bn is not None:
+                h = yield bn, h
         return h
 
 
@@ -160,7 +272,8 @@ def mlp_core_view(model):
     ``mlp_core_view``). Feed it input_encoder_apply(model)(positions)."""
     view = TextureField(model.in_dim, model.num_layers, model.hidden_dim,
                         model.skip_layer_idx, out_dim=model.out_dim,
-                        return_rgb=model.return_rgb, activation=model.activation)
+                        return_rgb=model.return_rgb, activation=model.activation,
+                        batchnorm=model.batchnorm)
     view.layers = model.layers
     return view
 
@@ -183,12 +296,13 @@ class TextureFieldWithViewDependency(nn.Module):
     "extrinsic" encodes the unit ray direction itself. The spatial field
     takes `activation` and the input family (``input_feature_embed`` and
     the embed_* keywords of TextureField, B drawn from `generator`), as in
-    the JAX package; the directional hidden layer takes `activation` too."""
+    the JAX package; the directional hidden layer takes `activation` too.
+    ``batchnorm`` puts BatchNorm into the spatial field only (JAX :229, :267)."""
 
     def __init__(self, in_dim, num_layers, hidden_dim, skip_layer_idx, bottleneck_vec_dim,
                  in_dim_view_dir, include_view_dir, view_dir_embedding_size,
                  directional_hidden_dim, face_normals=None, view_dir_strategy="intrinsic",
-                 activation="relu", generator=None, **embed):
+                 activation="relu", batchnorm=False, generator=None, **embed):
         super().__init__()
         want = {"intrinsic": 1, "extrinsic": 3}.get(view_dir_strategy)
         if want is None:
@@ -210,9 +324,11 @@ class TextureFieldWithViewDependency(nn.Module):
         self.venc_dim = fourier_feat_dim(in_dim_view_dir, view_dir_embedding_size,
                                          include_view_dir)
         self.activation = activation
+        self.batchnorm = bool(batchnorm)
         self.spatial_mlp = TextureField(in_dim, num_layers, hidden_dim, skip_layer_idx,
                                         out_dim=bottleneck_vec_dim, return_rgb=False,
-                                        activation=activation, generator=generator, **embed)
+                                        activation=activation, batchnorm=batchnorm,
+                                        generator=generator, **embed)
         self.input_feature_embed = self.spatial_mlp.input_feature_embed
         self.directional_mlp = nn.Sequential(
             nn.Linear(bottleneck_vec_dim + self.venc_dim, directional_hidden_dim),
@@ -222,9 +338,14 @@ class TextureFieldWithViewDependency(nn.Module):
             np.asarray(face_normals, np.float32))
         self.register_buffer("face_normals", normals, persistent=False)
 
-    def forward(self, features, unit_ray_dirs, hit_face_idxs):
+    def forward(self, features, unit_ray_dirs, hit_face_idxs, train=False):
+        return run_field(self.steps(features, unit_ray_dirs, hit_face_idxs), train)
+
+    def steps(self, features, unit_ray_dirs, hit_face_idxs):
+        """The forward as a generator (see TextureField.steps)."""
+        bottleneck = yield from self.spatial_mlp.steps(features)
         venc = view_encoder_apply(self)(unit_ray_dirs, hit_face_idxs)
-        return self.directional_mlp(torch.cat([self.spatial_mlp(features), venc], dim=-1))
+        return self.directional_mlp(torch.cat([bottleneck, venc], dim=-1))
 
 
 def view_encoder_apply(model):

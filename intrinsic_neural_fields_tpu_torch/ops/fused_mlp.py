@@ -131,9 +131,8 @@ def spec_for_model(model):
 
 def fused_mlp_eligible(model):
     """A plain TextureField the kernels compute as it is: features taken as
-    they are (no encoder), relu, sigmoid RGB head, 3 outputs, hidden width
-    a multiple of 128 (JAX train/steps.py:57-72; the port has no
-    BatchNorm)."""
+    they are (no encoder), relu, sigmoid RGB head, 3 outputs, no BatchNorm,
+    hidden width a multiple of 128 (JAX train/steps.py:57-72)."""
     return _plain_field(model) and model.input_feature_embed is None and _relu_rgb_field(model)
 
 
@@ -153,17 +152,17 @@ def _plain_field(model):
 
 def fused_viewdep_eligible(model):
     """A TextureFieldWithViewDependency the view-dependent kernels compute:
-    relu, hidden, bottleneck and directional widths multiples of 128 (JAX
+    relu, no BatchNorm, hidden, bottleneck and directional widths multiples of 128 (JAX
     train/steps.py:95-117). An encoder family's spatial input is embedded
     before the kernel, as for fused_pre_embed_eligible."""
     return (hasattr(model, "spatial_mlp") and model.activation == "relu"
-            and model.hidden_dim % 128 == 0 and model.bottleneck_vec_dim % 128 == 0
-            and model.directional_hidden_dim % 128 == 0)
+            and not model.batchnorm and model.hidden_dim % 128 == 0
+            and model.bottleneck_vec_dim % 128 == 0 and model.directional_hidden_dim % 128 == 0)
 
 
 def _relu_rgb_field(model):
     return (model.activation == "relu" and model.return_rgb and model.out_dim == 3
-            and model.hidden_dim % 128 == 0)
+            and not model.batchnorm and model.hidden_dim % 128 == 0)
 
 
 def tail_for_model(model):

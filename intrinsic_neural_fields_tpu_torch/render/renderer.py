@@ -1,4 +1,4 @@
-"""Full-view rendering on one GPU: ray generation, the raster tracer,
+"""Full-view rendering on a GPU (or D of them): ray generation, the raster tracer,
 feature interpolation and the fused MLP kernel, with the background
 composited on the device and f16 (or uint8) colors on the wire.
 
@@ -27,11 +27,24 @@ view-dependent kernel for a view-dependent field. How the field runs is
 compute (a sine field) runs its module's f32 forward when ``infer`` is
 left unset, as the JAX renderer's ``infer="auto"`` takes its XLA path,
 and an explicit ``infer="kernel"`` for it raises.
+
+The D-way render (``devices=[...]``, JAX render/renderer.py:100-114,
+148-178, 353-378): the geometry, the feature table and the field are
+replicated on every device of the list (a device may repeat), each view's
+masked rays are cut into D contiguous shards of a multiple of the
+inference chunk (so a shard's tracer packets and inference chunks are the
+single-device render's), each shard is traced and inferred on its own
+device, and the colours are gathered in order on devices[0]. Every shard is
+traced against the WHOLE view's pixel hull, never its own: the hull sizes
+the binning tables, and so the exact-t tie-breaks (JAX :511-516). The
+image and the hit set are the single-device render's, to the bit.
 """
 from __future__ import annotations
 
+import copy
 import hashlib
 from collections import OrderedDict
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +56,7 @@ from ..ops.field_infer import FieldInfer
 from ..ops.interpolate import interpolate_vertex_features
 from ..ops.morton import face_morton_order, pixel_morton_order
 from ..ops.raster import check_pinhole_K, intersect_coords_pinhole_core
+from ..parallel.data_parallel import _device_of, device_scope, resolve_devices
 
 _INFER_CHUNK = 1 << 13     # rays per feature-gather + MLP launch
 _TRACE_CACHE_MAX = 8       # LRU bound on cached per-view traces
@@ -88,11 +102,17 @@ class _PendingRender(NamedTuple):
 
 
 def make_renderer_from_config(config, weights_path=None, device="cuda", wire_u8=False,
-                              infer=None):
+                              infer=None, devices=None):
     """Renderer for an experiment config (the reference YAML schema) and a
     reference-layout model.pt (default: <training.out_dir>/model.pt).
-    wire_u8 and infer: as for Renderer."""
+    wire_u8 and infer: as for Renderer; devices: a device list (or a count
+    of CUDA devices) for the D-way render, its first device replacing
+    `device`."""
     import os
+
+    if devices is not None:
+        devices = resolve_devices(devices)
+        device = devices[0]
 
     from ..geometry.mesh import load_mesh
     from ..models.factory import make_model
@@ -117,7 +137,7 @@ def make_renderer_from_config(config, weights_path=None, device="cuda", wire_u8=
     return Renderer(
         model, mesh, efuncs, H=data["img_height"], W=data["img_width"],
         feature_dtype=data.get("precompute_dtype"), wire_u8=wire_u8, infer=infer,
-        device=device,
+        device=device, devices=devices,
     )
 
 
@@ -125,7 +145,7 @@ class Renderer:
     """Renders views of a trained texture field (plain or view-dependent)."""
 
     def __init__(self, model, mesh, eigenfunctions=None, background="white", *, H, W,
-                 feature_dtype=None, wire_u8=False, infer=None, device="cuda"):
+                 feature_dtype=None, wire_u8=False, infer=None, device="cuda", devices=None):
         """model: a TextureField, TextureFieldWithViewDependency (its
         weights are packed for the kernel here and on every
         update_variables) or NeuTex train wrapper (its module forward on
@@ -138,8 +158,18 @@ class Renderer:
         CUDA) or "plain" (default on CPU, the kernel's plain torch twin);
         unset, a field the kernels do not compute runs its module's f32
         forward, and an explicit "kernel" or "plain" for it raises
-        (ops/field_infer.py)."""
+        (ops/field_infer.py). devices: a device list (or a count of CUDA
+        devices) for the D-way render; its first device must be `device`,
+        where the model lives."""
         self.device = resolve_device(device)
+        self.devices = None
+        if devices is not None:
+            self.devices = resolve_devices(devices)
+            if self.devices[0] != _device_of(torch.empty(0, device=self.device)):
+                raise ValueError(f"the device list starts with {self.devices[0]}, the renderer "
+                                 f"is on {self.device}")
+            self.device = self.devices[0]
+        self._device_copies = None
         self.field = FieldInfer(model, self.device, infer)
         self.viewdep = self.field.viewdep
         self.feature_strategy = ("efuncs" if self.field.encode is None
@@ -193,8 +223,10 @@ class Renderer:
 
     def update_variables(self, state_dict):
         """Point the renderer at new weights (the model's whole state dict,
-        RFF's embedding.B included): see FieldInfer.update_variables."""
+        RFF's embedding.B and BatchNorm statistics included): see
+        FieldInfer.update_variables. The other devices' copies follow."""
         self.field.update_variables(state_dict)
+        self._device_copies = None
 
     def set_eigenfunctions(self, eigenfunctions):
         """Swap the per-vertex feature table (same k)."""
@@ -207,6 +239,7 @@ class Renderer:
                 f"eigenfunctions must be [V, {self.model.in_dim}], got {tuple(E.shape)}"
             )
         self.features = E.to(device=self.device, dtype=self._feature_dtype)
+        self._device_copies = None
 
     def _refresh_geometry(self):
         # The intrinsic view strategy reads the model's face normals: after a
@@ -227,6 +260,38 @@ class Renderer:
         self._face_orig_ids = torch.as_tensor(order.astype(np.int64), device=self.device)
         # Geometry-dependent per-view traces, keyed on (cache_key, H, W).
         self._trace_cache = OrderedDict()
+        self._device_copies = None
+
+    def _on(self, dev):
+        """What a shard on `dev` reads: the geometry, the feature table and
+        the field, the renderer's own on its device, else copies made from
+        them (again after any of them changed)."""
+        if dev == self.device:
+            return SimpleNamespace(device=dev, field=self.field, verts=self._verts,
+                                   faces_sorted=self._faces_sorted,
+                                   face_orig_ids=self._face_orig_ids, features=self.features)
+        if self._device_copies is None:
+            self._device_copies = {}
+        if dev not in self._device_copies:
+            mode = self.field.mode
+            self._device_copies[dev] = SimpleNamespace(
+                device=dev,
+                field=FieldInfer(copy.deepcopy(self.model).to(dev), dev,
+                                 None if mode == "module" else mode),
+                verts=self._verts.to(dev), faces_sorted=self._faces_sorted.to(dev),
+                face_orig_ids=self._face_orig_ids.to(dev), features=self.features.to(dev))
+        return self._device_copies[dev]
+
+    def _shards(self, L):
+        """(device, row slice) of each shard that holds rays: one shard on
+        one device, else D contiguous shards of S rays, S the least multiple
+        of the inference chunk with D S >= L."""
+        if self.devices is None:
+            return [(self.device, slice(0, L))]
+        D = len(self.devices)
+        S = -(-L // (D * _INFER_CHUNK)) * _INFER_CHUNK
+        return [(dev, slice(d * S, min((d + 1) * S, L)))
+                for d, dev in enumerate(self.devices) if d * S < L]
 
     # ------------------------------------------------------------ stages
 
@@ -279,42 +344,47 @@ class Renderer:
             self._coords_cache.popitem(last=False)
         return entry
 
-    def _trace(self, px, camCv2world, K, with_dirs, coords=None):
+    def _trace(self, px, camCv2world, K, with_dirs, coords=None, dev=None, rows=None):
         """Pixel bundle + camera -> (vids [L,3], bary [L,3], dirs [L,3],
         original face ids [L], valid [L]); dirs and face ids are None
         unless with_dirs (only the view-dependent field reads them).
         coords: (undistorted [L,2] coordinates, their hull) to trace in
-        place of the bundle's integer pixel grid."""
+        place of the bundle's integer pixel grid. dev, rows: trace only
+        those rays, on that device (a shard), against the whole view's hull."""
         W = self.W
         if coords is None:
             x = (px.idx_dev % W).to(torch.float32)
             y = torch.div(px.idx_dev, W, rounding_mode="floor").to(torch.float32)
             coords = (torch.stack([x, y], dim=-1), px.hull)
+        g = self._on(self.device if dev is None else dev)
+        c = coords[0] if rows is None else coords[0][rows].to(g.device)
         out = intersect_coords_pinhole_core(
-            self._verts, self._faces_sorted, np.asarray(camCv2world, np.float32),
-            np.asarray(K, np.float32), coords[0], W=W, H=self.H, coord_hull=coords[1],
+            g.verts, g.faces_sorted, np.asarray(camCv2world, np.float32),
+            np.asarray(K, np.float32), c, W=W, H=self.H, coord_hull=coords[1],
             return_dirs=with_dirs,
         )
         hits, dirs = out if with_dirs else (out, None)
         safe_face = torch.where(hits.valid, hits.face_idx, torch.zeros_like(hits.face_idx))
-        faces = self._face_orig_ids[safe_face] if with_dirs else None
-        return self._faces_sorted[safe_face], hits.bary, dirs, faces, hits.valid
+        faces = g.face_orig_ids[safe_face] if with_dirs else None
+        return g.faces_sorted[safe_face], hits.bary, dirs, faces, hits.valid
 
-    def _infer(self, trace, bg):
-        """Hit records -> ([L,3] bg-composited f16 (or uint8) rgb, [L] valid)."""
+    def _infer(self, trace, bg, dev=None):
+        """Hit records -> ([L,3] bg-composited f16 (or uint8) rgb, [L] valid),
+        on the trace's device."""
+        g = self._on(self.device if dev is None else dev)
         vids, bary, dirs, faces, valid = trace
         L = vids.shape[0]
-        preds = torch.empty((L, 3), dtype=torch.float32, device=self.device)
+        preds = torch.empty((L, 3), dtype=torch.float32, device=g.device)
         for s in range(0, L, _INFER_CHUNK):
             sl = slice(s, s + _INFER_CHUNK)
-            feats = interpolate_vertex_features(self.features, vids[sl], bary[sl])
-            preds[sl] = (self.field(feats, dirs[sl], faces[sl]) if self.viewdep
-                         else self.field(feats))
+            feats = interpolate_vertex_features(g.features, vids[sl], bary[sl])
+            preds[sl] = (g.field(feats, dirs[sl], faces[sl]) if self.viewdep
+                         else g.field(feats))
         # Composite the background on the device: the wire carries one
         # ready-to-scatter array. f16 quantization (~5e-4 in [0,1]) is far
         # below the 8-bit image grid.
         rgb = torch.where(valid[:, None], preds.to(torch.float16),
-                          torch.tensor(bg, dtype=torch.float16, device=self.device))
+                          torch.tensor(bg, dtype=torch.float16, device=g.device))
         if self._wire_u8:
             rgb = torch.round(rgb.to(torch.float32).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
         return rgb, valid
@@ -410,13 +480,26 @@ class Renderer:
         if trace is None:
             coords = (None if distortion_type is None
                       else self._coords_for_view(pix_key, px, K, distortion_coeffs))
-            trace = self._trace(px, camCv2world, K, with_dirs=self.viewdep, coords=coords)
+            # one (device, trace) per shard; the trace keeps no weights
+            trace = []
+            for dev, rows in self._shards(px.L):
+                with device_scope(dev):
+                    trace.append((dev, self._trace(px, camCv2world, K, with_dirs=self.viewdep,
+                                                   coords=coords, dev=dev, rows=rows)))
             if full_key is not None:
                 self._trace_cache[full_key] = (pix_key, px.mask_bits, trace)
                 while len(self._trace_cache) > _TRACE_CACHE_MAX:
                     self._trace_cache.popitem(last=False)
 
-        rgb_dev, valid_dev = self._infer(trace, bg)
+        parts = []
+        for dev, tr in trace:
+            with device_scope(dev):
+                parts.append(self._infer(tr, bg, dev))
+        if len(parts) == 1:
+            rgb_dev, valid_dev = parts[0]
+        else:  # gathered in shard order on devices[0]
+            rgb_dev, valid_dev = (torch.cat([p[i].to(self.device) for p in parts])
+                                  for i in (0, 1))
         return _PendingRender(
             rgb_dev=rgb_dev, valid_dev=valid_dev, morton=px.morton, L=px.L,
             obj_mask_1d=obj_mask_1d, bg=bg, H=H, W=W, eval_render=eval_render,

@@ -7,10 +7,12 @@ installed (else the frames stay on disk and the command is printed).
 
   python -m intrinsic_neural_fields_tpu_torch.render_video --out_dir out \
       --config_path cfg.yaml --cameras_path cameras.npz [--resolution 720p] \
-      [--turns 2] [--duration 15] [--fps 60] [--device cuda]
+      [--turns 2] [--duration 15] [--fps 60] [--device cuda] [--num_devices 1]
 
 int(fps * duration) frames at angles linspace(0, 360 * turns), written to
-<out_dir>/images/<config dir name>_<resolution>/NNNN.jpg.
+<out_dir>/images/<config dir name>_<resolution>/NNNN.jpg. --num_devices D
+> 1 renders each frame D-way over cuda:0 ... cuda:D-1 (the CPU D times
+with --device cpu); it raises when fewer devices exist.
 """
 import argparse
 import os
@@ -39,6 +41,7 @@ def parse_args(argv=None):
     parser.add_argument("--duration", type=float, default=15)
     parser.add_argument("--fps", type=int, default=60)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--num_devices", type=int, default=1)
     return parser.parse_args(argv)
 
 
@@ -93,10 +96,14 @@ def main(argv=None):
     from .train.config import load_config
     from .utils.io import imwrite
 
+    from .parallel import cli_devices
+
     args = parse_args(argv)
+    devices = cli_devices(args.device, args.num_devices)
     config = load_config(args.config_path)
     # uint8 colors on the wire: video frames are 8-bit anyway
-    renderer = make_renderer_from_config(config, device=args.device, wire_u8=True)
+    renderer = make_renderer_from_config(config, device=args.device, wire_u8=True,
+                                         devices=devices)
 
     camCv2world, K = load_extr_and_intr_camera(args.cameras_path)
     cam_orig = {"K": K, "height": config["data"]["img_height"],

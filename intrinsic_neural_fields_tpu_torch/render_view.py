@@ -3,11 +3,12 @@ render_view.py).
 
   python -m intrinsic_neural_fields_tpu_torch.render_view --output_path view.png \
       --config_path cfg.yaml --cameras_path cameras.npz [--height H] [--width W] \
-      [--device cuda]
+      [--device cuda] [--num_devices 1]
 
 cameras.npz holds world_mat_0 / camera_mat_0; K is resized from the
 config's resolution to --height x --width (principal-point offset kept).
-One card renders (the JAX CLI's --num_devices has no counterpart here).
+--num_devices D > 1 renders the view D-way over cuda:0 ... cuda:D-1 (the
+CPU D times with --device cpu); it raises when fewer devices exist.
 """
 import argparse
 
@@ -20,6 +21,7 @@ def parse_args(argv=None):
     parser.add_argument("--height", nargs="?", type=int, default=None)
     parser.add_argument("--width", nargs="?", type=int, default=None)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--num_devices", type=int, default=1)
     return parser.parse_args(argv)
 
 
@@ -27,13 +29,15 @@ def main(argv=None):
     import numpy as np
 
     from .geometry.cameras import cam_resize, load_extr_and_intr_camera
+    from .parallel import cli_devices
     from .render.renderer import make_renderer_from_config
     from .train.config import load_config
     from .utils.io import imwrite
 
     args = parse_args(argv)
+    devices = cli_devices(args.device, args.num_devices)
     config = load_config(args.config_path)
-    renderer = make_renderer_from_config(config, device=args.device)
+    renderer = make_renderer_from_config(config, device=args.device, devices=devices)
     camCv2world, K = load_extr_and_intr_camera(args.cameras_path)
     cam_intrinsic = {"K": K, "height": config["data"]["img_height"],
                      "width": config["data"]["img_width"]}

@@ -15,7 +15,8 @@ Differences from the JAX package's config.py:
   - ``training.profile_dir`` (with ``profile_epoch``, default 1) writes a
     torch.profiler trace of that epoch where the JAX Trainer writes a
     jax.profiler trace;
-  - there is no ``--num_devices``: one GPU.
+  - ``--num_devices`` trains data-parallel in one process over a device
+    list (``parallel/``), where the JAX package shard_maps over a mesh.
 """
 from __future__ import annotations
 

@@ -40,6 +40,15 @@ train/steps.py:591-601); the squared error is still weighted by the row
 mask. It validates through its forward (RGB only) under the config's
 ``loss_type``; ``fused`` raises for it.
 
+A field with BatchNorm (``batchnorm: true``) is no kernel chain either: its
+state is a ModuleLayout plus ``batch_stats``, the BatchNorms' running
+statistics under the reference names. Its eager step runs the module's
+forward in train mode through ``functional_call`` (the statistics of the
+batch, a ragged tail's duplicates included, as in JAX; the running
+statistics updated in place in ``state.batch_stats``), the weighted mean
+loss, then the Adam kernel; it validates with the running statistics (JAX
+:662). ``fused`` raises for it, as the JAX package asserts (:292-298).
+
 The kernels take a field as it is only when it is ``fused_mlp_eligible``
 (or ``fused_viewdep_eligible``): relu, no encoder. The Trainer makes an
 xyz / ff / rff field eligible by pre-embedding its splits and training
@@ -161,11 +170,16 @@ class TrainState:
     # the model's buffers that are part of its state dict (RFF's
     # embedding.B): fixed, carried into model.pt and checkpoint.pt
     buffers: dict = field(default_factory=dict)
+    # the BatchNorms' running statistics (running_mean, running_var,
+    # num_batches_tracked under the reference names), updated in place by
+    # the train step; carried into model.pt and checkpoint.pt
+    batch_stats: dict = field(default_factory=dict)
 
     def state_dict(self, device=None):
-        """The parameters (and buffers) as a torch-layout state dict
-        (contiguous copies)."""
-        sd = {k: v.detach().clone().to(device) for k, v in self.buffers.items()}
+        """The parameters, buffers and running statistics as a torch-layout
+        state dict (contiguous copies)."""
+        sd = {k: v.detach().clone().to(device)
+              for k, v in {**self.buffers, **self.batch_stats}.items()}
         sd.update(self.layout.state_dict(self.params, device))
         return sd
 
@@ -180,27 +194,47 @@ class TrainState:
         hyper = AdamHyper(adam["lr"], adam["b1"], adam["b2"], adam["eps"],
                           adam.get("eps_root", 0.0))
         return cls(layout, flat(model_state_dict), flat(adam["mu"]), flat(adam["nu"]),
-                   int(adam["count"]), hyper, buffers_of(layout, model_state_dict, device))
+                   int(adam["count"]), hyper, buffers_of(layout, model_state_dict, device),
+                   batch_stats_of(model_state_dict, device))
+
+
+BN_STATS = (".running_mean", ".running_var", ".num_batches_tracked")
 
 
 def buffers_of(layout, state_dict, device=None):
-    """The entries of a torch-layout state dict that are not the layout's
-    parameters (RFF's embedding.B), as f32 copies on `device`."""
+    """The entries of a torch-layout state dict that are neither the
+    layout's parameters nor BatchNorm statistics (RFF's embedding.B), as
+    f32 copies on `device`."""
     params = set(layout.param_names())
     return {k: v.detach().to(device=device, dtype=torch.float32).clone()
-            for k, v in state_dict.items() if k not in params}
+            for k, v in state_dict.items() if k not in params and not k.endswith(BN_STATS)}
+
+
+def batch_stats_of(state_dict, device=None):
+    """The BatchNorm statistics of a torch-layout state dict, as copies on
+    `device` (the running mean and variance f32, the counter as it is)."""
+    return {k: v.detach().to(device=device, dtype=v.dtype if v.dtype == torch.int64
+                             else torch.float32).clone()
+            for k, v in state_dict.items() if k.endswith(BN_STATS)}
+
+
+def uses_module_layout(model):
+    """A model the kernels cannot compute, trained on the flat parameters
+    in module order (ModuleLayout): a self-loss model or a field with
+    BatchNorm."""
+    return getattr(model, "computes_loss", False) or getattr(model, "batchnorm", False)
 
 
 def create_train_state(model, optimizer, device=None):
-    """Fresh state: the model's weights and buffers, zero moments, count 0;
-    a self-loss model's in a ModuleLayout, any other's in the kernels'
-    padded ParamLayout."""
-    layout = (ModuleLayout(model) if getattr(model, "computes_loss", False)
-              else layout_for_model(model))
+    """Fresh state: the model's weights, buffers and running statistics,
+    zero moments, count 0; a self-loss or BatchNorm model's in a
+    ModuleLayout, any other's in the kernels' padded ParamLayout."""
+    layout = ModuleLayout(model) if uses_module_layout(model) else layout_for_model(model)
     sd = model.state_dict()
     params = layout.flat_from_state_dict(sd, device)
     return TrainState(layout, params, torch.zeros_like(params), torch.zeros_like(params),
-                      0, AdamHyper(**vars(optimizer)), buffers_of(layout, sd, params.device))
+                      0, AdamHyper(**vars(optimizer)), buffers_of(layout, sd, params.device),
+                      batch_stats_of(sd, params.device))
 
 
 def forward_f32(layout, params, x, venc=None, activation="relu"):
@@ -267,6 +301,79 @@ def self_loss_fn(model, layout, xyz, gt):
     on the batch, through ``torch.func.functional_call`` on views of the
     flat parameters (the batch mean over every row)."""
     return lambda p: torch.func.functional_call(model, layout.views(p), (xyz, gt))
+
+
+def module_variables(layout, params, state):
+    """What functional_call substitutes into a ModuleLayout model: views of
+    the flat params, the state's buffers and its running statistics (which
+    a train-mode forward updates in place)."""
+    return {**layout.views(params), **state.buffers, **state.batch_stats}
+
+
+def module_loss_fn(model, layout, state, inputs, gt, w, loss_elem):
+    """loss_and_pred for a BatchNorm field: its module forward in train
+    mode on the batch's inputs, the weighted mean of the per-sample loss."""
+    def fn(p):
+        pred = torch.func.functional_call(model, module_variables(layout, p, state), inputs,
+                                          {"train": True})
+        return (loss_elem(pred, gt).mean(-1) * w).sum() / w.sum(), pred
+    return fn
+
+
+def field_batch_fns(model):
+    """(features_of, venc_of) for a texture field's flat-parameter forward:
+    batch -> the MLP input rows (eigenfunction or pre-embedded rows, or the
+    model's encoding of its positions), and batch -> the view encoding
+    (None without a view-dependent tail)."""
+    encode = input_encoder_apply(model)
+    view_fn = view_encoder_apply(model) if hasattr(model, "spatial_mlp") else None
+
+    def venc_of(batch):
+        if view_fn is None:
+            return None
+        if "unit_ray_dirs" not in batch:
+            raise ValueError("the view-dependent field needs the cached ray directions and "
+                             "face ids (unit_ray_dirs.npy, face_idxs.npy)")
+        return view_fn(batch["unit_ray_dirs"], batch["hit_face_idxs"])
+
+    def features_of(batch):
+        key = "eigenfunctions" if encode is None else "xyz"
+        if key not in batch:
+            raise ValueError(f"the model takes {key!r} rows, the split holds "
+                             f"{sorted(k for k in batch if k in ('eigenfunctions', 'xyz'))}")
+        x = batch[key]
+        return x if encode is None else encode(x.to(torch.float32))
+
+    return features_of, venc_of
+
+
+def module_inputs_fn(model):
+    """batch -> the positional inputs of a ModuleLayout model's forward:
+    (positions,) for a self-loss model; (features or positions[, ray
+    directions, face ids]) in f32 for a BatchNorm field (its module
+    encodes them itself)."""
+    name = type(model).__name__
+    if getattr(model, "computes_loss", False):
+        def xyz_of(batch):
+            if "xyz" not in batch:
+                raise ValueError(f"{name} reads the hit positions ('xyz' rows, "
+                                 "feature_strategy: xyz), the split holds "
+                                 f"{sorted(k for k in batch if k != 'expected_rgbs')}")
+            return (batch["xyz"].to(torch.float32),)
+        return xyz_of
+    key = "eigenfunctions" if input_encoder_apply(model) is None else "xyz"
+    viewdep = hasattr(model, "spatial_mlp")
+
+    def inputs_of(batch):
+        if key not in batch:
+            raise ValueError(f"the model takes {key!r} rows, the split holds "
+                             f"{sorted(k for k in batch if k in ('eigenfunctions', 'xyz'))}")
+        if viewdep and "unit_ray_dirs" not in batch:
+            raise ValueError("the view-dependent field needs the cached ray directions and "
+                             "face ids (unit_ray_dirs.npy, face_idxs.npy)")
+        x = batch[key].to(torch.float32)
+        return (x, batch["unit_ray_dirs"], batch["hit_face_idxs"]) if viewdep else (x,)
+    return inputs_of
 
 
 eager_step.launches = 0  # eager steps since the last reset
@@ -400,13 +507,13 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
     """
     if shuffle not in ("full", "blocks"):
         raise ValueError(f"shuffle must be 'full' or 'blocks', got {shuffle!r}")
-    if getattr(model, "computes_loss", False):
-        return _self_loss_epoch_fns(model, loss_type, shuffle, fused)
+    if uses_module_layout(model):
+        return _module_epoch_fns(model, loss_type, shuffle, fused)
     loss_elem = elementwise_loss(loss_type)
     layout = layout_for_model(model)
     viewdep = layout.tail is not None
-    view_fn = view_encoder_apply(model) if viewdep else None
     encode = input_encoder_apply(model)
+    features_of, venc_of = field_batch_fns(model)
     activation = model.activation
     if fused and not (fused_mlp_eligible(model) or fused_viewdep_eligible(model)):
         raise ValueError(
@@ -418,24 +525,6 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         if not sp.hidden == sp.out_dim == layout.tail.d_hidden:
             raise ValueError("training.fused_mlp on a view-dependent field needs its "
                              "bottleneck and directional widths equal to the hidden width")
-
-    def venc_of(batch):
-        if not viewdep:
-            return None
-        if "unit_ray_dirs" not in batch:
-            raise ValueError("the view-dependent field needs the cached ray directions and "
-                             "face ids (unit_ray_dirs.npy, face_idxs.npy)")
-        return view_fn(batch["unit_ray_dirs"], batch["hit_face_idxs"])
-
-    def features_of(batch):
-        """The MLP input of a batch: its eigenfunction (or pre-embedded)
-        rows, or the model's encoding of its positions."""
-        key = "eigenfunctions" if encode is None else "xyz"
-        if key not in batch:
-            raise ValueError(f"the model takes {key!r} rows, the split holds "
-                             f"{sorted(k for k in batch if k in ('eigenfunctions', 'xyz'))}")
-        x = batch[key]
-        return x if encode is None else encode(x.to(torch.float32))
 
     graph = EpochGraph()
 
@@ -566,22 +655,22 @@ def _check_epoch(data, num_batches, batch_size):
                          f"batch={batch_size}")
 
 
-def _self_loss_epoch_fns(model, loss_type, shuffle, fused):
-    """make_epoch_fns for a model that computes its own loss (NeuTex): the
-    eager step on its ModuleLayout state, reading each batch's positions."""
-    if fused:
+def _module_epoch_fns(model, loss_type, shuffle, fused):
+    """make_epoch_fns for a ModuleLayout model (a self-loss model, or a
+    field with BatchNorm): the eager step on its module's forward."""
+    name = type(model).__name__
+    computes_loss = getattr(model, "computes_loss", False)
+    if fused and computes_loss:
         raise ValueError("training.fused_mlp: the kernels cannot compute a self-loss model "
-                         f"({type(model).__name__}: three networks and its own loss); it "
-                         "trains through the eager step")
+                         f"({name}: three networks and its own loss); it trains through the "
+                         "eager step")
+    if fused:
+        raise ValueError("training.fused_mlp needs a model without BatchNorm (the kernels "
+                         "keep no batch statistics); set fused_mlp: false")
     loss_elem = elementwise_loss(loss_type)
     layout = ModuleLayout(model)
-
-    def xyz_of(batch):
-        if "xyz" not in batch:
-            raise ValueError(f"{type(model).__name__} reads the hit positions ('xyz' rows, "
-                             "feature_strategy: xyz), the split holds "
-                             f"{sorted(k for k in batch if k != 'expected_rgbs')}")
-        return batch["xyz"].to(torch.float32)
+    inputs_of = module_inputs_fn(model)
+    val_kwargs = {} if computes_loss else {"train": False}
 
     def train_epoch(state, order, data, num_batches, batch_size):
         n, B = data.n, batch_size
@@ -605,8 +694,10 @@ def _self_loss_epoch_fns(model, loss_type, shuffle, fused):
                 w = (pos < n).to(torch.float32)
                 batch = gather_batch(data, perm_dev[torch.clamp(pos, max=n - 1)])
             gt = batch["expected_rgbs"]
-            loss, sq, n_b = eager_step(state, hyper_all[i],
-                                       self_loss_fn(model, layout, xyz_of(batch), gt), gt, w)
+            inputs = inputs_of(batch)
+            fn = (self_loss_fn(model, layout, inputs[0], gt) if computes_loss
+                  else module_loss_fn(model, layout, state, inputs, gt, w, loss_elem))
+            loss, sq, n_b = eager_step(state, hyper_all[i], fn, gt, w)
             acc += torch.stack((loss * n_b, sq))
             acc_n = acc_n + n_b
         state.count += num_batches
@@ -617,13 +708,13 @@ def _self_loss_epoch_fns(model, loss_type, shuffle, fused):
     def val_epoch(state, data, batch_size):
         n = data.n
         dev = state.params.device
-        params = layout.views(state.params)
+        variables = module_variables(layout, state.params, state)
         acc_loss = torch.zeros((), dtype=torch.float32, device=dev)
         acc_sq = torch.zeros((), dtype=torch.float32, device=dev)
         for s in range(0, n, batch_size):
             batch = gather_batch(data, torch.arange(s, min(s + batch_size, n), device=dev))
             gt = batch["expected_rgbs"]
-            pred = torch.func.functional_call(model, params, (xyz_of(batch),))
+            pred = torch.func.functional_call(model, variables, inputs_of(batch), val_kwargs)
             acc_loss = acc_loss + loss_elem(pred, gt).mean(-1).sum()
             acc_sq = acc_sq + ((pred - gt) ** 2).sum(-1).sum()
         return {"loss": acc_loss / n, "sq_err_per_sample": acc_sq / n}

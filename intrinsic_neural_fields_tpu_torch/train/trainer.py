@@ -1,6 +1,7 @@
 """Training orchestration (reference trainer.py:18-337), the JAX package's
-loop on one GPU: one ``train_epoch`` and one ``val_epoch`` per epoch (see
-steps.py), TensorBoard scalars under the reference's tags, periodic vis
+loop: one ``train_epoch`` and one ``val_epoch`` per epoch (see steps.py;
+``parallel.parallelize_trainer`` swaps in data-parallel ones over a device
+list), TensorBoard scalars under the reference's tags, periodic vis
 renders, best / interval / last / epoch-200 checkpoints and resume.
 
 As in the JAX package, min_val_loss starts at +inf, not 1.0 (reference
@@ -47,7 +48,7 @@ from ..models.texture_field import input_encoder_apply, mlp_core_view, view_enco
 from ..ops.fused_mlp import fused_pre_embed_eligible, fused_viewdep_eligible
 from ..utils.checkpoint import load_train_checkpoint, save_model, save_train_checkpoint
 from .plateau import ReduceLROnPlateau
-from .steps import TrainState, create_train_state, make_epoch_fns
+from .steps import TrainState, batch_stats_of, create_train_state, make_epoch_fns
 
 
 def epoch_generator(seed, epoch):
@@ -225,7 +226,7 @@ class Trainer:
         best = TrainState(self.state.layout,
                           self.state.layout.flat_from_state_dict(self.best_state_dict, self.device),
                           self.state.mu, self.state.nu, self.state.count, self.state.hyper,
-                          self.state.buffers)
+                          self.state.buffers, batch_stats_of(self.best_state_dict, self.device))
         test_loss = float(self.val_epoch_fn(best, self.test_data, self.batch_size)["loss"])
         self.writer.add_scalar("Test Loss", test_loss)
         print(f"Test Loss: {test_loss}")

@@ -20,20 +20,33 @@ import numpy as np
 import torch
 
 
-def _texture_field_sd(params, model_config, prefix=""):
+def _texture_field_sd(params, model_config, prefix="", batch_stats=None):
     """Flax TextureField params -> {prefix + upstream key: f32 tensor}.
     Dense modules are numbered in creation order: one per layer, two at the
-    skip layer (the h-projection Lx, then the input projection Ly)."""
+    skip layer (the h-projection Lx, then the input projection Ly). With
+    ``batchnorm``, BatchNorm_{i} (scale, bias; and from ``batch_stats`` its
+    mean and var, num_batches_tracked written as 0 as the JAX exporter does)
+    goes to layers.{i}.2 (layers.{skip}.batchnorm at the skip layer)."""
     num_layers = model_config["num_layers"]
     skip = model_config["skip_layer_idx"]
+    batchnorm = model_config.get("batchnorm", False)
     sd = {}
+    f32 = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
 
     def put(torch_prefix, flax_name):
         p = params[flax_name]
         sd[prefix + torch_prefix + ".weight"] = torch.from_numpy(
             np.ascontiguousarray(np.asarray(p["kernel"], np.float32).T))
-        sd[prefix + torch_prefix + ".bias"] = torch.from_numpy(
-            np.asarray(p["bias"], np.float32).copy())
+        sd[prefix + torch_prefix + ".bias"] = f32(p["bias"])
+
+    def put_bn(torch_prefix, flax_name):
+        key = prefix + torch_prefix
+        sd[key + ".weight"] = f32(params[flax_name]["scale"])
+        sd[key + ".bias"] = f32(params[flax_name]["bias"])
+        if batch_stats is not None:
+            sd[key + ".running_mean"] = f32(batch_stats[flax_name]["mean"])
+            sd[key + ".running_var"] = f32(batch_stats[flax_name]["var"])
+            sd[key + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
     c = 0
     for i in range(num_layers):
@@ -41,10 +54,16 @@ def _texture_field_sd(params, model_config, prefix=""):
             put(f"layers.{i}.Lx", f"Dense_{c}")
             put(f"layers.{i}.Ly", f"Dense_{c + 1}")
             c += 2
+            if batchnorm:
+                put_bn(f"layers.{i}.batchnorm", f"BatchNorm_{i}")
         else:
             put(f"layers.{i}.0", f"Dense_{c}")
             c += 1
+            if batchnorm and i < num_layers - 1:
+                put_bn(f"layers.{i}.2", f"BatchNorm_{i}")
     expected = {f"Dense_{j}" for j in range(c)}
+    if batchnorm:
+        expected |= {f"BatchNorm_{i}" for i in range(num_layers - 1)}
     if set(params) != expected:
         raise ValueError(
             f"flax params {sorted(params)} do not match the config's layers "
@@ -90,10 +109,11 @@ def _neutex_sd(params):
 
 def state_dict_from_flax(params, model_config):
     """Flax TextureField[WithViewDependency] params (nested dicts of numpy
-    arrays: Dense_{c} with kernel [in, out] and bias), or the whole
-    variables dict {"params", "buffers"} -> the port's state dict (f32
-    tensors). The view-dependent tree is {"spatial_mlp": {...}, "Dense_0",
-    "Dense_1"}: the spatial field under ``spatial_mlp.`` and the directional
+    arrays: Dense_{c} with kernel [in, out] and bias, BatchNorm_{i} with
+    scale and bias), or the whole variables dict {"params", "buffers",
+    "batch_stats"} -> the port's state dict (f32 tensors; a BatchNorm's
+    running statistics come from "batch_stats"). The view-dependent tree
+    is {"spatial_mlp": {...}, "Dense_0", "Dense_1"}: the spatial field under ``spatial_mlp.`` and the directional
     Linears as ``directional_mlp.0`` and ``directional_mlp.2`` (the JAX
     package's export_reference_state_dict). An RFF field's projection,
     ``buffers/RandomFourierFeatEnc_0/B``, goes to ``embedding.B``
@@ -101,17 +121,18 @@ def state_dict_from_flax(params, model_config):
     model's tree (``type: neutex``) maps to ``models/neutex.py``'s keys."""
     if model_config.get("type") == "neutex":
         return _neutex_sd(params.get("params", params))
-    if model_config.get("batchnorm"):
-        raise NotImplementedError("BatchNorm texture fields are not ported "
-                                  "(ROADMAP queue 1 item 7)")
-    buffers = params.get("buffers", {}) if "params" in params else {}
+    whole = "params" in params
+    buffers = params.get("buffers", {}) if whole else {}
+    stats = params.get("batch_stats") if whole else None
     params = params.get("params", params)
     if model_config.get("view_dependence") is None:
-        return {**_rff_buffer_sd(buffers, ""), **_texture_field_sd(params, model_config)}
+        return {**_rff_buffer_sd(buffers, ""),
+                **_texture_field_sd(params, model_config, batch_stats=stats)}
     if set(params) != {"spatial_mlp", "Dense_0", "Dense_1"}:
         raise ValueError(f"flax params {sorted(params)} are not a view-dependent field's")
     sd = _rff_buffer_sd(buffers.get("spatial_mlp", {}), "spatial_mlp.")
-    sd.update(_texture_field_sd(params["spatial_mlp"], model_config, prefix="spatial_mlp."))
+    sd.update(_texture_field_sd(params["spatial_mlp"], model_config, prefix="spatial_mlp.",
+                                batch_stats=None if stats is None else stats["spatial_mlp"]))
     for c, name in enumerate(("directional_mlp.0", "directional_mlp.2")):
         p = params[f"Dense_{c}"]
         sd[name + ".weight"] = torch.from_numpy(
@@ -141,7 +162,8 @@ def adam_state_from_optax(opt_state, model_config):
     dicts in the upstream torch layout), lr, b1, b2, eps, eps_root} that
     ``train.steps.TrainState.from_torch`` takes. Read by structure: the
     hyperparams dict and the ScaleByAdamState (mu, nu, count) first in the
-    inner state."""
+    inner state. The moments mirror the params tree, a BatchNorm's scale and
+    bias included."""
     hp = dict(opt_state.hyperparams)
     adam = opt_state.inner_state[0]
     return {

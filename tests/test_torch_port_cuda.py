@@ -308,6 +308,73 @@ def test_train_epoch_on_card_tracks_cpu(cuda):
     assert diff.max() <= 2 * 1e-3 * 8
 
 
+def test_dp_epoch_on_card_tracks_cpu(cuda):
+    """A data-parallel blocks epoch through the kernels on two replicas of
+    the card (["cuda", "cuda"]) vs the same epoch on two CPU replicas
+    (plain twins), same block orders: each replica launches fwd_bwd, the
+    grads-only wgrad and Adam once per step; the card's replicas equal to
+    the bit; loss and params held as test_train_epoch_on_card_tracks_cpu
+    holds the one-device epoch."""
+    from intrinsic_neural_fields_tpu_torch.data.sampler import RayData, precompute_hit_features
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import reset_kernel_launches
+    from intrinsic_neural_fields_tpu_torch.parallel import make_dp_epoch_fns
+    from intrinsic_neural_fields_tpu_torch.train.steps import AdamHyper, create_train_state
+
+    rng = np.random.default_rng(0)
+    k, n, V = 128, 8192, 500
+    arrays = (rng.normal(size=(V, k)).astype(np.float32), rng.integers(0, V, size=(n, 3)),
+              rng.dirichlet(np.ones(3), size=n).astype(np.float32),
+              rng.uniform(size=(n, 3)).astype(np.float32))
+    cfg = {"k": k, "num_layers": 6, "mlp_hidden_dim": 128, "skip_layer_idx": 3}
+    order = np.stack([np.arange(4)[::-1], np.arange(4)])
+    results = {}
+    for dev in ("cuda", "cpu"):
+        f, vids, bary, rgbs = (torch.as_tensor(a).to(dev) for a in arrays)
+        data = precompute_hit_features(RayData(f, "efuncs", vids.long(), bary, rgbs),
+                                       dtype=torch.bfloat16)
+        model = make_model(cfg, seed=1, device=dev)
+        train_epoch, _ = make_dp_epoch_fns(model, "L1", [dev, dev], shuffle="blocks",
+                                           fused=True)
+        state = create_train_state(model, AdamHyper(1e-3), dev)
+        reset_kernel_launches()
+        state, m = train_epoch(state, order, data, 4, 2048)
+        launches = kernel_launches()
+        reps = train_epoch.replicas.states
+        assert all(torch.equal(getattr(reps[1], t), getattr(reps[0], t))
+                   for t in ("params", "mu", "nu"))
+        results[dev] = (float(m["loss"]), state.params.cpu(), launches)
+    assert all(results["cuda"][2][name] == 8 for name in
+               ("fused_mlp_fwd_bwd", "fused_mlp_wgrad", "fused_adam"))
+    assert results["cuda"][2]["fused_mlp_wgrad_adam"] == 0
+    assert abs(results["cuda"][0] / results["cpu"][0] - 1) <= 1e-3
+    diff = (results["cuda"][1] - results["cpu"][1]).abs()
+    assert (diff > 2.5e-3).float().mean() <= 1e-3
+    assert diff.max() <= 2 * 1e-3 * 4
+
+
+def test_d_way_render_on_card_equals_one_device(cuda):
+    """Renderer(devices=["cuda", "cuda"]) against the one-device Renderer
+    on the card: image and hit set equal to the bit, the forward kernel
+    launched as often."""
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import reset_kernel_launches
+
+    mesh = blob_mesh(3)
+    H = W = 192
+    efuncs = np.random.default_rng(0).normal(size=(mesh.num_vertices, 64)).astype(np.float32)
+    model = make_model({"k": 64, "num_layers": 4, "mlp_hidden_dim": 128, "skip_layer_idx": 2},
+                       device="cuda")
+    cam, K = ring_cameras(3)[0], pinhole_K(H, W)
+    out = {}
+    for name, devices in (("one", None), ("dway", ["cuda", "cuda"])):
+        r = Renderer(model, mesh, efuncs, H=H, W=W, devices=devices)
+        reset_kernel_launches()
+        out[name] = r.render(cam, K, eval_render=True) + (kernel_launches()["fused_mlp_fwd"],)
+    assert len(out["one"][1]) > 2 * 8192
+    np.testing.assert_array_equal(out["one"][0], out["dway"][0])
+    np.testing.assert_array_equal(out["one"][1], out["dway"][1])
+    assert out["one"][2] == out["dway"][2] > 0
+
+
 def test_neutex_eager_step_on_card_tracks_cpu(cuda):
     """The NeuTex recipe's model (k=170, the repo's blob mapping): three
     eager steps on the card (f32 autograd through loss_and_rgbs, then the

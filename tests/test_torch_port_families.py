@@ -298,8 +298,20 @@ def test_state_dict_carries_the_rff_projection():
     assert torch.equal(a.embedding.B, b.embedding.B)
     gen = torch.Generator().manual_seed(4)
     assert torch.equal(a.embedding.B, torch.randn((3, 16), generator=gen) * 4.0)
-    with pytest.raises(NotImplementedError, match="batchnorm"):
-        make_model({**_cfg("xyz"), "batchnorm": True}, device="cpu")
+    # an RFF field with BatchNorm builds (B and the statistics both carried)
+    # and trains through the eager step as the JAX XLA epoch does: loss 1e-5
+    cfg = {**_cfg("rff"), "batchnorm": True}
+    jmodel, variables, tmodel = _models(cfg)
+    jd, td = _toy_data("rff")
+    opt = optax.inject_hyperparams(optax.adam)(learning_rate=LR)
+    key = jax.random.PRNGKey(1)
+    jst, jm = jax_epoch_fns(jmodel, opt, "L1")[0](
+        jax_create_state(jax.tree_util.tree_map(jnp.array, variables), opt), key, jd, 2, 256)
+    st, m = make_epoch_fns(tmodel, "L1")[0](create_train_state(tmodel, AdamHyper(LR), "cpu"),
+                                            np.asarray(jax.random.permutation(key, 512)), td,
+                                            2, 256)
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+    assert "embedding.B" in st.buffers and "layers.0.2.running_mean" in st.batch_stats
 
 
 # ------------------------------------------------------------------ epochs

@@ -29,7 +29,8 @@ new = ["ops.sort", "ops.launches", "geometry.cameras", "utils.exr", "utils.io",
        "bake", "bake.bake", "texture_transfer", "bake_texture_field", "render_view",
        "render_video", "make_transfer_targets", "eval_on_mesh", "models.encoders",
        "geometry.pointcloud", "geometry.intrinsic_delaunay", "geometry.shot",
-       "spectral.eigensolver", "compute_shot", "models.neutex", "pretrain_neutex_mapping"]
+       "spectral.eigensolver", "compute_shot", "models.neutex", "pretrain_neutex_mapping",
+       "parallel", "parallel.data_parallel"]
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 print(len(names), "modules;", "banned:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
@@ -47,8 +48,8 @@ def test_eval_cli_parses_arguments():
     from intrinsic_neural_fields_tpu_torch.eval import parse_args
 
     args = parse_args(["out", "cfg.yaml", "data", "test", "--weights", "m.pt"])
-    assert (args.output_path, args.split, args.weights, args.device) == (
-        "out", "test", "m.pt", "cuda")
+    assert (args.output_path, args.split, args.weights, args.device, args.num_devices) == (
+        "out", "test", "m.pt", "cuda", 1)
 
 
 @pytest.mark.parametrize("module,argv,want", [
@@ -73,9 +74,11 @@ def test_preprocessing_clis_parse_the_reference_arguments(module, argv, want):
 
 
 @pytest.mark.parametrize("module,argv,want", [
-    ("render_view", ["--output_path", "v.png"], {"device": "cuda", "height": None}),
+    ("render_view", ["--output_path", "v.png"], {"device": "cuda", "height": None,
+                                                  "num_devices": 1}),
     ("render_video", ["--out_dir", "o"],
-     {"device": "cuda", "resolution": "720p", "fps": 60, "duration": 15, "turns": 2}),
+     {"device": "cuda", "resolution": "720p", "fps": 60, "duration": 15, "turns": 2,
+      "num_devices": 1}),
     ("bake_texture_field", ["--config_path", "c.yaml", "--out_dir", "o"],
      {"device": "cuda", "texture_size": None}),
     ("texture_transfer", ["--config_path", "c", "--target_mesh", "t", "--source_efuncs_full",
@@ -86,7 +89,9 @@ def test_preprocessing_clis_parse_the_reference_arguments(module, argv, want):
      {"device": "cuda", "tracer": "device", "k_basis": 1024,
       "targets": ["coarse", "dense", "cloud", "deformed"]}),
     ("eval", ["out", "cfg.yaml", "data", "test"],
-     {"device": "cuda", "uv_mesh_path": None, "lpips_weights": None}),
+     {"device": "cuda", "uv_mesh_path": None, "lpips_weights": None, "num_devices": 1}),
+    ("train.__main__", ["cfg.yaml"],
+     {"device": "cuda", "num_devices": 1, "allow_checkpoint_loading": False}),
     ("eval_on_mesh", ["--config_path", "c", "--target_mesh", "t", "--eval_dataset", "d",
                       "--out_dir", "o"],
      {"device": "cuda", "eval_split": "test", "efuncs": None, "background": "white"}),

@@ -582,8 +582,13 @@ def test_entry_points_default_to_cuda(experiment):
     for call in (lambda: get_data(cfg), lambda: get_model_and_optim(cfg)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
-    # the one model option still refused, with its reason
-    bn = config("bn", 1)
+    # a BatchNorm model builds and trains, through the eager step (one per
+    # batch), its running statistics moved and carried into model.pt
+    bn = config("bn", 1, fused_mlp=False)
     bn["model"]["batchnorm"] = True
-    with pytest.raises(NotImplementedError, match="batchnorm: true is not ported"):
-        _port_trainer(bn, Recorder())
+    t = _port_trainer(bn, Recorder())
+    before = eager_step.launches
+    t.train()
+    assert eager_step.launches == before + 4
+    sd = torch.load(os.path.join(bn["training"]["out_dir"], "model.pt"), weights_only=True)
+    assert float((sd["layers.0.2.running_var"] - 1).abs().max()) > 0
