@@ -19,9 +19,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       just before and read just after; then the same views with the plain
       MLP twin: valid masks must be equal and kernel-vs-plain PSNR >= 50 dB,
       and the kernel must have launched;
-  (c) throughput leg at the reference bench's render scale: 512^2, blob
-      subdivision 6 (81,920 faces), a random k=1023 basis rescaled like
-      real features, 10 pipelined frames; a stage split of one frame;
+  (c) throughput: the port bench's render leg (bench.render_leg, bench.py's
+      render scale): 512^2, blob subdivision 6 (81,920 faces), a random
+      k=1023 basis drawn as bench.py draws it (not rescaled), 10 pipelined
+      frames, best of 3 passes, the forward kernel launched in every frame;
+      a stage split of one frame;
   (d) kernels: each kernel against its plain torch twin on the features
       each leg feeds it (its hit rays' interpolated rows), at B=8192 (the
       renderer's chunk) and a ragged B=1000 (tolerance 2e-3), timed with
@@ -60,10 +62,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       the same params, moments, bf16 weight copy and epoch losses, to the
       bit; PSNR/DSSIM on the val views before and after; the port's eval
       CLI (main(argv)) scores the test split;
-  (f) train throughput at the reference bench's shapes (bench.py:26-33:
-      V=30k, k=1023, N=2^21 bf16 table, batch 4096, 6x128 skip 3, L1, Adam):
-      3 timed epochs after 1 warm-up (which captures the epoch's graph);
-      kernels per step, host dispatches per epoch, the capture's seconds;
+  (f) train throughput: the port bench's train leg (bench.train_leg) on
+      bench.make_arrays, bench.py's numpy arrays (bench.py:26-42: V=30k,
+      k=1023, N=2^21 bf16 table, batch 4096, 6x128 skip 3, L1, Adam): 3
+      timed groups of 16 epochs after 1 warm-up (which captures the
+      epoch's graph); kernels per step, host dispatches per epoch, the
+      capture's seconds; then the bench line: bench.py's JSON dict from
+      the two legs' rates and bench_torch_cpu (the reference's hot loop on
+      the host's CPU, on the same arrays);
   (g) train kernels: fwd_bwd, wgrad, wgrad with its Adam epilogue and the
       standalone Adam each against its plain twin on
       the batches each train leg feeds them (k=512 and k=1023, B=4096;
@@ -214,6 +220,9 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-3            # kernel vs plain twin, max abs error
+# [H100 at 700 W: 1.1e-3 (B=8192) / 1.4e-3 (B=1000) on the bench render
+# leg's unrescaled N(0,1) k=1023 basis, 2.4e-4 on the rescaled basis it ran
+# before; 1.45e-3 tf_rff k=515, 1.26e-3 xyz k=3, 4.1e-4 hq_eval k=512]
 # The view-dependent forward on trained weights: a one-bf16-step flip of a
 # directional hidden value (the kernel and its twin sum the same bf16
 # operands in another order) moves a logit by |W2| * 2^-8 * |h1| and an
@@ -609,65 +618,22 @@ def phase_hq_eval(prep):
 
 
 def phase_throughput():
+    """bench.py's render leg through the port's bench (bench.render_leg):
+    512^2, 81,920 faces, k=1023, 10 pipelined frames, best of 3 passes;
+    every frame must launch the forward kernel; a stage split of one frame."""
     import torch
 
-    from intrinsic_neural_fields_tpu_torch.geometry.synthetic import (
-        blob_mesh, pinhole_K, ring_cameras)
-    from intrinsic_neural_fields_tpu_torch.models import make_model
-    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
-                                                                 reset_kernel_launches)
-    from intrinsic_neural_fields_tpu_torch.render.renderer import Renderer
-    from intrinsic_neural_fields_tpu_torch.spectral.features import postprocess_eigenfunctions
-    from intrinsic_neural_fields_tpu_torch.utils.pipeline import pipelined_foreach
+    from intrinsic_neural_fields_tpu_torch import bench
 
-    H = W = 512
-    frames = 10
-    k = 1023
-    mesh = blob_mesh(subdivisions=6)
-    # A random basis, rescaled as real eigenfunction features are.
-    basis = np.random.default_rng(0).normal(size=(mesh.num_vertices, k))
-    efuncs = postprocess_eigenfunctions(basis, rescale_strategy="standard")
-    model = make_model({"k": k, **HQ}, seed=0)
-    r = Renderer(model, mesh, efuncs, H=H, W=W, feature_dtype="bfloat16",
-                 wire_u8=True, device="cuda")
-    K = pinhole_K(H, W)
-    cams = ring_cameras(frames)
-    img = r.render(cams[0], K)
-    check(np.isfinite(img).all(), "non-finite throughput render")
-
-    times = []
-    launches = None
-    for _ in range(3):
-        reset_kernel_launches()
-        t0 = time.perf_counter()
-        pipelined_foreach(cams, lambda c: r.render_async(c, K),
-                          lambda _c, h: r.render_fetch(h), depth=2)
-        times.append(time.perf_counter() - t0)
-        launches = kernel_launches()["fused_mlp_fwd"]
-
-    # One frame split into its stages (host clock around synchronized
-    # work): the trace alone, then a render whose trace is cached
-    # (inference and composite only), then its fetch.
-    r.render(cams[1], K, cache_key="stages")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    r.trace_view(cams[1], K)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    pending = r.render_async(cams[1], K, cache_key="stages")
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    r.render_fetch(pending)
-    t3 = time.perf_counter()
-    rays = frames * H * W
-    emit("throughput", card=torch.cuda.get_device_name(0), H=H, W=W,
-         faces=mesh.num_faces, k=k, frames=frames,
-         rays_per_s_best=rays / min(times), rays_per_s_median=rays / float(np.median(times)),
-         frame_ms_best=1e3 * min(times) / frames,
-         launches_per_frame=launches / frames,
-         trace_ms=1e3 * (t1 - t0), infer_ms=1e3 * (t2 - t1), fetch_ms=1e3 * (t3 - t2),
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
-    return r, cams, K
+    leg = bench.render_leg(device="cuda")
+    s = leg.summary()
+    emit("throughput", card=torch.cuda.get_device_name(0),
+         **{n: s[n] for n in ("H", "W", "faces", "k", "frames", "rays_per_s_best",
+                              "rays_per_s_median", "frame_ms_best", "trace_ms", "infer_ms",
+                              "fetch_ms", "peak_mem_gb")},
+         launches_per_frame=sum(leg.launches_per_frame) / s["frames"],
+         launches_by_frame=leg.launches_per_frame)
+    return leg
 
 
 class Recorder:
@@ -1082,62 +1048,49 @@ def phase_hq_train(p):
 
 
 def phase_train_throughput():
-    """bench.py's train workload on the port: blocks epochs of 512 steps."""
+    """bench.py's train leg through the port's bench (bench.train_leg) on
+    bench.make_arrays' numpy arrays: blocks epochs of 512 steps, one warm
+    epoch (which captures the epoch's graph), then 3 timed groups of 16;
+    one graph replay of two launches per step."""
     import torch
 
-    from intrinsic_neural_fields_tpu_torch.data.sampler import RayData, precompute_hit_features
-    from intrinsic_neural_fields_tpu_torch.models import make_model
-    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
-                                                                 reset_kernel_launches)
-    from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, create_train_state,
-                                                               make_epoch_fns)
-    from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
+    from intrinsic_neural_fields_tpu_torch import bench
 
-    V, k, N, B = 30_000, 1023, 1 << 21, 4096
-    torch.cuda.reset_peak_memory_stats()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    feats = torch.randn(V, k, generator=g, device="cuda")
-    vids = torch.randint(0, V, (N, 3), generator=g, device="cuda")
-    e = -torch.log(torch.rand(N, 3, generator=g, device="cuda").clamp_min(1e-12))
-    bary = e / e.sum(1, keepdim=True)  # Dirichlet(1, 1, 1)
-    rgbs = torch.rand(N, 3, generator=g, device="cuda")
-    t0 = time.perf_counter()
-    data = precompute_hit_features(RayData(feats, "efuncs", vids, bary, rgbs),
-                                   dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    precompute_s = time.perf_counter() - t0
-    model = make_model({"k": k, **HQ}, seed=0)
-    train_epoch, _ = make_epoch_fns(model, "L1", shuffle="blocks", fused=True)
-    state = create_train_state(model, AdamHyper(1e-4), "cuda")
-    nb = N // B
-    state, m = train_epoch(state, epoch_generator(0, 0), data, nb, B)
-    losses = [float(m["loss"])]
-    times = []
-    reset_kernel_launches()
-    replays = train_epoch.graph.replays
-    for ep in range(1, 4):
-        t0 = time.perf_counter()
-        state, m = train_epoch(state, epoch_generator(0, ep), data, nb, B)
-        losses.append(float(m["loss"]))
-        times.append(time.perf_counter() - t0)
-    launches = kernel_launches()
-    check(all(np.isfinite(losses)), f"non-finite throughput losses {losses}")
-    graph = {"kernels_per_step": sum(launches.values()) / (3 * nb),
-             "host_dispatches_per_epoch": (train_epoch.graph.replays - replays) / 3,
-             "graph_captures": train_epoch.graph.captures,
-             "graph_capture_s": train_epoch.graph.capture_s}
-    check(launches["fused_mlp_fwd_bwd"] == launches["fused_mlp_wgrad_adam"] == 3 * nb
-          and graph["kernels_per_step"] == 2 and graph["host_dispatches_per_epoch"] == 1,
-          f"the bench epoch is not one replay of two launches per step: {launches}, {graph}")
-    rays = nb * B
-    emit("train_throughput", card=torch.cuda.get_device_name(0), V=V, k=k, N=N, batch=B,
-         steps_per_epoch=nb, precompute_s=precompute_s,
-         rays_per_s_best=rays / min(times), rays_per_s_median=rays / float(np.median(times)),
-         epoch_s=times, step_ms_best=1e3 * min(times) / nb, losses=losses,
-         launches_per_step={n: c / (3 * nb) for n, c in launches.items()}, **graph,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    arrays = bench.make_arrays()
+    leg = bench.train_leg(arrays, device="cuda")
+    s = leg.summary()
+    graph = {"kernels_per_step": sum(leg.launches_per_step.values()),
+             "host_dispatches_per_epoch": leg.graph_replays_per_epoch,
+             "graph_captures": leg.graph_captures, "graph_capture_s": leg.graph_capture_s}
+    check(leg.launches_per_step == {"fused_mlp_fwd_bwd": 1.0, "fused_mlp_wgrad_adam": 1.0}
+          and graph["host_dispatches_per_epoch"] == 1,
+          f"the bench epoch is not one replay of two launches per step: {s}")
+    nb, B = leg.steps_per_epoch, leg.batch
+    emit("train_throughput", card=torch.cuda.get_device_name(0), V=arrays[0].shape[0],
+         k=s["k"], N=s["N"], batch=B, steps_per_epoch=nb, precompute_s=leg.precompute_s,
+         rays_per_s_best=leg.rays_per_s_best, rays_per_s_median=leg.rays_per_s_median,
+         epoch_s=leg.epoch_s, step_ms_best=1e3 * min(leg.epoch_s) / nb, losses=leg.losses,
+         launches_per_step=leg.launches_per_step, **graph, peak_mem_gb=leg.peak_mem_gb)
+    state, data = leg.state, leg.data
     return (state.layout, state.params.clone(), state.mu.clone(), state.nu.clone(),
-            data.hit_features, data.expected_rgbs), (train_epoch, state, data, nb, B)
+            data.hit_features, data.expected_rgbs), (leg.train_epoch, state, data, nb, B), \
+        arrays, leg
+
+
+def phase_bench(arrays, render, train, smi):
+    """bench.py's JSON line from the two legs' rates in this run and the
+    reference's torch-CPU hot loop (bench.bench_torch_cpu) on the host's
+    CPU over the train leg's arrays."""
+    from intrinsic_neural_fields_tpu_torch import bench
+
+    baseline = bench.bench_torch_cpu(*arrays)
+    line = bench.bench_line(baseline, train.rays_per_s_best, train.rays_per_s_median,
+                            render.rays_per_s_best)
+    check(all(np.isfinite(v) and v > 0 for n, v in line.items() if n not in ("metric", "unit")),
+          f"bench line {line}")
+    emit("bench", bench=line, torch_cpu_rays_per_s=baseline,
+         ref_render_rays_per_s=bench.REF_RENDER_RAYS_PER_S, card=smi)
+    return line
 
 
 def _train_bounds(layout, B, x_bytes):
@@ -3276,7 +3229,6 @@ def profile_train_epoch(train_leg, leg):
     without the profiler, CUDA events around its graph replay: the replay's
     device time over that epoch's wall time (`replay_share_of_wall`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
 
@@ -3293,29 +3245,24 @@ def profile_train_epoch(train_leg, leg):
     replays = graph.replays
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with PaddedProfile() as p:
         t0 = time.perf_counter()
         start.record()
         _, m = train_epoch(state, epoch_generator(0, 99), data, nb, B)
         stop.record()
         float(m["loss"])
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_kernel, counts = _device_us_by_kernel(prof, with_counts=True)
+    by_kernel, counts, port, margins = _profiled_kernels(p, leg)
     device_us = sum(by_kernel.values())
-    check(device_us > 0, f"{leg}: the profiler saw no device time")
-    port = {}
-    for name, n in counts.items():
-        kernel = _port_kernel(name)
-        if kernel is not None:
-            port[kernel] = port.get(kernel, 0) + n
     check(port == {"fwd_bwd": nb, "wgrad_adam": nb},
-          f"{leg}: the profiled epoch ran other than {nb} fwd_bwd and {nb} wgrad_adam: {port}")
+          f"{leg}: the profiled epoch ran other than {nb} fwd_bwd and {nb} wgrad_adam: "
+          f"{port}, {margins}")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit("profile_train", leg=leg, steps=nb, wall_ms_per_step=wall_us / 1e3 / nb,
          device_ms_per_step=device_us / 1e3 / nb, device_busy_share=device_us / wall_us,
          events_ms_per_step=start.elapsed_time(stop) / nb, port_kernels_seen=port,
          other_device_events=sum(counts.values()) - sum(port.values()),
-         unprofiled_wall_ms_per_step=plain_wall_ms / nb,
+         record_margins=margins, unprofiled_wall_ms_per_step=plain_wall_ms / nb,
          unprofiled_replay_ms_per_step=replay_ms / nb,
          replay_share_of_wall=replay_ms / plain_wall_ms,
          graph_replays=graph.replays - replays,
@@ -3328,31 +3275,25 @@ def profile_eager_steps(run, leg, steps=NEUTEX_PROFILE_STEPS):
     the port's kernels the profiler saw must be exactly one fused_adam per
     step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
 
     train_epoch, state, data, B = run
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with PaddedProfile() as p:
         t0 = time.perf_counter()
         _, m = train_epoch(state, epoch_generator(0, 97), data, steps, B)
         float(m["loss"])
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_kernel, counts = _device_us_by_kernel(prof, with_counts=True)
+    by_kernel, counts, port, margins = _profiled_kernels(p, leg)
     device_us = sum(by_kernel.values())
-    check(device_us > 0, f"{leg}: the profiler saw no device time")
-    port = {}
-    for name, n in counts.items():
-        kernel = _port_kernel(name)
-        if kernel is not None:
-            port[kernel] = port.get(kernel, 0) + n
     check(port == {"fused_adam": steps},
-          f"{leg}: the profiled steps ran other than {steps} fused_adam: {port}")
+          f"{leg}: the profiled steps ran other than {steps} fused_adam: {port}, {margins}")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     emit("profile_train", leg=leg, steps=steps, wall_ms_per_step=wall_us / 1e3 / steps,
          device_ms_per_step=device_us / 1e3 / steps, device_busy_share=device_us / wall_us,
          port_kernels_seen=port, device_kernels_per_step=sum(counts.values()) / steps,
+         record_margins=margins,
          top_kernels_ms_per_step=[[name[:70], us / 1e3 / steps] for name, us in top])
 
 
@@ -3362,7 +3303,6 @@ def profile_dp_epoch(run, leg):
     be D num_batches each of fwd_bwd, the grads-only wgrad and the Adam
     kernel; the unprofiled epoch's wall time beside it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
 
@@ -3373,27 +3313,95 @@ def profile_dp_epoch(run, leg):
     _, m = train_epoch(state, epoch_generator(0, 98), data, nb, B)
     float(m["loss"])
     plain_wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with PaddedProfile() as p:
         t0 = time.perf_counter()
         _, m = train_epoch(state, epoch_generator(0, 99), data, nb, B)
         float(m["loss"])
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_kernel, counts = _device_us_by_kernel(prof, with_counts=True)
+    by_kernel, counts, port, margins = _profiled_kernels(p, leg)
     device_us = sum(by_kernel.values())
-    check(device_us > 0, f"{leg}: the profiler saw no device time")
+    check(port == {"fwd_bwd": D * nb, "wgrad": D * nb, "fused_adam": D * nb},
+          f"{leg}: the profiled epoch ran other than {D * nb} of each DP kernel: {port}, "
+          f"{margins}")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit("profile_train", leg=leg, steps=nb, replicas=D, wall_ms_per_step=wall_us / 1e3 / nb,
+         device_ms_per_step=device_us / 1e3 / nb, device_busy_share=device_us / wall_us,
+         unprofiled_wall_ms_per_step=plain_wall_ms / nb, port_kernels_seen=port,
+         device_kernels_per_step=sum(counts.values()) / nb, record_margins=margins,
+         top_kernels_ms_per_step=[[name[:70], us / 1e3 / nb] for name, us in top])
+
+
+# Kineto keeps a device record only where its timestamps fall inside the
+# profiler's window, and on the card's host the device records' clock is
+# off the host's: kineto warned of kernels stamped up to 0.48 ms before
+# their own launch calls (tools/port_profile_records.py). A host-bound
+# epoch's last kernel ends about 0.2 ms before its sync returns, so every
+# profiled region idles this long inside the window before and after it.
+PROFILE_PAD_S = 0.05
+
+
+class PaddedProfile:
+    """torch.profiler over the CPU and the card, its window padded by pad_s
+    of idle host time on both sides of the work in the `with` block (which
+    ends with a sync); `prof` is the profiler, `margins()` where the port's
+    kernel records fell in it."""
+
+    def __init__(self, pad_s=PROFILE_PAD_S):
+        self.pad_s = pad_s
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        time.sleep(self.pad_s)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.time_ns()
+        time.sleep(self.pad_s)
+        return self.prof.__exit__(*exc)
+
+    def margins(self):
+        """The port's kernel records by kernel; ms from the work's start to
+        the first one's start and from the last one's end to the work's end
+        (host clock against the records' stamps); the least ms from a launch
+        call to its kernel's start (below 0: stamped before its launch)."""
+        import torch
+
+        launched, recs = {}, []
+        for e in self.prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                if _port_kernel(e.name()) is not None:
+                    recs.append(e)
+            elif e.name().startswith(("cuda", "cuLaunch")):
+                launched[e.correlation_id()] = e.start_ns()
+        if not recs:
+            return {"records": {}}
+        counts = {}
+        for e in recs:
+            counts[_port_kernel(e.name())] = counts.get(_port_kernel(e.name()), 0) + 1
+        lags = [e.start_ns() - launched[e.correlation_id()] for e in recs
+                if e.correlation_id() in launched]
+        return {"records": counts,
+                "first_after_start_ms": (min(e.start_ns() for e in recs) - self.start_ns) / 1e6,
+                "end_after_last_ms": (self.end_ns - max(e.start_ns() + e.duration_ns()
+                                                        for e in recs)) / 1e6,
+                "launch_to_start_min_ms": min(lags) / 1e6 if lags else None}
+
+
+def _profiled_kernels(p, leg):
+    """Device time and launches by kernel name in a PaddedProfile, the
+    port's kernels among them by kernel, and where their records fell."""
+    by_kernel, counts = _device_us_by_kernel(p.prof, with_counts=True)
+    check(sum(by_kernel.values()) > 0, f"{leg}: the profiler saw no device time")
     port = {}
     for name, n in counts.items():
         kernel = _port_kernel(name)
         if kernel is not None:
             port[kernel] = port.get(kernel, 0) + n
-    check(port == {"fwd_bwd": D * nb, "wgrad": D * nb, "fused_adam": D * nb},
-          f"{leg}: the profiled epoch ran other than {D * nb} of each DP kernel: {port}")
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    emit("profile_train", leg=leg, steps=nb, replicas=D, wall_ms_per_step=wall_us / 1e3 / nb,
-         device_ms_per_step=device_us / 1e3 / nb, device_busy_share=device_us / wall_us,
-         unprofiled_wall_ms_per_step=plain_wall_ms / nb, port_kernels_seen=port,
-         device_kernels_per_step=sum(counts.values()) / nb,
-         top_kernels_ms_per_step=[[name[:70], us / 1e3 / nb] for name, us in top])
+    return by_kernel, counts, port, p.margins()
 
 
 def _port_kernel(name):
@@ -3426,18 +3434,17 @@ def profile_frames(r, cams, K):
     (torch.profiler; its own overhead lengthens the wall time, so the busy
     share is a lower bound)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from intrinsic_neural_fields_tpu_torch.utils.pipeline import pipelined_foreach
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with PaddedProfile() as p:
         t0 = time.perf_counter()
         pipelined_foreach(cams, lambda c: r.render_async(c, K),
                           lambda _c, h: r.render_fetch(h), depth=2)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_kernel = _device_us_by_kernel(prof)
+    by_kernel = _device_us_by_kernel(p.prof)
     device_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit("profile", frames=len(cams), wall_ms_per_frame=wall_us / 1e3 / len(cams),
@@ -3467,14 +3474,18 @@ def main():
     smi = timed("device", phase_device)
     prep = timed("hq_prep", phase_hq_prep)
     eval_launches, hq_leg = timed("hq_eval", lambda: phase_hq_eval(prep))
-    tp_leg = timed("throughput", phase_throughput)
+    tp_render = timed("throughput", phase_throughput)
+    tp_leg = (tp_render.renderer, tp_render.cams, tp_render.K)
     rows = timed("kernels", lambda: phase_kernels({"hq_eval": hq_leg, "throughput": tp_leg}))
     srows = timed("sort_kernel", lambda: phase_sort_kernel(tp_leg, hq_leg))
     traces = timed("trace_methods", lambda: phase_trace_methods(tp_leg))
     pipe = timed("hq_pipeline", lambda: phase_hq_preprocess(prep))
     train_launches, yard_launches, hq_train_leg, hq_run = timed("hq_train",
                                                                 lambda: phase_hq_train(pipe))
-    tput_leg, tput_run = timed("train_throughput", phase_train_throughput)
+    tput_leg, tput_run, bench_arrays, tput_train = timed("train_throughput",
+                                                         phase_train_throughput)
+    timed("bench", lambda: phase_bench(bench_arrays, tp_render, tput_train, smi))
+    del bench_arrays
     trows = timed("train_kernels", lambda: phase_train_kernels(
         {"hq_train": hq_train_leg, "train_throughput": tput_leg}))
     vd_launches, vd_yard_launches, vd_leg, vd_render, vd_run = timed(
@@ -3527,7 +3538,9 @@ def main():
                              "hq_train": train_launches["fused_mlp_fwd"], **user_paths,
                              **{f"{f}_eval": fam_paths[f]["eval"] for f in FAMILY_RECIPES},
                              "eval_on_mesh": fam_paths["eval_on_mesh"]["eval"],
-                             "dp_render": dp_paths["dp_render"]},
+                             "dp_render": dp_paths["dp_render"],
+                             # the bench's render leg: its last pass of 10 frames
+                             "bench_render": sum(tp_render.launches_per_frame)},
         "max_abs_err": max(r["max_abs_err"] for r in rows + frows + crows),
         "families": {f'{r["leg"]}_B{r["B"]}': {k: r[k] for k in (
             "k", "B", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
@@ -3565,7 +3578,8 @@ def main():
         if name in ("fused_mlp_fwd_bwd", "fused_mlp_wgrad_adam"):
             kernels[-1]["launches_by_path"] = {
                 "hq_train": train_launches[name],
-                **{f: fam_paths[f]["train"][name] for f in FAMILY_RECIPES}}
+                **{f: fam_paths[f]["train"][name] for f in FAMILY_RECIPES},
+                "bench_train": tput_train.launches[name]}
         if name in dp_paths["dp_train"]:
             kernels[-1].setdefault("launches_by_path", {})["dp_train"] = dp_paths["dp_train"][name]
             # a data-parallel replica's shape: k=512, B=2048 (4096 over two replicas)
