@@ -62,6 +62,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       the same params, moments, bf16 weight copy and epoch losses, to the
       bit; PSNR/DSSIM on the val views before and after; the port's eval
       CLI (main(argv)) scores the test split;
+  (e2) jax_checkpoint: the JAX package's own files for the HQ recipe's
+      model (tests/data/jax_checkpoint_hq, written by
+      tools/make_jax_checkpoint_fixture.py: model.ckpt, checkpoint.ckpt,
+      expected.npz) read by the port's flax-msgpack decoder: the forward
+      kernel on the fixture's 8,192 seeded rows within TOL of the JAX
+      forward and of the plain twin, one launch; the eval CLI on an
+      out_dir holding only model.ckpt, its PNGs and scores equal to the
+      bit to the eval of the port's model.pt of the same weights, 8
+      forward launches per 256^2 view as in (b); the HQ Trainer on an
+      out_dir holding only checkpoint.ckpt: it starts at epoch + 1 with
+      the decoded params, moments, count and lr to the bit, trains 2
+      epochs (one fwd_bwd and one wgrad_adam per step, one graph replay
+      per epoch) and writes checkpoint.pt, from which a second Trainer
+      resumes to the same state, to the bit; the decode and phase
+      seconds on a line of their own;
   (f) train throughput: the port bench's train leg (bench.train_leg) on
       bench.make_arrays, bench.py's numpy arrays (bench.py:26-42: V=30k,
       k=1023, N=2^21 bf16 table, batch 4096, 6x128 skip 3, L1, Adam): 3
@@ -208,13 +223,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       two-launch split writes; their fused_step_bound_ms is the bound of
       the whole step as the TPU kernel computes it, intermediates on chip.
 
-Imports nothing of JAX. Needs one CUDA card; exits non-zero without one.
+Imports nothing of JAX, flax, optax or msgpack. Needs one CUDA card;
+exits non-zero without one.
 """
 import json
 import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -222,7 +239,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-3            # kernel vs plain twin, max abs error
 # [H100 at 700 W: 1.1e-3 (B=8192) / 1.4e-3 (B=1000) on the bench render
 # leg's unrescaled N(0,1) k=1023 basis, 2.4e-4 on the rescaled basis it ran
-# before; 1.45e-3 tf_rff k=515, 1.26e-3 xyz k=3, 4.1e-4 hq_eval k=512]
+# before; 1.45e-3 tf_rff k=515, 1.26e-3 xyz k=3, 4.1e-4 hq_eval k=512;
+# 1.46e-3 on the JAX fixture's N(0,1) k=512 rows, and as much against the
+# JAX forward there]
 # The view-dependent forward on trained weights: a one-bf16-step flip of a
 # directional hidden value (the kernel and its twin sum the same bf16
 # operands in another order) moves a logit by |W2| * 2^-8 * |h1| and an
@@ -304,6 +323,21 @@ WGRAD_SMEM = 3 * 32768
 # configs/synthetic/viewdep_intrinsic_blob.yaml's view_dependence section
 VIEWDEP = {"bottleneck_vec_dim": 128, "include_view_dir": True, "embed_size": 4,
            "directional_hidden_dim": 128, "in_dim_view_dir": 1, "strategy": "intrinsic"}
+
+
+def render_leg_of(renderer, cams, K):
+    """A phase's renderer and views under bench.RenderLeg's names, so the
+    later phases read every render leg alike."""
+    return SimpleNamespace(renderer=renderer, cams=cams, K=K)
+
+
+def train_leg_of(trainer, steps_per_epoch, batch):
+    """A Trainer's state, train split and epoch function under
+    bench.TrainLeg's names, so the train kernels' checks and the profile
+    read every train leg alike."""
+    return SimpleNamespace(state=trainer.state, data=trainer.train_data,
+                           train_epoch=trainer.train_epoch_fn, steps_per_epoch=steps_per_epoch,
+                           batch=batch)
 
 
 def emit(phase, **fields):
@@ -447,9 +481,9 @@ def phase_kernels(legs):
                                                                  last_fwd_launch)
 
     rows = []
-    for leg, (r, cams, K) in legs.items():
-        fw = r.weights
-        for x in _feature_batches(r, cams, K, 8192, 1000):
+    for leg, views in legs.items():
+        fw = views.renderer.weights
+        for x in _feature_batches(views.renderer, views.cams, views.K, 8192, 1000):
             B, k = x.shape
             got = fused_apply(fw, x)
             torch.cuda.synchronize()
@@ -614,7 +648,7 @@ def phase_hq_eval(prep):
          psnr_vs_gt=means["psnr"], dssim_rescaled=means["dssim_rescaled"],
          psnr_kernel_vs_plain_min=min(psnr_kp),
          launches=launches, launches_per_view=launches / len(cams))
-    return launches, (r_kernel, cams, K)
+    return launches, render_leg_of(r_kernel, cams, K)
 
 
 def phase_throughput():
@@ -683,8 +717,8 @@ def phase_sort_kernel(tp_leg, hq_leg):
     from intrinsic_neural_fields_tpu_torch.ops import sort as S
 
     inputs = []
-    for leg, (r, cams, K) in (("render512", tp_leg), ("hq256", hq_leg)):
-        keys = _capture_sort_keys(lambda: r.trace_view(cams[0], K))
+    for leg, views in (("render512", tp_leg), ("hq256", hq_leg)):
+        keys = _capture_sort_keys(lambda: views.renderer.trace_view(views.cams[0], views.K))
         check(len(keys) == 2, f"{leg}: expected 2 binning sorts per view, saw {len(keys)}")
         inputs += [(f"{leg}_entry", *keys[0]), (f"{leg}_overflow", *keys[1])]
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -736,7 +770,7 @@ def phase_trace_methods(tp_leg):
     from intrinsic_neural_fields_tpu_torch.ops.ray_gen import pixel_grid_coords
     from intrinsic_neural_fields_tpu_torch.ops.raster import intersect_coords_pinhole
 
-    r, cams, K = tp_leg
+    r, cams, K = tp_leg.renderer, tp_leg.cams, tp_leg.K
     H, W = r.H, r.W
     coords = pixel_grid_coords(H, W)
     coords = coords[pixel_morton_order(coords)]
@@ -1040,11 +1074,196 @@ def phase_hq_train(p):
          cited_step_wall_ms_best_before=CITED_BEFORE_REDESIGN["hq_step_wall_ms"],
          step_wall_ms_best=4096e3 / max(rays),
          fused_adam_false_launches=yard_launches, fused_adam_false_bit_equal=yard_cmp)
-    state = trainer.state
-    run = (trainer.train_epoch_fn, trainer.state, data["train"], nb, 4096)
-    return launches, yard_launches, (state.layout, state.params.clone(), state.mu.clone(),
-                                     state.nu.clone(), data["train"].hit_features,
-                                     data["train"].expected_rgbs), run
+    return launches, yard_launches, train_leg_of(trainer, nb, 4096)
+
+
+# The JAX package's own files for the HQ recipe's model (k=512, 6 x 128, skip
+# 3), written by tools/make_jax_checkpoint_fixture.py: model.ckpt,
+# checkpoint.ckpt (epoch 2, Adam count 6) and expected.npz, the JAX fused
+# forward (Pallas in interpret mode: bf16 operands, f32 sums) on 8,192 rows
+# drawn from default_rng(seed).
+JAX_FIXTURE = os.path.join(REPO, "tests", "data", "jax_checkpoint_hq")
+
+
+def phase_jax_checkpoint(p, hq_leg, hq_eval_launches):
+    """A TPU-trained out_dir on the card: the fixture's model.ckpt decoded
+    by the port (no flax, no msgpack) into the forward kernel on the
+    fixture's rows (within TOL of the JAX forward and of the plain twin,
+    one launch); the eval CLI on an out_dir holding only model.ckpt, equal
+    to the bit to the eval of a model.pt the port saved from the same
+    weights, with as many forward launches per view as each other and as
+    the HQ eval leg (both 256^2 views); the HQ Trainer on an
+    out_dir holding only checkpoint.ckpt: it starts at epoch + 1 with the
+    decoded params, moments, count and lr to the bit, trains 2 epochs as
+    graph replays of fwd_bwd + wgrad_adam, and writes checkpoint.pt, from
+    which a second Trainer resumes (not from the .ckpt) to the first run's
+    state, to the bit. Counters set to 0 just before each path, read just
+    after."""
+    import pickle
+    import shutil
+
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch import eval as eval_cli
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh import load_mesh
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (FusedMLPSpec, fused_apply,
+                                                                 fused_apply_plain,
+                                                                 kernel_launches, pack_weights,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.train import Trainer, get_data, get_model_and_optim
+    from intrinsic_neural_fields_tpu_torch.train.steps import eager_step
+    from intrinsic_neural_fields_tpu_torch.utils.checkpoint import (load_jax_train_checkpoint,
+                                                                    load_trained_weights,
+                                                                    save_model)
+
+    t_phase = time.perf_counter()
+    root = p["root"]
+    expected = np.load(os.path.join(JAX_FIXTURE, "expected.npz"))
+    model_cfg = {"k": 512, **HQ}
+    decode_s = {}
+    t0 = time.perf_counter()
+    sd = load_trained_weights(os.path.join(JAX_FIXTURE, "model.ckpt"), model_cfg)
+    decode_s["model.ckpt"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck = load_jax_train_checkpoint(os.path.join(JAX_FIXTURE, "checkpoint.ckpt"), model_cfg)
+    decode_s["checkpoint.ckpt"] = time.perf_counter() - t0
+
+    # the forward kernel on the fixture's rows
+    rows = np.random.default_rng(int(expected["seed"])).normal(size=(8192, 512)).astype(np.float32)
+    check(rows.astype(np.float64).sum() == expected["rows_sum"],
+          "numpy drew other rows than the fixture tool")
+    fw = pack_weights(FusedMLPSpec(6, 512, 128, 3), sd, device="cuda")
+    x = torch.from_numpy(rows).cuda()
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    got = fused_apply(fw, x)
+    torch.cuda.synchronize()
+    fwd_launches = {k: v for k, v in kernel_launches().items() if v}
+    check(fwd_launches == {"fused_mlp_fwd": 1},
+          f"the fixture forward was not one fused_mlp_fwd launch: {fwd_launches}")
+    err_jax = (got.cpu() - torch.from_numpy(expected["rgb"])).abs().max().item()
+    err_plain = (got - fused_apply_plain(fw, x)).abs().max().item()
+    check(torch.isfinite(got).all().item() and got.shape == (8192, 3), "bad fixture forward")
+    check(err_jax <= TOL and err_plain <= TOL,
+          f"fixture forward vs JAX {err_jax}, vs plain twin {err_plain} (tolerance {TOL})")
+
+    # the eval CLI on a JAX out_dir, and on the port's model.pt of the same weights
+    evals = {}
+    for kind in ("ckpt", "pt"):
+        cfg = _hq_train_config(p, f"jax_out_{kind}", 5)
+        out = cfg["training"]["out_dir"]
+        os.makedirs(out)
+        if kind == "ckpt":
+            shutil.copy(os.path.join(JAX_FIXTURE, "model.ckpt"), out)
+        else:
+            save_model(os.path.join(out, "model.pt"), sd)
+        cfg_path = _write_config(root, f"jax_out_{kind}.yaml", cfg)
+        eval_dir = os.path.join(root, f"jax_eval_{kind}")
+        reset_kernel_launches()
+        eval_cli.main([eval_dir, cfg_path, p["data"], "test"])
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernel_launches().items() if v}
+        with open(os.path.join(eval_dir, "evaluation_metrics.pkl"), "rb") as f:
+            metrics = pickle.load(f)
+        images = {}
+        for name in sorted(os.listdir(eval_dir)):
+            if name.endswith(".png"):
+                with open(os.path.join(eval_dir, name), "rb") as f:
+                    images[name] = f.read()
+        evals[kind] = {"launches": launched, "views": len(metrics), "images": images,
+                       "scores": {v: (m["psnr"], m["dssim_rescaled"]) for v, m in metrics.items()}}
+    a, b = evals["ckpt"], evals["pt"]
+    check(a["images"] and a["images"] == b["images"] and a["scores"] == b["scores"],
+          f"the JAX out_dir's eval differs from the model.pt's: {a['scores']} {b['scores']}")
+    check(set(a["launches"]) == {"fused_mlp_fwd"} and a["launches"] == b["launches"],
+          f"eval forward launches: JAX out_dir {a['launches']}, model.pt {b['launches']}")
+    eval_launches = a["launches"].get("fused_mlp_fwd", 0)
+    hq_per_view = hq_eval_launches / len(hq_leg.cams)
+    check(eval_launches / a["views"] == hq_per_view,
+          f"{eval_launches} forward launches over {a['views']} views, the HQ eval {hq_per_view}")
+
+    # resume the HQ recipe from the JAX checkpoint.ckpt: epoch + 1 .. 4
+    cfg = _hq_train_config(p, "jax_resume", 5)
+    mesh = load_mesh(cfg["data"]["mesh_path"])
+    data = get_data(cfg, mesh)
+    os.makedirs(cfg["training"]["out_dir"])
+    shutil.copy(os.path.join(JAX_FIXTURE, "checkpoint.ckpt"), cfg["training"]["out_dir"])
+    model, optimizer = get_model_and_optim(cfg, mesh)
+    rec = Recorder()
+    trainer = Trainer(model, optimizer, "L1", hq_leg.renderer, data, mesh, cfg, writer=rec)
+    restored = {}
+    load = trainer._init_or_load_checkpoint
+
+    def spy():
+        start = load()
+        st = trainer.state
+        restored.update(start=start, count=st.count, lr=st.hyper.learning_rate,
+                        **{n: getattr(st, n).clone() for n in ("params", "mu", "nu")})
+        return start
+
+    trainer._init_or_load_checkpoint = spy
+    nb = data["train"].n // 4096
+    reset_kernel_launches()
+    eager_step.launches = 0
+    t1 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t1
+    counted = kernel_launches()
+    launches = {k: v for k, v in counted.items() if v}
+    layout = trainer.state.layout
+    epoch, count = int(expected["epoch"]), int(expected["count"])
+    want = {"params": layout.flat_from_state_dict(ck["model_state_dict"], "cuda"),
+            "mu": layout.flat_from_state_dict(ck["adam"]["mu"], "cuda"),
+            "nu": layout.flat_from_state_dict(ck["adam"]["nu"], "cuda")}
+    same = {n: torch.equal(restored[n], want[n]) for n in want}
+    same["count"] = restored["count"] == ck["adam"]["count"] == count
+    same["lr"] = np.float32(restored["lr"]) == expected["lr"]
+    check(ck["epoch"] == epoch and restored["start"] == epoch + 1 and all(same.values()),
+          f"the resumed state is not the decoded one: start {restored['start']}, {same}")
+    steps = [s for tag, _, s in rec.scalars if tag == "Train_Loss"]
+    check(steps == [epoch + 1, epoch + 2], f"trained epochs {steps}, want {epoch + 1}, {epoch + 2}")
+    check(launches.get("fused_mlp_fwd_bwd") == launches.get("fused_mlp_wgrad_adam") == 2 * nb
+          and set(launches) == {"fused_mlp_fwd_bwd", "fused_mlp_wgrad_adam"}
+          and eager_step.launches == 0,
+          f"the resumed epochs were not fwd_bwd + wgrad_adam once per step: {launches}")
+    graph = _graph_stats(trainer, counted, 2 * nb, 2, ("fused_mlp_fwd_bwd",
+                                                         "fused_mlp_wgrad_adam"))
+    check(graph["kernels_per_step"] == 2 and graph["host_dispatches_per_epoch"] == 1
+          and graph["graph_captures"] == 1, f"not one graph replay per epoch: {graph}")
+    check(trainer.state.count == count + 2 * nb, "Adam count after the resumed epochs")
+    check(os.path.exists(os.path.join(cfg["training"]["out_dir"], "checkpoint.pt")),
+          "the resumed run wrote no checkpoint.pt")
+
+    # a second Trainer takes the checkpoint.pt (epoch 3), not the .ckpt
+    shutil.copytree(cfg["training"]["out_dir"], os.path.join(root, "jax_resume2"))
+    cfg2 = _hq_train_config(p, "jax_resume2", 5)
+    model2, opt2 = get_model_and_optim(cfg2, mesh)
+    rec2 = Recorder()
+    second = Trainer(model2, opt2, "L1", hq_leg.renderer, data, mesh, cfg2, writer=rec2)
+    second.train()
+    steps2 = [s for tag, _, s in rec2.scalars if tag == "Train_Loss"]
+    check(steps2 == [epoch + 2], f"the second resume trained epochs {steps2}, want {epoch + 2}")
+    for name in ("params", "mu", "nu"):
+        check(torch.equal(getattr(second.state, name), getattr(trainer.state, name)),
+              f"the run resumed from checkpoint.pt differs in {name}")
+    losses = rec.values("Train_Loss")
+    check(all(np.isfinite(losses)), f"non-finite resumed losses {losses}")
+    phase_s = time.perf_counter() - t_phase
+    emit("jax_checkpoint", fixture=os.path.relpath(JAX_FIXTURE, REPO), decode_s=decode_s,
+         forward_max_abs_err_vs_jax=err_jax, forward_max_abs_err_vs_plain=err_plain,
+         forward_launches=fwd_launches, eval_views=a["views"], eval_launches=eval_launches,
+         eval_launches_per_view=eval_launches / a["views"],
+         hq_eval_launches_per_view=hq_per_view, eval_scores=a["scores"],
+         eval_bit_equal_to_model_pt=True, resumed_from_epoch=epoch, adam_count=count,
+         resume_launches=launches, resume_s=resume_s, train_loss=losses,
+         second_resume_epochs=steps2, second_resume_bit_equal=True, **graph)
+    print(json.dumps({"jax_checkpoint_seconds": {"decode_s": decode_s, "phase_s": phase_s}}),
+          flush=True)
+    return {"forward": fwd_launches.get("fused_mlp_fwd", 0), "eval": eval_launches,
+            "resume": {k: launches.get(k, 0) for k in ("fused_mlp_fwd_bwd",
+                                                        "fused_mlp_wgrad_adam")},
+            "max_abs_err": err_plain}
 
 
 def phase_train_throughput():
@@ -1071,10 +1290,7 @@ def phase_train_throughput():
          rays_per_s_best=leg.rays_per_s_best, rays_per_s_median=leg.rays_per_s_median,
          epoch_s=leg.epoch_s, step_ms_best=1e3 * min(leg.epoch_s) / nb, losses=leg.losses,
          launches_per_step=leg.launches_per_step, **graph, peak_mem_gb=leg.peak_mem_gb)
-    state, data = leg.state, leg.data
-    return (state.layout, state.params.clone(), state.mu.clone(), state.nu.clone(),
-            data.hit_features, data.expected_rgbs), (leg.train_epoch, state, data, nb, B), \
-        arrays, leg
+    return arrays, leg
 
 
 def phase_bench(arrays, render, train, smi):
@@ -1203,7 +1419,9 @@ def phase_train_kernels(legs, B=4096):
     from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
 
     rows = {}
-    for leg, (layout, params, mu, nu, table, gt_table) in legs.items():
+    for leg, run in legs.items():
+        layout, table, gt_table = run.state.layout, run.data.hit_features, run.data.expected_rgbs
+        params, mu, nu = (t.clone() for t in (run.state.params, run.state.mu, run.state.nu))
         x, gt = table[:B], gt_table[:B].contiguous()
         spec = layout.spec
         nblk, nbp = -(-B // F.BLOCK_ROWS), spec.hidden * (spec.num_layers - 1) + F.OUT_PAD
@@ -1521,12 +1739,7 @@ def phase_viewdep_train(p):
          psnr_kernel_vs_plain_after=psnr_kp_after, launches=launches, eager_steps=eager,
          resumed_bit_equal=True, **graph, step_wall_ms_best=4096e3 / max(rays),
          fused_adam_false_launches=yard_launches, fused_adam_false_bit_equal=yard_cmp)
-    state = trainer.state
-    leg = (state.layout, state.params.clone(), state.mu.clone(), state.nu.clone(),
-           trainer.train_data.hit_features, trainer.train_data.hit_vencs,
-           trainer.train_data.expected_rgbs, trainer.train_data.unit_ray_dirs)
-    run = (trainer.train_epoch_fn, trainer.state, trainer.train_data, nb, 4096)
-    return launches, yard_launches, leg, (renderer, val_views), run
+    return launches, yard_launches, (renderer, val_views), train_leg_of(trainer, nb, 4096)
 
 
 def _vd_check_train(F, layout, params, table, vtable, gt, B, leg):
@@ -1621,7 +1834,10 @@ def phase_viewdep_kernels(vd_leg, vd_render):
     from intrinsic_neural_fields_tpu_torch.ops import fused_mlp as F
     from intrinsic_neural_fields_tpu_torch.ops.interpolate import interpolate_vertex_features
 
-    layout, params, mu, nu, table, vtable, gt_table, dirs = vd_leg
+    layout, data = vd_leg.state.layout, vd_leg.data
+    params, mu, nu = (t.clone() for t in (vd_leg.state.params, vd_leg.state.mu, vd_leg.state.nu))
+    table, vtable = data.hit_features, data.hit_vencs
+    gt_table, dirs = data.expected_rgbs, data.unit_ray_dirs
     renderer, views = vd_render
     B = 4096
     gt = gt_table[:B].contiguous()
@@ -1944,7 +2160,7 @@ def phase_lpips(p, hq_leg):
     from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
                                                                  reset_kernel_launches)
 
-    r, cams, K = hq_leg
+    r, cams, K = hq_leg.renderer, hq_leg.cams, hq_leg.K
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "lpips_alex.npz")
         _random_alexnet_npz(path)
@@ -2352,11 +2568,8 @@ def _family_leg(p, recipe, mesh, test_views, hq_rays):
          launches=launches, eager_steps=eager, resumed_bit_equal=True, **graph,
          embedding_max_abs_vs_cpu=emb_err, embedding_tol=emb_tol,
          psnr_kernel_vs_plain_min=psnr_kp, eval_launches=eval_launches)
-    st = trainer.state
-    leg = (st.layout, st.params.clone(), st.mu.clone(), st.nu.clone(),
-           trainer.train_data.hit_features, trainer.train_data.expected_rgbs)
-    run = (trainer.train_epoch_fn, trainer.state, trainer.train_data, nb, B)
-    return {"train": launches, "eval": eval_launches}, leg, run, (r_k, cfg_path)
+    return ({"train": launches, "eval": eval_launches}, train_leg_of(trainer, nb, B),
+            (r_k, cfg_path))
 
 
 def _hks_leg(p, mesh):
@@ -2412,19 +2625,18 @@ def phase_families(p, hq_rays):
 
     mesh = p["mesh"]
     test_views = _dataset_views(p, "test")
-    paths, train_legs, runs, fwd_legs = {}, {}, {}, {}
+    paths, train_legs, fwd_legs = {}, {}, {}
     cams, K = [v["camCv2world"] for v in test_views], test_views[0]["K"]
     for recipe in FAMILY_RECIPES:
-        launched, leg, run, (r_k, cfg_path) = _family_leg(p, recipe, mesh, test_views, hq_rays)
+        launched, leg, (r_k, cfg_path) = _family_leg(p, recipe, mesh, test_views, hq_rays)
         paths[recipe] = launched
         train_legs[recipe] = leg
-        runs[recipe] = run
-        fwd_legs[recipe] = (r_k, cams, K)
+        fwd_legs[recipe] = render_leg_of(r_k, cams, K)
         if recipe == "xyz_blob":
             xyz_cfg = cfg_path
     paths["hks_blob"] = {"train": _hks_leg(p, mesh)}
     ff = make_model(FF_FIELD, seed=0)
-    fwd_legs["ff_field"] = (Renderer(ff, mesh, None, H=256, W=256), cams, K)
+    fwd_legs["ff_field"] = render_leg_of(Renderer(ff, mesh, None, H=256, W=256), cams, K)
     paths["viewdep_xyz"], vd_row = _viewdep_xyz_check(mesh, test_views, cams, K)
 
     coarse = os.path.join(p["root"], "transfer", "coarse.obj")
@@ -2442,7 +2654,7 @@ def phase_families(p, hq_rays):
          dssim_rescaled=means["dssim_rescaled"], s=time.perf_counter() - t0,
          launches=eom_launches)
     paths["eval_on_mesh"] = {"eval": eom_launches}
-    return paths, train_legs, runs, fwd_legs, vd_row
+    return paths, train_legs, fwd_legs, vd_row
 
 
 # ------------------------------------------------------------------ neutex
@@ -2762,9 +2974,8 @@ def phase_dp(p):
 
     # the path's kernels at a replica's rows, on the trained replica 0
     st = trainer.state
-    leg = (st.layout, st.params.clone(), st.mu.clone(), st.nu.clone(),
-           data["train"].hit_features, data["train"].expected_rgbs)
-    krows = phase_train_kernels({"dp_train": leg}, B=4096 // D)["dp_train"]
+    krows = phase_train_kernels({"dp_train": train_leg_of(trainer, nb, 4096)},
+                                B=4096 // D)["dp_train"]
     g = [torch.randn(st.layout.n, device="cuda") for _ in range(D)]
     allreduce = {"n": st.layout.n, "ms": cuda_ms(lambda: mean_all_reduce(g))}
     # D buffers read, the mean written (the sum stays in one pass's registers)
@@ -2859,9 +3070,8 @@ def phase_dp(p):
     paths = {"dp_train": {k: launches[k] for k in dp_kernels},
              "bn_train": bn_launches["fused_adam"], "dp_bn": dp_bn_launches["fused_adam"],
              "dp_render": render_launches}
-    run = (trainer.train_epoch_fn, trainer.state, trainer.train_data, nb, 4096)
     bn_run = (bn_trainer.train_epoch_fn, bn_trainer.state, bn_trainer.train_data, 4096)
-    return paths, krows, run, bn_run
+    return paths, krows, train_leg_of(trainer, nb, 4096), bn_run
 
 
 # The spectral phase's gates. CheFSI (f32 device loop, f64 host polish)
@@ -3096,7 +3306,7 @@ def _shot_leg(p, mesh):
          val_psnr=rec.values("Val Epoch-PSNR"), test_psnr_eval_cli=test_psnr,
          train_rays_per_s_best=max(rays), launches=launches, eager_steps=eager,
          psnr_kernel_vs_plain_min=psnr_kp, eval_launches=eval_launches)
-    leg = (r_k, [v["camCv2world"] for v in test_views], test_views[0]["K"])
+    leg = render_leg_of(r_k, [v["camCv2world"] for v in test_views], test_views[0]["K"])
     return launches["fused_adam"], eval_launches, leg
 
 
@@ -3232,7 +3442,8 @@ def profile_train_epoch(train_leg, leg):
 
     from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
 
-    train_epoch, state, data, nb, B = train_leg
+    train_epoch, state, data = train_leg.train_epoch, train_leg.state, train_leg.data
+    nb, B = train_leg.steps_per_epoch, train_leg.batch
     graph = train_epoch.graph
     graph.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
     torch.cuda.synchronize()
@@ -3306,7 +3517,8 @@ def profile_dp_epoch(run, leg):
 
     from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
 
-    train_epoch, state, data, nb, B = run
+    train_epoch, state, data = run.train_epoch, run.state, run.data
+    nb, B = run.steps_per_epoch, run.batch
     D = len(train_epoch.devices)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3475,22 +3687,20 @@ def main():
     prep = timed("hq_prep", phase_hq_prep)
     eval_launches, hq_leg = timed("hq_eval", lambda: phase_hq_eval(prep))
     tp_render = timed("throughput", phase_throughput)
-    tp_leg = (tp_render.renderer, tp_render.cams, tp_render.K)
-    rows = timed("kernels", lambda: phase_kernels({"hq_eval": hq_leg, "throughput": tp_leg}))
-    srows = timed("sort_kernel", lambda: phase_sort_kernel(tp_leg, hq_leg))
-    traces = timed("trace_methods", lambda: phase_trace_methods(tp_leg))
+    rows = timed("kernels", lambda: phase_kernels({"hq_eval": hq_leg, "throughput": tp_render}))
+    srows = timed("sort_kernel", lambda: phase_sort_kernel(tp_render, hq_leg))
+    traces = timed("trace_methods", lambda: phase_trace_methods(tp_render))
     pipe = timed("hq_pipeline", lambda: phase_hq_preprocess(prep))
-    train_launches, yard_launches, hq_train_leg, hq_run = timed("hq_train",
-                                                                lambda: phase_hq_train(pipe))
-    tput_leg, tput_run, bench_arrays, tput_train = timed("train_throughput",
-                                                         phase_train_throughput)
+    train_launches, yard_launches, hq_train_leg = timed("hq_train", lambda: phase_hq_train(pipe))
+    jax_ckpt = timed("jax_checkpoint", lambda: phase_jax_checkpoint(pipe, hq_leg, eval_launches))
+    bench_arrays, tput_train = timed("train_throughput", phase_train_throughput)
     timed("bench", lambda: phase_bench(bench_arrays, tp_render, tput_train, smi))
     del bench_arrays
     trows = timed("train_kernels", lambda: phase_train_kernels(
-        {"hq_train": hq_train_leg, "train_throughput": tput_leg}))
-    vd_launches, vd_yard_launches, vd_leg, vd_render, vd_run = timed(
+        {"hq_train": hq_train_leg, "train_throughput": tput_train}))
+    vd_launches, vd_yard_launches, vd_render, vd_train_leg = timed(
         "viewdep_train", lambda: phase_viewdep_train(pipe))
-    vrows = timed("viewdep_kernels", lambda: phase_viewdep_kernels(vd_leg, vd_render))
+    vrows = timed("viewdep_kernels", lambda: phase_viewdep_kernels(vd_train_leg, vd_render))
     # the user's path with a trained field: each phase's forward launches
     user_paths = timed("meshroom", lambda: phase_meshroom(pipe))
     user_paths.update(timed("lpips", lambda: phase_lpips(pipe, hq_leg)))
@@ -3500,7 +3710,7 @@ def main():
     user_paths.update(video_paths)
     # the input families: each recipe's path with its counters set to 0 just
     # before and read just after; then its kernels against their twins
-    fam_paths, fam_train_legs, fam_runs, fam_fwd_legs, vd_xyz = timed(
+    fam_paths, fam_train_legs, fam_fwd_legs, vd_xyz = timed(
         "families", lambda: phase_families(pipe, pipe["hq_train_rays_per_s"]))
     frows = timed("family_kernels", lambda: phase_kernels(fam_fwd_legs))
     ftrows = timed("family_train_kernels", lambda: phase_train_kernels(fam_train_legs))
@@ -3514,18 +3724,20 @@ def main():
     user_paths.update(cloud_paths)
     crows = timed("cloud_kernels", lambda: phase_kernels({"shot_blob": shot_leg}))
     # Last: the profiler's hooks may slow host-bound torch code run after it.
-    r, cams, K = tp_leg
-    timed("profile", lambda: (profile_frames(r, cams[:4], K),
-                              profile_train_epoch(hq_run, "hq_train"),
-                              profile_train_epoch(tput_run, "train_throughput"),
-                              profile_train_epoch(vd_run, "viewdep_train"),
-                              *(profile_train_epoch(fam_runs[f], f) for f in FAMILY_RECIPES),
+    timed("profile", lambda: (profile_frames(tp_render.renderer, tp_render.cams[:4],
+                                             tp_render.K),
+                              profile_train_epoch(hq_train_leg, "hq_train"),
+                              profile_train_epoch(tput_train, "train_throughput"),
+                              profile_train_epoch(vd_train_leg, "viewdep_train"),
+                              *(profile_train_epoch(fam_train_legs[f], f)
+                                for f in FAMILY_RECIPES),
                               profile_eager_steps(neutex_run, "neutex_blob"),
                               profile_dp_epoch(dp_run, "dp_train"),
                               profile_eager_steps(bn_run, "bn_train")))
-    check(not any(m.startswith(("jax", "flax", "optax", "intrinsic_neural_fields_tpu."))
+    check(not any(m.startswith(("jax", "flax", "optax", "msgpack",
+                                "intrinsic_neural_fields_tpu."))
                   or m in ("jax", "intrinsic_neural_fields_tpu") for m in sys.modules),
-          "the port imported JAX or the JAX package")
+          "the port imported JAX, msgpack or the JAX package")
 
     main_row = rows[0]  # the render path's shape: 8192-ray chunks at k=512
     pkg = "intrinsic_neural_fields_tpu_torch/csrc/"
@@ -3536,12 +3748,15 @@ def main():
         "launches": train_launches["fused_mlp_fwd"],
         "launches_by_path": {"hq_eval": eval_launches,
                              "hq_train": train_launches["fused_mlp_fwd"], **user_paths,
+                             "jax_checkpoint_forward": jax_ckpt["forward"],
+                             "jax_checkpoint_eval": jax_ckpt["eval"],
                              **{f"{f}_eval": fam_paths[f]["eval"] for f in FAMILY_RECIPES},
                              "eval_on_mesh": fam_paths["eval_on_mesh"]["eval"],
                              "dp_render": dp_paths["dp_render"],
                              # the bench's render leg: its last pass of 10 frames
                              "bench_render": sum(tp_render.launches_per_frame)},
-        "max_abs_err": max(r["max_abs_err"] for r in rows + frows + crows),
+        "max_abs_err": max([r["max_abs_err"] for r in rows + frows + crows]
+                           + [jax_ckpt["max_abs_err"]]),
         "families": {f'{r["leg"]}_B{r["B"]}': {k: r[k] for k in (
             "k", "B", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
             for r in frows + crows},
@@ -3570,7 +3785,7 @@ def main():
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             # the xyz and tf_rff recipes' shapes: k_in 3 and 515, f32 tables
-            "families": {leg: {"k": fam_train_legs[leg][0].spec.k_in,
+            "families": {leg: {"k": fam_train_legs[leg].state.layout.spec.k_in,
                                **{k: ftrows[leg][name][k] for k in (
                                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                    "max_abs_err")}} for leg in ftrows},
@@ -3578,6 +3793,7 @@ def main():
         if name in ("fused_mlp_fwd_bwd", "fused_mlp_wgrad_adam"):
             kernels[-1]["launches_by_path"] = {
                 "hq_train": train_launches[name],
+                "jax_checkpoint_resume": jax_ckpt["resume"][name],
                 **{f: fam_paths[f]["train"][name] for f in FAMILY_RECIPES},
                 "bench_train": tput_train.launches[name]}
         if name in dp_paths["dp_train"]:

@@ -149,8 +149,9 @@ def uv_fill_holes(img):
 
 
 def _field_rgbs(mesh, config, vids, bary, chunk=_CHUNK, device="cuda", infer=None):
-    """Evaluate the trained field (<training.out_dir>/model.pt, reference
-    layout) at surface points given by (face vertex ids [n,3], barycentric
+    """Evaluate the trained field (the out_dir's weights:
+    utils/checkpoint.resolve_weights_path, model.pt or the JAX package's
+    model.ckpt) at surface points given by (face vertex ids [n,3], barycentric
     coords [n,3]): `chunk` points per feature interpolation and fused MLP
     call, on an f32 feature table (the JAX bake's, bake/bake.py:140-195):
     the eigenfunctions, or for xyz / ff / rff the mesh's vertex positions,
@@ -166,7 +167,7 @@ def _field_rgbs(mesh, config, vids, bary, chunk=_CHUNK, device="cuda", infer=Non
     from ..ops.field_infer import FieldInfer
     from ..ops.interpolate import interpolate_vertex_features
     from ..spectral.features import load_first_k_eigenfunctions
-    from ..utils.weights import load_reference_weights
+    from ..utils.checkpoint import load_trained_weights, resolve_weights_path
 
     dev = resolve_device(device)
     feature_strategy = config["model"].get("feature_strategy", "efuncs")
@@ -186,8 +187,8 @@ def _field_rgbs(mesh, config, vids, bary, chunk=_CHUNK, device="cuda", infer=Non
     else:
         raise ValueError(f"Unknown feature strategy: {feature_strategy}")
     model = make_model(config["model"], device=dev, mesh=mesh)
-    model.load_state_dict(
-        load_reference_weights(os.path.join(config["training"]["out_dir"], "model.pt")))
+    model.load_state_dict(load_trained_weights(
+        resolve_weights_path(config["training"]["out_dir"]), config["model"]))
     field = FieldInfer(model, dev, infer)
 
     E = torch.as_tensor(np.asarray(features, np.float32), device=dev)

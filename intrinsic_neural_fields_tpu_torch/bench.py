@@ -232,14 +232,14 @@ class RenderLeg:
                 "peak_mem_gb": self.peak_mem_gb}
 
 
-def render_leg(device="cuda", frames=FRAMES, H=RENDER_H, depth=DEPTH,
-               subdivisions=SUBDIVISIONS, k=K, model=None):
+def render_leg(device="cuda", frames=FRAMES, H=RENDER_H, subdivisions=SUBDIVISIONS, k=K,
+               model=None):
     """bench.py:bench_render_ours on the port: the blob at `subdivisions`
     (6: 81,920 faces), a basis rng.normal(size=(V_mesh, k)) from
     default_rng(SEED) (not rescaled, as bench.py has it), an H x H Renderer
     with a bf16 feature table and the u8 wire, `frames` cameras on
     ring_cameras' orbit. One warm render, then the best of 3 passes of
-    pipelined_foreach with lookahead `depth`; then one frame split into its
+    pipelined_foreach with lookahead DEPTH; then one frame split into its
     stages (host clock around synchronized work: the trace alone, inference
     and composite on the cached trace, the fetch). model: a TextureField
     (default: make_model(model_config(k), seed=0)).
@@ -274,7 +274,7 @@ def render_leg(device="cuda", frames=FRAMES, H=RENDER_H, depth=DEPTH,
         reset_kernel_launches()
         t0 = time.perf_counter()
         pipelined_foreach(cams, dispatch, lambda _c, h: images.append(r.render_fetch(h)),
-                          depth=depth)
+                          depth=DEPTH)
         times.append(time.perf_counter() - t0)
         others = {n: c for n, c in kernel_launches().items() if c and n != "fused_mlp_fwd"}
         if dev.type == "cuda" and (min(launches) == 0 or others):
@@ -399,8 +399,7 @@ def main(argv=None):
     print(json.dumps(train.summary()), flush=True)
     best, median = train.rays_per_s_best, train.rays_per_s_median
     del arrays, train  # the render leg runs without the 4.3 GB table
-    render = render_leg(device=dev, frames=FRAMES, H=RENDER_H, depth=DEPTH,
-                        subdivisions=SUBDIVISIONS, k=K)
+    render = render_leg(device=dev, frames=FRAMES, H=RENDER_H, subdivisions=SUBDIVISIONS, k=K)
     print(json.dumps(render.summary()), flush=True)
     print(json.dumps(bench_line(baseline, best, median, render.rays_per_s_best)), flush=True)
     return 0

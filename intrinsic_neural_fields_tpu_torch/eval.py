@@ -13,9 +13,11 @@ output_path, which must not exist yet). The LPIPS column is NaN unless
 > 1 renders each view D-way over cuda:0 ... cuda:D-1 (the CPU D times with
 --device cpu); it raises when fewer devices exist.
 
-The weights are a reference-layout model.pt (default
-<training.out_dir>/model.pt); export a JAX-trained out_dir with
-``python tools/export_reference_checkpoint.py config.yaml out_dir/model.pt``.
+--weights names a weights file of either package: a torch model.pt or a
+JAX package's flax msgpack .ckpt (model.ckpt, checkpoint.ckpt, ...), told
+apart by their first bytes. Without it the out_dir's are read:
+<training.out_dir>/model.pt, or the JAX package's model.ckpt when there
+is no model.pt, so a JAX-trained out_dir evaluates as it is.
 """
 import argparse
 
@@ -27,8 +29,8 @@ def parse_args(argv=None):
     parser.add_argument("dataset_path", type=str)
     parser.add_argument("split", type=str)
     parser.add_argument("--weights", type=str, default=None,
-                        help="reference-layout model.pt (default: "
-                        "<training.out_dir>/model.pt)")
+                        help="a model.pt or a JAX .ckpt (default: "
+                        "<training.out_dir>/model.pt, else its model.ckpt)")
     parser.add_argument("--background", type=str, default="white")
     parser.add_argument("--uv_mesh_path", type=str, default=None,
                         help="bake the field into this UV mesh's layout before the eval")

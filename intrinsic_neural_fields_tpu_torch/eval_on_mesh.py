@@ -35,8 +35,8 @@ def parse_args(argv=None):
 
 
 def renderer_on_mesh(config, target_mesh_path, efuncs_path=None, device="cuda", infer=None):
-    """The trained field of `config` (its model.pt) rendered on the target
-    mesh: its vertices for an extrinsic field, the basis at `efuncs_path`
+    """The trained field of `config` (its out_dir's model.pt, or model.ckpt)
+    rendered on the target mesh: its vertices for an extrinsic field, the basis at `efuncs_path`
     (first k functions, standard rescale) for an intrinsic one."""
     from .geometry.mesh import load_mesh
     from .render.renderer import make_renderer_from_config

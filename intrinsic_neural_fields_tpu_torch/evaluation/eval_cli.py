@@ -27,7 +27,7 @@ def evaluate_views(output_path, config, dataset_or_views, split="test",
     read) or an iterable of view dicts with camCv2world, K, img [H,W,3] and
     obj_mask_1d (and, for a distorted view, distortion_params and
     distortion_type). renderer: a pre-built Renderer (default: built from
-    the config and <training.out_dir>/model.pt, on the GPU). output_path:
+    the config and its out_dir's model.pt or model.ckpt, on the GPU). output_path:
     where PNGs and evaluation_metrics.pkl go; None writes nothing.
     lpips_weights_path: an LPIPS AlexNet npz (see evaluation/lpips.py).
 

@@ -104,12 +104,12 @@ class _PendingRender(NamedTuple):
 def make_renderer_from_config(config, weights_path=None, device="cuda", wire_u8=False,
                               infer=None, devices=None):
     """Renderer for an experiment config (the reference YAML schema) and a
-    reference-layout model.pt (default: <training.out_dir>/model.pt).
-    wire_u8 and infer: as for Renderer; devices: a device list (or a count
-    of CUDA devices) for the D-way render, its first device replacing
-    `device`."""
-    import os
-
+    weights file: `weights_path` as named, else the out_dir's
+    (utils/checkpoint.resolve_weights_path: <training.out_dir>/model.pt, or
+    the JAX package's model.ckpt when there is no model.pt); either
+    package's format (utils/checkpoint.load_trained_weights). wire_u8 and
+    infer: as for Renderer; devices: a device list (or a count of CUDA
+    devices) for the D-way render, its first device replacing `device`."""
     if devices is not None:
         devices = resolve_devices(devices)
         device = devices[0]
@@ -117,7 +117,7 @@ def make_renderer_from_config(config, weights_path=None, device="cuda", wire_u8=
     from ..geometry.mesh import load_mesh
     from ..models.factory import make_model
     from ..spectral.features import load_first_k_eigenfunctions
-    from ..utils.weights import load_reference_weights
+    from ..utils.checkpoint import load_trained_weights, resolve_weights_path
 
     data, model_cfg = config["data"], config["model"]
     mesh = load_mesh(data["mesh_path"])
@@ -132,8 +132,8 @@ def make_renderer_from_config(config, weights_path=None, device="cuda", wire_u8=
         )
     model = make_model(model_cfg, device=device, mesh=mesh)
     if weights_path is None:
-        weights_path = os.path.join(config["training"]["out_dir"], "model.pt")
-    model.load_state_dict(load_reference_weights(weights_path))
+        weights_path = resolve_weights_path(config["training"]["out_dir"])
+    model.load_state_dict(load_trained_weights(weights_path, model_cfg))
     return Renderer(
         model, mesh, efuncs, H=data["img_height"], W=data["img_width"],
         feature_dtype=data.get("precompute_dtype"), wire_u8=wire_u8, infer=infer,

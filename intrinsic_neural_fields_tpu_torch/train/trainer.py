@@ -2,7 +2,8 @@
 loop: one ``train_epoch`` and one ``val_epoch`` per epoch (see steps.py;
 ``parallel.parallelize_trainer`` swaps in data-parallel ones over a device
 list), TensorBoard scalars under the reference's tags, periodic vis
-renders, best / interval / last / epoch-200 checkpoints and resume.
+renders, best / interval / last / epoch-200 checkpoints and resume (from
+the port's checkpoint.pt or the JAX package's checkpoint.ckpt).
 
 As in the JAX package, min_val_loss starts at +inf, not 1.0 (reference
 trainer.py:237). The batch order of epoch e comes from a generator seeded
@@ -46,7 +47,12 @@ from ..data.sampler import (
 from ..evaluation.metrics import epoch_psnr, psnr
 from ..models.texture_field import input_encoder_apply, mlp_core_view, view_encoder_apply
 from ..ops.fused_mlp import fused_pre_embed_eligible, fused_viewdep_eligible
-from ..utils.checkpoint import load_train_checkpoint, save_model, save_train_checkpoint
+from ..utils.checkpoint import (
+    load_jax_train_checkpoint,
+    load_train_checkpoint,
+    save_model,
+    save_train_checkpoint,
+)
 from .plateau import ReduceLROnPlateau
 from .steps import TrainState, batch_stats_of, create_train_state, make_epoch_fns
 
@@ -197,11 +203,25 @@ class Trainer:
 
     def _init_or_load_checkpoint(self):
         """Resume from out_dir/checkpoint.pt when present (reference
-        trainer.py:214-230). Returns the epoch to start from."""
-        if self.checkpoint_every is None or not os.path.exists(self.checkpoint_path):
+        trainer.py:214-230), else from the JAX package's checkpoint.ckpt
+        (its params, buffers, batch_stats, Adam moments, count and
+        hyperparameters). The JAX file's rng_key is not carried: the batch
+        order comes from the config seed (epoch_generator), as the JAX
+        Trainer's does when it resumes a torch checkpoint.pt. Later
+        checkpoints are written as checkpoint.pt. Returns the epoch to
+        start from."""
+        if self.checkpoint_every is None:
             return 0
-        print("Restoring from checkpoint...")
-        ckpt = load_train_checkpoint(self.checkpoint_path)
+        jax_path = os.path.join(self.out_dir, "checkpoint.ckpt")
+        if os.path.exists(self.checkpoint_path):
+            print("Restoring from checkpoint...")
+            ckpt = load_train_checkpoint(self.checkpoint_path)
+        elif os.path.exists(jax_path):
+            print(f"Restoring from the JAX package's checkpoint {jax_path} (its rng_key is "
+                  "not carried: the batch order comes from the config seed)...")
+            ckpt = load_jax_train_checkpoint(jax_path, self.config["model"])
+        else:
+            return 0
         buffers = self.state.buffers
         self.state = TrainState.from_torch(self.state.layout, ckpt["model_state_dict"],
                                            ckpt["adam"], self.device)

@@ -22,13 +22,24 @@ A NeuTex model's train state holds all its parameters in module order
 template-free format (utils/checkpoint.py:67-96 there): nested dicts of
 arrays as an .npz with '/'-joined keys, the pretrained NeuTex mapping's
 file in both packages.
+
+The JAX package's own files, flax msgpack (``utils/flax_msgpack.py``), are
+read as well: ``model.ckpt`` / ``model_last_epoch.ckpt`` /
+``best_model_checkpoint_<e>.ckpt`` hold its variables {params[, buffers][,
+batch_stats]}, ``checkpoint.ckpt`` / ``checkpoint_<e>.ckpt`` {epoch, params,
+buffers, opt_state, batch_stats, rng_key}. ``load_trained_weights`` tells
+the two formats apart by their first bytes, never by the suffix, and
+``resolve_weights_path`` finds an out_dir's weights file.
 """
 from __future__ import annotations
 
+import io
 import os
 
 import numpy as np
 import torch
+
+from .flax_msgpack import is_flax_msgpack, load_flax_msgpack
 
 
 def _atomic_save(obj, path):
@@ -107,6 +118,70 @@ def load_train_checkpoint(path):
     return {"epoch": int(obj["epoch"]), "model_state_dict": sd,
             "adam": {"count": steps.pop(), "mu": mu, "nu": nu, "lr": float(group["lr"]),
                      "b1": float(b1), "b2": float(b2), "eps": float(group["eps"])}}
+
+
+def is_torch_checkpoint(data):
+    """torch.save's zip archives start with "PK", its legacy files are
+    pickles (0x80, protocol 2-5); a flax msgpack checkpoint starts with a
+    map header, which collides with neither (JAX utils/checkpoint.py:61-65)."""
+    return data[:2] == b"PK" or (len(data) > 1 and data[0] == 0x80 and data[1] in (2, 3, 4, 5))
+
+
+def resolve_weights_path(out_dir, weights_name=None):
+    """The trained weights of an out_dir: by default the port's
+    ``model.pt``, or the JAX package's ``model.ckpt`` when there is no
+    ``model.pt``. A file the caller names is that file, present or not: it
+    is never swapped for another (JAX utils/checkpoint.py:44-58)."""
+    if weights_name is not None:
+        return os.path.join(out_dir, weights_name)
+    path = os.path.join(out_dir, "model.pt")
+    jax_path = os.path.join(out_dir, "model.ckpt")
+    if not os.path.exists(path) and os.path.exists(jax_path):
+        return jax_path
+    return path
+
+
+def _read(path):
+    with open(path, "rb") as f:  # FileNotFoundError for a missing file
+        return f.read()
+
+
+def load_trained_weights(path, model_config):
+    """The port's state dict from a weights file of either package: a
+    torch state dict or checkpoint (model.pt, checkpoint.pt, or the
+    upstream trainer's), or a flax msgpack file of the JAX package (its
+    variables or its train checkpoint), mapped by
+    ``utils/weights.state_dict_from_flax`` for `model_config`. A file that
+    is neither raises ValueError."""
+    from .weights import load_reference_weights, state_dict_from_flax
+
+    data = _read(path)
+    if is_torch_checkpoint(data):
+        return load_reference_weights(io.BytesIO(data))
+    if is_flax_msgpack(data):
+        return state_dict_from_flax(load_flax_msgpack(data), model_config)
+    raise ValueError(f"{path}: neither a torch checkpoint nor a flax msgpack file")
+
+
+def load_jax_train_checkpoint(path, model_config):
+    """``load_train_checkpoint``'s dict {"epoch", "model_state_dict",
+    "adam"} from the JAX package's checkpoint.ckpt: its params, buffers
+    (RFF's B) and batch_stats as the state dict, its
+    ``inject_hyperparams(adam)`` state as the Adam dict (count, moments,
+    lr, betas, eps, eps_root). Its ``rng_key`` is not read: the port's
+    batch order comes from the config seed."""
+    from .weights import adam_state_from_optax, state_dict_from_flax
+
+    data = _read(path)
+    if not is_flax_msgpack(data):
+        raise ValueError(f"{path}: not a flax msgpack file")
+    tree = load_flax_msgpack(data)
+    missing = {"epoch", "params", "opt_state"} - set(tree)
+    if missing:
+        raise ValueError(f"{path}: not a JAX train checkpoint (no {sorted(missing)})")
+    return {"epoch": int(tree["epoch"]),
+            "model_state_dict": state_dict_from_flax(tree, model_config),
+            "adam": adam_state_from_optax(tree["opt_state"], model_config)}
 
 
 def save_npz_pytree(path, tree):

@@ -2,13 +2,15 @@
 
 Weights cross in the upstream torch layout (``layers.{i}.0.*``,
 ``layers.{skip}.Lx/.Ly``, and ``spatial_mlp.*`` + ``directional_mlp.{0,2}.*``
-for the view-dependent field; Linear weights [out, in]). A JAX-trained out_dir
-is exported to that layout by the reference package's own exporter
-(``tools/export_reference_checkpoint.py``, i.e. its
-``export_reference_state_dict``) into a ``model.pt`` that
-``load_reference_weights`` reads; ``state_dict_from_flax`` performs the same
-mapping in-process from flax parameters already converted to numpy, and
-``adam_state_from_optax`` carries the optimizer state with them.
+for the view-dependent field; Linear weights [out, in]).
+``state_dict_from_flax`` maps a flax variables tree (numpy leaves) onto the
+port's state dict and ``adam_state_from_optax`` the optimizer state with
+it. Both read the JAX package's own files as ``utils/flax_msgpack.py``
+decodes them (``utils/checkpoint.load_trained_weights``,
+``load_jax_train_checkpoint``), so a JAX-trained out_dir needs no export;
+``load_reference_weights`` reads a torch ``model.pt``, the port's own or
+the JAX package's export (``tools/export_reference_checkpoint.py``), which
+carries weights the other way, to the upstream torch code.
 
 A NeuTex model (``type: neutex``) crosses under ``neutex.`` in the keys of
 ``models/neutex.py``: its mapping networks in the reference torch names,
@@ -18,6 +20,20 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def _np32(a):
+    """An f32 numpy copy of a leaf: a numpy array or scalar, or the torch
+    bfloat16 tensor utils/flax_msgpack.py gives for a bfloat16 leaf."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.array(a, np.float32)
+
+
+def _dense(p):
+    """A flax Dense's (weight [out, in], bias) as f32 tensors."""
+    return (torch.from_numpy(np.ascontiguousarray(_np32(p["kernel"]).T)),
+            torch.from_numpy(_np32(p["bias"])))
 
 
 def _texture_field_sd(params, model_config, prefix="", batch_stats=None):
@@ -31,13 +47,11 @@ def _texture_field_sd(params, model_config, prefix="", batch_stats=None):
     skip = model_config["skip_layer_idx"]
     batchnorm = model_config.get("batchnorm", False)
     sd = {}
-    f32 = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    f32 = lambda a: torch.from_numpy(_np32(a))  # noqa: E731
 
     def put(torch_prefix, flax_name):
-        p = params[flax_name]
-        sd[prefix + torch_prefix + ".weight"] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(p["kernel"], np.float32).T))
-        sd[prefix + torch_prefix + ".bias"] = f32(p["bias"])
+        sd[prefix + torch_prefix + ".weight"], sd[prefix + torch_prefix + ".bias"] = _dense(
+            params[flax_name])
 
     def put_bn(torch_prefix, flax_name):
         key = prefix + torch_prefix
@@ -78,7 +92,7 @@ def _rff_buffer_sd(buffers, prefix):
     rff = buffers.get("RandomFourierFeatEnc_0") if buffers else None
     if rff is None:
         return {}
-    return {prefix + "embedding.B": torch.from_numpy(np.asarray(rff["B"], np.float32).copy())}
+    return {prefix + "embedding.B": torch.from_numpy(_np32(rff["B"]))}
 
 
 def _neutex_sd(params):
@@ -101,9 +115,7 @@ def _neutex_sd(params):
                     and j.isdigit()):
                 raise ValueError(f"unexpected texture module {tex}/{name}")
             key = f"neutex.{nets[2]}.textures.{i}.dense.{j}"
-            sd[key + ".weight"] = torch.from_numpy(
-                np.ascontiguousarray(np.asarray(p["kernel"], np.float32).T))
-            sd[key + ".bias"] = torch.from_numpy(np.asarray(p["bias"], np.float32).copy())
+            sd[key + ".weight"], sd[key + ".bias"] = _dense(p)
     return sd
 
 
@@ -123,7 +135,7 @@ def state_dict_from_flax(params, model_config):
         return _neutex_sd(params.get("params", params))
     whole = "params" in params
     buffers = params.get("buffers", {}) if whole else {}
-    stats = params.get("batch_stats") if whole else None
+    stats = (params.get("batch_stats") or None) if whole else None  # a checkpoint's {}
     params = params.get("params", params)
     if model_config.get("view_dependence") is None:
         return {**_rff_buffer_sd(buffers, ""),
@@ -134,10 +146,7 @@ def state_dict_from_flax(params, model_config):
     sd.update(_texture_field_sd(params["spatial_mlp"], model_config, prefix="spatial_mlp.",
                                 batch_stats=None if stats is None else stats["spatial_mlp"]))
     for c, name in enumerate(("directional_mlp.0", "directional_mlp.2")):
-        p = params[f"Dense_{c}"]
-        sd[name + ".weight"] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(p["kernel"], np.float32).T))
-        sd[name + ".bias"] = torch.from_numpy(np.asarray(p["bias"], np.float32).copy())
+        sd[name + ".weight"], sd[name + ".bias"] = _dense(params[f"Dense_{c}"])
     return sd
 
 
@@ -157,19 +166,30 @@ def load_reference_weights(path):
 
 
 def adam_state_from_optax(opt_state, model_config):
-    """An ``optax.inject_hyperparams(optax.adam)`` state, converted to numpy
-    (``jax.device_get``), -> the port's Adam dict {count, mu, nu (state
-    dicts in the upstream torch layout), lr, b1, b2, eps, eps_root} that
-    ``train.steps.TrainState.from_torch`` takes. Read by structure: the
-    hyperparams dict and the ScaleByAdamState (mu, nu, count) first in the
-    inner state. The moments mirror the params tree, a BatchNorm's scale and
-    bias included."""
-    hp = dict(opt_state.hyperparams)
-    adam = opt_state.inner_state[0]
+    """An ``optax.inject_hyperparams(optax.adam)`` state -> the port's Adam
+    dict {count, mu, nu (state dicts in the upstream torch layout), lr, b1,
+    b2, eps, eps_root} that ``train.steps.TrainState.from_torch`` takes.
+    The state is the optax object converted to numpy (``jax.device_get``)
+    or the dict a flax msgpack file decodes to ({count, hyperparams,
+    hyperparams_states, inner_state: {"0": {count, mu, nu}, "1": {}}}).
+    Read by structure: the hyperparams dict and the ScaleByAdamState (mu,
+    nu, count) first in the inner state. The moments mirror the params
+    tree, a BatchNorm's scale and bias included."""
+    if isinstance(opt_state, dict):
+        hp = opt_state.get("hyperparams")
+        adam = (opt_state.get("inner_state") or {}).get("0")
+        if not (isinstance(hp, dict) and isinstance(adam, dict)
+                and set(adam) == {"count", "mu", "nu"}):
+            raise ValueError("not an inject_hyperparams(adam) state: "
+                             f"{sorted(opt_state)}, inner state {adam and sorted(adam)}")
+        count, mu, nu = adam["count"], adam["mu"], adam["nu"]
+    else:
+        hp, adam = dict(opt_state.hyperparams), opt_state.inner_state[0]
+        count, mu, nu = adam.count, adam.mu, adam.nu
     return {
-        "count": int(np.asarray(adam.count)),
-        "mu": state_dict_from_flax(adam.mu, model_config),
-        "nu": state_dict_from_flax(adam.nu, model_config),
+        "count": int(np.asarray(count)),
+        "mu": state_dict_from_flax(mu, model_config),
+        "nu": state_dict_from_flax(nu, model_config),
         **{ours: float(np.asarray(hp[theirs])) for ours, theirs in (
             ("lr", "learning_rate"), ("b1", "b1"), ("b2", "b2"), ("eps", "eps"),
             ("eps_root", "eps_root"))},

@@ -9,6 +9,8 @@ port, so it also runs where JAX is not installed:
 
   python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1312,3 +1314,93 @@ def test_cloud_eigenbasis_on_card(cuda, tmp_path):
                                         "pc_vert_robust", "--method", method])
         evs[method] = np.load(out / f"eigenvalues_{base}.npy")
     assert np.abs(evs["chefsi"] - evs["shift_invert"]).max() < 1e-4 * evs["shift_invert"].max()
+
+
+JAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "jax_checkpoint_hq")
+HQ_CFG = {"k": 512, "num_layers": 6, "mlp_hidden_dim": 128, "skip_layer_idx": 3}
+
+
+def test_jax_fixture_forward_on_card(cuda):
+    """The JAX package's model.ckpt (tests/data/jax_checkpoint_hq), read by
+    the port, through fused_mlp_fwd on the fixture's 8,192 rows: one
+    launch, within 2e-3 of the JAX fused forward recorded in expected.npz
+    and of the plain twin."""
+    from intrinsic_neural_fields_tpu_torch.utils.checkpoint import load_trained_weights
+
+    expected = np.load(os.path.join(JAX_FIXTURE, "expected.npz"))
+    rows = np.random.default_rng(int(expected["seed"])).normal(size=(8192, 512)).astype(np.float32)
+    assert rows.astype(np.float64).sum() == expected["rows_sum"]
+    sd = load_trained_weights(os.path.join(JAX_FIXTURE, "model.ckpt"), HQ_CFG)
+    fw = pack_weights(FusedMLPSpec(6, 512, 128, 3), sd, device=cuda)
+    x = torch.from_numpy(rows).to(cuda)
+    before = kernel_launches()["fused_mlp_fwd"]
+    got = fused_apply(fw, x)
+    torch.cuda.synchronize()
+    assert kernel_launches()["fused_mlp_fwd"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), expected["rgb"], rtol=0, atol=2e-3)
+    assert (got - fused_apply_plain(fw, x)).abs().max().item() <= 2e-3
+
+
+def test_jax_checkpoint_resume_on_card_equals_cpu(cuda, tmp_path):
+    """A Trainer on an out_dir holding only the fixture's checkpoint.ckpt
+    restores, on the card, the CPU Trainer's params, moments, count and
+    hyperparameters to the bit, and starts at the checkpoint's epoch + 1;
+    it then trains that epoch through the kernels with a finite loss."""
+    import shutil
+
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh import load_mesh
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh_io import write_obj
+    from intrinsic_neural_fields_tpu_torch.train import (Trainer, get_data,
+                                                         get_model_and_optim, get_renderer)
+
+    mesh = blob_mesh(3)
+    write_obj(str(tmp_path / "blob.obj"), mesh.vertices, mesh.faces)
+    rng = np.random.default_rng(0)
+    np.save(tmp_path / "efuncs.npy", rng.normal(size=(mesh.num_vertices, 512)).astype(np.float32))
+    for split, n in (("train", 8192), ("val", 1024), ("test", 1024)):
+        (tmp_path / split).mkdir()
+        np.save(tmp_path / split / "vids_of_hit_faces.npy",
+                np.asarray(mesh.faces, np.int32)[rng.integers(0, mesh.num_faces, n)])
+        np.save(tmp_path / split / "barycentric_coords.npy",
+                rng.dirichlet(np.ones(3), n).astype(np.float32))
+        np.save(tmp_path / split / "expected_rgbs.npy", rng.uniform(size=(n, 3)).astype(np.float32))
+    expected = np.load(os.path.join(JAX_FIXTURE, "expected.npz"))
+    epoch = int(expected["epoch"])
+    states = {}
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / f"out_{dev}"
+        out.mkdir()
+        shutil.copy(os.path.join(JAX_FIXTURE, "checkpoint.ckpt"), out)
+        config = {"seed": 0,
+                  "data": {"precompute_dtype": "bfloat16",
+                           "preproc_data_path_train": str(tmp_path / "train"),
+                           "preproc_data_path_eval": str(tmp_path / "val"),
+                           "preproc_data_path_test": str(tmp_path / "test"),
+                           "eigenfunctions_path": str(tmp_path / "efuncs.npy"),
+                           "mesh_path": str(tmp_path / "blob.obj"),
+                           "img_height": 32, "img_width": 32},
+                  "model": dict(HQ_CFG),
+                  "training": {"out_dir": str(out), "batch_size": 4096, "lr": 1e-4,
+                               "loss_type": "L1", "render_every": 100, "print_every": 1,
+                               "epochs": epoch + 2, "checkpoint_every": 1, "shuffle": "blocks",
+                               "fused_mlp": True}}
+        m = load_mesh(config["data"]["mesh_path"])
+        model, opt = get_model_and_optim(config, m, device=dev)
+        t = Trainer(model, opt, "L1", get_renderer(config, model, m, device=dev),
+                    get_data(config, m, device=dev), m, config, device=dev)
+        start = t._init_or_load_checkpoint()
+        states[dev] = (start, t.state.params.cpu(), t.state.mu.cpu(), t.state.nu.cpu(),
+                       t.state.count, t.state.hyper)
+        if dev == "cuda":
+            before = kernel_launches()["fused_mlp_fwd_bwd"]
+            t.train()
+            torch.cuda.synchronize()
+            assert kernel_launches()["fused_mlp_fwd_bwd"] == before + 2
+            assert t.state.count == int(expected["count"]) + 2
+            assert torch.isfinite(t.state.params).all()
+    cpu, card = states["cpu"], states["cuda"]
+    assert cpu[0] == card[0] == epoch + 1
+    for a, b in zip(cpu[1:4], card[1:4]):
+        assert torch.equal(a, b)
+    assert cpu[4] == card[4] == int(expected["count"]) and cpu[5] == card[5]

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of
 intrinsic_neural_fields_tpu_torch (and chip_smoke.py) loads no jax, flax,
-optax or intrinsic_neural_fields_tpu module. Checked in a fresh interpreter,
+optax, msgpack or intrinsic_neural_fields_tpu module. Checked in a fresh interpreter,
 because the test process itself imports the JAX package as the oracle."""
 import os
 import subprocess
@@ -20,7 +20,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
-banned = ("jax", "flax", "optax", "intrinsic_neural_fields_tpu")
+banned = ("jax", "flax", "optax", "msgpack", "intrinsic_neural_fields_tpu")
 bad = sorted(m for m in sys.modules
              if any(m == b or m.startswith(b + ".") for b in banned))
 new = ["ops.sort", "ops.launches", "geometry.cameras", "utils.exr", "utils.io",
@@ -30,7 +30,7 @@ new = ["ops.sort", "ops.launches", "geometry.cameras", "utils.exr", "utils.io",
        "render_video", "make_transfer_targets", "eval_on_mesh", "models.encoders",
        "geometry.pointcloud", "geometry.intrinsic_delaunay", "geometry.shot",
        "spectral.eigensolver", "compute_shot", "models.neutex", "pretrain_neutex_mapping",
-       "parallel", "parallel.data_parallel", "bench"]
+       "parallel", "parallel.data_parallel", "bench", "utils.flax_msgpack"]
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 print(len(names), "modules;", "banned:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
