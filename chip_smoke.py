@@ -182,7 +182,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       recipe with batchnorm: true, fused_mlp: false through the one-device
       Trainer for 2 epochs (one eager step and one Adam launch per step,
       loss falls) and one sync-BN DP step against the one-device BatchNorm
-      step; the DP-trained field's test and val views rendered D-way
+      step taken along the DP forward's ReLU branches (the entries whose
+      branch differs counted); the DP-trained field's test and val views rendered D-way
       (image, hit set and metrics equal to the one-device render, the
       forward kernel's launches counted); -m train and -m eval with
       --num_devices 2 raise the device-count error on a one-card machine;
@@ -226,6 +227,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 Imports nothing of JAX, flax, optax or msgpack. Needs one CUDA card;
 exits non-zero without one.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -249,6 +251,9 @@ TOL = 2e-3            # kernel vs plain twin, max abs error
 # at 700 W), against 2.4e-4 for the plain forward; the mean stays at
 # rounding noise.
 TOL_VD, MEAN_TOL_VD = 5e-3, 1e-4
+# the jax_random phase's HQ epoch (183 steps) on the card against the plain
+# twins on the CPU: the fused paths' loss bound (tests/test_torch_port_train.py)
+LOSS_RTOL_TWIN = 2e-3
 PSNR_MIN = 50.0       # kernel render vs plain-twin render, dB
 H100_BF16_FLOPS = 989e12
 H100_F32_FLOPS = 67e12
@@ -1264,6 +1269,199 @@ def phase_jax_checkpoint(p, hq_leg, hq_eval_launches):
             "resume": {k: launches.get(k, 0) for k in ("fused_mlp_fwd_bwd",
                                                         "fused_mlp_wgrad_adam")},
             "max_abs_err": err_plain}
+
+
+# The JAX package's draws for the HQ recipe, written by
+# tools/make_jax_random_fixture.py: init_model's weights at seed 0, the
+# load-time permutation of n = 750,000 records (its ends and SHA-256) and
+# the JAX Trainer's block orders of epochs 0-2 at batch 4096.
+JAX_RANDOM_FIXTURE = os.path.join(REPO, "tests", "data", "jax_random", "expected.npz")
+JAX_RANDOM_VAL = 8192  # the phase's val split, records
+
+
+def _flat_tree(tree, prefix):
+    """{'/'-joined path: leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}"
+        out.update(_flat_tree(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def _write_ray_cache(path, faces, n, rng):
+    """A 3-npy ray cache of n seeded records over the mesh's faces."""
+    os.makedirs(path)
+    np.save(os.path.join(path, "vids_of_hit_faces.npy"),
+            faces[rng.integers(0, len(faces), n)].astype(np.int32))
+    np.save(os.path.join(path, "barycentric_coords.npy"),
+            rng.dirichlet(np.ones(3), n).astype(np.float32))
+    np.save(os.path.join(path, "expected_rgbs.npy"), rng.uniform(size=(n, 3)).astype(np.float32))
+
+
+def phase_jax_random(p):
+    """What a seed means, on the card, where there is no JAX: the port's
+    draws (utils/jax_random.py) held to the JAX package's fixture to the
+    bit, on the host and through the torch path on the card (the HQ
+    model's initial weights, the load-time permutation of n records, the
+    first block orders), each draw timed beside torch.randperm; then the
+    HQ recipe's first epoch from them through the Trainer: the load-time
+    shuffle of n seeded records, JAX's epoch-0 block order, one graph
+    replay of fwd_bwd + wgrad_adam per step, its counters set to 0 just
+    before and read just after. That epoch is held to its fused_adam:
+    false loop to the bit and, as hq_train's, its kernels to their twins
+    on its inputs (the returned leg goes to phase_train_kernels); the
+    same epoch through the plain twins on the CPU gives its loss within
+    LOSS_RTOL_TWIN. The update's distance to the CPU epoch's is recorded,
+    not gated: over 183 Adam steps on random targets, gradients near zero
+    whose sign flips under rounding move a weight by up to lr either way
+    (tests/test_torch_port_bench.py's note)."""
+    import hashlib
+
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh import load_mesh
+    from intrinsic_neural_fields_tpu_torch.models.factory import init_params
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
+                                                                 reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.train import (Trainer, get_data, get_model_and_optim,
+                                                         get_renderer)
+    from intrinsic_neural_fields_tpu_torch.train.steps import _order, eager_step
+    from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey, fold_in, permutation
+    from intrinsic_neural_fields_tpu_torch.utils.weights import state_dict_from_flax
+
+    fx = np.load(JAX_RANDOM_FIXTURE)
+    seed, n, batch = int(fx["seed"]), int(fx["n"]), int(fx["batch"])
+    nb = n // batch
+    key = PRNGKey(seed)
+
+    def host_ms(fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            if isinstance(out, torch.Tensor) and out.is_cuda:
+                torch.cuda.synchronize()
+            best = min(best, 1e3 * (time.perf_counter() - t0))
+        return best, out
+
+    def digest(perm):
+        return hashlib.sha256(np.asarray(perm, dtype="<i4").tobytes()).hexdigest()
+
+    # the draws, to the bit
+    draw_ms = {}
+    draw_ms["init_params"], tree = host_ms(lambda: init_params({"k": 512, **HQ}, seed))
+    flat = _flat_tree(tree["params"], "init")
+    want_init = {k: fx[k] for k in fx.files if k.startswith("init/")}
+    check(set(flat) == set(want_init) and all(np.array_equal(flat[k], want_init[k])
+                                              for k in flat),
+          "the HQ initial weights differ from the JAX package's init_model")
+    draw_ms["permutation_host"], perm_host = host_ms(lambda: permutation(key, n))
+    draw_ms["permutation_card"], perm_card = host_ms(lambda: permutation(key, n, device="cuda"))
+    draw_ms["randperm_host"], _ = host_ms(lambda: torch.randperm(n))
+    draw_ms["randperm_card"], _ = host_ms(lambda: torch.randperm(n, device="cuda"))
+    head = len(fx["perm_head"])
+    for where, perm in (("host", perm_host), ("card", perm_card.cpu().numpy())):
+        check(digest(perm) == str(fx["perm_sha256"])
+              and np.array_equal(perm[:head], fx["perm_head"])
+              and np.array_equal(perm[-head:], fx["perm_tail"]),
+              f"the load-time permutation on the {where} is not jax.random.permutation's")
+    draw_ms["block_order_host"], _ = host_ms(lambda: _order(fold_in(key, 0), nb))
+    for e, order in enumerate(fx["block_orders"]):
+        check(np.array_equal(_order(fold_in(key, e), nb).numpy(), order),
+              f"epoch {e}'s block order is not the JAX Trainer's")
+
+    # the HQ recipe's first epoch from those draws, through the Trainer
+    root = os.path.join(p["root"], "jax_random")
+    mesh = load_mesh(p["mesh_path"])
+    rng = np.random.default_rng(seed)
+    faces = np.asarray(mesh.faces)
+    _write_ray_cache(os.path.join(root, "train"), faces, n, rng)
+    _write_ray_cache(os.path.join(root, "val"), faces, JAX_RANDOM_VAL, rng)
+
+    def config(out_name, **training):
+        cfg = _hq_train_config(p, out_name, 1)
+        cfg["data"]["preproc_data_path_train"] = os.path.join(root, "train")
+        cfg["data"]["preproc_data_path_eval"] = os.path.join(root, "val")
+        del cfg["data"]["preproc_data_path_test"]
+        cfg["training"].update(out_dir=os.path.join(root, out_name), **training)
+        return cfg
+
+    def run(cfg, device="cuda"):
+        model, optimizer = get_model_and_optim(cfg, mesh, device=device)
+        data = get_data(cfg, mesh, device=device)
+        rec = Recorder()
+        trainer = Trainer(model, optimizer, "L1", get_renderer(cfg, model, mesh, device=device),
+                          data, mesh, cfg, writer=rec, device=device)
+        keys, fn = [], trainer.train_epoch_fn
+
+        def spy(state, k, *args):
+            keys.append(k)
+            return fn(state, k, *args)
+
+        trainer.train_epoch_fn = spy
+        init = trainer.state.params.clone()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        reset_kernel_launches()
+        eager_step.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        trainer.train_epoch_fn = fn
+        return SimpleNamespace(trainer=trainer, rec=rec, keys=keys, init=init, data=data,
+                               seconds=time.perf_counter() - t0,
+                               launches={k: v for k, v in kernel_launches().items() if v},
+                               eager=eager_step.launches)
+
+    main = run(config("jax_random_out"))
+    fx_sd = state_dict_from_flax({"params": tree["params"]}, {"k": 512, **HQ})
+    layout = main.trainer.state.layout
+    check(torch.equal(main.init, layout.flat_from_state_dict(fx_sd, "cuda")),
+          "the Trainer's initial params are not the JAX package's")
+    check(torch.equal(main.data["train"].expected_rgbs.cpu(),
+                      torch.from_numpy(np.load(os.path.join(root, "train", "expected_rgbs.npy"))
+                                       [perm_host])),
+          "the train split is not shuffled by the JAX load-time permutation")
+    check(len(main.keys) == 1 and main.keys[0] == fold_in(key, 0),
+          f"the Trainer's epoch keys {main.keys}, want fold_in(PRNGKey({seed}), 0)")
+    launches = main.launches
+    check(launches == {"fused_mlp_fwd_bwd": nb, "fused_mlp_wgrad_adam": nb}
+          and main.eager == 0,
+          f"the epoch was not one fwd_bwd and one wgrad_adam per step: {launches}, "
+          f"{main.eager} eager steps")
+    graph = _graph_stats(main.trainer, kernel_launches(), nb, 1,
+                         ("fused_mlp_fwd_bwd", "fused_mlp_wgrad_adam"))
+    check(graph["host_dispatches_per_epoch"] == 1 and graph["graph_captures"] == 1,
+          f"not one graph replay for the epoch: {graph}")
+    losses = main.rec.values("Train_Loss")
+
+    yard = run(config("jax_random_loop", fused_adam=False))
+    check(yard.launches == {"fused_mlp_fwd_bwd": nb, "fused_mlp_wgrad": nb, "fused_adam": nb},
+          f"the fused_adam: false loop's launches {yard.launches}")
+    for name in ("params", "mu", "nu"):
+        check(torch.equal(getattr(yard.trainer.state, name), getattr(main.trainer.state, name)),
+              f"the fused_adam: false loop's {name} differ from the graph epoch's")
+    check(yard.rec.values("Train_Loss") == losses, "the loop's epoch loss differs")
+
+    twin = run(config("jax_random_twin"), device="cpu")
+    check(twin.keys == main.keys and torch.equal(twin.init, main.init.cpu()),
+          "the CPU run drew other keys or weights")
+    twin_losses = twin.rec.values("Train_Loss")
+    loss_err = abs(losses[0] - twin_losses[0]) / abs(twin_losses[0])
+    upd, upd_twin = main.trainer.state.params.cpu() - main.init.cpu(), \
+        twin.trainer.state.params - twin.init
+    update_err = float((upd - upd_twin).norm() / upd_twin.norm())
+    check(np.isfinite(losses).all() and loss_err <= LOSS_RTOL_TWIN,
+          f"the card's epoch loss {losses} against the plain twins' {twin_losses}")
+    rays = main.rec.values("Train Rays-per-sec")
+    emit("jax_random", fixture=os.path.relpath(JAX_RANDOM_FIXTURE, REPO), seed=seed, n=n,
+         batch=batch, steps_per_epoch=nb, draws_bit_equal=True, draw_ms=draw_ms,
+         run_s=main.seconds, epoch_rays_per_s=rays,
+         train_loss=losses, twin_train_loss=twin_losses, loss_rel_err=loss_err,
+         update_rel_err_vs_twin=update_err, twin_s=twin.seconds, launches=launches,
+         fused_adam_false_launches=yard.launches, fused_adam_false_bit_equal=True, **graph)
+    return {"train": launches, "loop": yard.launches}, train_leg_of(main.trainer, nb, batch)
 
 
 def phase_train_throughput():
@@ -2855,20 +3053,57 @@ DP_DEVICES = ["cuda:0", "cuda:0"]
 # one whole-block sum): Adam's first moment after one step (0.1 g) within
 # DP_GRAD_REL of its largest entry, the loss within DP_LOSS_REL; the params
 # within DP_PARAM_ATOL, as a gradient within rounding of 0 may flip the sign
-# of Adam's first update (lr each way). The BatchNorm step (sync-BN, f32
-# autograd) is held to the same gates, its running statistics to
-# DP_STATS_REL of their largest entry. Measured on an H100 at 700 W: the
-# kernel step's loss equal, first moment 3.4e-8, params 2.2e-8; the
-# BatchNorm step's loss equal, first moment 4.3e-7, statistics 2.3e-7.
+# of Adam's first update (lr each way). Measured on an H100 at 700 W: the
+# kernel step's loss equal, first moment 3.4e-8, params 2.2e-8. The
+# BatchNorm step (sync-BN, f32 autograd) normalises with batch statistics
+# summed in another order on each side, so a hidden pre-activation that
+# lies within rounding of 0 may take the other ReLU branch in the DP
+# forward than in the one-device one; behind a BatchNorm one such entry
+# moves the gradient by ~1e-3 of its largest entry (relu_flips in
+# tools/port_bn_step_precision.py: on the CPU every f32 step that lies
+# ~1e-3 from the f64 step has such a flip, every one without lies ~1e-6
+# from it, whatever the variance formula or the loss). So the BatchNorm
+# step is held to the one-device step taken along the DP forward's own
+# ReLU branches (relu_branches), at the same gates, its running statistics
+# to DP_STATS_REL of their largest entry; the flips and the distance to the
+# one-device step on its own branches are recorded.
 DP_GRAD_REL, DP_LOSS_REL, DP_STATS_REL = 1e-4, 1e-5, 1e-5
 DP_PARAM_ATOL = 2 * 1e-4 + 1e-6
+
+
+@contextlib.contextmanager
+def relu_branches(force=None):
+    """While open, every nn.ReLU call appends its branch mask (input > 0)
+    to the yielded list, in call order; given `force` (masks in call
+    order), it returns input * mask instead, so that the forward and
+    autograd take those branches (an entry on the other branch lies within
+    rounding of 0, where both give ~0)."""
+    import torch
+
+    seen = []
+
+    def hook(module, args, output):
+        if not isinstance(module, torch.nn.ReLU):
+            return None
+        x = args[0]
+        mask = x.detach() > 0 if force is None else force[len(seen)]
+        seen.append(mask)
+        return None if force is None else x * mask.to(x.dtype)
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
 
 
 def _dp_step_vs_one_device(make, dp_kw, sd_kw, data, lr=1e-4):
     """One DP step (block 0 of each replica's shard) and one one-device
     step (block 0 of the table: the same 4096 rows) from the same fresh
-    state, counters set to 0 just before the DP step and read just after.
-    Returns (the comparison, the DP step's launches)."""
+    state, counters set to 0 just before the DP step and read just after;
+    a BatchNorm model's one-device step again along the DP forward's ReLU
+    branches, which the gates then read. Returns (the comparison, the DP
+    step's launches)."""
     import torch
 
     from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import (kernel_launches,
@@ -2879,19 +3114,34 @@ def _dp_step_vs_one_device(make, dp_kw, sd_kw, data, lr=1e-4):
 
     D = len(DP_DEVICES)
     model = make()
-    st_dp, st_sd = (create_train_state(model, AdamHyper(lr)) for _ in range(2))
+    st_dp, st_sd, st_br = (create_train_state(model, AdamHyper(lr)) for _ in range(3))
     dp_train, _ = make_dp_epoch_fns(model, "L1", DP_DEVICES, shuffle="blocks", **dp_kw)
     sd_train, _ = make_epoch_fns(model, "L1", shuffle="blocks", **sd_kw)
-    reset_kernel_launches()
-    _, m_dp = dp_train(st_dp, np.zeros((D, 1), np.int64), data, 1, 4096)
-    torch.cuda.synchronize()
-    launches = kernel_launches()
-    _, m_sd = sd_train(st_sd, np.zeros(1, np.int64), data, 1, 4096)
+    one_block = np.zeros(1, np.int64)
+    with relu_branches() as dp_masks:
+        reset_kernel_launches()
+        _, m_dp = dp_train(st_dp, np.zeros((D, 1), np.int64), data, 1, 4096)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+    with relu_branches() as sd_masks:
+        _, m_sd = sd_train(st_sd, one_block, data, 1, 4096)
     rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
-    cmp = {"loss_rel": abs(float(m_dp["loss"]) / float(m_sd["loss"]) - 1),
-           "mu_rel": rel(st_dp.mu, st_sd.mu), "nu_rel": rel(st_dp.nu, st_sd.nu),
-           "params_max_abs": (st_dp.params - st_sd.params).abs().max().item(),
-           "replicas_bit_equal": _replicas_bit_equal(dp_train)}
+    cmp = {}
+    if st_sd.batch_stats:
+        # the replicas' forwards run in step: layer l of replica d is call l D + d
+        L = len(sd_masks)
+        check(len(dp_masks) == L * D, f"dp_bn: {len(dp_masks)} ReLU calls, not {L} x {D}")
+        branches = [torch.cat([dp_masks[i * D + d].to(sd_masks[i].device) for d in range(D)])
+                    for i in range(L)]
+        with relu_branches(branches):
+            _, m_br = sd_train(st_br, one_block, data, 1, 4096)
+        cmp = {"relu_flips": int(sum((a != b).sum() for a, b in zip(branches, sd_masks))),
+               "mu_rel_own_branches": rel(st_dp.mu, st_sd.mu)}
+        st_sd, m_sd = st_br, m_br
+    cmp.update({"loss_rel": abs(float(m_dp["loss"]) / float(m_sd["loss"]) - 1),
+                "mu_rel": rel(st_dp.mu, st_sd.mu), "nu_rel": rel(st_dp.nu, st_sd.nu),
+                "params_max_abs": (st_dp.params - st_sd.params).abs().max().item(),
+                "replicas_bit_equal": _replicas_bit_equal(dp_train)})
     if st_sd.batch_stats:
         cmp["stats_rel"] = max(rel(st_dp.batch_stats[k].float(), v.float())
                                for k, v in st_sd.batch_stats.items() if v.is_floating_point())
@@ -2986,7 +3236,8 @@ def phase_dp(p):
          train_rays_per_s=rays, step_wall_ms=[4096e3 / r for r in rays],
          cited_one_device_graph_step_wall_ms=[0.0853, 0.0873],
          replicas_bit_equal=True, step_vs_one_device=step_cmp, allreduce=allreduce,
-         gates={"grad_rel": DP_GRAD_REL, "loss_rel": DP_LOSS_REL, "param_atol": DP_PARAM_ATOL})
+         gates={"grad_rel": DP_GRAD_REL, "loss_rel": DP_LOSS_REL,
+                "param_atol": DP_PARAM_ATOL})
 
     # BatchNorm: the one-device Trainer, then one sync-BN DP step
     bn_cfg = _hq_train_config(p, "bn_out", 2)
@@ -3081,10 +3332,11 @@ def phase_dp(p):
 # angles within ANGLE_DEG on the leading span that a spectral gap of
 # SPAN_GAP (of the largest eigenvalue) separates from the rest. The solve
 # polishes with refine_filter="host": with the default f32 device
-# pre-filter the top of the 513-function window does not converge (one
-# degree-60 pass spans ~e^30 across the window, beyond f32), measured on
-# the CPU at 1.45e-4 of the largest (the JAX package: 9.4e-5), residual
-# 0.03; the all-f64 polish reaches 3e-15 and 5e-9. The dense path's f32
+# pre-filter the top of the 513-function window sits at f32's limit (one
+# degree-60 pass spans ~e^30 across the window), measured on the CPU from
+# the JAX start block at 6.1e-5 of the largest (the JAX package: 9.4e-5;
+# tools/port_chefsi_start_block.py), a hair under EIG_REL; the all-f64
+# polish reaches 3e-15 and 5e-9. The dense path's f32
 # eigh is backward stable: |d lambda| <= DENSE_EPS_MULT * eps32 * ||C||
 # (Gershgorin); measured on blob clouds through pc_vert_robust, k=65: the
 # CPU's LAPACK 2.0-2.3 eps ||C|| at 5,000 points, the H100's cuSOLVER 4.9
@@ -3440,7 +3692,7 @@ def profile_train_epoch(train_leg, leg):
     device time over that epoch's wall time (`replay_share_of_wall`)."""
     import torch
 
-    from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
+    from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey, fold_in
 
     train_epoch, state, data = train_leg.train_epoch, train_leg.state, train_leg.data
     nb, B = train_leg.steps_per_epoch, train_leg.batch
@@ -3448,7 +3700,7 @@ def profile_train_epoch(train_leg, leg):
     graph.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, m = train_epoch(state, epoch_generator(0, 98), data, nb, B)
+    _, m = train_epoch(state, fold_in(PRNGKey(0), 98), data, nb, B)
     float(m["loss"])
     plain_wall_ms = 1e3 * (time.perf_counter() - t0)
     replay_ms = graph.events[0].elapsed_time(graph.events[1])
@@ -3459,7 +3711,7 @@ def profile_train_epoch(train_leg, leg):
     with PaddedProfile() as p:
         t0 = time.perf_counter()
         start.record()
-        _, m = train_epoch(state, epoch_generator(0, 99), data, nb, B)
+        _, m = train_epoch(state, fold_in(PRNGKey(0), 99), data, nb, B)
         stop.record()
         float(m["loss"])
         wall_us = 1e6 * (time.perf_counter() - t0)
@@ -3487,13 +3739,13 @@ def profile_eager_steps(run, leg, steps=NEUTEX_PROFILE_STEPS):
     step."""
     import torch
 
-    from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
+    from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey, fold_in
 
     train_epoch, state, data, B = run
     torch.cuda.synchronize()
     with PaddedProfile() as p:
         t0 = time.perf_counter()
-        _, m = train_epoch(state, epoch_generator(0, 97), data, steps, B)
+        _, m = train_epoch(state, fold_in(PRNGKey(0), 97), data, steps, B)
         float(m["loss"])
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_kernel, counts, port, margins = _profiled_kernels(p, leg)
@@ -3515,19 +3767,19 @@ def profile_dp_epoch(run, leg):
     kernel; the unprofiled epoch's wall time beside it."""
     import torch
 
-    from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
+    from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey, fold_in
 
     train_epoch, state, data = run.train_epoch, run.state, run.data
     nb, B = run.steps_per_epoch, run.batch
     D = len(train_epoch.devices)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, m = train_epoch(state, epoch_generator(0, 98), data, nb, B)
+    _, m = train_epoch(state, fold_in(PRNGKey(0), 98), data, nb, B)
     float(m["loss"])
     plain_wall_ms = 1e3 * (time.perf_counter() - t0)
     with PaddedProfile() as p:
         t0 = time.perf_counter()
-        _, m = train_epoch(state, epoch_generator(0, 99), data, nb, B)
+        _, m = train_epoch(state, fold_in(PRNGKey(0), 99), data, nb, B)
         float(m["loss"])
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_kernel, counts, port, margins = _profiled_kernels(p, leg)
@@ -3693,11 +3945,13 @@ def main():
     pipe = timed("hq_pipeline", lambda: phase_hq_preprocess(prep))
     train_launches, yard_launches, hq_train_leg = timed("hq_train", lambda: phase_hq_train(pipe))
     jax_ckpt = timed("jax_checkpoint", lambda: phase_jax_checkpoint(pipe, hq_leg, eval_launches))
+    # what a seed means: the JAX draws held to their fixture, then an HQ epoch from them
+    jax_rand, jax_rand_leg = timed("jax_random", lambda: phase_jax_random(pipe))
     bench_arrays, tput_train = timed("train_throughput", phase_train_throughput)
     timed("bench", lambda: phase_bench(bench_arrays, tp_render, tput_train, smi))
     del bench_arrays
     trows = timed("train_kernels", lambda: phase_train_kernels(
-        {"hq_train": hq_train_leg, "train_throughput": tput_train}))
+        {"hq_train": hq_train_leg, "train_throughput": tput_train, "jax_random": jax_rand_leg}))
     vd_launches, vd_yard_launches, vd_render, vd_train_leg = timed(
         "viewdep_train", lambda: phase_viewdep_train(pipe))
     vrows = timed("viewdep_kernels", lambda: phase_viewdep_kernels(vd_train_leg, vd_render))
@@ -3794,6 +4048,7 @@ def main():
             kernels[-1]["launches_by_path"] = {
                 "hq_train": train_launches[name],
                 "jax_checkpoint_resume": jax_ckpt["resume"][name],
+                "jax_random": jax_rand["train"][name],
                 **{f: fam_paths[f]["train"][name] for f in FAMILY_RECIPES},
                 "bench_train": tput_train.launches[name]}
         if name in dp_paths["dp_train"]:

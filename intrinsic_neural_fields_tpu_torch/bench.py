@@ -40,7 +40,7 @@ from .models import make_model
 from .ops.fused_mlp import kernel_launches, reset_kernel_launches
 from .render.renderer import Renderer
 from .train.steps import AdamHyper, create_train_state, make_epoch_fns
-from .train.trainer import epoch_generator
+from .utils.jax_random import PRNGKey, fold_in
 from .utils.pipeline import pipelined_foreach
 
 # bench.py:26-33, the workload of configs/texture_reconstruction/intrinsic_cat.yaml
@@ -137,7 +137,8 @@ def train_leg(arrays, device="cuda", epochs=EPOCHS, group=GROUP, batch=BATCH, mo
     train step with Adam. One warm epoch (on the card it captures the
     epoch's CUDA graph), then max(epochs // group, 1) timed groups of
     `group` epochs, each closed by one synchronize. Epoch e shuffles its
-    blocks with train/trainer.py:epoch_generator(SEED, e). model: a
+    blocks as bench.py's do: the warm epoch from key = PRNGKey(SEED), epoch
+    e from fold_in(key, e) (utils/jax_random.py). model: a
     TextureField to train (default: make_model(model_config(k), seed=0)).
 
     On the card every epoch must be one graph replay of two launches per
@@ -161,7 +162,8 @@ def train_leg(arrays, device="cuda", epochs=EPOCHS, group=GROUP, batch=BATCH, mo
 
     reset_kernel_launches()
     replays0 = train_epoch.graph.replays
-    state, m = train_epoch(state, epoch_generator(SEED, 0), data, nb, batch)
+    key = PRNGKey(SEED)
+    state, m = train_epoch(state, key, data, nb, batch)
     losses = [m["loss"]]
     _sync(dev)
     # Chain the epochs of a group with ONE final sync: a real training run
@@ -175,7 +177,7 @@ def train_leg(arrays, device="cuda", epochs=EPOCHS, group=GROUP, batch=BATCH, mo
         t0 = time.perf_counter()
         for _ in range(group):
             e += 1
-            state, m = train_epoch(state, epoch_generator(SEED, e), data, nb, batch)
+            state, m = train_epoch(state, fold_in(key, e), data, nb, batch)
             losses.append(m["loss"])
         _sync(dev)
         times.append((time.perf_counter() - t0) / group)

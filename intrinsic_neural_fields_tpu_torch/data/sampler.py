@@ -25,6 +25,7 @@ import torch
 from .. import resolve_device
 from ..ops.interpolate import interpolate_vertex_features
 from ..spectral.features import load_first_k_eigenfunctions
+from ..utils.jax_random import PRNGKey, permutation
 from .load import load_preprocessed_data
 
 # Precompute hit features only while the [N,k] matrix stays under this budget
@@ -141,8 +142,8 @@ def create_ray_data(preproc_data_path, eigenfunctions_path, k, feature_strategy=
     for "efuncs", the mesh's f32 vertex positions for "xyz", "ff", "rff".
 
     shuffle_once: permute the records once, by `perm` when given (an [N]
-    index array, e.g. a replayed ``jax.random.permutation``), else by
-    ``torch.randperm`` from a generator seeded with `seed`."""
+    index array), else by ``permutation(PRNGKey(seed), N)``, the JAX
+    package's load-time shuffle (utils/jax_random.py)."""
     dev = resolve_device(device)
     if feature_strategy == "efuncs":
         features = load_first_k_eigenfunctions(
@@ -159,7 +160,7 @@ def create_ray_data(preproc_data_path, eigenfunctions_path, k, feature_strategy=
     order = None
     if shuffle_once and n > 1:
         if perm is None:
-            perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+            perm = permutation(PRNGKey(seed), n)
         order = torch.as_tensor(np.array(perm), dtype=torch.int64)
         if order.shape != (n,):
             raise ValueError(f"perm must have shape ({n},), got {tuple(order.shape)}")

@@ -71,16 +71,15 @@ class FourierFeatEnc(nn.Module):
 class RandomFourierFeatEnc(nn.Module):
     """Gaussian random Fourier features (JAX ``RandomFourierFeatEnc``):
     ``[cos | sin | x]`` of ``(2 pi x) @ B``, B ~ N(0, std^2) of shape
-    [in_dim, k] drawn from `generator` (a ``torch.Generator``; the CPU
-    default generator when None). B is a persistent buffer: checkpoints
-    carry it and gradients never reach it."""
+    [in_dim, k]. B starts at zero: ``models/factory.make_model`` loads the
+    one the JAX package draws (``utils/jax_random.rff_projection``). B is
+    a persistent buffer: checkpoints carry it and gradients never reach it."""
 
-    def __init__(self, k, std=1.0, in_dim=3, include_input=True, generator=None):
+    def __init__(self, k, std=1.0, in_dim=3, include_input=True):
         super().__init__()
         self.k, self.include_input = k, include_input
         self.out_dim = 2 * k + (in_dim if include_input else 0)
-        B = torch.randn((in_dim, k), generator=generator, dtype=torch.float32) * std
-        self.register_buffer("B", B)
+        self.register_buffer("B", torch.zeros((in_dim, k), dtype=torch.float32))
 
     def forward(self, x):
         x2 = (2.0 * math.pi) * x

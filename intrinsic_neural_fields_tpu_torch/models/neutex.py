@@ -37,11 +37,11 @@ where dense.0 takes the encoding, dense.1 .. dense.{num_layers} are the
 hidden layers and dense.{num_layers + 1} is the RGB head. Linear weights
 are [out, in], the transpose of a flax kernel.
 
-Initialization (``init_neutex_weights``): Xavier-uniform, gain 1 except
-the texture layers a LeakyReLU follows (gain sqrt(2 / (1 + 0.2^2))), zero
-biases, drawn in module order from a seeded torch.Generator (the two
-frameworks' random streams differ, so equal seeds do not give equal
-weights). The mapping networks are then overwritten by the pretrained
+Initialization: the JAX package's, drawn to its bits by
+``utils/jax_random.neutex_params`` (``models/factory.make_model``):
+Xavier-uniform, gain 1 except the texture layers a LeakyReLU follows (gain
+sqrt(2 / (1 + 0.2^2))), zero biases, each kernel from flax's key for its
+module path. The mapping networks are then overwritten by the pretrained
 mapping (``load_pretrained_mapping``) and keep training.
 
 Numerics: f32 throughout; the package keeps TF32 off (the mapping is
@@ -50,7 +50,6 @@ in f32.
 """
 from __future__ import annotations
 
-import math
 import os
 
 import numpy as np
@@ -58,17 +57,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.jax_random import normal
 from .encoders import FourierFeatEnc
 
 _LEAKY_SLOPE = 0.2
-_LEAKY_GAIN = float(np.sqrt(2.0 / (1.0 + _LEAKY_SLOPE ** 2)))
 MAPPING_NETS = ("net_inverse_atlasnet_3d_to_uv", "net_atlasnet_uv_to_3d")
-
-
-def _linear(in_dim, out_dim, gain=1.0):
-    lin = nn.Linear(in_dim, out_dim)
-    lin.init_gain = gain  # read by init_neutex_weights
-    return lin
 
 
 class MappingMLP(nn.Module):
@@ -80,10 +73,10 @@ class MappingMLP(nn.Module):
         if activation not in ("relu", "softplus"):
             raise ValueError(f"unknown mapping activation {activation!r}")
         self.activation = activation
-        self.linear1 = _linear(in_dim, hidden_size)
+        self.linear1 = nn.Linear(in_dim, hidden_size)
         self.linear_list = nn.ModuleList(
-            _linear(hidden_size, hidden_size) for _ in range(num_layers))
-        self.last_linear = _linear(hidden_size, out_dim)
+            nn.Linear(hidden_size, hidden_size) for _ in range(num_layers))
+        self.last_linear = nn.Linear(hidden_size, out_dim)
 
     def forward(self, x):
         act = torch.relu if self.activation == "relu" else F.softplus
@@ -133,8 +126,8 @@ class TextureMlp(nn.Module):
                                   max_freq=max_freq, in_dim=3)
         dims = [self.enc.out_dim] + [width] * (num_layers + 1)
         self.dense = nn.ModuleList(
-            [_linear(a, b, _LEAKY_GAIN) for a, b in zip(dims[:-1], dims[1:])]
-            + [_linear(width, 3)])
+            [nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:])]
+            + [nn.Linear(width, 3)])
 
     def forward(self, uv):
         h = self.enc(uv)
@@ -226,18 +219,6 @@ def make_neutex_train_wrapper_default(model_config):
                               max_freq=model_config.get("max_freq"))
 
 
-@torch.no_grad()
-def init_neutex_weights(model, generator):
-    """Xavier-uniform weights with each Linear's ``init_gain``, zero
-    biases, drawn in module order from `generator`."""
-    for mod in model.modules():
-        if isinstance(mod, nn.Linear):
-            fan_out, fan_in = mod.weight.shape
-            bound = getattr(mod, "init_gain", 1.0) * math.sqrt(6.0 / (fan_in + fan_out))
-            mod.weight.uniform_(-bound, bound, generator=generator)
-            mod.bias.zero_()
-
-
 # --------------------------------------------------------------------------
 # Pretrained mapping weights
 # --------------------------------------------------------------------------
@@ -321,10 +302,11 @@ def load_pretrained_mapping(model, pretrained_path):
     return model
 
 
-def sample_sphere_points(generator, n):
-    """n uniform points on S^2 [n, 3], on the generator's device
-    (normalized gaussians; pretraining's template sampling)."""
-    p = torch.randn((n, 3), generator=generator, device=generator.device)
+def sample_sphere_points(key, n, device="cpu"):
+    """n uniform points on S^2 [n, 3] on `device`: JAX's
+    ``normal(key, (n, 3))`` (utils/jax_random.py), normalized
+    (pretraining's template sampling, JAX models/neutex.py:369-374)."""
+    p = normal(key, (n, 3), device=torch.device(device))
     return p / torch.sqrt((p * p).sum(-1, keepdim=True))
 
 

@@ -164,16 +164,15 @@ def run_fields_synced(steps, mean_moments):
 
 
 def _make_encoder(input_feature_embed, embed_dim=None, include_input=True, std=1.0,
-                 use_logspace=True, max_freq=None, generator=None):
+                 use_logspace=True, max_freq=None):
     """The encoder module of an input family: FourierFeatEnc ("ff"),
-    RandomFourierFeatEnc ("rff", B drawn from `generator`), or None (raw
-    eigenfunctions or xyz)."""
+    RandomFourierFeatEnc ("rff", B zeros until the factory loads the
+    drawn one), or None (raw eigenfunctions or xyz)."""
     if input_feature_embed == "ff":
         return FourierFeatEnc(embed_dim, include_input=include_input,
                               use_logspace=use_logspace, max_freq=max_freq)
     if input_feature_embed == "rff":
-        return RandomFourierFeatEnc(embed_dim, std=std, include_input=include_input,
-                                    generator=generator)
+        return RandomFourierFeatEnc(embed_dim, std=std, include_input=include_input)
     if input_feature_embed in (None, "efuncs", "xyz"):
         return None
     raise ValueError(f"Unknown input feature embed: {input_feature_embed}")
@@ -186,13 +185,13 @@ class TextureField(nn.Module):
     "rff", 3 for "xyz"). input_feature_embed: None / "efuncs" (features
     come in as they are), "xyz", "ff" or "rff" (the input is the [N, 3]
     position); the embed_* arguments configure the encoder as in the JAX
-    TextureField, `generator` draws RFF's B."""
+    TextureField."""
 
     def __init__(self, in_dim, num_layers, hidden_dim, skip_layer_idx,
                  out_dim=RGB_COLOR_DIM, return_rgb=True, input_feature_embed=None,
                  embed_dim=None, embed_include_input=True, embed_std=1.0,
                  embed_use_logspace=True, embed_max_freq=None, activation="relu",
-                 batchnorm=False, generator=None):
+                 batchnorm=False):
         super().__init__()
         if not (num_layers > 2 and 0 < skip_layer_idx < num_layers - 1):
             raise ValueError(
@@ -202,7 +201,7 @@ class TextureField(nn.Module):
         if input_feature_embed == "efuncs":
             input_feature_embed = None
         embedding = _make_encoder(input_feature_embed, embed_dim, embed_include_input, embed_std,
-                                 embed_use_logspace, embed_max_freq, generator)
+                                 embed_use_logspace, embed_max_freq)
         want = 3 if input_feature_embed == "xyz" else getattr(embedding, "out_dim", in_dim)
         if in_dim != want:
             raise ValueError(f"input {input_feature_embed!r} feeds the MLP {want} columns, "
@@ -295,14 +294,14 @@ class TextureFieldWithViewDependency(nn.Module):
     from the mesh, so the state dict holds the upstream keys only);
     "extrinsic" encodes the unit ray direction itself. The spatial field
     takes `activation` and the input family (``input_feature_embed`` and
-    the embed_* keywords of TextureField, B drawn from `generator`), as in
+    the embed_* keywords of TextureField), as in
     the JAX package; the directional hidden layer takes `activation` too.
     ``batchnorm`` puts BatchNorm into the spatial field only (JAX :229, :267)."""
 
     def __init__(self, in_dim, num_layers, hidden_dim, skip_layer_idx, bottleneck_vec_dim,
                  in_dim_view_dir, include_view_dir, view_dir_embedding_size,
                  directional_hidden_dim, face_normals=None, view_dir_strategy="intrinsic",
-                 activation="relu", batchnorm=False, generator=None, **embed):
+                 activation="relu", batchnorm=False, **embed):
         super().__init__()
         want = {"intrinsic": 1, "extrinsic": 3}.get(view_dir_strategy)
         if want is None:
@@ -328,7 +327,7 @@ class TextureFieldWithViewDependency(nn.Module):
         self.spatial_mlp = TextureField(in_dim, num_layers, hidden_dim, skip_layer_idx,
                                         out_dim=bottleneck_vec_dim, return_rgb=False,
                                         activation=activation, batchnorm=batchnorm,
-                                        generator=generator, **embed)
+                                        **embed)
         self.input_feature_embed = self.spatial_mlp.input_feature_embed
         self.directional_mlp = nn.Sequential(
             nn.Linear(bottleneck_vec_dim + self.venc_dim, directional_hidden_dim),

@@ -14,9 +14,9 @@ Per step, on every replica:
     hit-feature table and the encoded view directions among them, is cut
     once into D contiguous n_used / D row shards, one on each device (cut
     at first use and kept); each device walks its own permutation of its
-    local_b = B / D row blocks (``order``: a generator, or an explicit
-    [D, num_batches] tensor, so a test can replay JAX's
-    ``permutation(fold_in(key, dev), num_batches)``). With ``fused`` the
+    local_b = B / D row blocks, JAX's ``permutation(fold_in(key, d),
+    num_batches)`` for device d (``order``: a utils/jax_random.Key, or an
+    explicit [D, num_batches] tensor). With ``fused`` the
     step is the train kernels' grads on the local block
     (``fused_train_grads``: fwd_bwd + the grads-only wgrad, or their
     view-dependent pair), then the mean all-reduce of the flat gradient,
@@ -24,7 +24,8 @@ Per step, on every replica:
     wgrad's epilogue here, because the reduction comes between them (JAX
     :65-73). A per-step host loop, no CUDA graph;
   - gather path and a ragged tail (JAX :492-528): one global permutation
-    (``order``: a generator or the explicit [n] permutation), padded with
+    (``order``: a Key, drawn as ``permutation(key, n)`` on devices[0] as
+    JAX draws it, or the explicit [n] permutation), padded with
     index 0 past n and cut into D contiguous parts; every device holds the
     replicated records and gathers its own part's batches. Rows past n are
     masked by position weights, and each replica's loss is sum(w l) * D /
@@ -78,6 +79,7 @@ from ..ops.fused_mlp import (
     make_train_scratch,
 )
 from ..train.losses import elementwise_loss
+from ..utils.jax_random import Key, fold_in, permutation
 from ..train.steps import (
     ModuleLayout,
     TrainState,
@@ -254,8 +256,8 @@ def replicate_ray_data(data, dev):
 
 
 def _block_orders(order, D, num_batches):
-    if isinstance(order, torch.Generator):
-        return [torch.randperm(num_batches, generator=order) for _ in range(D)]
+    if isinstance(order, Key):
+        return [torch.from_numpy(permutation(fold_in(order, d), num_batches)) for d in range(D)]
     t = torch.as_tensor(np.array(order), dtype=torch.int64)
     if t.shape != (D, num_batches):
         raise ValueError(f"the block orders must have shape ({D}, {num_batches}), "
@@ -270,7 +272,7 @@ def make_dp_epoch_fns(model, loss_type, devices, shuffle="full", fused=False, fu
     train.steps.make_epoch_fns, data-parallel over `devices` (a list, or a
     count of CUDA devices; see the module docstring).
 
-    train_epoch(state, generator_or_order, data, num_batches, batch_size)
+    train_epoch(state, key_or_order, data, num_batches, batch_size)
       updates `state` (replica 0) and the other replicas in place;
       ``train_epoch.replicas.states`` are the D train states.
       batch_size % D != 0 raises. ``fused`` needs a kernel-eligible field
@@ -386,8 +388,8 @@ def make_dp_epoch_fns(model, loss_type, devices, shuffle="full", fused=False, fu
             orders = _block_orders(order, D, num_batches)
             shards = shards_of(data, n_used)
         else:
-            perm = _order(order, n)
-            perm = (torch.cat([perm, torch.zeros(n_used - n, dtype=perm.dtype)]) if has_tail
+            perm = _order(order, n, dev0)
+            perm = (torch.cat([perm, perm.new_zeros(n_used - n)]) if has_tail
                     else perm[:n_used])
             per_dev = n_used // D
             reps = replicated(data)

@@ -15,10 +15,12 @@ A plain loop: each iteration is an f32 autograd step through
 (``fused_adam_apply``) on the flat gradient. The losses stay on the device;
 the host reads them every --steps_per_call iterations (the JAX tool's
 iterations per jitted call), so ceil(iterations / steps_per_call) *
-steps_per_call iterations run, as there. Sphere samples come from a
-torch.Generator seeded --seed on the device, the mesh subsample from
-numpy's default_rng(--seed), as in the JAX tool; the initial weights from
-a torch.Generator (the JAX tool's flax init draws another stream).
+steps_per_call iterations run, as there. The draws are the JAX tool's
+(utils/jax_random.py): the initial weights its flax init under
+PRNGKey(--seed), the sphere samples of iteration i of call c
+``normal(split(fold_in(PRNGKey(--seed), c), --steps_per_call)[i], (points,
+3))``, computed on the device, and the mesh subsample numpy's
+default_rng(--seed).
 
 The output .npz has the JAX package's '/'-joined flax keys
 (net_inverse_atlasnet_3d_to_uv/encoder_0/linear1/kernel, ...), so it plugs
@@ -79,11 +81,13 @@ def main(argv=None):
 
     from . import resolve_device
     from .geometry.mesh import load_mesh
-    from .models.neutex import MAPPING_NETS, init_neutex_weights, sample_sphere_points
-    from .models.neutex import mapping_tree_from_module
+    from .models.factory import neutex_params
+    from .models.neutex import (MAPPING_NETS, mapping_state_dicts_from_flax,
+                                mapping_tree_from_module, sample_sphere_points)
     from .ops.fused_mlp import adam_hyper_rows, fused_adam_apply
     from .train.steps import ModuleLayout
     from .utils.checkpoint import save_npz_pytree
+    from .utils.jax_random import PRNGKey, fold_in, split
 
     args = parse_args(argv)
     dev = resolve_device(args.device)
@@ -95,12 +99,15 @@ def main(argv=None):
     verts_d = torch.as_tensor(verts, device=dev)
 
     model = _mapping_module()
-    init_neutex_weights(model, torch.Generator().manual_seed(args.seed))
+    key = PRNGKey(args.seed)
+    init = neutex_params(key, prefix=(), texture=False)
+    for net, sd in zip(MAPPING_NETS, mapping_state_dicts_from_flax(*(init[n] for n in
+                                                                     MAPPING_NETS))):
+        getattr(model, net).load_state_dict(sd)
     model.to(dev)
     layout = ModuleLayout(model)
     params = layout.flat_from_state_dict(model.state_dict(), dev)
     m, v = torch.zeros_like(params), torch.zeros_like(params)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     spc = args.steps_per_call
     n_calls = -(-args.iterations // spc)
@@ -108,8 +115,8 @@ def main(argv=None):
     t0 = time.time()
     for call in range(n_calls):
         hyper = adam_hyper_rows(call * spc + 1 + torch.arange(spc), args.lr, device=dev)
-        for i in range(spc):
-            uv = sample_sphere_points(gen, args.points)
+        for i, k in enumerate(split(fold_in(key, call), spc)):
+            uv = sample_sphere_points(k, args.points, dev)
             p = params.detach().requires_grad_()
             loss, chamfer, cycle = torch.func.functional_call(model, layout.views(p),
                                                               (uv, verts_d))

@@ -94,6 +94,8 @@ def _dense_device(L, M, k, device="cuda"):
 def _lobpcg_device(L, M, k, tol=1e-6, maxiter=400, seed=0, device="cuda"):
     import torch
 
+    from ..utils.jax_random import PRNGKey, normal
+
     d = _as_diag_array(M)
     inv_sqrt = 1.0 / np.sqrt(d)
     n = L.shape[0]
@@ -111,9 +113,7 @@ def _lobpcg_device(L, M, k, tol=1e-6, maxiter=400, seed=0, device="cuda"):
         torch.as_tensor(np.stack([A.row, A.col]), dtype=torch.int64),
         torch.as_tensor(A.data, dtype=torch.float32), (n, n), device=device,
         check_invariants=False).coalesce()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    X0 = torch.randn(n, k, generator=gen, device=device, dtype=torch.float32)
+    X0 = normal(PRNGKey(seed), (n, k), device=device)  # JAX eigensolver.py:136
     # method="basic" (Knyazev's LOBPCG, as jax's lobpcg_standard): torch's
     # default "ortho" keeps iterating below f32's floor when tol is tighter
     # than f32 can reach and its Ritz values then drift (on icosphere(2),
@@ -202,10 +202,13 @@ def _chefsi_device(
 
     stats: a dict to fill with the wall seconds of the device loop and of
     the polish, the rounds of each, and the spmv calls of each.
-    Deterministic: seeded starts (a torch.Generator on `device`), fixed
-    iteration counts given the same inputs.
+    Deterministic: the JAX package's start blocks for `seed`
+    (utils/jax_random.py, computed on `device`), fixed iteration counts
+    given the same inputs.
     """
     import torch
+
+    from ..utils.jax_random import PRNGKey, fold_in, normal
 
     if refine_filter not in ("device", "host"):
         raise ValueError(f"refine_filter must be 'device' or 'host', got {refine_filter!r}")
@@ -224,9 +227,8 @@ def _chefsi_device(
         calls["spmv"] += 1
         return spmv_ell(X)
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    v = torch.randn(n, 1, generator=gen, device=device, dtype=torch.float32)
+    key = PRNGKey(seed)  # the JAX start blocks (eigensolver.py:256-315)
+    v = normal(key, (n, 1), device=device)
     for _ in range(50):
         u = spmv(v)
         v = u / torch.linalg.norm(u)
@@ -267,7 +269,7 @@ def _chefsi_device(
         per_pass = degree * 2.0 * np.sqrt(max(lam_cut / lam_max, 1e-12))
         return int(np.clip(np.ceil(4.0 / per_pass), 1, 12))
 
-    X = torch.randn(n, m, generator=gen, device=device, dtype=torch.float32)
+    X = normal(fold_in(key, 1), (n, m), device=device)
     X, theta, res = rayleigh_ritz(X)
     # Exit when the wanted residuals are small RELATIVE TO THE WANTED
     # EIGENVALUES (res / lam_cut; lam_max-relative would let an

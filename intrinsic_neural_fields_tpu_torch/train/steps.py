@@ -57,9 +57,11 @@ its ``mlp_core_view``.
 Adam numerics are ``optax.inject_hyperparams(optax.adam)``'s: per-step
 hyper rows (lr, bias corrections) come from ``adam_hyper_rows``, the lr is
 read from the state every epoch (the plateau scheduler writes it there).
-The shuffle order is an argument: a ``torch.Generator`` (the Trainer's,
-seeded from the config seed and the epoch) or an explicit permutation, so a
-test can replay the reference's ``jax.random.permutation``.
+The shuffle order is an argument: a ``utils/jax_random.Key`` (the
+Trainer's ``fold_in(base_key, epoch)``), from which the epoch draws what
+the JAX epoch draws from its key, ``permutation(key, num_batches)`` of the
+blocks or ``permutation(key, n)`` of the records (JAX train/steps.py:
+340-343), or an explicit permutation.
 
 Validation runs the f32 forward over every record (the last batch ragged)
 and reports the reference's per-sample metrics (its "epoch PSNR" uses the
@@ -94,6 +96,7 @@ from ..ops.fused_mlp import (
     make_train_scratch,
     prepare_train_kernels,
 )
+from ..utils.jax_random import Key, permutation
 from .losses import elementwise_loss
 
 
@@ -379,9 +382,13 @@ def module_inputs_fn(model):
 eager_step.launches = 0  # eager steps since the last reset
 
 
-def _order(order, size):
-    if isinstance(order, torch.Generator):
-        return torch.randperm(size, generator=order)
+def _order(order, size, device=None):
+    """The epoch's permutation of `size` as an int64 tensor: drawn from
+    `order` when it is a jax_random.Key (on the host, or on `device`: the
+    full shuffle's n records), else `order` itself."""
+    if isinstance(order, Key):
+        return (torch.from_numpy(permutation(order, size)) if device is None
+                else permutation(order, size, device=device))
     t = torch.as_tensor(np.array(order), dtype=torch.int64)
     if t.shape != (size,):
         raise ValueError(f"the shuffle order must have shape ({size},), got {tuple(t.shape)}")
@@ -497,12 +504,14 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
     fused_viewdep_eligible model (raises otherwise, as the JAX package
     asserts).
 
-    train_epoch(state, generator_or_order, data, num_batches, batch_size)
+    train_epoch(state, key_or_order, data, num_batches, batch_size)
         -> (state, {"loss", "sq_err_per_sample"}: 0-dim device tensors)
-      updates `state` in place. generator_or_order: a torch.Generator, or
+      updates `state` in place. key_or_order: a utils/jax_random.Key, or
       the permutation itself — of the num_batches blocks when the epoch
       streams blocks, else of the n records. ``train_epoch.graph``: the
       ``EpochGraph`` of its blocks + fused_adam epochs on the card.
+      ``train_epoch.prefetch(key, data, num_batches, batch_size)`` draws
+      the block order of the epoch given `key` ahead of it.
     val_epoch(state, data, batch_size) -> {"loss", "sq_err_per_sample"}
     """
     if shuffle not in ("full", "blocks"):
@@ -527,6 +536,11 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
                              "bottleneck and directional widths equal to the hidden width")
 
     graph = EpochGraph()
+    ahead = {}  # (key, num_batches) -> the block order prefetch drew
+
+    def streams_blocks(data, num_batches, B):
+        return (shuffle == "blocks" and data.hit_features is not None
+                and num_batches * B <= data.n)
 
     def adam_blocks_epoch(state, perm, data, num_batches, B, hyper_all, vencs):
         """The blocks + fused_adam epoch: two launches per step, Adam in
@@ -568,8 +582,11 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         if state.layout.spec != layout.spec:
             raise ValueError("the state's layout is not this model's")
         has_tail = num_batches * B > n
-        use_blocks = shuffle == "blocks" and data.hit_features is not None and not has_tail
-        perm = _order(order, num_batches if use_blocks else n)
+        use_blocks = streams_blocks(data, num_batches, B)
+        perm = ahead.pop((order, num_batches), None) if isinstance(order, Key) else None
+        if perm is None or not use_blocks:
+            perm = (_order(order, num_batches) if use_blocks
+                    else _order(order, n, state.params.device))
         use_fused = fused and not has_tail
         if viewdep:  # the tail kernels stream pre-encoded view directions and
             # the spatial input as it is (an encoder family trains eagerly)
@@ -637,7 +654,16 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
             acc_sq = acc_sq + ((pred - gt) ** 2).sum(-1).sum()
         return {"loss": acc_loss / n, "sq_err_per_sample": acc_sq / n}
 
+    def prefetch(key, data, num_batches, batch_size):
+        """Draw the block order `key` gives an epoch on these operands
+        before that epoch (host work the Trainer overlaps with the running
+        epoch's replay); the epoch given `key` then takes it."""
+        ahead.clear()
+        if streams_blocks(data, num_batches, batch_size):
+            ahead[(key, num_batches)] = _order(key, num_batches)
+
     train_epoch.graph = graph
+    train_epoch.prefetch = prefetch
     return train_epoch, val_epoch
 
 
@@ -679,7 +705,8 @@ def _module_epoch_fns(model, loss_type, shuffle, fused):
             raise ValueError("the state's layout is not this model's")
         use_blocks = (shuffle == "blocks" and data.hit_features is not None
                       and num_batches * B <= n)
-        perm = _order(order, num_batches if use_blocks else n)
+        perm = (_order(order, num_batches) if use_blocks
+                else _order(order, n, state.params.device))
         dev = state.params.device
         hyper_all = _adam_rows(state, num_batches)
         acc = torch.zeros(2, dtype=torch.float32, device=dev)  # loss, squared error

@@ -6,9 +6,15 @@ renders, best / interval / last / epoch-200 checkpoints and resume (from
 the port's checkpoint.pt or the JAX package's checkpoint.ckpt).
 
 As in the JAX package, min_val_loss starts at +inf, not 1.0 (reference
-trainer.py:237). The batch order of epoch e comes from a generator seeded
-with (config seed, e), so a resumed run replays the uninterrupted run's
-order; the checkpoint needs no RNG state.
+trainer.py:237). The batch order of epoch e is the JAX Trainer's: drawn
+from ``fold_in(base_key, e)`` (utils/jax_random.py), base_key being
+PRNGKey(config seed), or the rng_key of the checkpoint the run resumed
+from, so a resumed run replays the uninterrupted run's order (a blocks
+epoch's order is drawn on the host while the epoch before it runs on the
+card: ``train_epoch.prefetch``). Every
+checkpoint.pt the Trainer writes carries base_key; one without it (the
+upstream trainer's) resumes with PRNGKey(config seed), as the JAX Trainer
+does (JAX train/trainer.py:279-299).
 
 An xyz / ff / rff TextureField with ``training.fused_mlp`` trains as the
 JAX Trainer trains it (JAX train/trainer.py:91-121, 201-257): every split
@@ -53,13 +59,9 @@ from ..utils.checkpoint import (
     save_model,
     save_train_checkpoint,
 )
+from ..utils.jax_random import PRNGKey, fold_in
 from .plateau import ReduceLROnPlateau
 from .steps import TrainState, batch_stats_of, create_train_state, make_epoch_fns
-
-
-def epoch_generator(seed, epoch):
-    """The torch.Generator that shuffles epoch `epoch` of a run seeded `seed`."""
-    return torch.Generator().manual_seed((int(seed) * 0x9E3779B97F4A7C15 + int(epoch)) % 2**64)
 
 
 class ScalarFileWriter:
@@ -159,7 +161,7 @@ class Trainer:
         self.best_model_weights_path = os.path.join(self.out_dir, "model.pt")
         self.model_last_epoch_path = os.path.join(self.out_dir, "model_last_epoch.pt")
         self.best_state_dict = self.state.state_dict()
-        self.seed = config.get("seed", 0)
+        self.base_key = PRNGKey(config.get("seed", 0))
 
     # ------------------------------------------------------------ pre-embedding
 
@@ -205,11 +207,10 @@ class Trainer:
         """Resume from out_dir/checkpoint.pt when present (reference
         trainer.py:214-230), else from the JAX package's checkpoint.ckpt
         (its params, buffers, batch_stats, Adam moments, count and
-        hyperparameters). The JAX file's rng_key is not carried: the batch
-        order comes from the config seed (epoch_generator), as the JAX
-        Trainer's does when it resumes a torch checkpoint.pt. Later
-        checkpoints are written as checkpoint.pt. Returns the epoch to
-        start from."""
+        hyperparameters, and its rng_key as the base key of the epoch
+        orders). A checkpoint.pt without an rng_key keeps PRNGKey(config
+        seed). Later checkpoints are written as checkpoint.pt. Returns the
+        epoch to start from."""
         if self.checkpoint_every is None:
             return 0
         jax_path = os.path.join(self.out_dir, "checkpoint.ckpt")
@@ -217,11 +218,12 @@ class Trainer:
             print("Restoring from checkpoint...")
             ckpt = load_train_checkpoint(self.checkpoint_path)
         elif os.path.exists(jax_path):
-            print(f"Restoring from the JAX package's checkpoint {jax_path} (its rng_key is "
-                  "not carried: the batch order comes from the config seed)...")
+            print(f"Restoring from the JAX package's checkpoint {jax_path}...")
             ckpt = load_jax_train_checkpoint(jax_path, self.config["model"])
         else:
             return 0
+        if ckpt["rng_key"] is not None:
+            self.base_key = ckpt["rng_key"]
         buffers = self.state.buffers
         self.state = TrainState.from_torch(self.state.layout, ckpt["model_state_dict"],
                                            ckpt["adam"], self.device)
@@ -331,8 +333,13 @@ class Trainer:
             with (self._profiler() if profiling else contextlib.nullcontext()) as prof:
                 t0 = time.time()
                 self.state, metrics = self.train_epoch_fn(
-                    self.state, epoch_generator(self.seed, epoch), self.train_data,
+                    self.state, fold_in(self.base_key, epoch), self.train_data,
                     num_batches, self.batch_size)
+                prefetch = getattr(self.train_epoch_fn, "prefetch", None)
+                if prefetch is not None and epoch + 1 < self.epochs:
+                    # the next epoch's block order, drawn while this one runs on the card
+                    prefetch(fold_in(self.base_key, epoch + 1), self.train_data, num_batches,
+                             self.batch_size)
                 train_loss = float(metrics["loss"])  # waits for the epoch's device work
                 train_mse = float(metrics["sq_err_per_sample"])
                 t1 = time.time()
@@ -369,14 +376,14 @@ class Trainer:
 
             if self.checkpoint_every is not None and epoch % self.checkpoint_every == 0:
                 print("Saving checkpoint...")
-                save_train_checkpoint(self.checkpoint_path, epoch, self.state)
+                save_train_checkpoint(self.checkpoint_path, epoch, self.state, self.base_key)
                 print("Done.")
 
             if epoch > 0 and (epoch + 1) == 200:
                 # persistent snapshot at epoch 200 (reference trainer.py:315-331)
                 print(f"Persisting checkpoint at {epoch}...")
                 save_train_checkpoint(os.path.join(self.out_dir, f"checkpoint_{epoch}.pt"),
-                                      epoch, self.state)
+                                      epoch, self.state, self.base_key)
                 save_model(os.path.join(self.out_dir, f"best_model_checkpoint_{epoch}.pt"),
                            self.best_state_dict)
                 print("Done.")

@@ -4,10 +4,12 @@
       a raw state dict (Linear weights [out, in]; an RFF field's projection
       as ``embedding.B``, a buffer, so no optimizer state refers to it);
   checkpoint.pt, checkpoint_<e>.pt
-      {"epoch", "model_state_dict", "optimizer_state_dict"}, the optimizer
-      state in torch.optim.Adam's layout: state[i] = {step, exp_avg,
-      exp_avg_sq} per parameter in module order, one param group
-      {lr, betas, eps, ...}.
+      {"epoch", "model_state_dict", "optimizer_state_dict", "rng_key"}, the
+      optimizer state in torch.optim.Adam's layout: state[i] = {step,
+      exp_avg, exp_avg_sq} per parameter in module order, one param group
+      {lr, betas, eps, ...}; rng_key the run's base key (int64 [2], the
+      words of utils/jax_random.Key), which the upstream trainer's files
+      lack.
 
 The reference package's ``load_reference_train_checkpoint`` reads these
 files, and this module reads its exports, so training moves between the
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from .flax_msgpack import is_flax_msgpack, load_flax_msgpack
+from .jax_random import Key
 
 
 def _atomic_save(obj, path):
@@ -58,8 +61,9 @@ def _param_names(state_dict):
     return [k for k in state_dict if k.endswith(".weight") or k.endswith(".bias")]
 
 
-def save_train_checkpoint(path, epoch, state):
-    """`state`: a train/steps.TrainState."""
+def save_train_checkpoint(path, epoch, state, rng_key=None):
+    """`state`: a train/steps.TrainState; `rng_key`: the run's base key
+    (a utils/jax_random.Key), stored when given."""
     if state.hyper.eps_root != 0.0:
         raise ValueError("torch's Adam layout cannot hold eps_root != 0")
     sd = state.state_dict("cpu")
@@ -67,7 +71,10 @@ def save_train_checkpoint(path, epoch, state):
     names = _param_names(sd)
     h = state.hyper
     step = torch.tensor(float(state.count))
+    extra = {} if rng_key is None else {
+        "rng_key": torch.tensor([rng_key.hi, rng_key.lo], dtype=torch.int64)}
     _atomic_save({
+        **extra,
         "epoch": int(epoch),
         "model_state_dict": sd,
         "optimizer_state_dict": {
@@ -85,8 +92,9 @@ def save_train_checkpoint(path, epoch, state):
 
 def load_train_checkpoint(path):
     """{"epoch", "model_state_dict", "adam": {count, mu, nu, lr, b1, b2,
-    eps}} from a checkpoint.pt of either package (or of the upstream torch
-    trainer; its DataParallel ``module.`` prefix is stripped)."""
+    eps}, "rng_key"} from a checkpoint.pt of either package (or of the
+    upstream torch trainer; its DataParallel ``module.`` prefix is
+    stripped). rng_key: the stored utils/jax_random.Key, else None."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if not (isinstance(obj, dict) and "optimizer_state_dict" in obj):
         raise ValueError(f"{path}: not a training checkpoint (no optimizer_state_dict)")
@@ -115,7 +123,9 @@ def load_train_checkpoint(path):
     if len(steps) != 1:
         raise ValueError(f"{path}: per-parameter Adam step counts disagree: {sorted(steps)}")
     b1, b2 = group["betas"]
+    key = obj.get("rng_key")
     return {"epoch": int(obj["epoch"]), "model_state_dict": sd,
+            "rng_key": None if key is None else Key.of(np.asarray(key)),
             "adam": {"count": steps.pop(), "mu": mu, "nu": nu, "lr": float(group["lr"]),
                      "b1": float(b1), "b2": float(b2), "eps": float(group["eps"])}}
 
@@ -168,8 +178,8 @@ def load_jax_train_checkpoint(path, model_config):
     "adam"} from the JAX package's checkpoint.ckpt: its params, buffers
     (RFF's B) and batch_stats as the state dict, its
     ``inject_hyperparams(adam)`` state as the Adam dict (count, moments,
-    lr, betas, eps, eps_root). Its ``rng_key`` is not read: the port's
-    batch order comes from the config seed."""
+    lr, betas, eps, eps_root), and its ``rng_key`` as a
+    utils/jax_random.Key (None when the file has none)."""
     from .weights import adam_state_from_optax, state_dict_from_flax
 
     data = _read(path)
@@ -179,7 +189,9 @@ def load_jax_train_checkpoint(path, model_config):
     missing = {"epoch", "params", "opt_state"} - set(tree)
     if missing:
         raise ValueError(f"{path}: not a JAX train checkpoint (no {sorted(missing)})")
+    key = tree.get("rng_key")
     return {"epoch": int(tree["epoch"]),
+            "rng_key": None if key is None else Key.of(key),
             "model_state_dict": state_dict_from_flax(tree, model_config),
             "adam": adam_state_from_optax(tree["opt_state"], model_config)}
 

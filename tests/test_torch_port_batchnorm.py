@@ -34,6 +34,7 @@ from intrinsic_neural_fields_tpu_torch.models.texture_field import BN_EPS, BN_MO
 from intrinsic_neural_fields_tpu_torch.spectral.eigensolver import compute_first_k_eigenfunctions
 from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, create_train_state,
                                                            make_epoch_fns)
+from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey
 from intrinsic_neural_fields_tpu_torch.utils.weights import (load_reference_weights,
                                                              state_dict_from_flax)
 
@@ -259,7 +260,7 @@ def test_bn_model_pt_round_trips_through_the_jax_converter(bn_experiment, tmp_pa
     state = create_train_state(tmodel, AdamHyper(1e-3), "cpu")
     _, td = _datasets(512, None)
     train, _ = make_epoch_fns(tmodel, "L1")
-    state, _ = train(state, torch.Generator().manual_seed(0), td, 2, 256)
+    state, _ = train(state, PRNGKey(0), td, 2, 256)
     path = str(tmp_path / "model.pt")
     save_model(path, state.state_dict())
     sd = torch.load(path, weights_only=True)

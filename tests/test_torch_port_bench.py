@@ -68,11 +68,12 @@ def test_make_arrays_equals_bench_py(monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
-def test_train_leg_tracks_the_jax_fused_blocks_epoch(models, monkeypatch):
+def test_train_leg_tracks_the_jax_fused_blocks_epoch(models):
     """bench.py's bench_ours on the JAX package (fused blocks epochs, Pallas
     in interpret mode) against the port's train_leg on the same arrays and
-    weights, JAX's block orders replayed, a warm epoch and one timed group
-    of one epoch each. The leg runs the kernels' plain twins, not the eager
+    weights, the same epoch keys (the leg draws JAX's block orders from
+    PRNGKey(0) and fold_in(key, 1), as bench.py does), a warm epoch and
+    one timed group of one epoch each. The leg runs the kernels' plain twins, not the eager
     step. Losses agree to rtol 2e-3 (tests/test_torch_port_train.py's
     bound) and the loss drop between the epochs to rtol 5e-2. At bench.py's
     lr of 1e-4 over 8 steps a weight moves by at most 8e-4, so the weights
@@ -100,8 +101,6 @@ def test_train_leg_tracks_the_jax_fused_blocks_epoch(models, monkeypatch):
         jst, jm = j_epoch(jst, k, jd, nb, SMALL_B)
         jlosses.append(float(jm["loss"]))
 
-    monkeypatch.setattr(bench, "epoch_generator",
-                        lambda seed, e: np.asarray(jax.random.permutation(keys[e], nb)))
     before = eager_step.launches
     leg = bench.train_leg(arrays, device="cpu", epochs=1, group=1, batch=SMALL_B, model=tmodel)
     assert eager_step.launches == before

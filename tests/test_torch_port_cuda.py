@@ -453,13 +453,76 @@ def test_neutex_eager_step_on_card_tracks_cpu(cuda):
 # contract takes: batch sizes from one row to 64 clusters (ragged ones too),
 # feature widths that are and are not whole 16-byte rows (16, 100, 512,
 # 1023), bf16 and f32 tables, the plain and the view-dependent chain. L2
-# mode: loss and squared-error sums rel 1e-5, activations ||d||/||x|| <=
-# 1e-3 (ACT_TOL of chip_smoke.py); cotangent mode (a continuous seed): the
-# deltas <= 5e-2 and the bias sums <= 2e-2 (DELTA_TOL, BIAS_TOL); a second
-# run gives the same bits.
+# mode: activations ||d||/||x|| <= 1e-3 (ACT_TOL of chip_smoke.py); loss
+# and squared-error sums rel 1e-5 against the twin's. Where the kernel's
+# activations are not the twin's to the bit (its f32 sums run in another
+# order, so an entry a few ulps from a bf16 rounding boundary rounds to the
+# other side: at k=1023 and B <= 65 on make_model's seed-1 weights,
+# tools/port_fwd_bwd_flips.py), every differing entry is explained at its
+# own layer (_unexplained_flips) and the sums are held, rel 1e-5, to the
+# twin's epilogue on the kernel's own last activations; cotangent mode (a
+# continuous seed): the deltas <= 5e-2 and the bias sums <= 2e-2
+# (DELTA_TOL, BIAS_TOL); a second run gives the same bits.
 FB_SHAPES = ([(B, k) for B in (1, 64, 65, 1000, 4096) for k in (16, 100, 512, 1023)]
              # the xyz and tf_rff_blob fields' embedded widths
              + [(B, k) for B in (1, 1000, 4096) for k in (3, 515)])
+# An entry explained as a flip: its kernel value is bf16(relu(.)) of some
+# point within sqrt(n) u sum|terms| of its exact (f64) pre-activation on the
+# kernel's own inputs (u = 2^-24, n the layer's terms: the statistical
+# error of an n-term f32 sum; the f32 twin on the CPU lies within
+# 0.31 u sum|terms| of the exact one at every entry it rounds otherwise);
+# at most FLIP_SHARE of a layer's entries (that twin: 7e-5) or FLIP_COUNT,
+# whichever is more (on the card at B=1, k=1023: 1 of layer 0's 128).
+FLIP_SHARE, FLIP_COUNT = 1e-3, 2
+
+
+def _unexplained_flips(F, layout, params, x, venc, acts):
+    """Per relu layer of the kernel's chain: (entries that differ from the
+    layer's exact pre-activations on the kernel's own previous activations
+    [its first layer's on x, the view rows on venc] through relu, rounded
+    to f32 then bf16; of those, entries not explained as a flip)."""
+    nh, B = len(layout.layers), x.shape[0]
+    mats = [F._bf16(m.float()).double() for m in layout.mats(params)]
+    biases = [b.double() for b in layout.biases(params)]
+    A = acts.view(nh, B, -1).double()
+    src = {"x": F._bf16(x[:, :layout.spec.k_in].float()).double()}
+    if venc is not None:
+        src["v"] = F._bf16(venc[:, :layout.tail.venc_in].float()).double()
+    out = []
+    for i, lay in enumerate(layout.layers):
+        ins, ws = [], []
+        if lay.h is not None:
+            e, r0, n = lay.h
+            ins.append(A[i - 1])
+            ws.append(mats[e][r0:r0 + n])
+        if lay.ext is not None:
+            e, r0, n, s = lay.ext
+            ins.append(src[s])
+            ws.append(mats[e][r0:r0 + n])
+        X, W = torch.cat(ins, 1), torch.cat(ws, 0)
+        z, mag = X @ W, X.abs() @ W.abs()
+        for bi in lay.biases:
+            z, mag = z + biases[bi], mag + biases[bi].abs()
+        tol = (X.shape[1] + len(lay.biases)) ** 0.5 * 2.0 ** -24 * mag
+        got = acts.view(nh, B, -1)[i].float()
+        diff = got != torch.relu(z).float().to(torch.bfloat16).float()
+        lo, hi = (torch.relu(t).float().to(torch.bfloat16).float() for t in (z - tol, z + tol))
+        unexplained = diff & ((got < lo) | (got > hi))
+        out.append((int(diff.sum()), int(unexplained.sum())))
+    return out
+
+
+def _l2_epilogue(F, layout, params, last_acts, gt):
+    """The twin's epilogue (ops/fused_mlp._fwd_bwd) on given last relu
+    activations [B, H]: the head, the sigmoid of its first rgb lanes, the
+    L2 loss and squared-error sums. The view-dependent chain ends the same
+    way: its relu layers include the bottleneck and the concat layer."""
+    out_dim = 3 if layout.tail is None else layout.tail.rgb_dim
+    z = last_acts.float() @ F._bf16(layout.mats(params)[layout.head]) \
+        + layout.biases(params)[layout.head]
+    loss, sq, _ = F._loss_and_grad("L2", torch.sigmoid(z[:, :out_dim]), gt.float(),
+                                   1.0 / (gt.shape[0] * out_dim))
+    return loss.sum(), sq.sum()
 
 
 @pytest.mark.parametrize("vd", [False, True], ids=["plain", "viewdep"])
@@ -492,9 +555,14 @@ def test_fwd_bwd_kernel_matches_plain_twin(cuda, B, k, dtype, vd):
     torch.cuda.synchronize()
     assert kernel_launches()[name] == before + 1
     lsum = sc.loss_part.view(nblk, 2).sum(0)
+    assert norm_rel(sc.acts.view(nh, -1), acts.view(nh, -1)) <= 1e-3
+    if not torch.equal(sc.acts, acts):  # each difference a flip at its own layer
+        flips = _unexplained_flips(F, layout, params, x, v, sc.acts)
+        most = max(FLIP_COUNT, FLIP_SHARE * B * H)
+        assert all(u == 0 and d <= most for d, u in flips), flips
+        loss, sq = _l2_epilogue(F, layout, params, sc.acts.view(nh, B, -1)[-1], gt)
     assert abs(lsum[0].item() / loss.item() - 1) <= 1e-5
     assert abs(lsum[1].item() / sq.item() - 1) <= 1e-5
-    assert norm_rel(sc.acts.view(nh, -1), acts.view(nh, -1)) <= 1e-3
 
     F._launch_fwd_bwd(layout, params, feats, 0, B, cot, F.COTANGENT_MODE, 1 / (3 * B), sc, vtable)
     _, deltas, bsum, _, _ = twin(layout, params, x, v, cot, None)

@@ -65,6 +65,7 @@ from intrinsic_neural_fields_tpu_torch.train.steps import (
     eager_step,
     make_epoch_fns,
 )
+from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey, rff_projection
 from intrinsic_neural_fields_tpu_torch.utils.weights import state_dict_from_flax
 
 torch.set_num_threads(2)
@@ -105,6 +106,12 @@ def _models(cfg, mesh=None, seed=0):
     tmodel = make_model(cfg, device="cpu", mesh=jmesh)
     tmodel.load_state_dict(state_dict_from_flax(_np(variables), cfg))
     return jmodel, variables, tmodel
+
+
+def _ulps(a, b):
+    """The largest distance in f32 ulps between two f32 arrays."""
+    ia, ib = (np.asarray(v, np.float32).view(np.int32).astype(np.int64) for v in (a, b))
+    return int(np.abs(ia - ib).max())
 
 
 def _rff_atol(x, B):
@@ -149,10 +156,11 @@ def test_random_fourier_encoder_matches_jax(std):
     got = enc(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (2048, 515)
     np.testing.assert_allclose(got, want, rtol=0, atol=_rff_atol(x, B))
-    # a seeded generator draws N(0, std^2)
-    drawn = RandomFourierFeatEnc(256, std=std, generator=torch.Generator().manual_seed(0)).B
-    assert drawn.shape == (3, 256) and abs(float(drawn.std()) / std - 1) < 0.1
-    assert not drawn.requires_grad and list(enc.state_dict()) == ["B"]
+    # drawn from the same "buffers" key, B is the JAX module's within the
+    # normal draw's bound (4 ulps, utils/jax_random.normal)
+    drawn = rff_projection(PRNGKey(3), 256, std)
+    assert drawn.shape == (3, 256) and _ulps(drawn, B) <= 4
+    assert not enc.B.requires_grad and list(enc.state_dict()) == ["B"]
 
 
 # ------------------------------------------------------------------ data
@@ -231,8 +239,8 @@ def test_family_ray_data_uses_the_vertex_table(tmp_path):
     d = create_ray_data(str(tmp_path), None, None, "rff", mesh=load_mesh(str(tmp_path / "m.obj")),
                         seed=4, device="cpu")
     np.testing.assert_array_equal(d.features.numpy(), mesh.vertices.astype(np.float32))
-    perm = torch.randperm(200, generator=torch.Generator().manual_seed(4))
-    np.testing.assert_array_equal(d.expected_rgbs.numpy(), rgbs[perm.numpy()])
+    perm = np.asarray(jax.random.permutation(jax.random.PRNGKey(4), 200))
+    np.testing.assert_array_equal(d.expected_rgbs.numpy(), rgbs[perm])
     assert d.hit_features.shape == (200, 3)
     batch = gather_batch(d, torch.arange(5))
     assert set(batch) == {"expected_rgbs", "xyz"}
@@ -296,8 +304,9 @@ def test_state_dict_carries_the_rff_projection():
     a, b = make_model(_cfg("rff"), seed=3, device="cpu"), make_model(_cfg("rff"), seed=3,
                                                                      device="cpu")
     assert torch.equal(a.embedding.B, b.embedding.B)
-    gen = torch.Generator().manual_seed(4)
-    assert torch.equal(a.embedding.B, torch.randn((3, 16), generator=gen) * 4.0)
+    _, seeded, _ = _models(_cfg("rff"), seed=3)  # B from PRNGKey(seed + 1), as in JAX
+    assert _ulps(a.embedding.B.numpy(),
+                 np.asarray(seeded["buffers"]["RandomFourierFeatEnc_0"]["B"])) <= 4
     # an RFF field with BatchNorm builds (B and the statistics both carried)
     # and trains through the eager step as the JAX XLA epoch does: loss 1e-5
     cfg = {**_cfg("rff"), "batchnorm": True}

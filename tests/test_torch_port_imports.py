@@ -30,7 +30,7 @@ new = ["ops.sort", "ops.launches", "geometry.cameras", "utils.exr", "utils.io",
        "render_video", "make_transfer_targets", "eval_on_mesh", "models.encoders",
        "geometry.pointcloud", "geometry.intrinsic_delaunay", "geometry.shot",
        "spectral.eigensolver", "compute_shot", "models.neutex", "pretrain_neutex_mapping",
-       "parallel", "parallel.data_parallel", "bench", "utils.flax_msgpack"]
+       "parallel", "parallel.data_parallel", "bench", "utils.flax_msgpack", "utils.jax_random"]
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 print(len(names), "modules;", "banned:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)

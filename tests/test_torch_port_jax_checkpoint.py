@@ -13,14 +13,14 @@ BatchNorm, NeuTex, hks) one JAX Trainer epoch writes the files; then:
     epoch + 1 with the decoded state, and its update over one epoch
     (params after minus params resumed) is nonzero and within 5e-2 of the
     JAX Trainer's update from the same file, in norm relative to JAX's.
-    Both Trainers see the same rows in the same order: the port's
-    load-time shuffle and epoch order are replayed from the JAX keys.
+    Both Trainers see the same rows in the same order: the port draws the
+    JAX package's load-time shuffle and, from the file's rng_key, its
+    epoch keys (utils/jax_random.py).
 
 Then the format's corners (every msgpack form, chunked arrays, bfloat16,
 malformed files), the weights-file resolution, the eval and bake CLIs on a
 JAX out_dir, and the committed fixture tests/data/jax_checkpoint_hq
 (tools/make_jax_checkpoint_fixture.py)."""
-import importlib
 import os
 import pickle
 import shutil
@@ -50,6 +50,7 @@ from intrinsic_neural_fields_tpu_torch.utils.checkpoint import (
     save_model,
 )
 from intrinsic_neural_fields_tpu_torch.utils.flax_msgpack import load_flax_msgpack
+from intrinsic_neural_fields_tpu_torch.utils.jax_random import Key
 from intrinsic_neural_fields_tpu_torch.utils.weights import adam_state_from_optax
 
 torch.set_num_threads(2)
@@ -271,40 +272,27 @@ def _port_trainer(config, mesh=None):
                    device="cpu")
 
 
-def _replay_jax_order(monkeypatch, cfg):
-    """The port's load-time shuffle and epoch orders replayed from the JAX
-    Trainer's keys: PRNGKey(seed) permutes each split once, fold_in(rng_key,
-    e) orders epoch e (rows for "full", blocks for "blocks")."""
-    port_config = importlib.import_module("intrinsic_neural_fields_tpu_torch.train.config")
-    port_trainer = importlib.import_module("intrinsic_neural_fields_tpu_torch.train.trainer")
-    create = port_config.create_ray_data
+def _record_epoch_keys(trainer):
+    """The key of every epoch `trainer` (either package's) trains, as JAX
+    key data, in order."""
+    keys, fn = [], trainer.train_epoch_fn
 
-    def create_with_jax_perm(path, *args, seed=0, **kw):
-        n = np.load(os.path.join(path, "expected_rgbs.npy")).shape[0]
-        perm = np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n))
-        return create(path, *args, seed=seed, perm=perm, **kw)
+    def spy(state, key, *args):
+        keys.append(key.data if isinstance(key, Key) else np.asarray(key))
+        return fn(state, key, *args)
 
-    n = np.load(os.path.join(cfg["data"]["preproc_data_path_train"], "expected_rgbs.npy")).shape[0]
-    count = n // cfg["training"]["batch_size"] if cfg["training"]["shuffle"] == "blocks" else n
-    orders = []
-
-    def jax_order(seed, epoch):
-        key = jax.random.fold_in(jax.random.PRNGKey(seed), epoch)
-        orders.append(epoch)
-        return np.asarray(jax.random.permutation(key, count))
-
-    monkeypatch.setattr(port_config, "create_ray_data", create_with_jax_perm)
-    monkeypatch.setattr(port_trainer, "epoch_generator", jax_order)
-    return orders
+    trainer.train_epoch_fn = spy
+    return keys
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_trainer_resumes_from_a_jax_checkpoint(jax_run, experiment, monkeypatch, family):
+def test_trainer_resumes_from_a_jax_checkpoint(jax_run, experiment, family):
     """An out_dir holding only the JAX Trainer's checkpoint.ckpt (epoch 0):
     the port's Trainer restores the decoded params, moments, count and lr
-    to the bit, trains epoch 1 only, and its update is within 5e-2 of the
-    JAX Trainer's resumed epoch in relative norm (nonzero); it writes
-    checkpoint.pt, which a later resume takes before the .ckpt."""
+    to the bit, trains epoch 1 only, from the JAX Trainer's epoch key, and
+    its update is within 5e-2 of the JAX Trainer's resumed epoch in
+    relative norm (nonzero); it writes checkpoint.pt, which a later resume
+    takes before the .ckpt."""
     from intrinsic_neural_fields_tpu.train.steps import make_variables
     from intrinsic_neural_fields_tpu_torch.utils.weights import state_dict_from_flax
 
@@ -315,9 +303,9 @@ def test_trainer_resumes_from_a_jax_checkpoint(jax_run, experiment, monkeypatch,
     shutil.copy(os.path.join(out_dir, "checkpoint.ckpt"), cfg["training"]["out_dir"])
     decoded = load_jax_train_checkpoint(os.path.join(out_dir, "checkpoint.ckpt"), cfg["model"])
     assert decoded["epoch"] == 0 and decoded["adam"]["count"] == 4
-    orders = _replay_jax_order(monkeypatch, cfg)
 
     t = _port_trainer(cfg)
+    keys = _record_epoch_keys(t)
     restored = {}
     load = t._init_or_load_checkpoint
 
@@ -329,7 +317,7 @@ def test_trainer_resumes_from_a_jax_checkpoint(jax_run, experiment, monkeypatch,
 
     t._init_or_load_checkpoint = spy
     t.train()
-    assert restored["start"] == 1 and orders == [1]
+    assert restored["start"] == 1 and len(keys) == 1
     layout = t.state.layout
     want_flat = layout.flat_from_state_dict(decoded["model_state_dict"], "cpu")
     assert torch.equal(restored["params"], want_flat)
@@ -346,7 +334,10 @@ def test_trainer_resumes_from_a_jax_checkpoint(jax_run, experiment, monkeypatch,
     os.makedirs(jcfg["training"]["out_dir"])
     shutil.copy(os.path.join(out_dir, "checkpoint.ckpt"), jcfg["training"]["out_dir"])
     jt = _jax_trainer(jcfg)
+    jax_keys = _record_epoch_keys(jt)
     jt.train()
+    np.testing.assert_array_equal(keys[0], jax_keys[0])
+    np.testing.assert_array_equal(keys[0], jax.random.fold_in(jax.random.PRNGKey(SEED), 1))
     after = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jax.device_get(
         make_variables(jt.state))), cfg["model"])
     jax_update = layout.flat_from_state_dict(after, "cpu") - want_flat

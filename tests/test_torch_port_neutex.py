@@ -29,6 +29,7 @@ from intrinsic_neural_fields_tpu.models.neutex import NeuTex as JaxNeuTex
 from intrinsic_neural_fields_tpu.models.neutex import NeuTexTrainWrapper as JaxWrapper
 from intrinsic_neural_fields_tpu.models.neutex import chamfer_distance as jax_chamfer
 from intrinsic_neural_fields_tpu.models.neutex import load_pretrained_mapping as jax_load_mapping
+from intrinsic_neural_fields_tpu.models.neutex import sample_sphere_points as jax_sample_sphere
 from intrinsic_neural_fields_tpu.train.steps import create_train_state as jax_create_state
 from intrinsic_neural_fields_tpu.train.steps import make_epoch_fns as jax_epoch_fns
 from intrinsic_neural_fields_tpu.utils.checkpoint import load_npz_pytree as jax_load_npz
@@ -66,6 +67,7 @@ from intrinsic_neural_fields_tpu_torch.utils.checkpoint import (
     save_npz_pytree,
     save_train_checkpoint,
 )
+from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey
 from intrinsic_neural_fields_tpu_torch.utils.weights import (
     adam_state_from_optax,
     load_reference_weights,
@@ -266,7 +268,12 @@ def test_chamfer_matches_jax():
 
 
 def test_sample_sphere_points_on_the_sphere():
-    pts = sample_sphere_points(torch.Generator().manual_seed(0), 500)
+    """The port's samples from a key are the JAX package's from the same
+    key (within 1e-6: the normal draw's few ulps, then the normalization),
+    on the unit sphere."""
+    pts = sample_sphere_points(PRNGKey(0), 500)
+    want = np.asarray(jax_sample_sphere(jax.random.PRNGKey(0), 500))
+    np.testing.assert_allclose(pts.numpy(), want, rtol=0, atol=1e-6)
     np.testing.assert_allclose(torch.linalg.vector_norm(pts, dim=-1).numpy(), 1.0, atol=1e-6)
     assert pts.shape == (500, 3) and abs(float(pts.mean())) < 0.1
 

@@ -35,6 +35,7 @@ from intrinsic_neural_fields_tpu_torch.parallel import (cli_devices, make_dp_epo
 from intrinsic_neural_fields_tpu_torch.render.renderer import Renderer
 from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, create_train_state,
                                                            make_epoch_fns)
+from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey
 from intrinsic_neural_fields_tpu_torch.utils.weights import state_dict_from_flax
 
 from tests.test_render_regressions import _look_at_cam, _simple_K
@@ -245,11 +246,11 @@ def test_replicas_stay_bit_equal_over_three_devices_and_resync():
     train, _ = make_dp_epoch_fns(tmodel, "L2", ["cpu"] * 3, shuffle="blocks", fused=True)
     st = create_train_state(tmodel, AdamHyper(LR), "cpu")
     for e in range(2):
-        st, _ = train(st, torch.Generator().manual_seed(e), td, 4, 768)
+        st, _ = train(st, PRNGKey(e), td, 4, 768)
         assert _equal_replicas(train)
     with torch.no_grad():
         st.params.mul_(0.5)
-    st, _ = train(st, torch.Generator().manual_seed(2), td, 4, 768)
+    st, _ = train(st, PRNGKey(2), td, 4, 768)
     assert _equal_replicas(train) and st.count == 12
 
 
@@ -259,7 +260,7 @@ def test_batch_not_divisible_by_the_devices_raises():
     train, val = make_dp_epoch_fns(tmodel, "L1", ["cpu"] * 8)
     st = create_train_state(tmodel, AdamHyper(LR), "cpu")
     with pytest.raises(ValueError, match="not divisible by 8 devices"):
-        train(st, torch.Generator(), td, 2, 100)
+        train(st, PRNGKey(0), td, 2, 100)
     with pytest.raises(ValueError, match="not divisible by 8 devices"):
         val(st, td, 100)
 

@@ -92,7 +92,7 @@ def dp_run(cfg, devices, data, epochs, nb):
                                                                  reset_kernel_launches)
     from intrinsic_neural_fields_tpu_torch.parallel import make_dp_epoch_fns
     from intrinsic_neural_fields_tpu_torch.train.steps import AdamHyper, create_train_state
-    from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
+    from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey, fold_in
 
     model = make_model(cfg, seed=0, device=devices[0])
     train, _ = make_dp_epoch_fns(model, "L1", devices, shuffle="blocks", fused=True)
@@ -102,7 +102,7 @@ def dp_run(cfg, devices, data, epochs, nb):
     for e in range(epochs):
         sync(devices)
         t0 = time.perf_counter()
-        state, m = train(state, epoch_generator(0, e), data, nb, B)
+        state, m = train(state, fold_in(PRNGKey(0), e), data, nb, B)
         losses.append(float(m["loss"]))
         sync(devices)
         secs.append(time.perf_counter() - t0)
@@ -118,7 +118,7 @@ def graph_run(cfg, device, data, epochs, nb):
     from intrinsic_neural_fields_tpu_torch.models import make_model
     from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, create_train_state,
                                                                make_epoch_fns)
-    from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
+    from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey, fold_in
 
     model = make_model(cfg, seed=0, device=device)
     train, _ = make_epoch_fns(model, "L1", shuffle="blocks", fused=True)
@@ -127,7 +127,7 @@ def graph_run(cfg, device, data, epochs, nb):
     for e in range(epochs):
         sync([device])
         t0 = time.perf_counter()
-        state, m = train(state, epoch_generator(0, e), data, nb, B)
+        state, m = train(state, fold_in(PRNGKey(0), e), data, nb, B)
         float(m["loss"])
         secs.append(time.perf_counter() - t0)
     return secs

@@ -53,14 +53,14 @@ def profile_once(run, pad_s, epoch):
     """One profiled DP epoch in chip_smoke.py's PaddedProfile; the line's
     fields."""
     from chip_smoke import PaddedProfile, _device_us_by_kernel, _port_kernel
-    from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
+    from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey, fold_in
 
     train_epoch, state, data, nb, dev = run
     D = len(train_epoch.devices)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     with PaddedProfile(pad_s) as p:
-        _, m = train_epoch(state, epoch_generator(0, epoch), data, nb, B)
+        _, m = train_epoch(state, fold_in(PRNGKey(0), epoch), data, nb, B)
         float(m["loss"])
     _, counts = _device_us_by_kernel(p.prof, with_counts=True)
     seen = dict.fromkeys(KERNELS, 0)
@@ -79,14 +79,14 @@ def make_run(dev, rows, k):
     from intrinsic_neural_fields_tpu_torch.models import make_model
     from intrinsic_neural_fields_tpu_torch.parallel import make_dp_epoch_fns
     from intrinsic_neural_fields_tpu_torch.train.steps import AdamHyper, create_train_state
-    from intrinsic_neural_fields_tpu_torch.train.trainer import epoch_generator
+    from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey, fold_in
 
     devices = [dev, dev]
     data = make_data(rows, k, dev)
     model = make_model({"k": k, **HQ}, seed=0, device=dev)
     train_epoch, _ = make_dp_epoch_fns(model, "L1", devices, shuffle="blocks", fused=True)
     state = create_train_state(model, AdamHyper(1e-4), dev)
-    state, m = train_epoch(state, epoch_generator(0, 0), data, rows // B, B)  # warm
+    state, m = train_epoch(state, fold_in(PRNGKey(0), 0), data, rows // B, B)  # warm
     float(m["loss"])
     return train_epoch, state, data, rows // B, dev
 
