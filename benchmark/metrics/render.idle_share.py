@@ -1,0 +1,8 @@
+"""render.idle_share: the share of the traced, pipelined render window in
+which no device operation runs (benchmark/metrics/_trace.py)."""
+
+
+def read(run):
+    if run["kind"] != "render" or "dev" not in run or run["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - run["busy_s"] / run["traced_s"])
