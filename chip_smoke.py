@@ -3688,8 +3688,10 @@ def profile_train_epoch(train_leg, leg):
     train leg; the port's kernels the profiler saw, by name, must be exactly
     num_batches fwd_bwd and num_batches wgrad with Adam. The profiler's own
     hooks lengthen the host's part of the epoch, so an epoch before it runs
-    without the profiler, CUDA events around its graph replay: the replay's
-    device time over that epoch's wall time (`replay_share_of_wall`)."""
+    without the profiler, a pair of CUDA events around its train_epoch
+    call: their device time over that epoch's wall time
+    (`replay_share_of_wall`; the epoch's few order and hyper copies fall
+    inside the pair, beside its graph replay)."""
     import torch
 
     from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey, fold_in
@@ -3697,14 +3699,15 @@ def profile_train_epoch(train_leg, leg):
     train_epoch, state, data = train_leg.train_epoch, train_leg.state, train_leg.data
     nb, B = train_leg.steps_per_epoch, train_leg.batch
     graph = train_epoch.graph
-    graph.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    before, after = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    before.record()
     _, m = train_epoch(state, fold_in(PRNGKey(0), 98), data, nb, B)
+    after.record()
     float(m["loss"])
     plain_wall_ms = 1e3 * (time.perf_counter() - t0)
-    replay_ms = graph.events[0].elapsed_time(graph.events[1])
-    graph.events = None
+    replay_ms = before.elapsed_time(after)
     replays = graph.replays
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import launches
 from .intersect import B_EPS, T_EPS, Hits, precompute_face_data
 from .ray_gen import ray_origins_and_directions
 from .sort import bitonic_argsort, bitonic_argsort_vmem, stable_radix_argsort
@@ -343,11 +344,15 @@ def traverse(tables, origins, dirs, coords, *, Tx, Ty):
                         torch.full_like(t_far, -float("inf")))
 
     # The one host sync of the view: span lengths and overflow chunks.
-    span_h = span.cpu().numpy()
-    o_chunks = int(tables.o_chunks.item())
+    with launches.span("raster.sync"):
+        span_h = span.cpu().numpy()
+        o_chunks = int(tables.o_chunks.item())
     order_h = np.argsort(-span_h, kind="stable")
     order = torch.from_numpy(order_h).to(dev)
     span_sorted = span_h[order_h]
+    if launches.tracing():  # the loops below: per group, its longest span, then the overflow
+        heads = span_sorted[::PACKET_GROUP]
+        launches.add("chunk_steps", int(heads.sum()) + o_chunks * len(heads))
 
     best_t = torch.full((P, RAY_TILE), float("inf"), device=dev)
     best_e = torch.full((P, RAY_TILE), -1, dtype=torch.int64, device=dev)
@@ -404,7 +409,8 @@ def intersect_coords_pinhole_core(vertices, faces, camCv2world, K, coords, *, W,
         cmin, cmax = hull[0], hull[1]
     cam_t = torch.as_tensor(np.asarray(camCv2world, np.float32)[:3, :4], device=dev)
     K_t = torch.as_tensor(np.asarray(K, np.float32)[:3, :3], device=dev)
-    tables = bin_faces(vertices, faces, cam_t, K_t, cmin, cmax, W, H, sort_method)
+    with launches.span("raster.bin"):
+        tables = bin_faces(vertices, faces, cam_t, K_t, cmin, cmax, W, H, sort_method)
     best_t, best_e = traverse(tables, origins, dirs, coords,
                               Tx=-(-W // TILE_PX), Ty=-(-H // TILE_PX))
 

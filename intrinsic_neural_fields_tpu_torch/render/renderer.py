@@ -54,6 +54,7 @@ from .. import resolve_device
 from ..geometry.cameras import DistortionTypes, undistort_pixels_meshroom_radial_k3
 from ..ops.field_infer import FieldInfer
 from ..ops.interpolate import interpolate_vertex_features
+from ..ops.launches import add, span, tracing
 from ..ops.morton import face_morton_order, pixel_morton_order
 from ..ops.raster import check_pinhole_K, intersect_coords_pinhole_core
 from ..parallel.data_parallel import _device_of, device_scope, resolve_devices
@@ -374,19 +375,22 @@ class Renderer:
         g = self._on(self.device if dev is None else dev)
         vids, bary, dirs, faces, valid = trace
         L = vids.shape[0]
-        preds = torch.empty((L, 3), dtype=torch.float32, device=g.device)
-        for s in range(0, L, _INFER_CHUNK):
-            sl = slice(s, s + _INFER_CHUNK)
-            feats = interpolate_vertex_features(g.features, vids[sl], bary[sl])
-            preds[sl] = (g.field(feats, dirs[sl], faces[sl]) if self.viewdep
-                         else g.field(feats))
-        # Composite the background on the device: the wire carries one
-        # ready-to-scatter array. f16 quantization (~5e-4 in [0,1]) is far
-        # below the 8-bit image grid.
-        rgb = torch.where(valid[:, None], preds.to(torch.float16),
-                          torch.tensor(bg, dtype=torch.float16, device=g.device))
-        if self._wire_u8:
-            rgb = torch.round(rgb.to(torch.float32).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        with span("render.infer", rays=L):
+            if tracing():
+                add("hits", valid.sum())
+            preds = torch.empty((L, 3), dtype=torch.float32, device=g.device)
+            for s in range(0, L, _INFER_CHUNK):
+                sl = slice(s, s + _INFER_CHUNK)
+                feats = interpolate_vertex_features(g.features, vids[sl], bary[sl])
+                preds[sl] = (g.field(feats, dirs[sl], faces[sl]) if self.viewdep
+                             else g.field(feats))
+            # Composite the background on the device: the wire carries one
+            # ready-to-scatter array. f16 quantization (~5e-4 in [0,1]) is far
+            # below the 8-bit image grid.
+            rgb = torch.where(valid[:, None], preds.to(torch.float16),
+                              torch.tensor(bg, dtype=torch.float16, device=g.device))
+            if self._wire_u8:
+                rgb = torch.round(rgb.to(torch.float32).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
         return rgb, valid
 
     # ------------------------------------------------------------ API
@@ -438,95 +442,99 @@ class Renderer:
                      distortion_coeffs=None, distortion_type=None, cache_key=None):
         """Enqueue one view's device work and return a pending handle;
         render_fetch(handle) completes it."""
-        if distortion_type is not None:
-            if distortion_coeffs is None:
-                raise ValueError(f"distortion_type {distortion_type!r} needs distortion_coeffs")
-            if distortion_type != DistortionTypes.MESHROOM_RADIAL_K3:
-                raise ValueError(f"Unknown distortion type: {distortion_type}")
-        # The binning projection assumes pinhole intrinsics: checked on every
-        # render, the trace below would silently mis-bin otherwise.
-        check_pinhole_K(K)
-        H, W = self.H, self.W
-        if self.background not in ("white", "black"):
-            raise ValueError(f"background must be 'white' or 'black', got {self.background!r}")
-        bg = 1.0 if self.background == "white" else 0.0
-        if obj_mask_1d is not None:
-            obj_mask_1d = np.asarray(obj_mask_1d, dtype=bool).reshape(-1)
-            if obj_mask_1d.shape[0] != H * W:
-                raise ValueError(f"mask has {obj_mask_1d.shape[0]} pixels, view {H}x{W}")
-            if not obj_mask_1d.any():
-                # Empty object mask: an all-background image, nothing to trace.
-                return _PendingRender(
-                    rgb_dev=None, valid_dev=None, morton=np.zeros(0, np.int64),
-                    L=0, obj_mask_1d=obj_mask_1d, bg=bg, H=H, W=W,
-                    eval_render=eval_render,
-                )
-        pix_key, px = self._pixels_for_view(obj_mask_1d)
+        with span("render.async"):
+            if distortion_type is not None:
+                if distortion_coeffs is None:
+                    raise ValueError(f"distortion_type {distortion_type!r} needs distortion_coeffs")
+                if distortion_type != DistortionTypes.MESHROOM_RADIAL_K3:
+                    raise ValueError(f"Unknown distortion type: {distortion_type}")
+            # The binning projection assumes pinhole intrinsics: checked on every
+            # render, the trace below would silently mis-bin otherwise.
+            check_pinhole_K(K)
+            H, W = self.H, self.W
+            if self.background not in ("white", "black"):
+                raise ValueError(f"background must be 'white' or 'black', got {self.background!r}")
+            bg = 1.0 if self.background == "white" else 0.0
+            if obj_mask_1d is not None:
+                obj_mask_1d = np.asarray(obj_mask_1d, dtype=bool).reshape(-1)
+                if obj_mask_1d.shape[0] != H * W:
+                    raise ValueError(f"mask has {obj_mask_1d.shape[0]} pixels, view {H}x{W}")
+                if not obj_mask_1d.any():
+                    # Empty object mask: an all-background image, nothing to trace.
+                    return _PendingRender(
+                        rgb_dev=None, valid_dev=None, morton=np.zeros(0, np.int64),
+                        L=0, obj_mask_1d=obj_mask_1d, bg=bg, H=H, W=W,
+                        eval_render=eval_render,
+                    )
+            pix_key, px = self._pixels_for_view(obj_mask_1d)
 
-        # The coefficients are part of the key: a trace made through one
-        # set of undistorted coordinates is never served for another.
-        dist_key = (None if distortion_type is None
-                    else (distortion_type, np.asarray(distortion_coeffs, np.float64).tobytes()))
-        full_key = None if cache_key is None else (cache_key, H, W, dist_key)
-        trace = None
-        if full_key is not None and full_key in self._trace_cache:
-            cached_key, cached_bits, trace = self._trace_cache[full_key]
-            if cached_key != pix_key or cached_bits != px.mask_bits:
-                raise ValueError(
-                    f"render cache_key {cache_key!r} reused with a different "
-                    "object mask — use a new cache_key per distinct view selection"
-                )
-            self._trace_cache.move_to_end(full_key)
-        if trace is None:
-            coords = (None if distortion_type is None
-                      else self._coords_for_view(pix_key, px, K, distortion_coeffs))
-            # one (device, trace) per shard; the trace keeps no weights
-            trace = []
-            for dev, rows in self._shards(px.L):
+            # The coefficients are part of the key: a trace made through one
+            # set of undistorted coordinates is never served for another.
+            dist_key = (None if distortion_type is None
+                        else (distortion_type, np.asarray(distortion_coeffs, np.float64).tobytes()))
+            full_key = None if cache_key is None else (cache_key, H, W, dist_key)
+            trace = None
+            if full_key is not None and full_key in self._trace_cache:
+                cached_key, cached_bits, trace = self._trace_cache[full_key]
+                if cached_key != pix_key or cached_bits != px.mask_bits:
+                    raise ValueError(
+                        f"render cache_key {cache_key!r} reused with a different "
+                        "object mask — use a new cache_key per distinct view selection"
+                    )
+                self._trace_cache.move_to_end(full_key)
+            if trace is None:
+                coords = (None if distortion_type is None
+                          else self._coords_for_view(pix_key, px, K, distortion_coeffs))
+                # one (device, trace) per shard; the trace keeps no weights
+                trace = []
+                for dev, rows in self._shards(px.L):
+                    with device_scope(dev), span("render.trace"):
+                        trace.append((dev, self._trace(px, camCv2world, K, with_dirs=self.viewdep,
+                                                       coords=coords, dev=dev, rows=rows)))
+                if full_key is not None:
+                    self._trace_cache[full_key] = (pix_key, px.mask_bits, trace)
+                    while len(self._trace_cache) > _TRACE_CACHE_MAX:
+                        self._trace_cache.popitem(last=False)
+
+            parts = []
+            for dev, tr in trace:
                 with device_scope(dev):
-                    trace.append((dev, self._trace(px, camCv2world, K, with_dirs=self.viewdep,
-                                                   coords=coords, dev=dev, rows=rows)))
-            if full_key is not None:
-                self._trace_cache[full_key] = (pix_key, px.mask_bits, trace)
-                while len(self._trace_cache) > _TRACE_CACHE_MAX:
-                    self._trace_cache.popitem(last=False)
-
-        parts = []
-        for dev, tr in trace:
-            with device_scope(dev):
-                parts.append(self._infer(tr, bg, dev))
-        if len(parts) == 1:
-            rgb_dev, valid_dev = parts[0]
-        else:  # gathered in shard order on devices[0]
-            rgb_dev, valid_dev = (torch.cat([p[i].to(self.device) for p in parts])
-                                  for i in (0, 1))
-        return _PendingRender(
-            rgb_dev=rgb_dev, valid_dev=valid_dev, morton=px.morton, L=px.L,
-            obj_mask_1d=obj_mask_1d, bg=bg, H=H, W=W, eval_render=eval_render,
-        )
+                    parts.append(self._infer(tr, bg, dev))
+            if len(parts) == 1:
+                rgb_dev, valid_dev = parts[0]
+            else:  # gathered in shard order on devices[0]
+                rgb_dev, valid_dev = (torch.cat([p[i].to(self.device) for p in parts])
+                                      for i in (0, 1))
+            return _PendingRender(
+                rgb_dev=rgb_dev, valid_dev=valid_dev, morton=px.morton, L=px.L,
+                obj_mask_1d=obj_mask_1d, bg=bg, H=H, W=W, eval_render=eval_render,
+            )
 
     def render_fetch(self, pending):
         """Complete a render_async dispatch: one device->host copy, then the
         host scatter."""
-        L, morton, H, W, bg = pending.L, pending.morton, pending.H, pending.W, pending.bg
-        if L == 0:
-            rgb_m = np.zeros((0, 3), np.float32)
-            valid_m = np.zeros(0, bool)
-        else:
-            rgb_m = pending.rgb_dev.cpu().numpy()
-            valid_m = pending.valid_dev.cpu().numpy() if pending.eval_render else None
-        if rgb_m.dtype == np.uint8:
-            rgb_m = rgb_m.astype(np.float32) / 255.0
-        img_masked = np.empty((L, 3), dtype=np.float32)
-        img_masked[morton] = np.float32(rgb_m)
-        if pending.obj_mask_1d is not None:
-            img = np.full((H * W, 3), bg, dtype=np.float32)
-            img[pending.obj_mask_1d] = img_masked
-        else:
-            img = img_masked
-        img = img.reshape(H, W, 3)
-        if pending.eval_render:
-            valid = np.empty_like(valid_m)
-            valid[morton] = valid_m
-            return img, np.nonzero(valid)[0]
-        return img
+        with span("render.fetch"):
+            L, morton, H, W, bg = pending.L, pending.morton, pending.H, pending.W, pending.bg
+            with span("render.fetch.copy"):
+                if L == 0:
+                    rgb_m = np.zeros((0, 3), np.float32)
+                    valid_m = np.zeros(0, bool)
+                else:
+                    rgb_m = pending.rgb_dev.cpu().numpy()
+                    valid_m = pending.valid_dev.cpu().numpy() if pending.eval_render else None
+            with span("render.fetch.scatter"):
+                if rgb_m.dtype == np.uint8:
+                    rgb_m = rgb_m.astype(np.float32) / 255.0
+                img_masked = np.empty((L, 3), dtype=np.float32)
+                img_masked[morton] = np.float32(rgb_m)
+                if pending.obj_mask_1d is not None:
+                    img = np.full((H * W, 3), bg, dtype=np.float32)
+                    img[pending.obj_mask_1d] = img_masked
+                else:
+                    img = img_masked
+                img = img.reshape(H, W, 3)
+                if pending.eval_render:
+                    valid = np.empty_like(valid_m)
+                    valid[morton] = valid_m
+                    return img, np.nonzero(valid)[0]
+                return img

@@ -96,6 +96,7 @@ from ..ops.fused_mlp import (
     make_train_scratch,
     prepare_train_kernels,
 )
+from ..ops.launches import span
 from ..utils.jax_random import Key, permutation
 from .losses import elementwise_loss
 
@@ -439,14 +440,12 @@ class EpochGraph:
     count the launches they record during the capture; those counts
     (``launches``) are taken back from the totals then and added again at
     every replay, which runs them. ``captures``, ``capture_s`` (the last
-    capture's seconds) and ``replays`` say what it did; ``events``, a pair
-    of CUDA events or None, are recorded just before and after each replay."""
+    capture's seconds) and ``replays`` say what it did."""
 
     def __init__(self):
         self.key = self.graph = self.bufs = None
         self.launches = {}
         self.captures, self.capture_s, self.replays = 0, 0.0, 0
-        self.events = None
 
     def run(self, state, perm, data, num_batches, B, hyper_all, loss_type, vencs):
         """One epoch; returns the accumulators [2] (the static buffer, which
@@ -465,11 +464,8 @@ class EpochGraph:
             self.graph = self.key = None
             self.graph = self._capture(state, data, num_batches, B, loss_type, vencs)
             self.key = key
-        if self.events is not None:
-            self.events[0].record()
-        self.graph.replay()
-        if self.events is not None:
-            self.events[1].record()
+        with span("train.replay"):
+            self.graph.replay()
         self.replays += 1
         for t in (params, state.mu, state.nu, b.scratch.wb):
             increment_version(t)  # the graph's kernels wrote them in place
@@ -484,7 +480,7 @@ class EpochGraph:
         before = kernel_launches()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with span("train.capture"), torch.cuda.graph(graph):
             for i in range(num_batches):
                 fused_train_adam_step(state.layout, state.params, state.mu, state.nu, b.hyper,
                                       b.order, i, data.hit_features, data.expected_rgbs, B,
@@ -658,19 +654,30 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         """Draw the block order `key` gives an epoch on these operands
         before that epoch (host work the Trainer overlaps with the running
         epoch's replay); the epoch given `key` then takes it."""
-        ahead.clear()
-        if streams_blocks(data, num_batches, batch_size):
-            ahead[(key, num_batches)] = _order(key, num_batches)
+        with span("train.prefetch"):
+            ahead.clear()
+            if streams_blocks(data, num_batches, batch_size):
+                ahead[(key, num_batches)] = _order(key, num_batches)
 
+    train_epoch = _traced(train_epoch)
     train_epoch.graph = graph
     train_epoch.prefetch = prefetch
     return train_epoch, val_epoch
 
 
+def _traced(epoch):
+    """The epoch function inside a train.epoch span (attribute steps)."""
+    def train_epoch(state, order, data, num_batches, batch_size):
+        with span("train.epoch", steps=num_batches):
+            return epoch(state, order, data, num_batches, batch_size)
+    return train_epoch
+
+
 def _adam_rows(state, num_batches):
     h = state.hyper
-    return adam_hyper_rows(state.count + 1 + torch.arange(num_batches), h.learning_rate, h.b1,
-                           h.b2, h.eps, h.eps_root, device=state.params.device)
+    with span("train.hyper_rows"):
+        return adam_hyper_rows(state.count + 1 + torch.arange(num_batches), h.learning_rate,
+                               h.b1, h.b2, h.eps, h.eps_root, device=state.params.device)
 
 
 def _check_epoch(data, num_batches, batch_size):
@@ -746,5 +753,6 @@ def _module_epoch_fns(model, loss_type, shuffle, fused):
             acc_sq = acc_sq + ((pred - gt) ** 2).sum(-1).sum()
         return {"loss": acc_loss / n, "sq_err_per_sample": acc_sq / n}
 
+    train_epoch = _traced(train_epoch)
     train_epoch.graph = None  # no CUDA graph: one eager step per batch
     return train_epoch, val_epoch

@@ -29,7 +29,12 @@ all three networks in module order (``steps.ModuleLayout``), it trains
 through the eager step and its vis renders run its module forward on the
 mesh's vertex positions.
 ``training.profile_dir`` writes a torch.profiler trace of epoch
-``training.profile_epoch`` (default 1) there.
+``training.profile_epoch`` (default 1) there, for an operator to open in a
+trace viewer: the host's ops, the card's kernels and, on a track of its
+own ("program spans"), the port's spans of that epoch (ops/launches.py):
+``train.epoch`` with its host turn (``train.hyper_rows``) and graph replay
+(``train.replay``), ``train.prefetch`` and ``train.loss_fetch``, the wait
+for the epoch's device work.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ from ..data.sampler import (
 from ..evaluation.metrics import epoch_psnr, psnr
 from ..models.texture_field import input_encoder_apply, mlp_core_view, view_encoder_apply
 from ..ops.fused_mlp import fused_pre_embed_eligible, fused_viewdep_eligible
+from ..ops.launches import add_spans_to_chrome_trace, span
 from ..utils.checkpoint import (
     load_jax_train_checkpoint,
     load_train_checkpoint,
@@ -331,6 +337,7 @@ class Trainer:
         for epoch in range(epoch_start_idx, self.epochs):
             profiling = profile_dir is not None and epoch == profile_epoch
             with (self._profiler() if profiling else contextlib.nullcontext()) as prof:
+                w0 = time.time_ns()
                 t0 = time.time()
                 self.state, metrics = self.train_epoch_fn(
                     self.state, fold_in(self.base_key, epoch), self.train_data,
@@ -340,13 +347,16 @@ class Trainer:
                     # the next epoch's block order, drawn while this one runs on the card
                     prefetch(fold_in(self.base_key, epoch + 1), self.train_data, num_batches,
                              self.batch_size)
-                train_loss = float(metrics["loss"])  # waits for the epoch's device work
+                with span("train.loss_fetch"):
+                    train_loss = float(metrics["loss"])  # waits for the epoch's device work
                 train_mse = float(metrics["sq_err_per_sample"])
                 t1 = time.time()
+                w1 = time.time_ns()
             if profiling:
                 os.makedirs(profile_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(profile_dir,
-                                                      f"epoch_{epoch:04d}.pt.trace.json"))
+                path = os.path.join(profile_dir, f"epoch_{epoch:04d}.pt.trace.json")
+                prof.export_chrome_trace(path)
+                add_spans_to_chrome_trace(path, w0, w1)
                 print(f"Wrote profiler trace for epoch {epoch} to {profile_dir}")
 
             rays_per_sec = num_batches * self.batch_size / max(t1 - t0, 1e-9)

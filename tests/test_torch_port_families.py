@@ -844,7 +844,8 @@ def test_trainer_keeps_the_in_forward_path_over_budget(family_experiment, monkey
 
 def test_trainer_profile_dir_writes_a_trace(family_experiment):
     """training.profile_dir: a torch.profiler trace of profile_epoch is
-    written there (a Chrome trace JSON with events), the run goes on."""
+    written there (a Chrome trace JSON with events, the program's spans of
+    the epoch on a track of their own), the run goes on."""
     import json
 
     root, config = family_experiment
@@ -854,4 +855,9 @@ def test_trainer_profile_dir_writes_a_trace(family_experiment):
     t.train()
     assert os.listdir(prof) == ["epoch_0001.pt.trace.json"]
     with open(os.path.join(prof, "epoch_0001.pt.trace.json")) as f:
-        assert len(json.load(f)["traceEvents"]) > 0
+        events = json.load(f)["traceEvents"]
+    assert len(events) > 0
+    program = {e["name"]: e for e in events if e.get("cat") == "program"}
+    assert {"train.epoch", "train.hyper_rows", "train.loss_fetch"} <= set(program)
+    assert program["train.hyper_rows"]["args"]["parent"] == program["train.epoch"]["args"]["id"]
+    assert program["train.epoch"]["dur"] > 0
