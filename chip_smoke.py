@@ -40,7 +40,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       with sort_method argsort, radix, bitonic and bitonic_vmem: t,
       face_idx, bary and valid bit-identical; the kernel's counts set to 0
       just before each trace and read just after (> 0 only for
-      bitonic_vmem);
+      bitonic_vmem; one raster_traverse launch per trace); then the
+      traversal kernel against its lockstep twin on four orbit views'
+      tables (bits and chunk counts equal), its time beside its bound;
   (q) hq_pipeline: preprocess_dataset on the card (raster tracer) for the
       train and test splits in process and the val split as a
       `python -m` subprocess; the train split again with --intersector host
@@ -797,7 +799,8 @@ def phase_trace_methods(tp_leg):
         ms = 1e3 * (time.perf_counter() - t0)
         out[method] = {"hits": hits, "trace_ms": ms,
                        "launches": kernel_launches()["bitonic_argsort"],
-                       "cuda_launches": S.bitonic_argsort_vmem.cuda_launches - c0}
+                       "cuda_launches": S.bitonic_argsort_vmem.cuda_launches - c0,
+                       "traverse_launches": kernel_launches()["raster_traverse"]}
     ref = out["argsort"]["hits"]
     for method, o in out.items():
         check(all(torch.equal(getattr(o["hits"], f), getattr(ref, f))
@@ -805,11 +808,66 @@ def phase_trace_methods(tp_leg):
               f"sort_method={method!r} traces differently from 'argsort'")
         check((o["launches"] > 0) == (method == "bitonic_vmem"),
               f"bitonic_argsort launched {o['launches']} times under sort_method={method!r}")
+        check(o["traverse_launches"] == 1,
+              f"raster_traverse launched {o['traverse_launches']} times in one trace")
         o["bit_identical"] = True
         del o["hits"]
     emit("trace_methods", H=H, W=W, faces=faces.shape[0], hit_rays=int(ref.valid.sum()),
          methods=out)
+    out["raster_traverse"] = _traverse_kernel_check(verts, faces, cams, K, coords, W, H)
     return out
+
+
+def _traverse_kernel_check(verts, faces, cams, K, coords, W, H):
+    """csrc/raster_traverse.cu against its twin traverse_plain on the
+    512^2 orbit views' own tables: equal to the bit, the same chunk counts.
+    Times: CUDA events; bound: the pair tests of the chunks the walks
+    tested, ~25 f32 operations each, at 67 TFLOP/s, or the rays, tables and
+    hits read and written once at the HBM rate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from intrinsic_neural_fields_tpu_torch.ops import launches
+    from intrinsic_neural_fields_tpu_torch.ops import raster as RA
+
+    v = torch.as_tensor(verts, device="cuda")
+    f = torch.as_tensor(np.asarray(faces, np.int64), device="cuda")
+    c = torch.as_tensor(coords, device="cuda")
+    Tx, Ty = -(-W // RA.TILE_PX), -(-H // RA.TILE_PX)
+
+    def traced(fn):  # (hits, chunks reached, chunks tested)
+        launches.reset_kernel_launches()
+        with profile(activities=[ProfilerActivity.CPU]):
+            with launches.span("traverse"):
+                out = fn()
+        (rec,) = [r for r in launches.spans(0, 2 ** 63 - 1)[0] if r["name"] == "traverse"]
+        return out, rec["attrs"]["chunks"], rec["attrs"]["chunks_tested"]
+
+    rows = []
+    for i, cam in enumerate(cams[:4]):
+        tables, o, d, _ = RA.bin_view(v, f, cam, K, c, W=W, H=H)
+
+        def kernel():
+            return RA.traverse(tables, o, d, c, Tx=Tx, Ty=Ty)
+
+        def plain():
+            return RA.traverse_plain(tables, o, d, c, Tx=Tx, Ty=Ty)
+
+        (got, reached, tested), (want, p_reached, p_tested) = traced(kernel), traced(plain)
+        row = {"view": i, "rays": c.shape[0], "chunks": reached, "chunks_tested": tested,
+               "equal_to_twin": all(torch.equal(a, b) for a, b in zip(got, want)),
+               "counts_equal": (reached, tested) == (p_reached, p_tested)}
+        check(row["equal_to_twin"] and row["counts_equal"],
+              f"raster_traverse disagrees with traverse_plain on view {i}: {row}")
+        row["ms"] = cuda_ms(kernel)
+        row["plain_ms"] = cuda_ms(plain, iters=5)
+        e_tot = tables.ed_rows.shape[0]
+        nbytes = c.shape[0] * (12 + 8 + 4 + 8) + e_tot * 48 + tables.offsets.numel() * 8
+        row["bound_ms"], row["bound_by"] = _bound(
+            0.0, nbytes, f32_flops=25.0 * tested * RA.RAY_TILE * RA.CHUNK)
+        emit("kernel_check", name="raster_traverse", input=f"orbit512_view{i}", **row)
+        rows.append(row)
+    return rows
 
 
 def _cache_agreement(dev_dir, host_dir):
@@ -1020,8 +1078,9 @@ def phase_hq_train(p):
     launches, eager = kernel_launches(), eager_step.launches
 
     plain_kernels = ("fused_mlp_fwd", "fused_mlp_fwd_bwd", "fused_mlp_wgrad_adam")
-    check(all(launches[k] > 0 for k in plain_kernels)
-          and not any(launches[k] for k in launches if k not in plain_kernels),
+    check(all(launches[k] > 0 for k in plain_kernels)  # the evals' traces: raster_traverse
+          and not any(launches[k] for k in launches
+                      if k not in plain_kernels + ("raster_traverse",)),
           f"the HQ path's kernels did not launch, or others did: {launches}")
     check(eager == 0, f"the eager step ran {eager} times on the HQ recipe")
     losses = rec.values("Train_Loss")
@@ -1180,8 +1239,10 @@ def phase_jax_checkpoint(p, hq_leg, hq_eval_launches):
     a, b = evals["ckpt"], evals["pt"]
     check(a["images"] and a["images"] == b["images"] and a["scores"] == b["scores"],
           f"the JAX out_dir's eval differs from the model.pt's: {a['scores']} {b['scores']}")
-    check(set(a["launches"]) == {"fused_mlp_fwd"} and a["launches"] == b["launches"],
-          f"eval forward launches: JAX out_dir {a['launches']}, model.pt {b['launches']}")
+    check(set(a["launches"]) == {"fused_mlp_fwd", "raster_traverse"}
+          and a["launches"]["raster_traverse"] == a["views"] and a["launches"] == b["launches"],
+          f"eval launches: JAX out_dir {a['launches']}, model.pt {b['launches']} "
+          f"(one trace per view: {a['views']})")
     eval_launches = a["launches"].get("fused_mlp_fwd", 0)
     hq_per_view = hq_eval_launches / len(hq_leg.cams)
     check(eval_launches / a["views"] == hq_per_view,
@@ -1892,7 +1953,8 @@ def phase_viewdep_train(p):
           == 5 * nb, f"not one of each tail kernel per step: {launches}")
     check(launches["fused_mlp_fwd_viewdep"] > 0, f"the eval did not launch the forward: {launches}")
     check(not any(launches[k] for k in launches if k not in (
-        "fused_mlp_fwd_bwd_viewdep", "fused_mlp_wgrad_adam_viewdep", "fused_mlp_fwd_viewdep")),
+        "fused_mlp_fwd_bwd_viewdep", "fused_mlp_wgrad_adam_viewdep", "fused_mlp_fwd_viewdep",
+        "raster_traverse")),
           f"other kernels ran on this path: {launches}")
     graph = _graph_stats(trainer, launches, 5 * nb, 5, ("fused_mlp_fwd_bwd_viewdep",
                                                           "fused_mlp_wgrad_adam_viewdep"))
@@ -3027,7 +3089,8 @@ def phase_neutex(p):
     eval_cli.main([test_dir, cfg_path, p["data"], "test"])
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    eval_launches = sum(kernel_launches().values())
+    # the trace's kernel runs for every view; the field is the module's forward
+    eval_launches = sum(n for k, n in kernel_launches().items() if k != "raster_traverse")
     check(eval_launches == 0, f"neutex_blob: the eval CLI launched a kernel: {kernel_launches()}")
     with open(os.path.join(test_dir, "evaluation_metrics.pkl"), "rb") as f:
         test_psnr = float(np.mean([m["psnr"] for m in pickle.load(f).values()]))
@@ -4128,6 +4191,18 @@ def main():
         "by_input": {name: {k: r[k] for k in ("E", "cuda_launches_per_call", "ctas", "ms",
                                              "plain_ms", "bound_ms", "library_ms")}
                      for name, r in srows.items()},
+    })
+    # the traversal: no TPU kernel (the JAX package's _traverse is XLA); one
+    # launch per trace, main row the first orbit view's
+    tr = traces["raster_traverse"]
+    kernels.append({
+        "name": "raster_traverse", "route": "cuda", "source": pkg + "raster_traverse.cu",
+        "replaces": None, "stands_for": "intrinsic_neural_fields_tpu/ops/raster.py:576 _traverse",
+        "launches": traces["argsort"]["traverse_launches"], "max_abs_err": 0.0,
+        "ms": tr[0]["ms"], "plain_ms": tr[0]["plain_ms"], "bound_ms": tr[0]["bound_ms"],
+        "bound_by": tr[0]["bound_by"], "library_ms": None,
+        "by_input": {f"orbit512_view{r['view']}": {k: r[k] for k in (
+            "chunks", "chunks_tested", "ms", "plain_ms", "bound_ms")} for r in tr},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_all, phase_s=phase_s)

@@ -246,9 +246,10 @@ def render_leg(device="cuda", frames=FRAMES, H=RENDER_H, subdivisions=SUBDIVISIO
     and composite on the cached trace, the fetch). model: a TextureField
     (default: make_model(model_config(k), seed=0)).
 
-    On the card the network of every chunk is the fused_mlp_fwd kernel:
-    the leg raises unless every frame of every pass launched it and no
-    other kernel of the port ran."""
+    On the card the network of every chunk is the fused_mlp_fwd kernel and
+    each trace one raster_traverse launch: the leg raises unless every
+    frame of every pass launched the forward, each pass traced once a
+    frame, and no other kernel of the port ran."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -278,10 +279,13 @@ def render_leg(device="cuda", frames=FRAMES, H=RENDER_H, subdivisions=SUBDIVISIO
         pipelined_foreach(cams, dispatch, lambda _c, h: images.append(r.render_fetch(h)),
                           depth=DEPTH)
         times.append(time.perf_counter() - t0)
-        others = {n: c for n, c in kernel_launches().items() if c and n != "fused_mlp_fwd"}
-        if dev.type == "cuda" and (min(launches) == 0 or others):
-            raise RuntimeError("bench render leg: a frame did not launch fused_mlp_fwd, or "
-                               f"another kernel ran: {launches}, {others}")
+        counted = kernel_launches()
+        others = {n: c for n, c in counted.items()
+                  if c and n not in ("fused_mlp_fwd", "raster_traverse")}
+        if dev.type == "cuda" and (min(launches) == 0 or others
+                                   or counted["raster_traverse"] != len(cams)):
+            raise RuntimeError("bench render leg: a frame did not launch fused_mlp_fwd and one "
+                               f"raster_traverse, or another kernel ran: {launches}, {counted}")
 
     cam = cams[1 % frames]
     r.render(cam, Kmat, cache_key="stages")

@@ -22,15 +22,17 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = {
     name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-    for name in ("fused_mlp_fwd", "fused_mlp_train", "fused_adam", "bitonic_argsort")
+    for name in ("fused_mlp_fwd", "fused_mlp_train", "fused_adam", "bitonic_argsort",
+                 "raster_traverse")
 }
 HEADERS = sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cuh")))
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# Adam rounds every product and sum separately, like its plain twin.
-EXTRA_FLAGS = {"fused_adam": ["-fmad=false"]}
+# Adam and the traversal round every product and sum separately, like their
+# plain twins.
+EXTRA_FLAGS = {"fused_adam": ["-fmad=false"], "raster_traverse": ["-fmad=false"]}
 
 _loaded = {}
 

@@ -18,17 +18,22 @@ covers (u, v). Per view:
      frontier, then the depth-sorted overflow segment with an exact early
      exit.
 
-Step 4 runs every packet in LOCKSTEP over the chunk index instead of one
+On the card step 4 is one launch of ``csrc/raster_traverse.cu`` per view:
+a CTA per packet walks its span on the device, and nothing comes back to
+the host. ``traverse_plain``, the kernel's twin and the CPU path, runs
+every packet in LOCKSTEP over the chunk index instead of one
 data-dependent loop per packet: packets are sorted by span length once per
 view (one host sync fetches the spans and the overflow chunk count), and at
 step k only the prefix of packets whose span exceeds k is computed. A chunk
 a packet skips is masked, not dropped, so the visit order and the strict
 ``t < best`` update — hence the answers, ties included — are the
 reference's (a chunk skipped there has a depth bound >= the frontier and
-cannot improve any ray).
+cannot improve any ray); the kernel makes the same tests in the same order
+and gives the twin's bits.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -36,6 +41,7 @@ import torch
 
 from . import launches
 from .intersect import B_EPS, T_EPS, Hits, precompute_face_data
+from .launches import _launches, register
 from .ray_gen import ray_origins_and_directions
 from .sort import bitonic_argsort, bitonic_argsort_vmem, stable_radix_argsort
 
@@ -49,6 +55,8 @@ CHUNK = 256                  # entries tested per chunk step
 # [group, RAY_TILE, CHUNK] f32 intermediates (128 MB each at 128 packets);
 # fewer, larger groups mean fewer host-issued steps.
 PACKET_GROUP = 128
+
+register("raster_traverse")
 
 
 def _interleave2(x, y):
@@ -105,15 +113,14 @@ def argsort_keys(keys, total_bits, method):
 class BinTables(NamedTuple):
     """Per-view binning tables."""
 
-    ed_t: torch.Tensor      # [12, Etot] transposed entry hit data:
-                            #   rows 0:3 n, 3:6 a, 6:9 b, 9 tnum, 10 oa, 11 ob
-    ed_rows: torch.Tensor   # [Etot, 12] row-major copy (winner re-gather)
+    ed_rows: torch.Tensor   # [Etot, 12] entry hit data: columns 0:3 n, 3:6 a,
+                            #   6:9 b, 9 tnum, 10 oa, 11 ob
     efid: torch.Tensor      # [Etot] i64 sorted-face ids per entry
     offsets: torch.Tensor   # [T_ids+1] i64 entry segment bounds per tile id
     czmin_e: torch.Tensor   # [Ce] f32 per-chunk depth lower bound
     czmin_o: torch.Tensor   # [Co] f32 (ascending) for the overflow segment
     o_chunks: torch.Tensor  # i64 scalar: occupied overflow chunks
-    e_pad: int              # overflow segment base index in ed_t
+    e_pad: int              # overflow segment base index in ed_rows
     scene_min: torch.Tensor  # [3] f32 scene AABB (per-ray search cap)
     scene_max: torch.Tensor  # [3]
     lost_faces: torch.Tensor  # i64 scalar: faces demoted to overflow by the
@@ -265,7 +272,7 @@ def bin_faces(vertices, faces, camCv2world, K, cmin, cmax, W, H, sort_method="ar
 
     ed_rows = torch.cat([ed_e, ed_o], dim=0)
     return BinTables(
-        ed_t=ed_rows.t().contiguous(), ed_rows=ed_rows,
+        ed_rows=ed_rows,
         efid=torch.cat([entry_fid, oorder]), offsets=offsets,
         czmin_e=ez_e.reshape(-1, CHUNK).amin(dim=1),
         czmin_o=ez_o.reshape(-1, CHUNK).amin(dim=1),
@@ -305,13 +312,18 @@ def _do_chunk(ed_t, start, d, best_t, best_e, active):
     return best_t, best_e
 
 
-def traverse(tables, origins, dirs, coords, *, Tx, Ty):
-    """Walk each packet's tile-span entries, then the overflow segment.
-    Returns (best_t [R], best_e [R]) — best_e indexes the tables' entries."""
+def traverse_plain(tables, origins, dirs, coords, *, Tx, Ty):
+    """Walk each packet's tile-span entries, then the overflow segment, in
+    lockstep (the kernel's twin). Returns (best_t [R], best_e [R]) — best_e
+    indexes the tables' entries. Traced, it adds to the open span the
+    lockstep's ``chunk_steps``, the ``chunks`` the packets' walks reached
+    (their tile spans, and the overflow chunks up to and including the one
+    whose bound stops the walk) and the ``chunks_tested`` among them."""
     dev = origins.device
     R = origins.shape[0]
     n_e_chunks = tables.e_pad // CHUNK
     Rp = -(-R // RAY_TILE) * RAY_TILE
+    ed_t = tables.ed_rows.t().contiguous()  # [12, Etot]: a chunk's rows gather whole
 
     def packets(x):
         if Rp > R:
@@ -350,9 +362,12 @@ def traverse(tables, origins, dirs, coords, *, Tx, Ty):
     order_h = np.argsort(-span_h, kind="stable")
     order = torch.from_numpy(order_h).to(dev)
     span_sorted = span_h[order_h]
-    if launches.tracing():  # the loops below: per group, its longest span, then the overflow
+    count = launches.tracing()
+    if count:  # the loops below: per group, its longest span, then the overflow
         heads = span_sorted[::PACKET_GROUP]
         launches.add("chunk_steps", int(heads.sum()) + o_chunks * len(heads))
+        reached = int(span_h.sum())
+        tested = torch.zeros((), dtype=torch.int64, device=dev)
 
     best_t = torch.full((P, RAY_TILE), float("inf"), device=dev)
     best_e = torch.full((P, RAY_TILE), -1, dtype=torch.int64, device=dev)
@@ -372,29 +387,131 @@ def traverse(tables, origins, dirs, coords, *, Tx, Ty):
             ck = c0g[:n] + k
             frontier = torch.minimum(bt[:n], cap[:n]).amax(dim=1)
             active = tables.czmin_e[ck] < frontier
-            bt[:n], be[:n] = _do_chunk(tables.ed_t, ck * CHUNK, d[:n], bt[:n],
-                                       be[:n], active)
+            if count:
+                tested = tested + active.sum()
+            bt[:n], be[:n] = _do_chunk(ed_t, ck * CHUNK, d[:n], bt[:n], be[:n], active)
         # Overflow segment: globally depth-ascending, so once a packet's
         # frontier drops below a chunk's bound it stays below for the rest.
+        walking = torch.ones(len(pk), dtype=torch.bool, device=dev) if count else None
         for k in range(o_chunks):
             frontier = torch.minimum(bt, cap).amax(dim=1)
             active = tables.czmin_o[k] < frontier
+            if count:  # a walk reaches chunk k while no earlier chunk stopped it
+                reached = reached + walking.sum()
+                walking = walking & active
+                tested = tested + walking.sum()
             start = torch.full_like(c0g, tables.e_pad + k * CHUNK)
-            bt, be = _do_chunk(tables.ed_t, start, d, bt, be, active)
+            bt, be = _do_chunk(ed_t, start, d, bt, be, active)
         best_t[pk] = bt
         best_e[pk] = be
+    if count:
+        launches.add("chunks", reached)
+        launches.add("chunks_tested", tested)
     return best_t.reshape(-1)[:R], best_e.reshape(-1)[:R]
 
 
-def intersect_coords_pinhole_core(vertices, faces, camCv2world, K, coords, *, W, H,
-                                  coord_hull=None, return_dirs=False, sort_method="argsort"):
-    """Trace body. vertices [V,3] f32 and faces [F,3] int tensors and coords
-    [L,2] f32 on one device; camCv2world and K host arrays (numpy).
-    coord_hull: optional [2,2] (cmin; cmax) pixel hull override for the
-    conservative face cull (default: from `coords`). return_dirs: return
-    (hits, the re-normalised unit ray directions [L,3]), which the
-    view-dependent field needs. sort_method: the binning sort
-    (``argsort_keys``); every method gives the same hits, bit for bit."""
+def _traverse_lib():
+    from ._build import load
+
+    lib = load("raster_traverse")
+    fn = lib.raster_traverse
+    if fn.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [P] * 5 + [I] + [P] * 3 + [I] + [P] * 2 + [I] * 3 + [F] * 7 + [P] * 4
+        fn.restype = I
+        for const, want in (("raster_traverse_ray_tile", RAY_TILE),
+                            ("raster_traverse_chunk", CHUNK),
+                            ("raster_traverse_tile_px", TILE_PX)):
+            getattr(lib, const).restype = I
+            if getattr(lib, const)() != want:
+                raise RuntimeError(f"csrc/raster_traverse.cu's {const} disagrees with "
+                                   "ops/raster.py")
+    return fn
+
+
+def _check_traverse_operands(tables, origins, dirs, coords, Tx, Ty):
+    dev, R = origins.device, origins.shape[0]
+
+    def need(ok, what):
+        if not ok:
+            raise ValueError(f"traverse: {what}")
+
+    def tensor(name, t, dtype, numel=None):
+        need(t.device == dev and t.dtype == dtype and t.is_contiguous()
+             and (numel is None or t.numel() == numel),
+             f"{name} must be contiguous {dtype}"
+             f"{'' if numel is None else f' with {numel} elements'} on {dev}, "
+             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+    e_tot = tables.ed_rows.shape[0]
+    tensor("ed_rows", tables.ed_rows, torch.float32, 12 * e_tot)
+    need(tables.ed_rows.dim() == 2 and e_tot % CHUNK == 0 and e_tot < 2 ** 31
+         and tables.ed_rows.data_ptr() % 16 == 0,
+         f"ed_rows must be 16-byte aligned [E, 12] rows, E a multiple of {CHUNK} below "
+         f"2^31, got {tuple(tables.ed_rows.shape)}")
+    need(tables.e_pad % CHUNK == 0 and 0 <= tables.e_pad <= e_tot,
+         f"e_pad {tables.e_pad} must be a multiple of {CHUNK} within the {e_tot} entries")
+    tensor("offsets", tables.offsets, torch.int64, _morton2_host(Tx - 1, Ty - 1) + 2)
+    tensor("czmin_e", tables.czmin_e, torch.float32, tables.e_pad // CHUNK)
+    tensor("czmin_o", tables.czmin_o, torch.float32, (e_tot - tables.e_pad) // CHUNK)
+    tensor("o_chunks", tables.o_chunks, torch.int64, 1)
+    tensor("scene_min", tables.scene_min, torch.float32, 3)
+    tensor("scene_max", tables.scene_max, torch.float32, 3)
+    need(R < 2 ** 31, f"{R} rays exceed 2^31 - 1")
+    need(origins.device == dev and origins.dtype == torch.float32
+         and tuple(origins.shape) == (R, 3) and origins.stride(1) == 1
+         and origins.stride(0) in (0, 3),
+         f"origins must be float32 [R, 3] rows, contiguous or one row broadcast, got "
+         f"{tuple(origins.shape)} {origins.dtype} strides {origins.stride()}")
+    for name, t, w in (("dirs", dirs, 3), ("coords", coords, 2)):
+        tensor(name, t, torch.float32)
+        need(tuple(t.shape) == (R, w), f"{name} must be [{R}, {w}], got {tuple(t.shape)}")
+
+
+def traverse(tables, origins, dirs, coords, *, Tx, Ty):
+    """Walk each packet's tile-span entries, then the overflow segment.
+    Returns (best_t [R], best_e [R]) — best_e indexes the tables' entries.
+
+    CPU tensors: ``traverse_plain``. CUDA tensors: one launch of
+    ``csrc/raster_traverse.cu`` on the current stream, with the twin's
+    bits and no device->host read, or an error. Traced, the kernel's
+    ``chunks`` and ``chunks_tested`` (counted as the twin counts them) are
+    added to the open span as device tensors."""
+    dev = origins.device
+    if dev.type == "cpu":
+        return traverse_plain(tables, origins, dirs, coords, Tx=Tx, Ty=Ty)
+    if dev.type != "cuda":
+        raise ValueError(f"traverse: unsupported device {dev}")
+    _check_traverse_operands(tables, origins, dirs, coords, Tx, Ty)
+    R = origins.shape[0]
+    best_t = torch.empty(R, dtype=torch.float32, device=dev)
+    best_e = torch.empty(R, dtype=torch.int64, device=dev)
+    if R == 0:
+        return best_t, best_e
+    counts = torch.zeros(2, dtype=torch.int64, device=dev) if launches.tracing() else None
+    # The twin's constants as torch rounds a Python scalar: to float32.
+    rc = _traverse_lib()(
+        tables.ed_rows.data_ptr(), tables.offsets.data_ptr(), tables.czmin_e.data_ptr(),
+        tables.czmin_o.data_ptr(), tables.o_chunks.data_ptr(), tables.e_pad,
+        tables.scene_min.data_ptr(), tables.scene_max.data_ptr(), origins.data_ptr(),
+        origins.stride(0), dirs.data_ptr(), coords.data_ptr(), R, Tx, Ty,
+        1e-12, T_EPS, -B_EPS, 1.0 + B_EPS, 1 + 1e-5, 1e-4, 1e-12,
+        best_t.data_ptr(), best_e.data_ptr(), None if counts is None else counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"raster_traverse launch failed: cudaError {rc}")
+    _launches["raster_traverse"] += 1
+    if counts is not None:
+        launches.add("chunks", counts[0])
+        launches.add("chunks_tested", counts[1])
+    return best_t, best_e
+
+
+def bin_view(vertices, faces, camCv2world, K, coords, *, W, H, coord_hull=None,
+             sort_method="argsort"):
+    """A view's rays and binning tables: (tables, origins [L,3], unit dirs
+    [L,3], their norms before re-normalising [L,1]). Arguments as for
+    ``intersect_coords_pinhole_core``."""
     dev = coords.device
     origins, dirs = ray_origins_and_directions(camCv2world, K, coords)
     # The reference tracer re-normalizes its (already unit) dirs and
@@ -411,6 +528,22 @@ def intersect_coords_pinhole_core(vertices, faces, camCv2world, K, coords, *, W,
     K_t = torch.as_tensor(np.asarray(K, np.float32)[:3, :3], device=dev)
     with launches.span("raster.bin"):
         tables = bin_faces(vertices, faces, cam_t, K_t, cmin, cmax, W, H, sort_method)
+    return tables, origins, dirs, dir_norm
+
+
+def intersect_coords_pinhole_core(vertices, faces, camCv2world, K, coords, *, W, H,
+                                  coord_hull=None, return_dirs=False, sort_method="argsort"):
+    """Trace body. vertices [V,3] f32 and faces [F,3] int tensors and coords
+    [L,2] f32 on one device; camCv2world and K host arrays (numpy).
+    coord_hull: optional [2,2] (cmin; cmax) pixel hull override for the
+    conservative face cull (default: from `coords`). return_dirs: return
+    (hits, the re-normalised unit ray directions [L,3]), which the
+    view-dependent field needs. sort_method: the binning sort
+    (``argsort_keys``); every method gives the same hits, bit for bit."""
+    dev = coords.device
+    tables, origins, dirs, dir_norm = bin_view(vertices, faces, camCv2world, K, coords, W=W,
+                                               H=H, coord_hull=coord_hull,
+                                               sort_method=sort_method)
     best_t, best_e = traverse(tables, origins, dirs, coords,
                               Tx=-(-W // TILE_PX), Ty=-(-H // TILE_PX))
 

@@ -1,7 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the sm_90a kernels (the fused
 MLP forward, the train forward/backward and weight gradients, Adam, and the
-view-dependent field's tail kernels, the bitonic argsort) against their
-plain twins, their launch counters and input checks, the tracer with every
+view-dependent field's tail kernels, the bitonic argsort, the tracer's
+traversal) against their plain twins, their launch counters and input checks, the tracer with every
 sort method, and the tracer, renderer, preprocessing and a training epoch
 on the card against the same code on the CPU.
 They skip without CUDA. This file imports only the
@@ -836,6 +836,136 @@ def test_trace_bit_identical_across_sort_methods_on_card(cuda):
     for method, h in hits.items():
         for field in ("valid", "face_idx", "t", "bary"):
             assert torch.equal(getattr(h, field), getattr(hits["argsort"], field)), (method, field)
+
+
+def _traced(fn):
+    """fn() inside a span under torch.profiler: (its result, the span's
+    attributes, the raster_traverse launches it made)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from intrinsic_neural_fields_tpu_torch.ops import launches
+
+    launches.reset_kernel_launches()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with launches.span("trace"):
+            out = fn()
+    torch.cuda.synchronize()
+    records = launches.spans(0, 2 ** 63 - 1)[0]
+    (rec,) = [r for r in records if r["name"] == "trace"]
+    return out, rec["attrs"], launches.kernel_launches()["raster_traverse"], records
+
+
+def _traverse_scene(case):
+    """(mesh, cam, K, coords [L,2] f32, H, W, coord hull or None) of a
+    traversal case."""
+    from intrinsic_neural_fields_tpu_torch.geometry.cameras import (
+        undistort_pixels_meshroom_radial_k3,
+    )
+    from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
+    from intrinsic_neural_fields_tpu_torch.geometry.synthetic import look_at_cam
+    from intrinsic_neural_fields_tpu_torch.ops.morton import (
+        face_morton_order,
+        pixel_morton_order,
+    )
+
+    def sorted_faces(m):
+        m.faces = m.faces[face_morton_order(m.vertices, m.faces)]
+        return m
+
+    def grid(H, W):
+        c = pixel_grid_coords(H, W)
+        return c[pixel_morton_order(c)]
+
+    blob = sorted_faces(blob_mesh(6))  # 81,920 faces, the render cell's mesh
+    H = W = 512
+    K = pinhole_K(H, W)
+    if case.startswith("pose"):
+        return blob, ring_cameras(4)[int(case[4:])], K, grid(H, W), H, W, None
+    if case == "masked_subset":
+        c = pixel_grid_coords(H, W)
+        rng = np.random.default_rng(0)
+        keep = (rng.uniform(size=H * W) < 0.3) | (np.arange(H * W) < H * W // 3)
+        sub = c[keep]
+        return blob, ring_cameras(4)[1], K, sub[pixel_morton_order(sub)], H, W, None
+    if case == "meshroom_outside":
+        H, W = 240, 320
+        K = np.array([[1.2 * H, 0, (W - 1) / 2], [0, 1.2 * H, (H - 1) / 2], [0, 0, 1]],
+                     np.float32)
+        c = undistort_pixels_meshroom_radial_k3(grid(H, W).astype(np.float64), K,
+                                                [-0.2, 0.0, 0.0]).astype(np.float32)
+        assert (c.min(0) < 0).all() and c[:, 0].max() > W and c[:, 1].max() > H
+        return blob, ring_cameras(3, radius=1.7)[0], K, c, H, W, None
+    if case == "all_overflow":
+        return (sorted_faces(icosphere(1)), look_at_cam(np.array([0.0, -2.2, 0.0])),
+                pinhole_K(256, 256), grid(256, 256), 256, 256, None)
+    if case == "camera_inside":
+        return (blob, look_at_cam(np.array([0.2, -0.1, 0.05]), target=np.array([1.0, 0, 0])),
+                K, grid(H, W), H, W, None)
+    if case == "ragged_1000":  # a 32 x 32 block on the blob, cut to 1000 rays
+        c = pixel_grid_coords(32, 32) + np.float32(240)
+        return blob, ring_cameras(4)[2], K, c[pixel_morton_order(c)][:1000], H, W, None
+    if case == "ragged_262145":
+        c = np.concatenate([grid(H, W), np.array([[511.5, 0.25]], np.float32)])
+        return blob, ring_cameras(4)[3], K, c, H, W, None
+    if case == "shard_of_two":
+        c = grid(H, W)
+        hull = np.stack([c.min(0), c.max(0)])
+        return blob, ring_cameras(4)[0], K, c[: len(c) // 2], H, W, hull
+    raise ValueError(case)
+
+
+TRAVERSE_CASES = ["pose0", "pose1", "pose2", "pose3", "masked_subset", "meshroom_outside",
+                  "all_overflow", "camera_inside", "ragged_1000", "ragged_262145",
+                  "shard_of_two"]
+
+
+@pytest.mark.parametrize("case", TRAVERSE_CASES)
+def test_traverse_kernel_equals_lockstep_twin(cuda, monkeypatch, case):
+    """csrc/raster_traverse.cu against traverse_plain on the card, on the
+    same tables: (best_t, best_e) and the Hits of the whole trace equal to
+    the bit; one raster_traverse launch per trace, no device->host read in
+    it (the sync debug mode raises on one; no raster.sync span); the chunks
+    its walks reached and tested equal the twin's counts."""
+    from intrinsic_neural_fields_tpu_torch.ops import raster as RA
+
+    mesh, cam, K, coords, H, W, hull = _traverse_scene(case)
+    verts = torch.as_tensor(np.asarray(mesh.vertices, np.float32), device=cuda)
+    faces = torch.as_tensor(np.asarray(mesh.faces, np.int64), device=cuda)
+    c = torch.as_tensor(coords, device=cuda)
+    Tx, Ty = -(-W // RA.TILE_PX), -(-H // RA.TILE_PX)
+    tables, origins, dirs, _ = RA.bin_view(verts, faces, cam, K, c, W=W, H=H, coord_hull=hull)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = RA.traverse(tables, origins, dirs, c, Tx=Tx, Ty=Ty)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = RA.traverse_plain(tables, origins, dirs, c, Tx=Tx, Ty=Ty)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.isfinite(want[0]).any()
+
+    k_out, k_attrs, k_launches, k_records = _traced(
+        lambda: RA.traverse(tables, origins, dirs, c, Tx=Tx, Ty=Ty))
+    p_out, p_attrs, p_launches, _ = _traced(
+        lambda: RA.traverse_plain(tables, origins, dirs, c, Tx=Tx, Ty=Ty))
+    assert (k_launches, p_launches) == (1, 0)
+    assert "raster.sync" not in {r["name"] for r in k_records}
+    assert set(k_attrs) == {"chunks", "chunks_tested"}
+    assert (k_attrs["chunks"], k_attrs["chunks_tested"]) == (p_attrs["chunks"],
+                                                             p_attrs["chunks_tested"])
+    assert 0 < k_attrs["chunks_tested"] <= k_attrs["chunks"]
+    assert all(torch.equal(a, b) for a, b in zip(k_out + p_out, got + want))
+
+    def trace():
+        return RA.intersect_coords_pinhole_core(verts, faces, cam, K, c, W=W, H=H,
+                                                coord_hull=hull)
+
+    hits_k, _, launched, _ = _traced(trace)
+    assert launched == 1
+    monkeypatch.setattr(RA, "traverse", RA.traverse_plain)
+    hits_p = trace()
+    for field in ("valid", "face_idx", "t", "bary"):
+        assert torch.equal(getattr(hits_k, field), getattr(hits_p, field)), field
 
 
 def test_preprocessing_on_card_matches_cpu(cuda, tmp_path):

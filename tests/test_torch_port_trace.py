@@ -132,8 +132,10 @@ def _blocks_epoch(n=1024, B=256, k=16, seed=0):
 def test_render_frames_carry_their_spans():
     """Frames through pipelined_foreach at depth 2: one render.async and
     one render.fetch per frame, the fetch of frame i after the dispatch of
-    frame i + 1; render.infer's rays H*W and hits the frame's valid pixels,
-    chunk steps > 0; every stage under its frame's span."""
+    frame i + 1; render.infer's rays H*W and hits the frame's valid pixels;
+    render.trace the plain traversal's chunk steps > 0 and the chunks its
+    walks reached and tested, 0 < tested <= reached; every stage under its
+    frame's span."""
     H = W = 32
     r = _renderer(H, W)
     K = np.array([[1.2 * W, 0, W / 2], [0, 1.2 * W, H / 2], [0, 0, 1]], np.float32)
@@ -163,7 +165,9 @@ def test_render_frames_carry_their_spans():
     infer_hits = {frame_of[i["parent"]]: i["attrs"]["hits"] for i in by["render.infer"]}
     assert [infer_hits[f] for f in range(len(cams))] == hits
     assert all(i["attrs"]["rays"] == H * W for i in by["render.infer"])
-    assert all(set(t["attrs"]) == {"chunk_steps"} and t["attrs"]["chunk_steps"] > 0
+    assert all(set(t["attrs"]) == {"chunk_steps", "chunks", "chunks_tested"}
+               and t["attrs"]["chunk_steps"] > 0
+               and 0 < t["attrs"]["chunks_tested"] <= t["attrs"]["chunks"]
                for t in by["render.trace"])
 
 
