@@ -40,9 +40,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
       with sort_method argsort, radix, bitonic and bitonic_vmem: t,
       face_idx, bary and valid bit-identical; the kernel's counts set to 0
       just before each trace and read just after (> 0 only for
-      bitonic_vmem; one raster_traverse launch per trace); then the
-      traversal kernel against its lockstep twin on four orbit views'
-      tables (bits and chunk counts equal), its time beside its bound;
+      bitonic_vmem; one raster_traverse and three raster_bin launches per
+      trace); then the traversal kernel against its lockstep twin on four
+      orbit views' tables (bits and chunk counts equal), its time beside
+      its bound; then the binning kernels against their twin on the same
+      views (every table field equal to the bit), their device time beside
+      their bound, the sorts', the twin's and the host's enqueue time;
   (q) hq_pipeline: preprocess_dataset on the card (raster tracer) for the
       train and test splits in process and the val split as a
       `python -m` subprocess; the train split again with --intersector host
@@ -800,7 +803,8 @@ def phase_trace_methods(tp_leg):
         out[method] = {"hits": hits, "trace_ms": ms,
                        "launches": kernel_launches()["bitonic_argsort"],
                        "cuda_launches": S.bitonic_argsort_vmem.cuda_launches - c0,
-                       "traverse_launches": kernel_launches()["raster_traverse"]}
+                       "traverse_launches": kernel_launches()["raster_traverse"],
+                       "bin_launches": kernel_launches()["raster_bin"]}
     ref = out["argsort"]["hits"]
     for method, o in out.items():
         check(all(torch.equal(getattr(o["hits"], f), getattr(ref, f))
@@ -810,11 +814,14 @@ def phase_trace_methods(tp_leg):
               f"bitonic_argsort launched {o['launches']} times under sort_method={method!r}")
         check(o["traverse_launches"] == 1,
               f"raster_traverse launched {o['traverse_launches']} times in one trace")
+        check(o["bin_launches"] == 3,
+              f"raster_bin launched {o['bin_launches']} times in one trace")
         o["bit_identical"] = True
         del o["hits"]
     emit("trace_methods", H=H, W=W, faces=faces.shape[0], hit_rays=int(ref.valid.sum()),
          methods=out)
     out["raster_traverse"] = _traverse_kernel_check(verts, faces, cams, K, coords, W, H)
+    out["raster_bin"] = _bin_kernel_check(verts, faces, cams, K, coords, W, H)
     return out
 
 
@@ -866,6 +873,75 @@ def _traverse_kernel_check(verts, faces, cams, K, coords, W, H):
         row["bound_ms"], row["bound_by"] = _bound(
             0.0, nbytes, f32_flops=25.0 * tested * RA.RAY_TILE * RA.CHUNK)
         emit("kernel_check", name="raster_traverse", input=f"orbit512_view{i}", **row)
+        rows.append(row)
+    return rows
+
+
+def _bin_kernel_check(verts, faces, cams, K, coords, W, H):
+    """csrc/raster_bin.cu's three launches (with the two sort calls)
+    against their twin bin_faces_plain on the 512^2 orbit views, on the card
+    and on one face table: every BinTables field equal to the bit. Times:
+    the three launches' device time from torch.profiler (`ms`), the sorts'
+    beside it (`sort_ms`), the whole binning by CUDA events (`binning_ms`),
+    the host's time to enqueue it (`host_ms`), the twin's synchronized wall
+    time (`plain_ms`); bound: the bytes the three launches read and write
+    once at the HBM rate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from intrinsic_neural_fields_tpu_torch.ops import raster as RA
+
+    v = torch.as_tensor(verts, device="cuda")
+    f = torch.as_tensor(np.asarray(faces, np.int64), device="cuda")
+    table = RA.face_table(v, f)
+    hull = np.stack([coords.min(0), coords.max(0)]).astype(np.float32)
+    F = f.shape[0]
+    rows = []
+    for i, cam in enumerate(cams[:4]):
+        def kernel():
+            return RA.bin_faces_kernel(table, cam, K, hull, W, H)
+
+        def plain():
+            return RA.bin_faces_plain(table, cam, K, hull, W, H)
+
+        got, want = kernel(), plain()
+        same = {name: torch.equal(g, w) if isinstance(g, torch.Tensor) else g == w
+                for name, g, w in zip(got._fields, got, want)}
+        row = {"view": i, "faces": F, "entries": got.e_pad,
+               "lost_faces": int(got.lost_faces), "o_chunks": int(got.o_chunks),
+               "equal_to_twin": all(same.values())}
+        check(row["equal_to_twin"], f"raster_bin disagrees with bin_faces_plain on view {i}: "
+                                    f"{same}")
+        row["binning_ms"] = cuda_ms(kernel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            kernel()
+        row["host_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            plain()
+        torch.cuda.synchronize()
+        row["plain_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                kernel()
+            torch.cuda.synchronize()
+        by_kernel = _device_us_by_kernel(prof)
+        row["ms"] = sum(us for k, us in by_kernel.items() if "raster_bin" in k) / 20e3
+        row["sort_ms"] = sum(us for k, us in by_kernel.items() if "raster_bin" not in k) / 20e3
+        # project: the table (n, a, b, c, a0, b0, ok, tri) in, the view's
+        # values, z, tiles and flags out; keys: those in, zq's keys, the
+        # compacted slots, the overflow keys and zfloor out; tables: the
+        # sorted keys and orders, two gathered face rows and the view's
+        # values in, the rows, face ids, offsets and minima out
+        ecap, etot = got.e_pad, got.ed_rows.shape[0]
+        nbytes = (F * (85 + 36) + F * (24 + 12) + ecap * 8
+                  + ecap * (4 + 8 + 4) + F * 8 + etot * (36 + 12 + 4)
+                  + etot * (48 + 8) + got.offsets.numel() * 8)
+        row["bound_ms"], row["bound_by"] = _bound(0.0, nbytes)
+        emit("kernel_check", name="raster_bin", input=f"orbit512_view{i}", **row)
         rows.append(row)
     return rows
 
@@ -1080,7 +1156,7 @@ def phase_hq_train(p):
     plain_kernels = ("fused_mlp_fwd", "fused_mlp_fwd_bwd", "fused_mlp_wgrad_adam")
     check(all(launches[k] > 0 for k in plain_kernels)  # the evals' traces: raster_traverse
           and not any(launches[k] for k in launches
-                      if k not in plain_kernels + ("raster_traverse",)),
+                      if k not in plain_kernels + ("raster_traverse", "raster_bin")),
           f"the HQ path's kernels did not launch, or others did: {launches}")
     check(eager == 0, f"the eager step ran {eager} times on the HQ recipe")
     losses = rec.values("Train_Loss")
@@ -1239,8 +1315,9 @@ def phase_jax_checkpoint(p, hq_leg, hq_eval_launches):
     a, b = evals["ckpt"], evals["pt"]
     check(a["images"] and a["images"] == b["images"] and a["scores"] == b["scores"],
           f"the JAX out_dir's eval differs from the model.pt's: {a['scores']} {b['scores']}")
-    check(set(a["launches"]) == {"fused_mlp_fwd", "raster_traverse"}
-          and a["launches"]["raster_traverse"] == a["views"] and a["launches"] == b["launches"],
+    check(set(a["launches"]) == {"fused_mlp_fwd", "raster_traverse", "raster_bin"}
+          and a["launches"]["raster_traverse"] == a["views"]
+          and a["launches"]["raster_bin"] == 3 * a["views"] and a["launches"] == b["launches"],
           f"eval launches: JAX out_dir {a['launches']}, model.pt {b['launches']} "
           f"(one trace per view: {a['views']})")
     eval_launches = a["launches"].get("fused_mlp_fwd", 0)
@@ -1954,7 +2031,7 @@ def phase_viewdep_train(p):
     check(launches["fused_mlp_fwd_viewdep"] > 0, f"the eval did not launch the forward: {launches}")
     check(not any(launches[k] for k in launches if k not in (
         "fused_mlp_fwd_bwd_viewdep", "fused_mlp_wgrad_adam_viewdep", "fused_mlp_fwd_viewdep",
-        "raster_traverse")),
+        "raster_traverse", "raster_bin")),
           f"other kernels ran on this path: {launches}")
     graph = _graph_stats(trainer, launches, 5 * nb, 5, ("fused_mlp_fwd_bwd_viewdep",
                                                           "fused_mlp_wgrad_adam_viewdep"))
@@ -3089,8 +3166,9 @@ def phase_neutex(p):
     eval_cli.main([test_dir, cfg_path, p["data"], "test"])
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    # the trace's kernel runs for every view; the field is the module's forward
-    eval_launches = sum(n for k, n in kernel_launches().items() if k != "raster_traverse")
+    # the trace's kernels run for every view; the field is the module's forward
+    eval_launches = sum(n for k, n in kernel_launches().items()
+                        if k not in ("raster_traverse", "raster_bin"))
     check(eval_launches == 0, f"neutex_blob: the eval CLI launched a kernel: {kernel_launches()}")
     with open(os.path.join(test_dir, "evaluation_metrics.pkl"), "rb") as f:
         test_psnr = float(np.mean([m["psnr"] for m in pickle.load(f).values()]))
@@ -4203,6 +4281,19 @@ def main():
         "bound_by": tr[0]["bound_by"], "library_ms": None,
         "by_input": {f"orbit512_view{r['view']}": {k: r[k] for k in (
             "chunks", "chunks_tested", "ms", "plain_ms", "bound_ms")} for r in tr},
+    })
+    # the binning: no TPU kernel (the JAX package's _bin_faces is XLA);
+    # three launches and two sort calls per trace, main row the first view's
+    bn = traces["raster_bin"]
+    kernels.append({
+        "name": "raster_bin", "route": "cuda", "source": pkg + "raster_bin.cu",
+        "replaces": None, "stands_for": "intrinsic_neural_fields_tpu/ops/raster.py:374 _bin_faces",
+        "launches": traces["argsort"]["bin_launches"], "max_abs_err": 0.0,
+        "ms": bn[0]["ms"], "plain_ms": bn[0]["plain_ms"], "bound_ms": bn[0]["bound_ms"],
+        "bound_by": bn[0]["bound_by"], "library_ms": None,
+        "by_input": {f"orbit512_view{r['view']}": {k: r[k] for k in (
+            "ms", "sort_ms", "binning_ms", "host_ms", "plain_ms", "bound_ms", "lost_faces")}
+            for r in bn},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_all, phase_s=phase_s)

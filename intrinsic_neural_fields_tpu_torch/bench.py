@@ -247,9 +247,9 @@ def render_leg(device="cuda", frames=FRAMES, H=RENDER_H, subdivisions=SUBDIVISIO
     (default: make_model(model_config(k), seed=0)).
 
     On the card the network of every chunk is the fused_mlp_fwd kernel and
-    each trace one raster_traverse launch: the leg raises unless every
-    frame of every pass launched the forward, each pass traced once a
-    frame, and no other kernel of the port ran."""
+    each trace one raster_traverse and three raster_bin launches: the
+    leg raises unless every frame of every pass launched the forward, each
+    pass traced once a frame, and no other kernel of the port ran."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -281,11 +281,13 @@ def render_leg(device="cuda", frames=FRAMES, H=RENDER_H, subdivisions=SUBDIVISIO
         times.append(time.perf_counter() - t0)
         counted = kernel_launches()
         others = {n: c for n, c in counted.items()
-                  if c and n not in ("fused_mlp_fwd", "raster_traverse")}
+                  if c and n not in ("fused_mlp_fwd", "raster_traverse", "raster_bin")}
         if dev.type == "cuda" and (min(launches) == 0 or others
-                                   or counted["raster_traverse"] != len(cams)):
-            raise RuntimeError("bench render leg: a frame did not launch fused_mlp_fwd and one "
-                               f"raster_traverse, or another kernel ran: {launches}, {counted}")
+                                   or counted["raster_traverse"] != len(cams)
+                                   or counted["raster_bin"] != 3 * len(cams)):
+            raise RuntimeError("bench render leg: a frame did not launch fused_mlp_fwd, one "
+                               "raster_traverse and three raster_bin, or another kernel ran: "
+                               f"{launches}, {counted}")
 
     cam = cams[1 % frames]
     r.render(cam, Kmat, cache_key="stages")

@@ -26,7 +26,7 @@ from ..geometry.cameras import DistortionTypes, undistort_pixels_meshroom_radial
 from ..geometry.mesh import load_mesh
 from ..ops.intersect import HostBVH, intersect_rays, intersect_rays_numpy
 from ..ops.morton import pixel_morton_order
-from ..ops.raster import check_pinhole_K, intersect_coords_pinhole_core
+from ..ops.raster import MeshTable, check_pinhole_K, intersect_coords_pinhole_core
 from ..ops.ray_gen import pixel_grid_coords, ray_origins_and_directions, unit_ray_dirs_numpy
 
 _PIPELINE_DEPTH = 2
@@ -55,6 +55,8 @@ class MeshViewPreProcessor:
                                           device=self.device)
             self._faces = torch.as_tensor(np.asarray(self.mesh.faces, np.int64),
                                           device=self.device)
+            # The raster tracer's face table, built by the first view.
+            self._mesh_table = MeshTable(self._verts, self._faces)
         self._host_bvh = None
         self._pending = deque()
 
@@ -140,7 +142,7 @@ class MeshViewPreProcessor:
             order = pixel_morton_order(np.clip(coords, 0, [W - 1, H - 1]))
             c = torch.from_numpy(np.ascontiguousarray(coords[order])).to(self.device)
             hits = intersect_coords_pinhole_core(self._verts, self._faces, camCv2world, K, c,
-                                                 W=W, H=H)
+                                                 W=W, H=H, mesh_table=self._mesh_table)
             return hits, order
         c = torch.from_numpy(coords).to(self.device)
         origins, dirs = ray_origins_and_directions(camCv2world, K, c)

@@ -23,16 +23,17 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = {
     name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
     for name in ("fused_mlp_fwd", "fused_mlp_train", "fused_adam", "bitonic_argsort",
-                 "raster_traverse")
+                 "raster_traverse", "raster_bin")
 }
 HEADERS = sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cuh")))
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# Adam and the traversal round every product and sum separately, like their
-# plain twins.
-EXTRA_FLAGS = {"fused_adam": ["-fmad=false"], "raster_traverse": ["-fmad=false"]}
+# Adam, the traversal and the binning round every product and sum
+# separately, like their plain twins.
+EXTRA_FLAGS = {"fused_adam": ["-fmad=false"], "raster_traverse": ["-fmad=false"],
+               "raster_bin": ["-fmad=false"]}
 
 _loaded = {}
 

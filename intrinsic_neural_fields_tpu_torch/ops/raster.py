@@ -18,7 +18,11 @@ covers (u, v). Per view:
      frontier, then the depth-sorted overflow segment with an exact early
      exit.
 
-On the card step 4 is one launch of ``csrc/raster_traverse.cu`` per view:
+On the card steps 1-2 and the tables after step 3 are three launches of
+``csrc/raster_bin.cu`` per view around the two sort calls, reading a face
+table built once per mesh and device (``MeshTable``); ``bin_faces_plain``
+is their twin and the CPU path, with the same bits. Step 4 is one launch
+of ``csrc/raster_traverse.cu`` per view:
 a CTA per packet walks its span on the device, and nothing comes back to
 the host. ``traverse_plain``, the kernel's twin and the CPU path, runs
 every packet in LOCKSTEP over the chunk index instead of one
@@ -55,8 +59,9 @@ CHUNK = 256                  # entries tested per chunk step
 # [group, RAY_TILE, CHUNK] f32 intermediates (128 MB each at 128 packets);
 # fewer, larger groups mean fewer host-issued steps.
 PACKET_GROUP = 128
+BIN_FACES = 256              # faces per CTA of the binning kernels
 
-register("raster_traverse")
+register("raster_bin", "raster_traverse")
 
 
 def _interleave2(x, y):
@@ -127,38 +132,97 @@ class BinTables(NamedTuple):
                               # ~2F entry cap (correct, but slow)
 
 
-def bin_faces(vertices, faces, camCv2world, K, cmin, cmax, W, H, sort_method="argsort"):
-    """Build the per-view binning tables. All tensors on one device;
-    camCv2world [3,4] and K [3,3] f32 tensors; cmin/cmax [2] f32 hulls of
-    the ray pixel coordinates (conservative drop bounds); sort_method: see
-    ``argsort_keys`` (two sorts per view: the entries, the overflow faces).
+class FaceTable(NamedTuple):
+    """A mesh's per-face binning data on one device: what every view's
+    binning reads and no view changes."""
 
-    Valid entries are stream-compacted into a ~2F-capped buffer before the
-    sort; faces whose entries miss the cap are demoted WHOLE to the exact
-    overflow segment, so no hit can be lost."""
-    dev = vertices.device
+    n: torch.Tensor    # [F,3] f32 plane normal (precompute_face_data)
+    c: torch.Tensor    # [F]
+    a: torch.Tensor    # [F,3]
+    a0: torch.Tensor   # [F]
+    b: torch.Tensor    # [F,3]
+    b0: torch.Tensor   # [F]
+    ok: torch.Tensor   # [F] bool
+    tri: torch.Tensor  # [F,3,3] f32 the faces' vertices
+    scene_min: torch.Tensor  # [3] f32 the vertices' box
+    scene_max: torch.Tensor  # [3]
+
+
+def face_table(vertices, faces):
+    """The FaceTable of vertices [V,3] f32 and faces [F,3] int on one
+    device, built by plain torch."""
+    F = faces.shape[0]
+    fd = precompute_face_data(vertices, faces)
+    tri = vertices[faces.long().reshape(-1)].reshape(F, 3, 3)
+    return FaceTable(*(x.contiguous() for x in fd), tri=tri,
+                     scene_min=vertices.amin(dim=0), scene_max=vertices.amax(dim=0))
+
+
+class MeshTable:
+    """The FaceTable of one mesh on one device, built by the first view
+    that asks for it and kept for the rest. Whoever changes the vertices or
+    the faces makes a new one."""
+
+    def __init__(self, vertices, faces):
+        self.vertices, self.faces = vertices, faces
+        self._table = None
+
+    def get(self):
+        """(the FaceTable, True when it was built before this call)."""
+        if self._table is not None:
+            return self._table, True
+        self._table = face_table(self.vertices, self.faces)
+        return self._table, False
+
+
+def _key_space(W, H):
+    """(Tx, Ty, T_ids): the tile grid and the tile ids' range."""
     Tx = -(-W // TILE_PX)
     Ty = -(-H // TILE_PX)
     T_ids = _morton2_host(Tx - 1, Ty - 1) + 1
     if T_ids * (1 << _Z_BITS) >= 2 ** 31:
         raise ValueError(f"tile-id key space overflow: {Tx}x{Ty} tiles")
+    return Tx, Ty, T_ids
 
-    F = faces.shape[0]
-    fd = precompute_face_data(vertices, faces)
+
+def _entry_cap(F):
+    """Entries kept for the tile bins: ~2F, a multiple of CHUNK."""
+    return max(CHUNK, -(-2 * F // CHUNK) * CHUNK)
+
+
+def bin_faces_plain(table, camCv2world, K, hull, W, H, sort_method="argsort"):
+    """Build the per-view binning tables in plain torch (the kernels' twin,
+    and the CPU path). table: a FaceTable; camCv2world [3,4] and K [3,3]
+    host arrays; hull: the [2,2] (cmin; cmax) pixel hull of the rays,
+    conservative drop bounds (host or on the table's device); sort_method:
+    see ``argsort_keys`` (two sorts per view: the entries, the overflow
+    faces).
+
+    Valid entries are stream-compacted into a ~2F-capped buffer before the
+    sort; faces whose entries miss the cap are demoted WHOLE to the exact
+    overflow segment, so no hit can be lost."""
+    dev = table.n.device
+    Tx, Ty, T_ids = _key_space(W, H)
+    camCv2world = torch.as_tensor(np.asarray(camCv2world, np.float32)[:3, :4], device=dev)
+    K = torch.as_tensor(np.asarray(K, np.float32)[:3, :3], device=dev)
+    hull = torch.as_tensor(hull if isinstance(hull, torch.Tensor)
+                           else np.asarray(hull, np.float32), device=dev)
+    cmin, cmax = hull[0], hull[1]
+
+    F = table.n.shape[0]
     o = camCv2world[:3, 3]
     R = camCv2world[:3, :3]
 
     # Shared-origin hoists (the per-pair arithmetic of the reference tracer).
-    tnum = fd.c - (fd.n[:, 0] * o[0] + fd.n[:, 1] * o[1] + fd.n[:, 2] * o[2])
-    oa = (fd.a[:, 0] * o[0] + fd.a[:, 1] * o[1] + fd.a[:, 2] * o[2]) - fd.a0
-    ob = (fd.b[:, 0] * o[0] + fd.b[:, 1] * o[1] + fd.b[:, 2] * o[2]) - fd.b0
+    tnum = table.c - (table.n[:, 0] * o[0] + table.n[:, 1] * o[1] + table.n[:, 2] * o[2])
+    oa = (table.a[:, 0] * o[0] + table.a[:, 1] * o[1] + table.a[:, 2] * o[2]) - table.a0
+    ob = (table.b[:, 0] * o[0] + table.b[:, 1] * o[1] + table.b[:, 2] * o[2]) - table.b0
     packed = torch.cat(
-        [fd.n, fd.a, fd.b, tnum[:, None], oa[:, None], ob[:, None]], dim=1
+        [table.n, table.a, table.b, tnum[:, None], oa[:, None], ob[:, None]], dim=1
     )  # [F,12]
 
     # Camera-space vertices of each face: q = R^T (p - o).
-    tri = vertices[faces.long().reshape(-1)].reshape(F, 3, 3)
-    rel = tri - o
+    rel = table.tri - o
     qx = rel[..., 0] * R[0, 0] + rel[..., 1] * R[1, 0] + rel[..., 2] * R[2, 0]
     qy = rel[..., 0] * R[0, 1] + rel[..., 1] * R[1, 1] + rel[..., 2] * R[2, 1]
     qz = rel[..., 0] * R[0, 2] + rel[..., 1] * R[1, 2] + rel[..., 2] * R[2, 2]
@@ -199,15 +263,15 @@ def bin_faces(vertices, faces, camCv2world, K, cmin, cmax, W, H, sort_method="ar
     span_x = tx1 - tx0 + 1
     span_y = ty1 - ty0 + 1
 
-    binnable = fd.ok & frontal & (span_x <= 2) & (span_y <= 2)
-    overflow = fd.ok & vis & ~binnable
+    binnable = table.ok & frontal & (span_x <= 2) & (span_y <= 2)
+    overflow = table.ok & vis & ~binnable
     emit = binnable & onscreen
 
     # Depth quantization (dequantized floor <= z). Straddling faces sort
     # with z_eff = 0, the only sound early-exit bound for them.
     inf = torch.tensor(float("inf"), device=dev)
     z_eff = torch.where(frontal, zmin, torch.zeros_like(zmin))
-    seen = fd.ok & vis
+    seen = table.ok & vis
     zmn = torch.where(seen, z_eff, inf).amin()
     zmx = torch.where(seen, z_eff, -inf).amax()
     zmn = torch.minimum(zmn, zmx)  # both inf when nothing visible
@@ -226,9 +290,9 @@ def bin_faces(vertices, faces, camCv2world, K, cmin, cmax, W, H, sort_method="ar
             ok_slot = emit & (sx < span_x) & (sy < span_y)
             keys.append(torch.where(ok_slot, (tid << _Z_BITS) | zq,
                                     torch.full_like(tid, invalid_key)))
-    keys = torch.stack(keys, dim=1).reshape(-1)  # [4F] slot-major
+    keys = torch.stack(keys, dim=1).reshape(-1)  # [4F], face by face, slot by slot
 
-    Ecap = max(CHUNK, -(-2 * F // CHUNK) * CHUNK)
+    Ecap = _entry_cap(F)
     valid_slot = keys < invalid_key
     pos = torch.cumsum(valid_slot.to(torch.int64), dim=0) - 1
     fits = valid_slot & (pos < Ecap)
@@ -277,9 +341,139 @@ def bin_faces(vertices, faces, camCv2world, K, cmin, cmax, W, H, sort_method="ar
         czmin_e=ez_e.reshape(-1, CHUNK).amin(dim=1),
         czmin_o=ez_o.reshape(-1, CHUNK).amin(dim=1),
         o_chunks=o_chunks, e_pad=Ecap,
-        scene_min=vertices.amin(dim=0), scene_max=vertices.amax(dim=0),
+        scene_min=table.scene_min, scene_max=table.scene_max,
         lost_faces=lost.sum(),
     )
+
+
+def _bin_lib():
+    from ._build import load
+
+    lib = load("raster_bin")
+    if lib.raster_bin_project.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.raster_bin_project.argtypes = [I] + [P] * 10 + [I, I] + [P] * 7
+        lib.raster_bin_keys.argtypes = [I] + [P] * 4 + [I, I] + [P] * 7
+        lib.raster_bin_tables.argtypes = [I] + [P] * 10 + [I] * 4 + [P] * 7
+        for fn in (lib.raster_bin_project, lib.raster_bin_keys, lib.raster_bin_tables):
+            fn.restype = I
+        for const, want in (("raster_bin_faces_per_cta", BIN_FACES),
+                            ("raster_bin_chunk", CHUNK), ("raster_bin_z_bits", _Z_BITS),
+                            ("raster_bin_tile_px", TILE_PX),
+                            ("raster_bin_project_part_bytes", 12),
+                            ("raster_bin_keys_part_bytes", 8)):
+            getattr(lib, const).restype = I
+            if getattr(lib, const)() != want:
+                raise RuntimeError(f"csrc/raster_bin.cu's {const} disagrees with ops/raster.py")
+    return lib
+
+
+def _host_f32(values):
+    """A ctypes float array of the values, each rounded to float32 as torch
+    rounds a Python number."""
+    return (ctypes.c_float * len(values))(*(float(np.float32(x)) for x in values))
+
+
+# The twin's constants as the kernels take them: z_near, 1 / TILE_PX, the
+# margin's three terms, the step's reciprocal of ZQ_MAX (torch divides a
+# CUDA tensor by a Python number as a product with the float reciprocal),
+# ZQ_MAX and the step's floor.
+_BIN_CONSTS = (_Z_NEAR, 1.0 / TILE_PX, 1.5, 1e-4, 1e-5,
+               np.float32(1.0) / np.float32(_ZQ_MAX), _ZQ_MAX, 1e-30)
+
+
+def bin_faces_kernel(table, camCv2world, K, hull, W, H, sort_method="argsort"):
+    """The binning tables of ``bin_faces_plain``, to the bit, from three
+    launches of ``csrc/raster_bin.cu`` and the two ``argsort_keys`` calls,
+    on the current stream of the table's CUDA device, with no device->host
+    read. Arguments as for the twin; a host hull goes in by value, a device
+    hull ([2,2] f32 on the table's device) by pointer."""
+    dev = table.n.device
+    Tx, Ty, T_ids = _key_space(W, H)
+    F = table.n.shape[0]
+    if not 0 < F < 2 ** 29:
+        raise ValueError(f"bin_faces: {F} faces (1 to 2^29 - 1 are binned)")
+    for name, width in (("n", 3), ("c", 1), ("a", 3), ("a0", 1), ("b", 3), ("b0", 1),
+                        ("tri", 9), ("ok", 1)):
+        t = getattr(table, name)
+        dtype = torch.bool if name == "ok" else torch.float32
+        if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
+                or t.numel() != width * F):
+            raise ValueError(f"bin_faces: the face table's {name} must be {width * F} contiguous "
+                             f"{dtype} on {dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    hull_dev = None
+    if isinstance(hull, torch.Tensor):
+        if tuple(hull.shape) != (2, 2):
+            raise ValueError(f"bin_faces: the hull must be [2, 2], got {tuple(hull.shape)}")
+        hull_dev = hull.to(device=dev, dtype=torch.float32).contiguous()
+        hull = np.zeros((2, 2), np.float32)
+    cam = np.asarray(camCv2world, np.float32)
+    Kf = np.asarray(K, np.float32)
+    hull = np.asarray(hull, np.float32)
+    view = _host_f32([*cam[:3, :3].reshape(-1), *cam[:3, 3], Kf[0, 0], Kf[0, 1], Kf[0, 2],
+                      Kf[1, 1], Kf[1, 2], hull[0, 0], hull[0, 1], hull[1, 0], hull[1, 1]])
+    consts = _host_f32(_BIN_CONSTS)
+    Ecap, Op = _entry_cap(F), -(-F // CHUNK) * CHUNK
+    invalid_key = T_ids << _Z_BITS
+    ctas = -(-F // BIN_FACES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _bin_lib()
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    def launched(rc, name):
+        if rc != 0:
+            raise RuntimeError(f"raster_bin {name} launch failed: cudaError {rc}")
+        _launches["raster_bin"] += 1
+
+    view3, zeff, zfloor = empty(F, 3), empty(F), empty(F)
+    tiles, flags, okey = empty(F, 4, dtype=torch.int32), empty(F, dtype=torch.int32), empty(
+        F, dtype=torch.int32)
+    part, kpart = empty(ctas, 3, dtype=torch.int32), empty(ctas, 2, dtype=torch.int32)
+    ckeys, cfid = empty(Ecap, dtype=torch.int32), empty(Ecap, dtype=torch.int32)
+    t = table
+    launched(lib.raster_bin_project(
+        F, t.n.data_ptr(), t.c.data_ptr(), t.a.data_ptr(), t.a0.data_ptr(), t.b.data_ptr(),
+        t.b0.data_ptr(), t.ok.data_ptr(), t.tri.data_ptr(), view,
+        None if hull_dev is None else hull_dev.data_ptr(), Tx, Ty, consts, view3.data_ptr(),
+        zeff.data_ptr(), tiles.data_ptr(), flags.data_ptr(), part.data_ptr(), stream), "project")
+    launched(lib.raster_bin_keys(
+        F, part.data_ptr(), zeff.data_ptr(), tiles.data_ptr(), flags.data_ptr(), Ecap,
+        invalid_key, consts, ckeys.data_ptr(), cfid.data_ptr(), okey.data_ptr(),
+        zfloor.data_ptr(), kpart.data_ptr(), stream), "keys")
+    sorted_keys, order = argsort_keys(ckeys, invalid_key.bit_length(), sort_method)
+    _, oorder = argsort_keys(okey, 31, sort_method)
+    ed_rows, efid = empty(Ecap + Op, 12), empty(Ecap + Op, dtype=torch.int64)
+    offsets, czmin = empty(T_ids + 1, dtype=torch.int64), empty((Ecap + Op) // CHUNK)
+    o_chunks, lost_faces = empty(dtype=torch.int64), empty(dtype=torch.int64)
+    launched(lib.raster_bin_tables(
+        F, kpart.data_ptr(), sorted_keys.contiguous().data_ptr(), order.contiguous().data_ptr(),
+        cfid.data_ptr(), oorder.contiguous().data_ptr(), t.n.data_ptr(), t.a.data_ptr(),
+        t.b.data_ptr(), view3.data_ptr(), zfloor.data_ptr(), Ecap, Op, invalid_key, T_ids,
+        ed_rows.data_ptr(), efid.data_ptr(), offsets.data_ptr(), czmin.data_ptr(),
+        o_chunks.data_ptr(), lost_faces.data_ptr(), stream), "tables")
+    return BinTables(ed_rows=ed_rows, efid=efid, offsets=offsets,
+                     czmin_e=czmin[:Ecap // CHUNK], czmin_o=czmin[Ecap // CHUNK:],
+                     o_chunks=o_chunks, e_pad=Ecap, scene_min=table.scene_min,
+                     scene_max=table.scene_max, lost_faces=lost_faces)
+
+
+def bin_faces(table, camCv2world, K, hull, W, H, sort_method="argsort"):
+    """The view's binning tables from a FaceTable (arguments as for
+    ``bin_faces_plain``). CPU tensors: the twin. CUDA tensors: the kernels
+    (``bin_faces_kernel``), or an error. Adds to the open span the
+    binning's ``launches``: each hand-written launch and each sort call
+    (the twin: its two sort calls)."""
+    dev = table.n.device
+    if dev.type == "cpu":
+        out, n = bin_faces_plain(table, camCv2world, K, hull, W, H, sort_method), 2
+    elif dev.type == "cuda":
+        out, n = bin_faces_kernel(table, camCv2world, K, hull, W, H, sort_method), 3 + 2
+    else:
+        raise ValueError(f"bin_faces: unsupported device {dev}")
+    launches.add("launches", n)
+    return out
 
 
 def _do_chunk(ed_t, start, d, best_t, best_e, active):
@@ -508,11 +702,12 @@ def traverse(tables, origins, dirs, coords, *, Tx, Ty):
 
 
 def bin_view(vertices, faces, camCv2world, K, coords, *, W, H, coord_hull=None,
-             sort_method="argsort"):
+             sort_method="argsort", mesh_table=None):
     """A view's rays and binning tables: (tables, origins [L,3], unit dirs
     [L,3], their norms before re-normalising [L,1]). Arguments as for
-    ``intersect_coords_pinhole_core``."""
-    dev = coords.device
+    ``intersect_coords_pinhole_core``. Traced, the ``raster.bin`` span
+    carries the binning's ``launches`` and ``mesh_hit``: 1 when the face
+    table was reused, 0 when it was built."""
     origins, dirs = ray_origins_and_directions(camCv2world, K, coords)
     # The reference tracer re-normalizes its (already unit) dirs and
     # converts t back; the same ops keep per-pair results identical.
@@ -520,30 +715,34 @@ def bin_view(vertices, faces, camCv2world, K, coords, *, W, H, coord_hull=None,
     dirs = dirs / dir_norm
 
     if coord_hull is None:
-        cmin, cmax = coords.amin(dim=0), coords.amax(dim=0)
+        hull = torch.stack([coords.amin(dim=0), coords.amax(dim=0)])
     else:
-        hull = torch.as_tensor(np.asarray(coord_hull, np.float32), device=dev)
-        cmin, cmax = hull[0], hull[1]
-    cam_t = torch.as_tensor(np.asarray(camCv2world, np.float32)[:3, :4], device=dev)
-    K_t = torch.as_tensor(np.asarray(K, np.float32)[:3, :3], device=dev)
+        hull = np.asarray(coord_hull, np.float32)
     with launches.span("raster.bin"):
-        tables = bin_faces(vertices, faces, cam_t, K_t, cmin, cmax, W, H, sort_method)
+        if mesh_table is None:
+            mesh_table = MeshTable(vertices, faces)
+        table, hit = mesh_table.get()
+        launches.add("mesh_hit", int(hit))
+        tables = bin_faces(table, camCv2world, K, hull, W, H, sort_method)
     return tables, origins, dirs, dir_norm
 
 
 def intersect_coords_pinhole_core(vertices, faces, camCv2world, K, coords, *, W, H,
-                                  coord_hull=None, return_dirs=False, sort_method="argsort"):
+                                  coord_hull=None, return_dirs=False, sort_method="argsort",
+                                  mesh_table=None):
     """Trace body. vertices [V,3] f32 and faces [F,3] int tensors and coords
     [L,2] f32 on one device; camCv2world and K host arrays (numpy).
     coord_hull: optional [2,2] (cmin; cmax) pixel hull override for the
     conservative face cull (default: from `coords`). return_dirs: return
     (hits, the re-normalised unit ray directions [L,3]), which the
     view-dependent field needs. sort_method: the binning sort
-    (``argsort_keys``); every method gives the same hits, bit for bit."""
+    (``argsort_keys``); every method gives the same hits, bit for bit.
+    mesh_table: a MeshTable of these vertices and faces, kept by the caller
+    across views (default: the face table is built in the call)."""
     dev = coords.device
     tables, origins, dirs, dir_norm = bin_view(vertices, faces, camCv2world, K, coords, W=W,
                                                H=H, coord_hull=coord_hull,
-                                               sort_method=sort_method)
+                                               sort_method=sort_method, mesh_table=mesh_table)
     best_t, best_e = traverse(tables, origins, dirs, coords,
                               Tx=-(-W // TILE_PX), Ty=-(-H // TILE_PX))
 

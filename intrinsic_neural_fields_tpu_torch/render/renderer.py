@@ -56,7 +56,7 @@ from ..ops.field_infer import FieldInfer
 from ..ops.interpolate import interpolate_vertex_features
 from ..ops.launches import add, span, tracing
 from ..ops.morton import face_morton_order, pixel_morton_order
-from ..ops.raster import check_pinhole_K, intersect_coords_pinhole_core
+from ..ops.raster import MeshTable, check_pinhole_K, intersect_coords_pinhole_core
 from ..parallel.data_parallel import _device_of, device_scope, resolve_devices
 
 _INFER_CHUNK = 1 << 13     # rays per feature-gather + MLP launch
@@ -259,28 +259,32 @@ class Renderer:
         self._faces_sorted = torch.as_tensor(
             self.mesh.faces[order].astype(np.int64), device=self.device)
         self._face_orig_ids = torch.as_tensor(order.astype(np.int64), device=self.device)
+        # The tracer's face table, built by the first view that traces.
+        self._mesh_table = MeshTable(self._verts, self._faces_sorted)
         # Geometry-dependent per-view traces, keyed on (cache_key, H, W).
         self._trace_cache = OrderedDict()
         self._device_copies = None
 
     def _on(self, dev):
-        """What a shard on `dev` reads: the geometry, the feature table and
-        the field, the renderer's own on its device, else copies made from
-        them (again after any of them changed)."""
+        """What a shard on `dev` reads: the geometry with its face table,
+        the feature table and the field, the renderer's own on its device,
+        else copies made from them (again after any of them changed)."""
         if dev == self.device:
             return SimpleNamespace(device=dev, field=self.field, verts=self._verts,
                                    faces_sorted=self._faces_sorted,
-                                   face_orig_ids=self._face_orig_ids, features=self.features)
+                                   face_orig_ids=self._face_orig_ids, features=self.features,
+                                   mesh_table=self._mesh_table)
         if self._device_copies is None:
             self._device_copies = {}
         if dev not in self._device_copies:
             mode = self.field.mode
+            verts, faces = self._verts.to(dev), self._faces_sorted.to(dev)
             self._device_copies[dev] = SimpleNamespace(
                 device=dev,
                 field=FieldInfer(copy.deepcopy(self.model).to(dev), dev,
                                  None if mode == "module" else mode),
-                verts=self._verts.to(dev), faces_sorted=self._faces_sorted.to(dev),
-                face_orig_ids=self._face_orig_ids.to(dev), features=self.features.to(dev))
+                verts=verts, faces_sorted=faces, face_orig_ids=self._face_orig_ids.to(dev),
+                features=self.features.to(dev), mesh_table=MeshTable(verts, faces))
         return self._device_copies[dev]
 
     def _shards(self, L):
@@ -362,7 +366,7 @@ class Renderer:
         out = intersect_coords_pinhole_core(
             g.verts, g.faces_sorted, np.asarray(camCv2world, np.float32),
             np.asarray(K, np.float32), c, W=W, H=self.H, coord_hull=coords[1],
-            return_dirs=with_dirs,
+            return_dirs=with_dirs, mesh_table=g.mesh_table,
         )
         hits, dirs = out if with_dirs else (out, None)
         safe_face = torch.where(hits.valid, hits.face_idx, torch.zeros_like(hits.face_idx))
@@ -413,8 +417,9 @@ class Renderer:
 
     def apply_mesh_transform(self, transform):
         """Transform the mesh in place (4x4) and refresh everything derived
-        from it: vertices, the face order and, for the intrinsic view
-        strategy, the model's face normals; cached traces are dropped."""
+        from it: vertices, the face order and table and, for the intrinsic
+        view strategy, the model's face normals; cached traces are
+        dropped."""
         self.mesh.apply_transform(transform)
         self._refresh_geometry()
 

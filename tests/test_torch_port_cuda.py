@@ -911,7 +911,32 @@ def _traverse_scene(case):
         c = grid(H, W)
         hull = np.stack([c.min(0), c.max(0)])
         return blob, ring_cameras(4)[0], K, c[: len(c) // 2], H, W, hull
+    if case == "lost_faces":
+        mesh, cam, K = corner_stack()
+        return mesh, cam, K, grid(64, 64), 64, 64, None
     raise ValueError(case)
+
+
+def corner_stack(n=128, H=64, seed=0):
+    """(mesh, cam, K): n triangles parallel to the image plane of an H x H
+    pinhole camera at the origin, each around the corner the four tiles
+    share at pixel (32, 32), so each face emits four entries: twice the ~2F
+    cap, and the faces the cap leaves out (the last ones) are the nearest."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    K = pinhole_K(H, H)
+    K_inv = np.linalg.inv(K.astype(np.float64))
+    verts = []
+    for i in range(n):
+        center = 32.0 + rng.uniform(-2.0, 2.0, 2)  # within the incircle's radius of the corner
+        angle = rng.uniform(0.0, 2 * np.pi) + 2 * np.pi / 3 * np.arange(3)
+        px = center + 6.0 * np.stack([np.cos(angle), np.sin(angle)], axis=-1)
+        z = 3.0 - 0.01 * i
+        verts.append(z * (np.concatenate([px, np.ones((3, 1))], axis=1) @ K_inv.T))
+    mesh = SimpleNamespace(vertices=np.concatenate(verts).astype(np.float32),
+                           faces=np.arange(3 * n, dtype=np.int64).reshape(n, 3))
+    return mesh, np.eye(3, 4, dtype=np.float32), K
 
 
 TRAVERSE_CASES = ["pose0", "pose1", "pose2", "pose3", "masked_subset", "meshroom_outside",
@@ -966,6 +991,71 @@ def test_traverse_kernel_equals_lockstep_twin(cuda, monkeypatch, case):
     hits_p = trace()
     for field in ("valid", "face_idx", "t", "bary"):
         assert torch.equal(getattr(hits_k, field), getattr(hits_p, field)), field
+
+
+SORT_METHODS = ["argsort", "radix", "bitonic", "bitonic_vmem"]
+
+
+@pytest.mark.parametrize("method", SORT_METHODS)
+@pytest.mark.parametrize("case", TRAVERSE_CASES + ["lost_faces"])
+def test_bin_kernels_equal_the_twin(cuda, monkeypatch, case, method):
+    """csrc/raster_bin.cu's three launches and the two sort calls against
+    bin_faces_plain on the card, on one face table: every BinTables field
+    equal to the bit (lost_faces and o_chunks included); no device->host
+    read in them (the sync debug mode raises on one); three raster_bin
+    launches, which with the two sort calls are the launches the raster.bin
+    span counts, and mesh_hit 0 then 1 with a kept table; the Hits of the
+    whole trace equal to the bit to the trace through the twin."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from intrinsic_neural_fields_tpu_torch.ops import launches
+    from intrinsic_neural_fields_tpu_torch.ops import raster as RA
+
+    mesh, cam, K, coords, H, W, hull = _traverse_scene(case)
+    verts = torch.as_tensor(np.asarray(mesh.vertices, np.float32), device=cuda)
+    faces = torch.as_tensor(np.asarray(mesh.faces, np.int64), device=cuda)
+    c = torch.as_tensor(coords, device=cuda)
+    mesh_table = RA.MeshTable(verts, faces)
+    table, _ = mesh_table.get()
+    dev_hull = torch.stack([c.amin(dim=0), c.amax(dim=0)]) if hull is None else hull
+    torch.cuda.synchronize()
+    before = kernel_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = RA.bin_faces(table, cam, K, dev_hull, W, H, method)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = kernel_launches()
+    want = RA.bin_faces_plain(table, cam, K, dev_hull, W, H, method)
+    for field, g, w in zip(got._fields, got, want):
+        assert (torch.equal(g, w) if isinstance(g, torch.Tensor) else g == w), field
+    assert after["raster_bin"] - before["raster_bin"] == 3
+    assert after["bitonic_argsort"] - before["bitonic_argsort"] == (
+        2 if method == "bitonic_vmem" else 0)
+    if case == "lost_faces":
+        assert int(got.lost_faces) > 0
+
+    def trace(table=None):
+        return RA.intersect_coords_pinhole_core(verts, faces, cam, K, c, W=W, H=H,
+                                                coord_hull=hull, sort_method=method,
+                                                mesh_table=table)
+
+    records = []
+    for kept in (None, mesh_table):
+        launches.reset_kernel_launches()
+        with profile(activities=[ProfilerActivity.CPU]):
+            hits_k = trace(kept)
+        torch.cuda.synchronize()
+        (rec,) = [r for r in launches.spans(0, 2 ** 63 - 1)[0] if r["name"] == "raster.bin"]
+        assert kernel_launches()["raster_bin"] == 3
+        assert rec["attrs"] == {"launches": kernel_launches()["raster_bin"] + 2,
+                                "mesh_hit": int(kept is not None)}
+        records.append(rec)
+    monkeypatch.setattr(RA, "bin_faces_kernel", RA.bin_faces_plain)
+    hits_p = trace()
+    for field in ("valid", "face_idx", "t", "bary"):
+        assert torch.equal(getattr(hits_k, field), getattr(hits_p, field)), field
+    assert hits_k.valid.any()
 
 
 def test_preprocessing_on_card_matches_cpu(cuda, tmp_path):

@@ -346,3 +346,91 @@ def test_traverse_refuses_other_devices():
     meta = [x.to("meta") for x in (origins, dirs, coords)]
     with pytest.raises(ValueError, match="unsupported device"):
         R.traverse(tables, *meta, Tx=T, Ty=T)
+
+
+def _binned(scene, mesh_table=None):
+    """bin_view of a walk scene under torch.profiler: (tables, the
+    raster.bin span's attributes)."""
+    mesh, cam, H, coords = WALK_SCENES[scene]()
+    verts = torch.as_tensor(np.asarray(mesh.vertices, np.float32))
+    faces = torch.as_tensor(np.asarray(mesh.faces, np.int64))
+    if mesh_table is not None:
+        mesh_table = mesh_table(verts, faces)
+    launches.reset_kernel_launches()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tables = R.bin_view(verts, faces, cam, _simple_K(H, H), torch.from_numpy(coords),
+                            W=H, H=H, mesh_table=mesh_table)[0]
+    (rec,) = [r for r in launches.spans(0, 2 ** 63 - 1)[0] if r["name"] == "raster.bin"]
+    return tables, rec["attrs"]
+
+
+@pytest.mark.parametrize("scene", list(WALK_SCENES))
+def test_kept_face_table_bins_as_one_built_in_the_call(scene):
+    """Binning with a face table built before the view (and kept) gives
+    the tables of binning that builds it in the call, field by field; the
+    span says which it was, and counts the twin's two sort calls."""
+    def prebuilt(verts, faces):
+        table = R.MeshTable(verts, faces)
+        table.get()
+        return table
+
+    built, b_attrs = _binned(scene)
+    kept, k_attrs = _binned(scene, prebuilt)
+    for field, g, w in zip(kept._fields, kept, built):
+        assert (torch.equal(g, w) if isinstance(g, torch.Tensor) else g == w), field
+    assert b_attrs == {"mesh_hit": 0, "launches": 2}
+    assert k_attrs == {"mesh_hit": 1, "launches": 2}
+    assert launches.kernel_launches()["raster_bin"] == 0  # the twin launches nothing
+
+
+def test_entry_cap_demotes_whole_faces_and_loses_no_hit():
+    """128 triangles around one tile corner emit four entries each, twice
+    the ~2F cap: the faces that miss it go whole to the overflow segment,
+    and the trace's hits are the brute-force sweep's (intersect_rays
+    without culling, the same per-pair arithmetic), to the bit."""
+    from intrinsic_neural_fields_tpu_torch.ops.intersect import intersect_rays
+
+    from tests.test_torch_port_cuda import corner_stack
+
+    mesh, cam, K = corner_stack()
+    H = W = 64
+    coords = torch.from_numpy(_morton_grid(H, W))
+    verts, faces = torch.from_numpy(mesh.vertices), torch.from_numpy(mesh.faces)
+    tables = R.bin_view(verts, faces, cam, K, coords, W=W, H=H)[0]
+    assert int(tables.lost_faces) == 64 and int(tables.o_chunks) == 1
+    got = R.intersect_coords_pinhole_core(verts, faces, cam, K, coords, W=W, H=H)
+    origins, dirs = ray_origins_and_directions(cam, K, coords)
+    want = intersect_rays(verts, faces, origins, dirs, cull=False, shared_origin=True)
+    for field in ("valid", "face_idx", "t", "bary"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    assert (got.face_idx >= 64).sum() > 100  # the demoted faces are the nearest
+
+
+def test_bin_faces_refuses_other_devices():
+    _, cam, H, coords = WALK_SCENES["masked_subset"]()
+    table = R.FaceTable(*(torch.empty(0, device="meta") for _ in R.FaceTable._fields))
+    hull = np.stack([coords.min(0), coords.max(0)])
+    with pytest.raises(ValueError, match="unsupported device"):
+        R.bin_faces(table, cam, _simple_K(H, H), hull, H, H)
+
+
+BAD_TABLES = {
+    "c_short": lambda t, h: (t._replace(c=t.c[:-1]), h),
+    "tri_f64": lambda t, h: (t._replace(tri=t.tri.double()), h),
+    "ok_int": lambda t, h: (t._replace(ok=t.ok.int()), h),
+    "a_column_major": lambda t, h: (t._replace(a=t.a.t().contiguous().t()), h),
+    "hull_3x2": lambda t, h: (t, torch.zeros(3, 2)),
+}
+
+
+@pytest.mark.parametrize("bad", list(BAD_TABLES))
+def test_bin_kernel_operand_checks_refuse_bad_input(bad):
+    """The checks the kernels' wrapper runs before it hands pointers to the
+    card (they run on any device): each bad face table or hull raises."""
+    mesh, cam, H, coords = WALK_SCENES["masked_subset"]()
+    table = R.face_table(torch.as_tensor(np.asarray(mesh.vertices, np.float32)),
+                         torch.as_tensor(np.asarray(mesh.faces, np.int64)))
+    hull = torch.as_tensor(np.stack([coords.min(0), coords.max(0)]))
+    table, hull = BAD_TABLES[bad](table, hull)
+    with pytest.raises(ValueError, match="bin_faces: "):
+        R.bin_faces_kernel(table, cam, _simple_K(H, H), hull, H, H)

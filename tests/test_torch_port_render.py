@@ -195,3 +195,50 @@ def test_trace_view_matches_render_hits():
     _, hit_idx = r.render(cam, K, eval_render=True)
     np.testing.assert_array_equal(np.sort(pix_idx[valid].numpy()), np.sort(hit_idx))
     np.testing.assert_allclose(bary[valid].sum(-1).numpy(), 1.0, rtol=0, atol=1e-6)
+
+
+def test_renderer_keeps_its_face_table_until_the_mesh_changes():
+    """The Renderer builds its tracer's face table at the first view and
+    reuses it (raster.bin's mesh_hit 0, then 1); set_mesh and
+    apply_mesh_transform drop it, and the next view builds it anew and
+    renders the image a fresh Renderer of that mesh renders."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from intrinsic_neural_fields_tpu_torch.geometry.mesh import Mesh
+    from intrinsic_neural_fields_tpu_torch.ops import launches
+
+    r = _port_renderer()
+    cam, K = _look_at_cam(np.array([0.4, -2.8, 0.7])), _simple_K(r.H, r.W)
+    efuncs = r.features.numpy()
+
+    def render():
+        launches.reset_kernel_launches()
+        with profile(activities=[ProfilerActivity.CPU]):
+            img = r.render(cam, K)
+        bins = [s for s in launches.spans(0, 2 ** 63 - 1)[0] if s["name"] == "raster.bin"]
+        return img, [s["attrs"]["mesh_hit"] for s in bins]
+
+    def fresh():
+        return Renderer(r.model, copy.deepcopy(r.mesh), efuncs, H=r.H, W=r.W,
+                        device="cpu").render(cam, K)
+
+    assert render()[1] == [0]
+    img, hit = render()
+    assert hit == [1]
+    np.testing.assert_array_equal(img, fresh())
+
+    v = r.mesh.vertices
+    r.set_mesh(Mesh(vertices=v * (1.0 + 0.1 * np.sin(3 * v[:, :1])), faces=r.mesh.faces))
+    before, (img, hit) = img, render()
+    assert hit == [0] and render()[1] == [1] and not np.array_equal(img, before)
+    np.testing.assert_array_equal(img, fresh())
+
+    T = np.eye(4)
+    T[:3, :3] = [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]]
+    T[:3, 3] = [0.05, -0.1, 0.0]
+    r.apply_mesh_transform(T)
+    before, (img, hit) = img, render()
+    assert hit == [0] and render()[1] == [1] and not np.array_equal(img, before)
+    np.testing.assert_array_equal(img, fresh())

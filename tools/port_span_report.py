@@ -8,7 +8,9 @@ JSON line: the end-to-end numbers of the traced window, its per-layer
 metrics, the device's idle share split by the innermost program span the
 host was in (``idle_self``, ``_spans.idle_by_span``: each span's own time,
 its children's left out; ``outside``: no span open), the idle share inside
-each span name, children included (``idle_inside``), and for a train cell
+each span name, children included (``idle_inside``), the share of the
+binning spans that reused the face table (``mesh_hit_share``, %, where
+they say), and for a train cell
 the clock check (``clock``, ``_spans.epoch_kernels``): each epoch inside
 the window against the fwd_bwd kernels that start between its span and the
 next epoch's, in ms: the first one's start after its ``train.replay``
@@ -80,6 +82,9 @@ def main(argv=None):
         line["idle_self"] = order(_spans.idle_by_span(run, records))
         line["idle_inside"] = order({n: _spans.idle_inside_share(run, records, n)
                                      for n in {r["name"] for r in records}})
+        bins = [r for r in _spans.named(records, "raster.bin") if "mesh_hit" in r["attrs"]]
+        if bins:
+            line["mesh_hit_share"] = 100.0 * sum(r["attrs"]["mesh_hit"] for r in bins) / len(bins)
         if run["kind"] == "train":
             line["clock"] = clock_check(_spans.epoch_kernels(run, records))
     print(json.dumps(line), flush=True)
