@@ -1463,7 +1463,7 @@ def phase_jax_random(p):
                                                                  reset_kernel_launches)
     from intrinsic_neural_fields_tpu_torch.train import (Trainer, get_data, get_model_and_optim,
                                                          get_renderer)
-    from intrinsic_neural_fields_tpu_torch.train.steps import _order, eager_step
+    from intrinsic_neural_fields_tpu_torch.train.steps import eager_step, epoch_order
     from intrinsic_neural_fields_tpu_torch.utils.jax_random import PRNGKey, fold_in, permutation
     from intrinsic_neural_fields_tpu_torch.utils.weights import state_dict_from_flax
 
@@ -1503,9 +1503,9 @@ def phase_jax_random(p):
               and np.array_equal(perm[:head], fx["perm_head"])
               and np.array_equal(perm[-head:], fx["perm_tail"]),
               f"the load-time permutation on the {where} is not jax.random.permutation's")
-    draw_ms["block_order_host"], _ = host_ms(lambda: _order(fold_in(key, 0), nb))
+    draw_ms["block_order_host"], _ = host_ms(lambda: epoch_order(fold_in(key, 0), nb))
     for e, order in enumerate(fx["block_orders"]):
-        check(np.array_equal(_order(fold_in(key, e), nb).numpy(), order),
+        check(np.array_equal(epoch_order(fold_in(key, e), nb).numpy(), order),
               f"epoch {e}'s block order is not the JAX Trainer's")
 
     # the HQ recipe's first epoch from those draws, through the Trainer

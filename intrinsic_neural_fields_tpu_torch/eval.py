@@ -57,8 +57,8 @@ def load_config(path):
 
 
 def main(argv=None):
+    from .devices import cli_devices
     from .evaluation.eval_cli import evaluate_views
-    from .parallel import cli_devices
     from .render.renderer import make_renderer_from_config
 
     args = parse_args(argv)

@@ -1,46 +1,52 @@
 """Data-parallel training over a list of devices, in one process (JAX
-parallel/data_parallel.py).
+parallel/data_parallel.py): the work that exists only across replicas.
+Every other decision of an epoch is ``train/steps.py``'s, the same
+functions the one-device epoch calls: whether the model takes ``fused``
+(``check_epoch_options``), the path an epoch takes (``epoch_path``, which
+for DP never puts Adam in the kernel and takes the kernels on the blocks
+walk only), step i's batch and its position weights (``batch_at``), the
+model kind's forward (``forward_fn``) and the validation sums
+(``val_sums``).
 
 The JAX package runs its epoch under shard_map over a device mesh: the
 model is replicated, the ray batch is sharded, gradients are pmean'd and
 every device applies the same Adam update. The port keeps that shape in
 one process over a device list, in which a device may repeat (["cpu"] * D
 in the tests, ["cuda:0", "cuda:0"] on one card, cuda:0 ... cuda:D-1 from
-``--num_devices D``). It holds one replica of the train state per device;
-replica 0 is the caller's state, on devices[0].
+``--num_devices D``). What this module adds:
 
-Per step, on every replica:
-  - blocks shuffle (JAX :235-490): every per-hit array, the [N, k]
-    hit-feature table and the encoded view directions among them, is cut
-    once into D contiguous n_used / D row shards, one on each device (cut
-    at first use and kept); each device walks its own permutation of its
-    local_b = B / D row blocks, JAX's ``permutation(fold_in(key, d),
-    num_batches)`` for device d (``order``: a utils/jax_random.Key, or an
-    explicit [D, num_batches] tensor). With ``fused`` the
-    step is the train kernels' grads on the local block
-    (``fused_train_grads``: fwd_bwd + the grads-only wgrad, or their
-    view-dependent pair), then the mean all-reduce of the flat gradient,
-    then the standalone Adam kernel on every replica: Adam cannot sit in
-    wgrad's epilogue here, because the reduction comes between them (JAX
-    :65-73). A per-step host loop, no CUDA graph;
-  - gather path and a ragged tail (JAX :492-528): one global permutation
-    (``order``: a Key, drawn as ``permutation(key, n)`` on devices[0] as
-    JAX draws it, or the explicit [n] permutation), padded with
-    index 0 past n and cut into D contiguous parts; every device holds the
-    replicated records and gathers its own part's batches. Rows past n are
-    masked by position weights, and each replica's loss is sum(w l) * D /
-    sum over all replicas of w, so the mean of the replicas' gradients is
-    the global weighted mean's. The step is the eager step on every
-    replica, the all-reduce, then the Adam kernel; ``fused`` is ignored on
-    this path, as in JAX (:82-86). A self-loss model (NeuTex) scales its
-    batch-mean loss by sum(w) / global sum(w) * D (JAX :181-190);
-  - sync-BN (JAX :116-123): the replicas' forwards run in step
+  - the data. On the blocks walk (JAX :235-490) every per-hit array, the
+    [N, k] hit-feature table and the encoded view directions among them,
+    is cut once into D contiguous n_used / D row shards, one on each
+    device (cut at first use and kept); each device walks its own
+    permutation of its local_b = B / D row blocks, JAX's
+    ``permutation(fold_in(key, d), num_batches)`` for device d (``order``:
+    a utils/jax_random.Key, or an explicit [D, num_batches] tensor). On
+    the gathered walk and with a ragged tail (JAX :492-528) one global
+    permutation (``order``: a Key, drawn as ``permutation(key, n)`` on
+    devices[0] as JAX draws it, or the explicit [n] permutation) is
+    padded with index 0 past n and cut into D contiguous parts; every
+    device holds the replicated records and gathers its own part's
+    batches;
+  - the loss terms. Each replica's loss is sum(w l) * D / sum over all
+    replicas of w, so the mean of the replicas' gradients is the global
+    weighted mean's. A self-loss model (NeuTex) scales its batch-mean loss
+    by sum(w) / global sum(w) * D (JAX :181-190). A BatchNorm field runs
+    sync-BN (JAX :116-123): the replicas' forwards run in step
     (``models.texture_field.run_fields_synced``); at each BatchNorm every
-    replica's batch moments E[x], E[x^2] are averaged over the replicas, and
-    every replica normalises and updates its running statistics with that
-    global statistic. The moments travel with ``.to()``, which autograd
-    differentiates, and one backward over the sum of the replicas' losses
-    gives each replica its share of the cross-replica gradient.
+    replica's batch moments E[x], E[x^2] are averaged over the replicas,
+    and every replica normalises and updates its running statistics with
+    that global statistic. The moments travel with ``.to()``, which
+    autograd differentiates, and one backward over the sum of the
+    replicas' losses gives each replica its share of the cross-replica
+    gradient;
+  - the reduction and Adam. Per step every replica takes its gradient
+    (the kernels' grads on the blocks walk under ``fused``, else
+    autograd's), then the mean all-reduce of the flat gradients, then the
+    standalone Adam kernel on every replica: Adam cannot sit in wgrad's
+    epilogue here, because the reduction comes between them (JAX :65-73).
+    A per-step host loop, no CUDA graph;
+  - ``Replicas``: one train state per device, replica 0 the caller's.
 
 The collective (``mean_all_reduce``) sums the replicas' buffers onto
 devices[0] in replica order, divides by D there and copies the result back
@@ -53,12 +59,11 @@ gradient contributions that cross replicas in the order autograd's
 per-device threads finish, so a sync-BN gradient may differ from the
 repeated card's by f32 rounding (``tools/port_dp_cards.py``).
 
-val_epoch (JAX :530-571): each device walks a contiguous ceil(n / D) range
-of the replicated records; the sums are added.
+val_epoch (JAX :530-571): each device runs ``val_sums`` over a contiguous
+ceil(n / D) range of the replicated records; the sums are added.
 """
 from __future__ import annotations
 
-import contextlib
 import copy
 from dataclasses import replace
 
@@ -66,84 +71,27 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import resolve_device
-from ..data.sampler import gather_batch, slice_batch
+from ..devices import device_of, device_scope, resolve_devices
 from ..models.texture_field import run_fields_synced
-from ..ops.fused_mlp import (
-    accumulate_loss,
-    fused_adam_apply,
-    fused_mlp_eligible,
-    fused_train_grads,
-    fused_viewdep_eligible,
-    layout_for_model,
-    make_train_scratch,
-)
+from ..ops.fused_mlp import (accumulate_loss, fused_adam_apply, fused_train_grads,
+                             make_train_scratch)
 from ..train.losses import elementwise_loss
-from ..utils.jax_random import Key, fold_in, permutation
 from ..train.steps import (
-    ModuleLayout,
     TrainState,
-    _adam_rows,
-    _check_epoch,
-    _order,
-    field_batch_fns,
-    forward_f32,
+    batch_at,
+    check_epoch,
+    check_epoch_options,
+    epoch_hyper_rows,
+    epoch_order,
+    epoch_path,
+    forward_fn,
+    layout_of,
     module_inputs_fn,
     module_variables,
     uses_module_layout,
+    val_sums,
 )
-
-
-def resolve_devices(devices):
-    """The device list of a data-parallel run: a count D (cuda:0 ...
-    cuda:D-1) or a list of device names, in which a device may repeat.
-    Raises when a CUDA device is asked for that this machine does not have
-    (JAX make_device_mesh asserts the same); never drops to fewer devices
-    or to the CPU."""
-    if isinstance(devices, int):
-        if devices < 1:
-            raise ValueError(f"need at least one device, got {devices}")
-        devices = [f"cuda:{i}" for i in range(devices)]
-    devs = []
-    for name in devices:
-        dev = resolve_device(name)
-        if dev.type == "cuda":
-            index = torch.cuda.current_device() if dev.index is None else dev.index
-            have = torch.cuda.device_count()
-            if index >= have:
-                raise RuntimeError(f"requested {len(devices)} devices ({list(devices)}), only "
-                                   f"{have} CUDA device(s) available")
-            dev = torch.device("cuda", index)
-        devs.append(dev)
-    if not devs:
-        raise ValueError("the device list is empty")
-    return devs
-
-
-def cli_devices(device, num_devices):
-    """The device list of a CLI's --device and --num_devices: None for one
-    device; for --device cpu, the CPU D times; else cuda:0 ... cuda:D-1,
-    which raises when this machine has fewer CUDA devices."""
-    if num_devices < 1:
-        raise ValueError(f"--num_devices must be at least 1, got {num_devices}")
-    if num_devices == 1:
-        return None
-    if resolve_device(device).type == "cpu":
-        return resolve_devices(["cpu"] * num_devices)
-    return resolve_devices(num_devices)
-
-
-def device_scope(dev):
-    """A context in which launches go to `dev`: the port's kernels launch on
-    the current CUDA device."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-
-
-def _device_of(t):
-    dev = t.device
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
+from ..utils.jax_random import Key, fold_in, permutation
 
 
 def sum_to_first(tensors):
@@ -208,7 +156,7 @@ class Replicas:
 
     def sync(self, state):
         """The replicas for an epoch that starts from `state`."""
-        if _device_of(state.params) != self.devices[0]:
+        if device_of(state.params) != self.devices[0]:
             raise ValueError(f"the train state lives on {state.params.device}; the device "
                              f"list starts with {self.devices[0]}")
         if not (self.states is not None and self.states[0] is state and self._current(state)):
@@ -248,7 +196,7 @@ def shard_ray_data(data, D, n_used, devices):
 
 def replicate_ray_data(data, dev):
     """The records on `dev`: the data itself when it lives there."""
-    if _device_of(data.expected_rgbs) == dev:
+    if device_of(data.expected_rgbs) == dev:
         return data
     move = {f: (None if getattr(data, f) is None else getattr(data, f).to(dev))
             for f in HIT_FIELDS}
@@ -267,7 +215,7 @@ def _block_orders(order, D, num_batches):
     return list(t)
 
 
-def make_dp_epoch_fns(model, loss_type, devices, shuffle="full", fused=False, fused_adam=True):
+def make_dp_epoch_fns(model, loss_type, devices, shuffle="full", fused=False):
     """(train_epoch, val_epoch) with the single-device signatures of
     train.steps.make_epoch_fns, data-parallel over `devices` (a list, or a
     count of CUDA devices; see the module docstring).
@@ -275,38 +223,24 @@ def make_dp_epoch_fns(model, loss_type, devices, shuffle="full", fused=False, fu
     train_epoch(state, key_or_order, data, num_batches, batch_size)
       updates `state` (replica 0) and the other replicas in place;
       ``train_epoch.replicas.states`` are the D train states.
-      batch_size % D != 0 raises. ``fused`` needs a kernel-eligible field
-      (raises otherwise, as the single-device epochs do); it takes the
-      kernels' grads on the streaming blocks path and is ignored on the
-      gather path. ``fused_adam`` is accepted for the single-device
-      signature: under DP the Adam kernel always runs on its own, after
-      the reduction.
+      batch_size % D != 0 raises. ``fused`` needs a model the kernels
+      compute (raises otherwise, as the single-device epochs do); the
+      kernels take the grads on the streaming blocks walk, and Adam always
+      runs on its own, after the reduction.
     val_epoch(state, data, batch_size) -> {"loss", "sq_err_per_sample"}
     """
     devices = resolve_devices(devices)
     D = len(devices)
     dev0 = devices[0]
-    if shuffle not in ("full", "blocks"):
-        raise ValueError(f"shuffle must be 'full' or 'blocks', got {shuffle!r}")
+    check_epoch_options(model, shuffle, fused)
+    loss_elem = elementwise_loss(loss_type)
+    layout = layout_of(model)
     module = uses_module_layout(model)
     computes_loss = getattr(model, "computes_loss", False)
-    bn = getattr(model, "batchnorm", False)
-    if fused and module:
-        raise ValueError(f"training.fused_mlp: the kernels cannot compute {type(model).__name__}"
-                         " (a self-loss model or a field with BatchNorm)")
-    if fused and not (fused_mlp_eligible(model) or fused_viewdep_eligible(model)):
-        raise ValueError("training.fused_mlp needs a kernel-eligible field (relu, sigmoid RGB "
-                         "head, widths multiples of 128, no encoder)")
-    loss_elem = elementwise_loss(loss_type)
-    layout = ModuleLayout(model) if module else layout_for_model(model)
-    if module:
-        inputs_of = module_inputs_fn(model)
-        copies = _InStep(copy.deepcopy(model).to(dev) for dev in devices)
-        val_kwargs = {} if computes_loss else {"train": False}
-    else:
-        features_of, venc_of = field_batch_fns(model)
-        viewdep = layout.tail is not None
-        encode_free = getattr(model, "spatial_mlp", model).input_feature_embed is None
+    inputs_of = module_inputs_fn(model)
+    # replica d's module: a copy of a ModuleLayout model on its device
+    copies = _InStep(copy.deepcopy(model).to(dev) for dev in devices) if module else [model] * D
+    forwards = [forward_fn(m, layout) for m in copies]
     replicas = Replicas(devices)
     shards_cache = {}
     data_cache = {}
@@ -328,7 +262,7 @@ def make_dp_epoch_fns(model, loss_type, devices, shuffle="full", fused=False, fu
         """Each replica's loss term (its weighted loss sum times D over the
         global weight), its predictions, per replica."""
         gts = [b["expected_rgbs"] for b in batches]
-        if module and computes_loss:
+        if computes_loss:
             out = []
             for d, st in enumerate(states):
                 loss, pred = torch.func.functional_call(
@@ -342,8 +276,7 @@ def make_dp_epoch_fns(model, loss_type, devices, shuffle="full", fused=False, fu
             preds = torch.func.functional_call(
                 copies, variables, ([inputs_of(b) for b in batches], mean_all_reduce))
         else:
-            preds = [forward_f32(layout, ps[d], features_of(b).to(torch.float32),
-                                 venc_of(b), model.activation) for d, b in enumerate(batches)]
+            preds = [forwards[d](ps[d], st, b) for d, (st, b) in enumerate(zip(states, batches))]
         return [((loss_elem(pred, gt).mean(-1) * w).sum() * (D / nb), pred)
                 for pred, gt, w, nb in zip(preds, gts, ws, n_b)]
 
@@ -369,42 +302,34 @@ def make_dp_epoch_fns(model, loss_type, devices, shuffle="full", fused=False, fu
         n, B = data.n, batch_size
         if B % D:
             raise ValueError(f"batch_size {B} not divisible by {D} devices")
-        _check_epoch(data, num_batches, B)
-        if state.layout.spec != layout.spec:
-            raise ValueError("the state's layout is not this model's")
-        lb = B // D
-        n_used = num_batches * B
-        has_tail = n_used > n
-        use_blocks = shuffle == "blocks" and data.hit_features is not None and not has_tail
-        use_fused = fused and use_blocks
-        if use_fused and viewdep:  # the tail kernels stream pre-encoded view directions
-            use_fused = data.hit_vencs is not None and encode_free
+        check_epoch(state, layout, data, num_batches, B)
+        lb, n_used = B // D, num_batches * B
+        path = epoch_path(model, shuffle, fused, data, num_batches, B, data_parallel=True)
         states = replicas.sync(state)
-        hyper0 = _adam_rows(state, num_batches)
+        hyper0 = epoch_hyper_rows(state, num_batches)
         hypers = [hyper0 if dev == dev0 else hyper0.to(dev) for dev in devices]
         acc = torch.zeros(2, dtype=torch.float32, device=dev0)  # loss, squared error
         acc_n = torch.zeros((), dtype=torch.float32, device=dev0)
-        if use_blocks:
-            orders = _block_orders(order, D, num_batches)
-            shards = shards_of(data, n_used)
-        else:
-            perm = _order(order, n, dev0)
-            perm = (torch.cat([perm, perm.new_zeros(n_used - n)]) if has_tail
-                    else perm[:n_used])
+        if path.blocks:  # replica d walks its own block order over its shard
+            walks, parts = _block_orders(order, D, num_batches), shards_of(data, n_used)
+            starts = [0] * D
+        else:  # replica d walks part d of the padded global order
+            perm = epoch_order(order, n, dev0)
+            perm = torch.cat([perm, perm.new_zeros(n_used - n)]) if n_used > n else perm[:n_used]
             per_dev = n_used // D
-            reps = replicated(data)
-            parts = [perm[d * per_dev:(d + 1) * per_dev].to(dev) for d, dev in enumerate(devices)]
-        if use_fused:
+            walks = [perm[d * per_dev:(d + 1) * per_dev].to(dev) for d, dev in enumerate(devices)]
+            parts, starts = replicated(data), [d * per_dev for d in range(D)]
+        if path.step == "grads":
             scratch = [make_train_scratch(layout, lb, st.params) for st in states]
             for i in range(num_batches):
                 grads, loss_sums, sq_sums = [], [], []
-                for d, (st, sh) in enumerate(zip(states, shards)):
-                    blk = int(orders[d][i])
+                for d, (st, sh) in enumerate(zip(states, parts)):
+                    blk = int(walks[d][i])
                     with device_scope(devices[d]):
                         g, ls, ss = fused_train_grads(
                             layout, st.params, sh.hit_features,
                             sh.expected_rgbs[blk * lb:(blk + 1) * lb], blk, lb, loss_type,
-                            scratch[d], sh.hit_vencs if viewdep else None)
+                            scratch[d], sh.hit_vencs if layout.tail is not None else None)
                     grads.append(g)
                     loss_sums.append(ls)
                     sq_sums.append(ss)
@@ -417,15 +342,8 @@ def make_dp_epoch_fns(model, loss_type, devices, shuffle="full", fused=False, fu
             acc_n = torch.full((), float(n_used), dtype=torch.float32, device=dev0)
         else:
             for i in range(num_batches):
-                batches, ws = [], []
-                for d, dev in enumerate(devices):
-                    if use_blocks:
-                        batches.append(slice_batch(shards[d], int(orders[d][i]) * lb, lb))
-                        ws.append(torch.ones(lb, dtype=torch.float32, device=dev))
-                    else:
-                        pos = d * per_dev + i * lb + torch.arange(lb, device=dev)
-                        ws.append((pos < n).to(torch.float32))
-                        batches.append(gather_batch(reps[d], parts[d][i * lb:(i + 1) * lb]))
+                batches, ws = zip(*(batch_at(parts[d], walks[d], i, lb, path.blocks, starts[d])
+                                    for d in range(D)))
                 loss, n_b, sq = eager_dp_step(states, [h[i] for h in hypers], batches, ws)
                 acc += torch.stack((loss * n_b, sq))
                 acc_n = acc_n + n_b
@@ -439,32 +357,15 @@ def make_dp_epoch_fns(model, loss_type, devices, shuffle="full", fused=False, fu
     def val_epoch(state, data, batch_size):
         if batch_size % D:
             raise ValueError(f"batch_size {batch_size} not divisible by {D} devices")
-        lb = batch_size // D
         n = data.n
         per_dev = -(-n // D)
-        num_batches = -(-per_dev // lb)
+        lb = batch_size // D
         reps = replicated(data)
-        sums = []
-        for d, dev in enumerate(devices):
-            st = state if dev == _device_of(state.params) else replicate_state(state, dev)
-            acc = torch.zeros(2, dtype=torch.float32, device=dev)
-            base = d * per_dev
-            for i in range(num_batches):
-                idx = base + i * lb + torch.arange(lb, device=dev)
-                w = (idx < min(base + per_dev, n)).to(torch.float32)
-                batch = gather_batch(reps[d], torch.clamp(idx, max=n - 1))
-                gt = batch["expected_rgbs"]
-                if module:
-                    pred = torch.func.functional_call(
-                        copies[d], module_variables(layout, st.params, st), inputs_of(batch),
-                        val_kwargs)
-                else:
-                    pred = forward_f32(layout, st.params, features_of(batch).to(torch.float32),
-                                       venc_of(batch), model.activation)
-                acc += torch.stack(((loss_elem(pred, gt).mean(-1) * w).sum(),
-                                    (((pred - gt) ** 2).sum(-1) * w).sum()))
-            sums.append(acc)
-        total = sum_to_first(sums)
+        total = sum_to_first([
+            val_sums(forwards[d], state if dev == device_of(state.params)
+                     else replicate_state(state, dev), reps[d], d * per_dev,
+                     min((d + 1) * per_dev, n), lb, -(-per_dev // lb), loss_elem)
+            for d, dev in enumerate(devices)])
         return {"loss": total[0] / n, "sq_err_per_sample": total[1] / n}
 
     train_epoch.graph = None  # a per-step host loop
@@ -482,6 +383,6 @@ def parallelize_trainer(trainer, devices):
     devs = resolve_devices(devices)
     trainer.train_epoch_fn, trainer.val_epoch_fn = make_dp_epoch_fns(
         trainer.epoch_model, trainer.loss_type, devs, shuffle=trainer.shuffle,
-        fused=trainer.fused_mlp, fused_adam=trainer.config["training"].get("fused_adam", True))
+        fused=trainer.fused_mlp)
     print(f"Data-parallel training over {len(devs)} devices: {[str(d) for d in devs]}")
     return trainer

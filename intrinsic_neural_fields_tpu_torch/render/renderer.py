@@ -51,13 +51,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..devices import device_of, device_scope, resolve_devices
 from ..geometry.cameras import DistortionTypes, undistort_pixels_meshroom_radial_k3
 from ..ops.field_infer import FieldInfer
 from ..ops.interpolate import interpolate_vertex_features
 from ..ops.launches import add, span, tracing
 from ..ops.morton import face_morton_order, pixel_morton_order
 from ..ops.raster import MeshTable, check_pinhole_K, intersect_coords_pinhole_core
-from ..parallel.data_parallel import _device_of, device_scope, resolve_devices
 
 _INFER_CHUNK = 1 << 13     # rays per feature-gather + MLP launch
 _TRACE_CACHE_MAX = 8       # LRU bound on cached per-view traces
@@ -166,7 +166,7 @@ class Renderer:
         self.devices = None
         if devices is not None:
             self.devices = resolve_devices(devices)
-            if self.devices[0] != _device_of(torch.empty(0, device=self.device)):
+            if self.devices[0] != device_of(torch.empty(0, device=self.device)):
                 raise ValueError(f"the device list starts with {self.devices[0]}, the renderer "
                                  f"is on {self.device}")
             self.device = self.devices[0]

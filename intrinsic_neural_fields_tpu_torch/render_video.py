@@ -91,12 +91,11 @@ def render_turntable(renderer, camCv2world, K, angles, finish, depth=2):
 
 
 def main(argv=None):
+    from .devices import cli_devices
     from .geometry.cameras import load_extr_and_intr_camera
     from .render.renderer import make_renderer_from_config
     from .train.config import load_config
     from .utils.io import imwrite
-
-    from .parallel import cli_devices
 
     args = parse_args(argv)
     devices = cli_devices(args.device, args.num_devices)

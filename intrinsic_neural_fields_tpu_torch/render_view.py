@@ -28,8 +28,8 @@ def parse_args(argv=None):
 def main(argv=None):
     import numpy as np
 
+    from .devices import cli_devices
     from .geometry.cameras import cam_resize, load_extr_and_intr_camera
-    from .parallel import cli_devices
     from .render.renderer import make_renderer_from_config
     from .train.config import load_config
     from .utils.io import imwrite

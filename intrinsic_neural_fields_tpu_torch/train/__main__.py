@@ -26,7 +26,8 @@ def parse_args(argv=None):
 def main(argv=None):
     from .. import resolve_device
     from ..geometry.mesh import load_mesh
-    from ..parallel import cli_devices, parallelize_trainer
+    from ..devices import cli_devices
+    from ..parallel import parallelize_trainer
     from . import (Trainer, get_data, get_loss_fn, get_model_and_optim, get_renderer,
                    load_config_file)
 

@@ -1,53 +1,45 @@
-"""Training and validation epochs.
+"""Training and validation epochs, for one device and, through
+``parallel/data_parallel.py``, for D replicas.
 
 The train state is the network's parameters and optax-Adam moments as flat
 f32 buffers in the kernels' padded layout (``ops/fused_mlp.ParamLayout``),
 updated in place, plus the step count and the hyperparameters. A model
-that computes its own loss (``computes_loss``: NeuTex) is no kernel chain:
-its state holds every parameter in module order (``ModuleLayout``). An
-epoch:
+the kernels cannot compute (a self-loss model, NeuTex, or a field with
+BatchNorm) holds every parameter in module order (``ModuleLayout``).
 
-  - blocks shuffle + ``fused`` (the HQ recipe): each step streams one
-    shuffled batch-sized block of the precomputed hit-feature table through
-    the train kernels, Adam in wgrad's epilogue (``fused_train_adam_step``:
-    the step finds its block, targets and hyper row on the device). On the
-    card the whole epoch is one CUDA graph of those launches, two per step,
-    captured on first use (``EpochGraph``) and replayed: one host dispatch
-    per epoch. With ``fused_adam=False`` the gradients leave the kernel and
-    the Adam kernel runs as its own call, per step from the host: the same
-    numbers to the bit;
-  - full shuffle + ``fused``: the batch rows are gathered, then the same
-    kernels run on the gathered batch (the plain field only);
-  - the view-dependent field takes the kernels (in tail mode) on the
-    streaming blocks path when the data carries pre-encoded view
-    directions (``hit_vencs``, the Trainer precomputes them), streamed at
-    the same block offset as the features; otherwise the eager step;
-  - anything else, and every epoch with a ragged tail batch
-    (``train_drop_last: false``): the eager step — an f32 forward with
-    autograd and the weighted mean loss of the reference (the
-    view-dependent field encodes the batch's ray directions and face ids
-    itself, as its module does; a field over xyz / ff / rff encodes the
-    batch's positions with its own encoder unless the split was
-    pre-embedded; a sine field takes sin), then the Adam kernel. On the
+Each decision about an epoch lives here once, and both
+``make_epoch_fns`` (one device, every model kind) and
+``parallel.make_dp_epoch_fns`` (D replicas) call it:
+``check_epoch_options`` refuses a model that cannot take ``fused``, at
+construction; ``epoch_path`` picks an epoch's path; ``batch_at`` gives
+step i's batch and position weights; ``forward_fn`` and ``eager_loss_fn``
+are the model kind's f32 forward and eager loss; ``val_sums`` is the
+validation pass; ``check_epoch``, ``epoch_order`` and ``epoch_hyper_rows``
+check an epoch's operands, draw its order and make its Adam hyper rows.
+
+The paths (``EpochPath``: the step, and whether the epoch walks blocks):
+
+  - "adam" on blocks, a blocks shuffle + ``fused`` (the HQ recipe): each
+    step streams one shuffled batch-sized block of the precomputed
+    hit-feature table through the train kernels, Adam in wgrad's epilogue
+    (``fused_train_adam_step``: the step finds its block, targets and hyper
+    row on the device). On the card the whole epoch is one CUDA graph of
+    those launches, two per step, captured on first use (``EpochGraph``)
+    and replayed: one host dispatch per epoch;
+  - "grads" on blocks, the same with ``fused_adam=False`` or under DP: the
+    gradients leave the kernel and the Adam kernel runs as its own call,
+    per step from the host (on one device the same numbers to the bit);
+  - "grads" on gathered batches, a full shuffle + ``fused`` on one device:
+    the batch rows are gathered, then the same kernels run on them (the
+    plain field only: the view-dependent field takes its tail kernels on
+    the blocks walk only, streaming the pre-encoded view directions
+    ``hit_vencs`` that the Trainer precomputes);
+  - "eager", anything else, and every epoch with a ragged tail batch
+    (``train_drop_last: false``): the model's f32 forward with autograd,
+    the weighted mean loss of the reference (a self-loss model's own batch
+    mean over all B rows, a ragged tail's duplicates included, as in JAX
+    train/steps.py:591-601), then the Adam kernel (``eager_step``). On the
     CPU every kernel call runs its plain twin.
-
-A self-loss model (NeuTex) always takes the eager step: autograd through
-its ``loss_and_rgbs`` by ``torch.func.functional_call`` on views of the
-flat parameters, then the Adam kernel on the flat gradient (one launch per
-step). Its loss is the batch mean over all B rows, a ragged tail's
-duplicates included, as in the JAX package's self-loss branch (JAX
-train/steps.py:591-601); the squared error is still weighted by the row
-mask. It validates through its forward (RGB only) under the config's
-``loss_type``; ``fused`` raises for it.
-
-A field with BatchNorm (``batchnorm: true``) is no kernel chain either: its
-state is a ModuleLayout plus ``batch_stats``, the BatchNorms' running
-statistics under the reference names. Its eager step runs the module's
-forward in train mode through ``functional_call`` (the statistics of the
-batch, a ragged tail's duplicates included, as in JAX; the running
-statistics updated in place in ``state.batch_stats``), the weighted mean
-loss, then the Adam kernel; it validates with the running statistics (JAX
-:662). ``fused`` raises for it, as the JAX package asserts (:292-298).
 
 The kernels take a field as it is only when it is ``fused_mlp_eligible``
 (or ``fused_viewdep_eligible``): relu, no encoder. The Trainer makes an
@@ -63,14 +55,18 @@ the JAX epoch draws from its key, ``permutation(key, num_batches)`` of the
 blocks or ``permutation(key, n)`` of the records (JAX train/steps.py:
 340-343), or an explicit permutation.
 
-Validation runs the f32 forward over every record (the last batch ragged)
-and reports the reference's per-sample metrics (its "epoch PSNR" uses the
-per-sample MSE summed over the 3 channels).
+Validation runs the f32 forward over every record, the last batch padded
+and its padding masked as in the JAX val epoch (a BatchNorm field on its
+running statistics, JAX :662; a self-loss model through its forward, RGB
+only, under the config's ``loss_type``), and reports the reference's
+per-sample metrics (its "epoch PSNR" uses the per-sample MSE summed over
+the 3 channels).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -95,11 +91,11 @@ from ..ops.fused_mlp import (
     layout_for_model,
     make_train_scratch,
     prepare_train_kernels,
+    spec_for_model,
 )
 from ..ops.launches import span
 from ..utils.jax_random import Key, permutation
 from .losses import elementwise_loss
-
 
 @dataclass
 class AdamHyper:
@@ -229,11 +225,17 @@ def uses_module_layout(model):
     return getattr(model, "computes_loss", False) or getattr(model, "batchnorm", False)
 
 
+def layout_of(model):
+    """The flat layout of the model's train state: a ModuleLayout for a
+    self-loss or BatchNorm model, else the kernels' padded ParamLayout."""
+    return ModuleLayout(model) if uses_module_layout(model) else layout_for_model(model)
+
+
 def create_train_state(model, optimizer, device=None):
     """Fresh state: the model's weights, buffers and running statistics,
     zero moments, count 0; a self-loss or BatchNorm model's in a
     ModuleLayout, any other's in the kernels' padded ParamLayout."""
-    layout = ModuleLayout(model) if uses_module_layout(model) else layout_for_model(model)
+    layout = layout_of(model)
     sd = model.state_dict()
     params = layout.flat_from_state_dict(sd, device)
     return TrainState(layout, params, torch.zeros_like(params), torch.zeros_like(params),
@@ -290,14 +292,7 @@ def eager_step(state, hyper_row, loss_and_pred, gt, w):
     return loss.detach(), sq, w.sum()
 
 
-def weighted_loss_fn(layout, x, gt, w, loss_elem, venc=None, activation="relu"):
-    """loss_and_pred for a texture field: its f32 forward on the flat
-    parameters, the weighted mean of the per-sample loss (w masks the
-    duplicated rows of a ragged tail)."""
-    def fn(p):
-        pred = forward_f32(layout, p, x.to(torch.float32), venc, activation)
-        return (loss_elem(pred, gt).mean(-1) * w).sum() / w.sum(), pred
-    return fn
+eager_step.launches = 0  # eager steps since the last reset
 
 
 def self_loss_fn(model, layout, xyz, gt):
@@ -314,48 +309,11 @@ def module_variables(layout, params, state):
     return {**layout.views(params), **state.buffers, **state.batch_stats}
 
 
-def module_loss_fn(model, layout, state, inputs, gt, w, loss_elem):
-    """loss_and_pred for a BatchNorm field: its module forward in train
-    mode on the batch's inputs, the weighted mean of the per-sample loss."""
-    def fn(p):
-        pred = torch.func.functional_call(model, module_variables(layout, p, state), inputs,
-                                          {"train": True})
-        return (loss_elem(pred, gt).mean(-1) * w).sum() / w.sum(), pred
-    return fn
-
-
-def field_batch_fns(model):
-    """(features_of, venc_of) for a texture field's flat-parameter forward:
-    batch -> the MLP input rows (eigenfunction or pre-embedded rows, or the
-    model's encoding of its positions), and batch -> the view encoding
-    (None without a view-dependent tail)."""
-    encode = input_encoder_apply(model)
-    view_fn = view_encoder_apply(model) if hasattr(model, "spatial_mlp") else None
-
-    def venc_of(batch):
-        if view_fn is None:
-            return None
-        if "unit_ray_dirs" not in batch:
-            raise ValueError("the view-dependent field needs the cached ray directions and "
-                             "face ids (unit_ray_dirs.npy, face_idxs.npy)")
-        return view_fn(batch["unit_ray_dirs"], batch["hit_face_idxs"])
-
-    def features_of(batch):
-        key = "eigenfunctions" if encode is None else "xyz"
-        if key not in batch:
-            raise ValueError(f"the model takes {key!r} rows, the split holds "
-                             f"{sorted(k for k in batch if k in ('eigenfunctions', 'xyz'))}")
-        x = batch[key]
-        return x if encode is None else encode(x.to(torch.float32))
-
-    return features_of, venc_of
-
-
 def module_inputs_fn(model):
-    """batch -> the positional inputs of a ModuleLayout model's forward:
+    """batch -> the positional inputs of the model's module forward:
     (positions,) for a self-loss model; (features or positions[, ray
-    directions, face ids]) in f32 for a BatchNorm field (its module
-    encodes them itself)."""
+    directions, face ids]) in f32 for a texture field (its module encodes
+    them itself)."""
     name = type(model).__name__
     if getattr(model, "computes_loss", False):
         def xyz_of(batch):
@@ -380,10 +338,131 @@ def module_inputs_fn(model):
     return inputs_of
 
 
-eager_step.launches = 0  # eager steps since the last reset
+def forward_fn(model, layout, train=False):
+    """(params, state, batch) -> the model's f32 RGB on the batch through
+    the flat parameters `params`. A texture field: ``forward_f32`` on its
+    MLP input rows (eigenfunction or pre-embedded rows, or its encoder's
+    encoding of the positions) and, with a view-dependent tail, the
+    encoding of the batch's ray directions and face ids. A ModuleLayout
+    model: its module through ``functional_call``, a BatchNorm field in
+    train mode when `train` (the batch's statistics; the running ones
+    updated in place in ``state.batch_stats``), else on the running ones."""
+    inputs_of = module_inputs_fn(model)
+    if uses_module_layout(model):
+        kwargs = {} if getattr(model, "computes_loss", False) else {"train": train}
+        return lambda params, state, batch: torch.func.functional_call(
+            model, module_variables(layout, params, state), inputs_of(batch), kwargs)
+    encode = input_encoder_apply(model)
+    view_fn = view_encoder_apply(model) if hasattr(model, "spatial_mlp") else None
+
+    def forward(params, state, batch):
+        x, *dirs_and_faces = inputs_of(batch)
+        venc = None if view_fn is None else view_fn(*dirs_and_faces)
+        return forward_f32(layout, params, x if encode is None else encode(x), venc,
+                           model.activation)
+    return forward
 
 
-def _order(order, size, device=None):
+def eager_loss_fn(model, layout, loss_elem):
+    """(state, batch, w) -> the eager step's loss_and_pred, by model kind: a
+    self-loss model's own loss (``self_loss_fn``); any other model's f32
+    forward (``forward_fn``, a BatchNorm field in train mode) and the
+    weighted mean of the per-sample loss, sum(l w) / sum(w) (w masks the
+    duplicated rows of a ragged tail)."""
+    if getattr(model, "computes_loss", False):
+        xyz_of = module_inputs_fn(model)
+        return lambda state, batch, w: self_loss_fn(model, layout, xyz_of(batch)[0],
+                                                    batch["expected_rgbs"])
+    forward = forward_fn(model, layout, train=True)
+
+    def loss_fn(state, batch, w):
+        gt = batch["expected_rgbs"]
+
+        def loss_and_pred(p):
+            pred = forward(p, state, batch)
+            return (loss_elem(pred, gt).mean(-1) * w).sum() / w.sum(), pred
+        return loss_and_pred
+    return loss_fn
+
+
+def check_epoch_options(model, shuffle, fused):
+    """Refuse, at construction, a shuffle other than "full" or "blocks",
+    and ``fused`` for a model the train kernels cannot compute, as the JAX
+    package asserts (:292-298): a self-loss model, a field with BatchNorm
+    (the kernels keep no batch statistics), a field that is neither
+    ``fused_mlp_eligible`` nor ``fused_viewdep_eligible``, and a
+    view-dependent field whose bottleneck and directional widths differ
+    from its hidden width."""
+    if shuffle not in ("full", "blocks"):
+        raise ValueError(f"shuffle must be 'full' or 'blocks', got {shuffle!r}")
+    if not fused:
+        return
+    if getattr(model, "computes_loss", False):
+        raise ValueError("training.fused_mlp: the kernels cannot compute a self-loss model "
+                         f"({type(model).__name__}: three networks and its own loss); it "
+                         "trains through the eager step")
+    if getattr(model, "batchnorm", False):
+        raise ValueError("training.fused_mlp needs a model without BatchNorm (the kernels "
+                         "keep no batch statistics); set fused_mlp: false")
+    if not (fused_mlp_eligible(model) or fused_viewdep_eligible(model)):
+        raise ValueError(
+            "training.fused_mlp needs a plain TextureField (eigenfunction input, relu, "
+            "sigmoid RGB head, hidden width a multiple of 128; an xyz/ff/rff field once the "
+            "Trainer pre-embeds it) or a fused-eligible view-dependent field")
+    if hasattr(model, "spatial_mlp"):
+        sp = spec_for_model(model)
+        if not sp.hidden == sp.out_dim == model.directional_hidden_dim:
+            raise ValueError("training.fused_mlp on a view-dependent field needs its "
+                             "bottleneck and directional widths equal to the hidden width")
+
+
+class EpochPath(NamedTuple):
+    """How an epoch runs. step: "adam" (the train kernels with Adam in
+    wgrad's epilogue), "grads" (the kernels' gradients, then the Adam
+    kernel) or "eager" (autograd, then the Adam kernel). blocks: the epoch
+    walks shuffled batch-sized blocks of the hit-feature table, else it
+    gathers batches of permuted records."""
+    step: str
+    blocks: bool
+
+
+def epoch_path(model, shuffle, fused, data, num_batches, batch_size, fused_adam=True,
+               data_parallel=False):
+    """The path of an epoch of `model` on `data`, from what the epoch can
+    observe. It walks blocks on a blocks shuffle over a precomputed
+    hit-feature table without a ragged tail. It takes the kernels under
+    ``fused`` without a ragged tail; a view-dependent field only on the
+    blocks walk, with pre-encoded view directions and no encoder on its
+    spatial input (the tail kernels stream both as they are). Adam runs in
+    the kernel under ``fused_adam`` on one device. A data-parallel epoch
+    takes the kernels on the blocks walk only, and never Adam in them: the
+    reduction comes between the gradients and Adam (JAX :65-86)."""
+    whole = num_batches * batch_size <= data.n
+    blocks = shuffle == "blocks" and data.hit_features is not None and whole
+    kernels = fused and whole
+    if hasattr(model, "spatial_mlp"):
+        kernels = (kernels and blocks and data.hit_vencs is not None
+                   and input_encoder_apply(model) is None)
+    if kernels and blocks:
+        return EpochPath("adam" if fused_adam and not data_parallel else "grads", True)
+    if kernels and not data_parallel:
+        return EpochPath("grads", False)
+    return EpochPath("eager", blocks)
+
+
+def check_epoch(state, layout, data, num_batches, batch_size):
+    """Raise unless num_batches batches of batch_size cover the records
+    (whole, or the last one ragged) and `state` is in the model's layout."""
+    n = data.n
+    if not (0 < num_batches and (num_batches * batch_size <= n
+                                 or num_batches == -(-n // batch_size))):
+        raise ValueError(f"num_batches {num_batches} inconsistent with n={n}, "
+                         f"batch={batch_size}")
+    if state.layout.spec != layout.spec:
+        raise ValueError("the state's layout is not this model's")
+
+
+def epoch_order(order, size, device=None):
     """The epoch's permutation of `size` as an int64 tensor: drawn from
     `order` when it is a jax_random.Key (on the host, or on `device`: the
     full shuffle's n records), else `order` itself."""
@@ -394,6 +473,52 @@ def _order(order, size, device=None):
     if t.shape != (size,):
         raise ValueError(f"the shuffle order must have shape ({size},), got {tuple(t.shape)}")
     return t
+
+
+def epoch_hyper_rows(state, num_batches):
+    """The Adam hyper rows of the epoch's num_batches steps, from the
+    state's count and hyperparameters, on the state's device."""
+    h = state.hyper
+    with span("train.hyper_rows"):
+        return adam_hyper_rows(state.count + 1 + torch.arange(num_batches), h.learning_rate,
+                               h.b1, h.b2, h.eps, h.eps_root, device=state.params.device)
+
+
+def batch_at(data, order, i, batch_size, blocks, start=0):
+    """Step i's batch of `data` and its position weights [batch_size]. On
+    the blocks walk: the contiguous block order[i] of the table (views;
+    `order` the block order, on the host), every weight 1. On the gathered
+    walk: the records order[i B:(i + 1) B] (`order` the epoch's record
+    order padded past n, on the data's device; `start` its first position
+    in the epoch's whole order), weight 1 at a position before n and 0
+    past it."""
+    B = batch_size
+    dev = data.expected_rgbs.device
+    if blocks:
+        return (slice_batch(data, int(order[i]) * B, B),
+                torch.ones(B, dtype=torch.float32, device=dev))
+    pos = start + i * B + torch.arange(B, device=dev)
+    return gather_batch(data, order[i * B:(i + 1) * B]), (pos < data.n).to(torch.float32)
+
+
+def val_sums(forward, state, data, start, stop, batch_size, num_batches, loss_elem):
+    """The validation sums [loss, squared error] over records [start, stop)
+    of `data`: num_batches batches of batch_size from `start` through
+    forward(params, state, batch) (``forward_fn``), the rows past `stop`
+    masked by position weights (past n, copies of the last record). The
+    per-sample loss is the channel mean, the squared error the channel sum
+    (the reference's accounting)."""
+    dev = data.expected_rgbs.device
+    acc = torch.zeros(2, dtype=torch.float32, device=dev)
+    for i in range(num_batches):
+        idx = start + i * batch_size + torch.arange(batch_size, device=dev)
+        w = (idx < stop).to(torch.float32)
+        batch = gather_batch(data, torch.clamp(idx, max=data.n - 1))
+        gt = batch["expected_rgbs"]
+        pred = forward(state.params, state, batch)
+        acc += torch.stack(((loss_elem(pred, gt).mean(-1) * w).sum(),
+                            (((pred - gt) ** 2).sum(-1) * w).sum()))
+    return acc
 
 
 @dataclass(eq=False)
@@ -495,10 +620,10 @@ class EpochGraph:
 
 
 def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=True):
-    """(train_epoch, val_epoch) for a TextureField or a
-    TextureFieldWithViewDependency. `fused` needs a fused_mlp_eligible or
-    fused_viewdep_eligible model (raises otherwise, as the JAX package
-    asserts).
+    """(train_epoch, val_epoch) on one device for any model the port
+    trains: a texture field (plain or view-dependent), a BatchNorm field or
+    a self-loss model. `fused` needs a model the kernels compute
+    (``check_epoch_options`` raises otherwise, as the JAX package asserts).
 
     train_epoch(state, key_or_order, data, num_batches, batch_size)
         -> (state, {"loss", "sq_err_per_sample"}: 0-dim device tensors)
@@ -510,33 +635,16 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
       the block order of the epoch given `key` ahead of it.
     val_epoch(state, data, batch_size) -> {"loss", "sq_err_per_sample"}
     """
-    if shuffle not in ("full", "blocks"):
-        raise ValueError(f"shuffle must be 'full' or 'blocks', got {shuffle!r}")
-    if uses_module_layout(model):
-        return _module_epoch_fns(model, loss_type, shuffle, fused)
+    check_epoch_options(model, shuffle, fused)
     loss_elem = elementwise_loss(loss_type)
-    layout = layout_for_model(model)
-    viewdep = layout.tail is not None
-    encode = input_encoder_apply(model)
-    features_of, venc_of = field_batch_fns(model)
-    activation = model.activation
-    if fused and not (fused_mlp_eligible(model) or fused_viewdep_eligible(model)):
-        raise ValueError(
-            "training.fused_mlp needs a plain TextureField (eigenfunction input, relu, "
-            "sigmoid RGB head, hidden width a multiple of 128; an xyz/ff/rff field once the "
-            "Trainer pre-embeds it) or a fused-eligible view-dependent field")
-    if fused and viewdep:
-        sp = layout.spec
-        if not sp.hidden == sp.out_dim == layout.tail.d_hidden:
-            raise ValueError("training.fused_mlp on a view-dependent field needs its "
-                             "bottleneck and directional widths equal to the hidden width")
-
+    layout = layout_of(model)
+    forward = forward_fn(model, layout)
+    loss_fn = eager_loss_fn(model, layout, loss_elem)
     graph = EpochGraph()
     ahead = {}  # (key, num_batches) -> the block order prefetch drew
 
-    def streams_blocks(data, num_batches, B):
-        return (shuffle == "blocks" and data.hit_features is not None
-                and num_batches * B <= data.n)
+    def path_of(data, num_batches, B):
+        return epoch_path(model, shuffle, fused, data, num_batches, B, fused_adam)
 
     def adam_blocks_epoch(state, perm, data, num_batches, B, hyper_all, vencs):
         """The blocks + fused_adam epoch: two launches per step, Adam in
@@ -574,48 +682,33 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
 
     def train_epoch(state, order, data, num_batches, batch_size):
         n, B = data.n, batch_size
-        _check_epoch(data, num_batches, B)
-        if state.layout.spec != layout.spec:
-            raise ValueError("the state's layout is not this model's")
-        has_tail = num_batches * B > n
-        use_blocks = streams_blocks(data, num_batches, B)
+        check_epoch(state, layout, data, num_batches, B)
+        path = path_of(data, num_batches, B)
         perm = ahead.pop((order, num_batches), None) if isinstance(order, Key) else None
-        if perm is None or not use_blocks:
-            perm = (_order(order, num_batches) if use_blocks
-                    else _order(order, n, state.params.device))
-        use_fused = fused and not has_tail
-        if viewdep:  # the tail kernels stream pre-encoded view directions and
-            # the spatial input as it is (an encoder family trains eagerly)
-            use_fused = (use_fused and use_blocks and data.hit_vencs is not None
-                         and encode is None)
-        vencs = data.hit_vencs if viewdep else None
+        if perm is None or not path.blocks:
+            perm = (epoch_order(order, num_batches) if path.blocks
+                    else epoch_order(order, n, state.params.device))
         dev = state.params.device
-        hyper_all = _adam_rows(state, num_batches)
-        if use_fused and use_blocks:
+        hyper_all = epoch_hyper_rows(state, num_batches)
+        if path.blocks and path.step != "eager":
             # stream block perm[i] of the table through the kernels
             if not (0 <= int(perm.min()) and int(perm.max()) < num_batches):
                 raise ValueError(f"block ids must lie in [0, {num_batches})")
-            if fused_adam:
-                acc = adam_blocks_epoch(state, perm, data, num_batches, B, hyper_all, vencs)
-            else:
-                acc = grads_blocks_epoch(state, perm, data, num_batches, B, hyper_all, vencs)
+            vencs = data.hit_vencs if layout.tail is not None else None
+            blocks_epoch = adam_blocks_epoch if path.step == "adam" else grads_blocks_epoch
+            acc = blocks_epoch(state, perm, data, num_batches, B, hyper_all, vencs)
             state.count += num_batches
             means = acc / torch.full((), float(num_batches * B), dtype=torch.float32, device=dev)
             return state, {"loss": means[0], "sq_err_per_sample": means[1]}
+        if not path.blocks:  # a ragged tail's rows repeat the last record
+            perm = perm.to(dev)[torch.clamp(torch.arange(num_batches * B, device=dev), max=n - 1)]
         acc = torch.zeros(2, dtype=torch.float32, device=dev)  # loss, squared error
         acc_n = torch.zeros((), dtype=torch.float32, device=dev)
-        perm_dev = perm.to(dev)
-        scratch = make_train_scratch(layout, B, state.params) if use_fused else None
+        scratch = make_train_scratch(layout, B, state.params) if path.step == "grads" else None
         for i in range(num_batches):
-            if use_blocks:
-                batch = slice_batch(data, int(perm[i]) * B, B)
-                w = torch.ones(B, dtype=torch.float32, device=dev)
-            else:
-                pos = i * B + torch.arange(B, device=dev)
-                w = (pos < n).to(torch.float32)
-                batch = gather_batch(data, perm_dev[torch.clamp(pos, max=n - 1)])
+            batch, w = batch_at(data, perm, i, B, path.blocks)
             gt = batch["expected_rgbs"]
-            if use_fused:
+            if path.step == "grads":  # gathered rows through the kernels
                 x = batch["eigenfunctions"]
                 if x.dtype not in (torch.bfloat16, torch.float32):
                     x = x.to(torch.float32)
@@ -625,9 +718,7 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
                 accumulate_loss(acc, loss_sum, sq_sum)
                 acc_n = acc_n + float(B)
             else:
-                loss, sq, n_b = eager_step(state, hyper_all[i], weighted_loss_fn(
-                    layout, features_of(batch), gt, w, loss_elem, venc_of(batch), activation),
-                    gt, w)
+                loss, sq, n_b = eager_step(state, hyper_all[i], loss_fn(state, batch, w), gt, w)
                 acc += torch.stack((loss * n_b, sq))
                 acc_n = acc_n + n_b
         state.count += num_batches
@@ -637,18 +728,8 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
     @torch.no_grad()
     def val_epoch(state, data, batch_size):
         n = data.n
-        dev = state.params.device
-        acc_loss = torch.zeros((), dtype=torch.float32, device=dev)
-        acc_sq = torch.zeros((), dtype=torch.float32, device=dev)
-        for s in range(0, n, batch_size):
-            batch = gather_batch(data, torch.arange(s, min(s + batch_size, n), device=dev))
-            gt = batch["expected_rgbs"]
-            pred = forward_f32(layout, state.params, features_of(batch).to(torch.float32),
-                               venc_of(batch), activation)
-            # per-sample loss = channel mean (the reference's accounting)
-            acc_loss = acc_loss + loss_elem(pred, gt).mean(-1).sum()
-            acc_sq = acc_sq + ((pred - gt) ** 2).sum(-1).sum()
-        return {"loss": acc_loss / n, "sq_err_per_sample": acc_sq / n}
+        acc = val_sums(forward, state, data, 0, n, batch_size, -(-n // batch_size), loss_elem)
+        return {"loss": acc[0] / n, "sq_err_per_sample": acc[1] / n}
 
     def prefetch(key, data, num_batches, batch_size):
         """Draw the block order `key` gives an epoch on these operands
@@ -656,8 +737,8 @@ def make_epoch_fns(model, loss_type, shuffle="full", fused=False, fused_adam=Tru
         epoch's replay); the epoch given `key` then takes it."""
         with span("train.prefetch"):
             ahead.clear()
-            if streams_blocks(data, num_batches, batch_size):
-                ahead[(key, num_batches)] = _order(key, num_batches)
+            if path_of(data, num_batches, batch_size).blocks:
+                ahead[(key, num_batches)] = epoch_order(key, num_batches)
 
     train_epoch = _traced(train_epoch)
     train_epoch.graph = graph
@@ -671,88 +752,3 @@ def _traced(epoch):
         with span("train.epoch", steps=num_batches):
             return epoch(state, order, data, num_batches, batch_size)
     return train_epoch
-
-
-def _adam_rows(state, num_batches):
-    h = state.hyper
-    with span("train.hyper_rows"):
-        return adam_hyper_rows(state.count + 1 + torch.arange(num_batches), h.learning_rate,
-                               h.b1, h.b2, h.eps, h.eps_root, device=state.params.device)
-
-
-def _check_epoch(data, num_batches, batch_size):
-    n = data.n
-    if not (0 < num_batches and (num_batches * batch_size <= n
-                                 or num_batches == -(-n // batch_size))):
-        raise ValueError(f"num_batches {num_batches} inconsistent with n={n}, "
-                         f"batch={batch_size}")
-
-
-def _module_epoch_fns(model, loss_type, shuffle, fused):
-    """make_epoch_fns for a ModuleLayout model (a self-loss model, or a
-    field with BatchNorm): the eager step on its module's forward."""
-    name = type(model).__name__
-    computes_loss = getattr(model, "computes_loss", False)
-    if fused and computes_loss:
-        raise ValueError("training.fused_mlp: the kernels cannot compute a self-loss model "
-                         f"({name}: three networks and its own loss); it trains through the "
-                         "eager step")
-    if fused:
-        raise ValueError("training.fused_mlp needs a model without BatchNorm (the kernels "
-                         "keep no batch statistics); set fused_mlp: false")
-    loss_elem = elementwise_loss(loss_type)
-    layout = ModuleLayout(model)
-    inputs_of = module_inputs_fn(model)
-    val_kwargs = {} if computes_loss else {"train": False}
-
-    def train_epoch(state, order, data, num_batches, batch_size):
-        n, B = data.n, batch_size
-        _check_epoch(data, num_batches, B)
-        if state.layout.spec != layout.spec:
-            raise ValueError("the state's layout is not this model's")
-        use_blocks = (shuffle == "blocks" and data.hit_features is not None
-                      and num_batches * B <= n)
-        perm = (_order(order, num_batches) if use_blocks
-                else _order(order, n, state.params.device))
-        dev = state.params.device
-        hyper_all = _adam_rows(state, num_batches)
-        acc = torch.zeros(2, dtype=torch.float32, device=dev)  # loss, squared error
-        acc_n = torch.zeros((), dtype=torch.float32, device=dev)
-        perm_dev = perm.to(dev)
-        for i in range(num_batches):
-            if use_blocks:
-                batch = slice_batch(data, int(perm[i]) * B, B)
-                w = torch.ones(B, dtype=torch.float32, device=dev)
-            else:
-                pos = i * B + torch.arange(B, device=dev)
-                w = (pos < n).to(torch.float32)
-                batch = gather_batch(data, perm_dev[torch.clamp(pos, max=n - 1)])
-            gt = batch["expected_rgbs"]
-            inputs = inputs_of(batch)
-            fn = (self_loss_fn(model, layout, inputs[0], gt) if computes_loss
-                  else module_loss_fn(model, layout, state, inputs, gt, w, loss_elem))
-            loss, sq, n_b = eager_step(state, hyper_all[i], fn, gt, w)
-            acc += torch.stack((loss * n_b, sq))
-            acc_n = acc_n + n_b
-        state.count += num_batches
-        means = acc / acc_n
-        return state, {"loss": means[0], "sq_err_per_sample": means[1]}
-
-    @torch.no_grad()
-    def val_epoch(state, data, batch_size):
-        n = data.n
-        dev = state.params.device
-        variables = module_variables(layout, state.params, state)
-        acc_loss = torch.zeros((), dtype=torch.float32, device=dev)
-        acc_sq = torch.zeros((), dtype=torch.float32, device=dev)
-        for s in range(0, n, batch_size):
-            batch = gather_batch(data, torch.arange(s, min(s + batch_size, n), device=dev))
-            gt = batch["expected_rgbs"]
-            pred = torch.func.functional_call(model, variables, inputs_of(batch), val_kwargs)
-            acc_loss = acc_loss + loss_elem(pred, gt).mean(-1).sum()
-            acc_sq = acc_sq + ((pred - gt) ** 2).sum(-1).sum()
-        return {"loss": acc_loss / n, "sq_err_per_sample": acc_sq / n}
-
-    train_epoch = _traced(train_epoch)
-    train_epoch.graph = None  # no CUDA graph: one eager step per batch
-    return train_epoch, val_epoch

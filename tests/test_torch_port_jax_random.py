@@ -309,8 +309,9 @@ def test_prefetched_order_is_the_drawn_one(shuffle, monkeypatch):
                                                                make_epoch_fns)
 
     draws = []
-    order_of = steps._order
-    monkeypatch.setattr(steps, "_order", lambda *a, **kw: draws.append(a[1]) or order_of(*a, **kw))
+    order_of = steps.epoch_order
+    monkeypatch.setattr(steps, "epoch_order",
+                        lambda *a, **kw: draws.append(a[1]) or order_of(*a, **kw))
     data, cfg = _toy(), {**SMALL, "k": 16}
     key = jax.random.fold_in(jax.random.PRNGKey(0), 5)
     nb = 4 if shuffle == "blocks" else data.n
@@ -459,8 +460,8 @@ def _jax_trainer(config):
 def _record_epochs(trainer):
     """(epoch key data, the order the epoch walks) of every epoch `trainer`
     (either package's) trains. The order is what each package's step draws
-    from the key: the port's steps._order, jax.random.permutation."""
-    from intrinsic_neural_fields_tpu_torch.train.steps import _order
+    from the key: the port's steps.epoch_order, jax.random.permutation."""
+    from intrinsic_neural_fields_tpu_torch.train.steps import epoch_order
 
     seen, fn = [], trainer.train_epoch_fn
 
@@ -469,7 +470,7 @@ def _record_epochs(trainer):
             trainer.config["training"].get("shuffle", "full") == "blocks")
         size = num_batches if blocks else data.n
         if isinstance(key, jr.Key):
-            seen.append((key.data, _order(key, size).numpy()))
+            seen.append((key.data, epoch_order(key, size).numpy()))
         else:
             seen.append((np.asarray(key), np.asarray(jax.random.permutation(key, size))))
         return fn(state, key, data, num_batches, batch_size)

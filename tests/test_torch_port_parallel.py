@@ -30,8 +30,9 @@ from intrinsic_neural_fields_tpu_torch.data.sampler import (RayData, precompute_
                                                             precompute_hit_vencs)
 from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
 from intrinsic_neural_fields_tpu_torch.models import make_model, view_encoder_apply
-from intrinsic_neural_fields_tpu_torch.parallel import (cli_devices, make_dp_epoch_fns,
-                                                        resolve_devices)
+from intrinsic_neural_fields_tpu_torch.models.neutex import NeuTexTrainWrapper
+from intrinsic_neural_fields_tpu_torch.devices import cli_devices, resolve_devices
+from intrinsic_neural_fields_tpu_torch.parallel import make_dp_epoch_fns
 from intrinsic_neural_fields_tpu_torch.render.renderer import Renderer
 from intrinsic_neural_fields_tpu_torch.train.steps import (AdamHyper, create_train_state,
                                                            make_epoch_fns)
@@ -117,8 +118,7 @@ def test_dp_epochs_match_the_jax_dp_epochs(case):
     opt = optax.inject_hyperparams(optax.adam)(learning_rate=LR)
     j_train, j_val = jax_dp_epoch_fns(jmodel, opt, "L1", make_device_mesh(D), shuffle=shuffle,
                                       fused=fused, fused_adam=True)
-    t_train, t_val = make_dp_epoch_fns(tmodel, "L1", ["cpu"] * D, shuffle=shuffle, fused=fused,
-                                       fused_adam=True)
+    t_train, t_val = make_dp_epoch_fns(tmodel, "L1", ["cpu"] * D, shuffle=shuffle, fused=fused)
     jst = jax_create_state(jax.tree_util.tree_map(jnp.array, variables), opt)
     st = create_train_state(tmodel, AdamHyper(LR), "cpu")
     nb = -(-n // B)
@@ -263,6 +263,38 @@ def test_batch_not_divisible_by_the_devices_raises():
         train(st, PRNGKey(0), td, 2, 100)
     with pytest.raises(ValueError, match="not divisible by 8 devices"):
         val(st, td, 100)
+
+
+# name: (the model, the message both epoch factories refuse `fused` with)
+INELIGIBLE = {
+    "batchnorm_field": (lambda: make_model({**SMALL, "batchnorm": True}, device="cpu"),
+                        "without BatchNorm"),
+    "neutex": (lambda: NeuTexTrainWrapper(num_freqs=4), "self-loss model"),
+    "encoder_field": (lambda: make_model({**WIDE, "feature_strategy": "rff", "embed_std": 4.0},
+                                         device="cpu"), "fused_mlp needs a plain TextureField"),
+    "viewdep_unequal_widths": (lambda: make_model(
+        {**WIDE, "view_dependence": {"bottleneck_vec_dim": 256, "include_view_dir": True,
+                                     "embed_size": 2, "directional_hidden_dim": 128,
+                                     "in_dim_view_dir": 3, "strategy": "extrinsic"}},
+        device="cpu"), "widths equal to the hidden width"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INELIGIBLE))
+def test_one_device_and_dp_refuse_fused_for_a_model_the_kernels_cannot_take(case):
+    """fused=True on a model the train kernels cannot compute raises at
+    construction, in make_epoch_fns and in make_dp_epoch_fns alike, with
+    the same message (one check serves both)."""
+    make, match = INELIGIBLE[case]
+    model = make()
+    messages = []
+    for build in (lambda: make_epoch_fns(model, "L1", shuffle="blocks", fused=True),
+                  lambda: make_dp_epoch_fns(model, "L1", ["cpu"] * 2, shuffle="blocks",
+                                            fused=True)):
+        with pytest.raises(ValueError, match=match) as err:
+            build()
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
 
 
 def test_device_lists_and_their_errors():

@@ -200,7 +200,7 @@ def main(argv=None):
     ap.add_argument("--views", type=int, default=8)
     ap.add_argument("--size", type=int, default=256)
     args = ap.parse_args(argv)
-    from intrinsic_neural_fields_tpu_torch.parallel import resolve_devices
+    from intrinsic_neural_fields_tpu_torch.devices import resolve_devices
 
     D = args.devices
     if args.device == "cuda":
