@@ -822,7 +822,76 @@ def phase_trace_methods(tp_leg):
          methods=out)
     out["raster_traverse"] = _traverse_kernel_check(verts, faces, cams, K, coords, W, H)
     out["raster_bin"] = _bin_kernel_check(verts, faces, cams, K, coords, W, H)
+    out["render_wire"] = _wire_kernel_check(r, cams, K)
     return out
+
+
+def _wire_kernel_check(r, cams, K):
+    """csrc/render_wire.cu against its twin compose_wire_plain on the 512^2
+    orbit views' own records (the throughput leg's Renderer: u8 wire, no
+    mask), on the card: equal to the bit, one launch a render. Times: CUDA
+    events; bound: the slot map, the hit flags, the hits' colours and the
+    wire image read or written once at the HBM rate; library_ms: torch's
+    index_put_ of the composited Morton-order rows into the raster image,
+    the scatter the kernel replaces (the port never calls it), which must
+    give the kernel's image."""
+    import torch
+
+    from intrinsic_neural_fields_tpu_torch.ops import wire as WI
+    from intrinsic_neural_fields_tpu_torch.ops.launches import (kernel_launches,
+                                                                reset_kernel_launches)
+    from intrinsic_neural_fields_tpu_torch.render import renderer as RM
+
+    inner, rows = RM.compose_wire, []
+    for i, cam in enumerate(cams[:4]):
+        seen = []
+
+        def spy(*args):
+            seen.append(args)
+            return inner(*args)
+
+        RM.compose_wire = spy
+        try:
+            torch.cuda.synchronize()
+            reset_kernel_launches()
+            r.render(cam, K)
+            launched = kernel_launches()["render_wire"]
+        finally:
+            RM.compose_wire = inner
+        (preds, valid, slot, bg, wire_u8, _), = seen
+
+        def kernel():
+            return WI.compose_wire(preds, valid, slot, bg, wire_u8, False)
+
+        def plain():
+            return WI.compose_wire_plain(preds, valid, slot, bg, wire_u8, False)
+
+        got, want = kernel(), plain()
+        L, P = preds.shape[0], slot.numel()
+        inside = (slot >= 0).nonzero().squeeze(1)
+        pix_of_row = torch.empty(L, dtype=torch.int64, device=slot.device)
+        pix_of_row[slot[inside].long()] = inside
+        morton_rows = WI.compose_wire_plain(
+            preds, valid, torch.arange(L, dtype=torch.int32, device=slot.device), bg, wire_u8,
+            False)[0]
+        lib_out = torch.empty_like(got[0])
+
+        def library():
+            return lib_out.index_put_((pix_of_row,), morton_rows)
+
+        row = {"view": i, "pixels": P, "rays": L, "hits": int(valid.sum()),
+               "launches_per_render": launched, "equal_to_twin": torch.equal(got[0], want[0]),
+               "library_equal": torch.equal(library(), got[0])}
+        check(row["equal_to_twin"] and row["library_equal"] and launched == 1,
+              f"render_wire disagrees with compose_wire_plain or index_put_ on view {i}: {row}")
+        row["ms"] = cuda_ms(kernel)
+        row["plain_ms"] = cuda_ms(plain, iters=5)
+        row["library_ms"] = cuda_ms(library)
+        nbytes = P * 4 + L + row["hits"] * 12 + P * got[0].element_size() * 3
+        row["bound_ms"], row["bound_by"] = _bound(0.0, nbytes)
+        emit("kernel_check", name="render_wire", input=f"orbit512_view{i}", **row)
+        rows.append(row)
+    return rows
 
 
 def _traverse_kernel_check(verts, faces, cams, K, coords, W, H):
@@ -1155,8 +1224,8 @@ def phase_hq_train(p):
 
     plain_kernels = ("fused_mlp_fwd", "fused_mlp_fwd_bwd", "fused_mlp_wgrad_adam")
     check(all(launches[k] > 0 for k in plain_kernels)  # the evals' traces: raster_traverse
-          and not any(launches[k] for k in launches
-                      if k not in plain_kernels + ("raster_traverse", "raster_bin")),
+          and not any(launches[k] for k in launches if k not in plain_kernels + (
+              "raster_traverse", "raster_bin", "render_wire")),
           f"the HQ path's kernels did not launch, or others did: {launches}")
     check(eager == 0, f"the eager step ran {eager} times on the HQ recipe")
     losses = rec.values("Train_Loss")
@@ -1315,11 +1384,11 @@ def phase_jax_checkpoint(p, hq_leg, hq_eval_launches):
     a, b = evals["ckpt"], evals["pt"]
     check(a["images"] and a["images"] == b["images"] and a["scores"] == b["scores"],
           f"the JAX out_dir's eval differs from the model.pt's: {a['scores']} {b['scores']}")
-    check(set(a["launches"]) == {"fused_mlp_fwd", "raster_traverse", "raster_bin"}
-          and a["launches"]["raster_traverse"] == a["views"]
+    check(set(a["launches"]) == {"fused_mlp_fwd", "raster_traverse", "raster_bin", "render_wire"}
+          and a["launches"]["raster_traverse"] == a["launches"]["render_wire"] == a["views"]
           and a["launches"]["raster_bin"] == 3 * a["views"] and a["launches"] == b["launches"],
           f"eval launches: JAX out_dir {a['launches']}, model.pt {b['launches']} "
-          f"(one trace per view: {a['views']})")
+          f"(one trace and one wire image per view: {a['views']})")
     eval_launches = a["launches"].get("fused_mlp_fwd", 0)
     hq_per_view = hq_eval_launches / len(hq_leg.cams)
     check(eval_launches / a["views"] == hq_per_view,
@@ -2031,7 +2100,7 @@ def phase_viewdep_train(p):
     check(launches["fused_mlp_fwd_viewdep"] > 0, f"the eval did not launch the forward: {launches}")
     check(not any(launches[k] for k in launches if k not in (
         "fused_mlp_fwd_bwd_viewdep", "fused_mlp_wgrad_adam_viewdep", "fused_mlp_fwd_viewdep",
-        "raster_traverse", "raster_bin")),
+        "raster_traverse", "raster_bin", "render_wire")),
           f"other kernels ran on this path: {launches}")
     graph = _graph_stats(trainer, launches, 5 * nb, 5, ("fused_mlp_fwd_bwd_viewdep",
                                                           "fused_mlp_wgrad_adam_viewdep"))
@@ -3166,9 +3235,10 @@ def phase_neutex(p):
     eval_cli.main([test_dir, cfg_path, p["data"], "test"])
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    # the trace's kernels run for every view; the field is the module's forward
+    # the trace's and the wire's kernels run for every view; the field is the
+    # module's forward
     eval_launches = sum(n for k, n in kernel_launches().items()
-                        if k not in ("raster_traverse", "raster_bin"))
+                        if k not in ("raster_traverse", "raster_bin", "render_wire"))
     check(eval_launches == 0, f"neutex_blob: the eval CLI launched a kernel: {kernel_launches()}")
     with open(os.path.join(test_dir, "evaluation_metrics.pkl"), "rb") as f:
         test_psnr = float(np.mean([m["psnr"] for m in pickle.load(f).values()]))
@@ -4294,6 +4364,19 @@ def main():
         "by_input": {f"orbit512_view{r['view']}": {k: r[k] for k in (
             "ms", "sort_ms", "binning_ms", "host_ms", "plain_ms", "bound_ms", "lost_faces")}
             for r in bn},
+    })
+    # the wire image: no TPU kernel (the JAX renderer scatters in numpy);
+    # one launch a frame, main row the first orbit view's
+    wr = traces["render_wire"]
+    kernels.append({
+        "name": "render_wire", "route": "cuda", "source": pkg + "render_wire.cu",
+        "replaces": None,
+        "stands_for": "intrinsic_neural_fields_tpu/render/renderer.py:755-761 the host scatter",
+        "launches": wr[0]["launches_per_render"], "max_abs_err": 0.0,
+        "ms": wr[0]["ms"], "plain_ms": wr[0]["plain_ms"], "bound_ms": wr[0]["bound_ms"],
+        "bound_by": wr[0]["bound_by"], "library_ms": wr[0]["library_ms"],
+        "by_input": {f"orbit512_view{r['view']}": {k: r[k] for k in (
+            "hits", "ms", "plain_ms", "bound_ms", "library_ms")} for r in wr},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_all, phase_s=phase_s)

@@ -246,10 +246,11 @@ def render_leg(device="cuda", frames=FRAMES, H=RENDER_H, subdivisions=SUBDIVISIO
     and composite on the cached trace, the fetch). model: a TextureField
     (default: make_model(model_config(k), seed=0)).
 
-    On the card the network of every chunk is the fused_mlp_fwd kernel and
-    each trace one raster_traverse and three raster_bin launches: the
-    leg raises unless every frame of every pass launched the forward, each
-    pass traced once a frame, and no other kernel of the port ran."""
+    On the card the network of every chunk is the fused_mlp_fwd kernel,
+    each trace one raster_traverse and three raster_bin launches, and each
+    frame's wire image one render_wire launch: the leg raises unless every
+    frame of every pass launched the forward, each pass traced and built
+    its wire image once a frame, and no other kernel of the port ran."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -280,14 +281,15 @@ def render_leg(device="cuda", frames=FRAMES, H=RENDER_H, subdivisions=SUBDIVISIO
                           depth=DEPTH)
         times.append(time.perf_counter() - t0)
         counted = kernel_launches()
-        others = {n: c for n, c in counted.items()
-                  if c and n not in ("fused_mlp_fwd", "raster_traverse", "raster_bin")}
+        others = {n: c for n, c in counted.items() if c and n not in (
+            "fused_mlp_fwd", "raster_traverse", "raster_bin", "render_wire")}
         if dev.type == "cuda" and (min(launches) == 0 or others
                                    or counted["raster_traverse"] != len(cams)
-                                   or counted["raster_bin"] != 3 * len(cams)):
+                                   or counted["raster_bin"] != 3 * len(cams)
+                                   or counted["render_wire"] != len(cams)):
             raise RuntimeError("bench render leg: a frame did not launch fused_mlp_fwd, one "
-                               "raster_traverse and three raster_bin, or another kernel ran: "
-                               f"{launches}, {counted}")
+                               "raster_traverse, three raster_bin and one render_wire, or "
+                               f"another kernel ran: {launches}, {counted}")
 
     cam = cams[1 % frames]
     r.render(cam, Kmat, cache_key="stages")

@@ -23,7 +23,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = {
     name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
     for name in ("fused_mlp_fwd", "fused_mlp_train", "fused_adam", "bitonic_argsort",
-                 "raster_traverse", "raster_bin")
+                 "raster_traverse", "raster_bin", "render_wire")
 }
 HEADERS = sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cuh")))
 NVCC_FLAGS = [

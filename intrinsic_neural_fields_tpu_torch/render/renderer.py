@@ -1,6 +1,7 @@
 """Full-view rendering on a GPU (or D of them): ray generation, the raster tracer,
 feature interpolation and the fused MLP kernel, with the background
-composited on the device and f16 (or uint8) colors on the wire.
+composited on the device and f16 (or uint8) colors on the wire, in raster
+order.
 
 The view-dependent field also needs each hit's unit ray direction and
 original face id (the tracer's faces are Morton-sorted; the id is mapped
@@ -8,7 +9,9 @@ back before the face-normal lookup); its view encoding runs in plain torch
 beside the kernel, as in the reference renderer.
 
 The host selects masked pixels up front (Morton-ordered, cached per pixel
-set) and scatters the returned colors into the image. Dispatch is
+set, with a slot map from each raster pixel to its Morton row); one launch
+a frame (ops/wire.py) composites, quantizes and puts the colors in raster
+order on the device, so the host only converts the wire's type. Dispatch is
 asynchronous (`render_async` / `render_fetch`), so an eval or video loop
 can overlap one view's fetch with the next view's device work.
 
@@ -58,6 +61,7 @@ from ..ops.interpolate import interpolate_vertex_features
 from ..ops.launches import add, span, tracing
 from ..ops.morton import face_morton_order, pixel_morton_order
 from ..ops.raster import MeshTable, check_pinhole_K, intersect_coords_pinhole_core
+from ..ops.wire import compose_wire
 
 _INFER_CHUNK = 1 << 13     # rays per feature-gather + MLP launch
 _TRACE_CACHE_MAX = 8       # LRU bound on cached per-view traces
@@ -70,10 +74,11 @@ class _PixelEntry(NamedTuple):
     renders the same pixel set."""
     mask_bits: bytes   # packed mask (b"" when unmasked): compared on a hit
     pix_idx: object    # [L] host masked pixel ids in Morton order
-    morton: object     # [L] host permutation (scatter-back order)
     L: int
     hull: object       # [2,2] f32 (cmin; cmax) pixel hull
     idx_dev: object    # [L] int64 masked pixel ids in Morton order, on device
+    slot_dev: object   # [H*W] int32 Morton row of each raster pixel (-1 outside
+                       # the mask), on device
 
 
 class ViewTrace(NamedTuple):
@@ -90,11 +95,11 @@ class ViewTrace(NamedTuple):
 
 
 class _PendingRender(NamedTuple):
-    """An in-flight render: device arrays plus the host scatter metadata."""
+    """An in-flight render: the raster-order wire image [H*W,3] and, for
+    eval_render, the hit plane [H*W] on the device (None for an empty
+    mask), plus what the host needs to finish it."""
     rgb_dev: object
     valid_dev: object
-    morton: object
-    L: int
     obj_mask_1d: object
     bg: float
     H: int
@@ -320,8 +325,10 @@ class Renderer:
         hull = np.stack([xy.min(0), xy.max(0)]).astype(np.float32)
         pix_idx = pix_idx[morton]
         idx_dev = torch.as_tensor(pix_idx.astype(np.int64), device=self.device)
-        entry = _PixelEntry(mask_bits=bits, pix_idx=pix_idx, morton=morton, L=len(pix_idx),
-                            hull=hull, idx_dev=idx_dev)
+        slot = np.full(H * W, -1, np.int32)
+        slot[pix_idx] = np.arange(len(pix_idx), dtype=np.int32)
+        entry = _PixelEntry(mask_bits=bits, pix_idx=pix_idx, L=len(pix_idx), hull=hull,
+                            idx_dev=idx_dev, slot_dev=torch.as_tensor(slot, device=self.device))
         self._pixel_cache[key] = entry
         self._pixel_cache.move_to_end(key)
         while len(self._pixel_cache) > _PIXEL_CACHE_MAX:
@@ -374,8 +381,10 @@ class Renderer:
         return g.faces_sorted[safe_face], hits.bary, dirs, faces, hits.valid
 
     def _infer(self, trace, bg, dev=None):
-        """Hit records -> ([L,3] bg-composited f16 (or uint8) rgb, [L] valid),
-        on the trace's device."""
+        """Hit records -> ([L,3] f32 rgb, [L] valid), on the trace's device.
+        bg is not read (the wire kernel composites the background); the
+        benchmark's fault tests (benchmark/tests/test_bench_faults.py) plant
+        their faults through this signature."""
         g = self._on(self.device if dev is None else dev)
         vids, bary, dirs, faces, valid = trace
         L = vids.shape[0]
@@ -388,14 +397,7 @@ class Renderer:
                 feats = interpolate_vertex_features(g.features, vids[sl], bary[sl])
                 preds[sl] = (g.field(feats, dirs[sl], faces[sl]) if self.viewdep
                              else g.field(feats))
-            # Composite the background on the device: the wire carries one
-            # ready-to-scatter array. f16 quantization (~5e-4 in [0,1]) is far
-            # below the 8-bit image grid.
-            rgb = torch.where(valid[:, None], preds.to(torch.float16),
-                              torch.tensor(bg, dtype=torch.float16, device=g.device))
-            if self._wire_u8:
-                rgb = torch.round(rgb.to(torch.float32).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-        return rgb, valid
+        return preds, valid
 
     # ------------------------------------------------------------ API
 
@@ -467,8 +469,7 @@ class Renderer:
                 if not obj_mask_1d.any():
                     # Empty object mask: an all-background image, nothing to trace.
                     return _PendingRender(
-                        rgb_dev=None, valid_dev=None, morton=np.zeros(0, np.int64),
-                        L=0, obj_mask_1d=obj_mask_1d, bg=bg, H=H, W=W,
+                        rgb_dev=None, valid_dev=None, obj_mask_1d=obj_mask_1d, bg=bg, H=H, W=W,
                         eval_render=eval_render,
                     )
             pix_key, px = self._pixels_for_view(obj_mask_1d)
@@ -506,40 +507,35 @@ class Renderer:
                 with device_scope(dev):
                     parts.append(self._infer(tr, bg, dev))
             if len(parts) == 1:
-                rgb_dev, valid_dev = parts[0]
+                preds, valid = parts[0]
             else:  # gathered in shard order on devices[0]
-                rgb_dev, valid_dev = (torch.cat([p[i].to(self.device) for p in parts])
-                                      for i in (0, 1))
+                preds, valid = (torch.cat([p[i].to(self.device) for p in parts])
+                                for i in (0, 1))
+            # The wire image in raster order, background composited. f16
+            # quantization (~5e-4 in [0,1]) is far below the 8-bit image grid.
+            rgb_dev, valid_dev = compose_wire(preds, valid, px.slot_dev, bg, self._wire_u8,
+                                              eval_render)
             return _PendingRender(
-                rgb_dev=rgb_dev, valid_dev=valid_dev, morton=px.morton, L=px.L,
-                obj_mask_1d=obj_mask_1d, bg=bg, H=H, W=W, eval_render=eval_render,
+                rgb_dev=rgb_dev, valid_dev=valid_dev, obj_mask_1d=obj_mask_1d, bg=bg, H=H, W=W,
+                eval_render=eval_render,
             )
 
     def render_fetch(self, pending):
-        """Complete a render_async dispatch: one device->host copy, then the
-        host scatter."""
+        """Complete a render_async dispatch: one device->host copy of the
+        raster-order wire image, then one conversion to f32 on the host."""
         with span("render.fetch"):
-            L, morton, H, W, bg = pending.L, pending.morton, pending.H, pending.W, pending.bg
+            H, W = pending.H, pending.W
+            if pending.rgb_dev is None:  # empty mask: the background, no hit
+                img = np.full((H, W, 3), pending.bg, dtype=np.float32)
+                return (img, np.zeros(0, np.int64)) if pending.eval_render else img
             with span("render.fetch.copy"):
-                if L == 0:
-                    rgb_m = np.zeros((0, 3), np.float32)
-                    valid_m = np.zeros(0, bool)
-                else:
-                    rgb_m = pending.rgb_dev.cpu().numpy()
-                    valid_m = pending.valid_dev.cpu().numpy() if pending.eval_render else None
-            with span("render.fetch.scatter"):
-                if rgb_m.dtype == np.uint8:
-                    rgb_m = rgb_m.astype(np.float32) / 255.0
-                img_masked = np.empty((L, 3), dtype=np.float32)
-                img_masked[morton] = np.float32(rgb_m)
-                if pending.obj_mask_1d is not None:
-                    img = np.full((H * W, 3), bg, dtype=np.float32)
-                    img[pending.obj_mask_1d] = img_masked
-                else:
-                    img = img_masked
-                img = img.reshape(H, W, 3)
+                rgb = pending.rgb_dev.cpu().numpy()
+                hit = pending.valid_dev.cpu().numpy() if pending.eval_render else None
+            with span("render.fetch.convert"):
+                # one pass: u8 / 255 divided in f32, or f16 widened
+                img = (np.divide(rgb, np.float32(255.0), dtype=np.float32)
+                       if rgb.dtype == np.uint8 else rgb.astype(np.float32)).reshape(H, W, 3)
                 if pending.eval_render:
-                    valid = np.empty_like(valid_m)
-                    valid[morton] = valid_m
-                    return img, np.nonzero(valid)[0]
+                    mask = pending.obj_mask_1d
+                    return img, np.nonzero(hit if mask is None else hit[mask])[0]
                 return img

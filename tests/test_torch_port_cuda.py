@@ -1,9 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: the sm_90a kernels (the fused
 MLP forward, the train forward/backward and weight gradients, Adam, and the
 view-dependent field's tail kernels, the bitonic argsort, the tracer's
-traversal) against their plain twins, their launch counters and input checks, the tracer with every
-sort method, and the tracer, renderer, preprocessing and a training epoch
-on the card against the same code on the CPU.
+traversal and binning, the render's wire image) against their plain twins,
+their launch counters and input checks, the tracer with every sort method,
+and the tracer, renderer, preprocessing and a training epoch on the card
+against the same code on the CPU.
 They skip without CUDA. This file imports only the
 port, so it also runs where JAX is not installed:
 
@@ -375,6 +376,123 @@ def test_d_way_render_on_card_equals_one_device(cuda):
     np.testing.assert_array_equal(out["one"][0], out["dway"][0])
     np.testing.assert_array_equal(out["one"][1], out["dway"][1])
     assert out["one"][2] == out["dway"][2] > 0
+
+
+def _wire_view(cuda, monkeypatch, mask_kind, view, wire_u8=True):
+    """A 512^2 orbit view of the render cell's blob (81,920 faces) through
+    a seeded k=64 field: (the Renderer, the view's camera, K, mask, and the
+    arguments the Renderer handed compose_wire)."""
+    from intrinsic_neural_fields_tpu_torch.render import renderer as RM
+
+    mesh = blob_mesh(6)
+    H = W = 512
+    efuncs = np.random.default_rng(0).normal(size=(mesh.num_vertices, 64)).astype(np.float32)
+    model = make_model({"k": 64, "num_layers": 4, "mlp_hidden_dim": 128, "skip_layer_idx": 2},
+                       seed=0, device="cuda")
+    r = Renderer(model, mesh, efuncs, H=H, W=W, wire_u8=wire_u8)
+    mask = None
+    if mask_kind == "partial":
+        mask = np.random.default_rng(view).uniform(size=H * W) < 0.6
+        mask[: 64 * W] = True
+    seen, inner = [], RM.compose_wire
+
+    def spy(*args):
+        seen.append(args)
+        return inner(*args)
+
+    monkeypatch.setattr(RM, "compose_wire", spy)
+    cam, K = ring_cameras(4)[view], pinhole_K(H, W)
+    r.render(cam, K, obj_mask_1d=mask, eval_render=True)
+    monkeypatch.setattr(RM, "compose_wire", inner)
+    (args,) = seen
+    return r, cam, K, mask, args
+
+
+@pytest.mark.parametrize("wire", ["u8", "f16"])
+@pytest.mark.parametrize("mask_kind", ["none", "partial"])
+@pytest.mark.parametrize("view", [0, 2])
+def test_wire_kernel_equals_twin(cuda, monkeypatch, view, mask_kind, wire):
+    """csrc/render_wire.cu against compose_wire_plain on the card, on the
+    records a 512^2 orbit view of the blob hands it: the wire image and the
+    hit plane equal to the bit, with and without the plane; one render_wire
+    launch and no device->host read in it (the sync debug mode raises on
+    one); the Renderer's image and hit indices equal to the bit to those
+    it gives with the twin in the kernel's place, one launch a render."""
+    from intrinsic_neural_fields_tpu_torch.ops import wire as WI
+    from intrinsic_neural_fields_tpu_torch.ops.fused_mlp import reset_kernel_launches
+    from intrinsic_neural_fields_tpu_torch.render import renderer as RM
+
+    r, cam, K, mask, (preds, valid, slot, bg, wire_u8, _) = _wire_view(
+        cuda, monkeypatch, mask_kind, view, wire_u8=wire == "u8")
+    assert valid.any() and not valid.all()
+    for with_valid in (True, False):
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = WI.compose_wire(preds, valid, slot, bg, wire_u8, with_valid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert kernel_launches()["render_wire"] == 1
+        want = WI.compose_wire_plain(preds, valid, slot, bg, wire_u8, with_valid)
+        assert got[0].dtype == want[0].dtype and torch.equal(got[0], want[0])
+        assert (got[1] is None and want[1] is None) if not with_valid else torch.equal(*(
+            x[1] for x in (got, want)))
+
+    reset_kernel_launches()
+    img_k, hit_k = r.render(cam, K, obj_mask_1d=mask, eval_render=True)
+    assert kernel_launches()["render_wire"] == 1
+    monkeypatch.setattr(RM, "compose_wire", WI.compose_wire_plain)
+    img_p, hit_p = r.render(cam, K, obj_mask_1d=mask, eval_render=True)
+    np.testing.assert_array_equal(img_k.view(np.uint32), img_p.view(np.uint32))
+    np.testing.assert_array_equal(hit_k, hit_p)
+
+
+@pytest.mark.parametrize("P", [1, 7, 1001, 4096])
+def test_wire_kernel_equals_twin_on_edge_values(cuda, P):
+    """Colours at and around the 8-bit steps, out of [0, 1] and past
+    f16's range, slots that repeat, miss (-1) or point past the rows, and
+    pixel counts that leave a ragged last thread: kernel and twin agree to
+    the bit on both wires and both backgrounds."""
+    from intrinsic_neural_fields_tpu_torch.ops import wire as WI
+
+    rng = np.random.default_rng(P)
+    L = max(P // 2, 3)
+    steps = (np.arange(256) + rng.choice([-0.5, 0.0, 0.5], size=256)) / 255.0
+    vals = np.concatenate([steps, rng.uniform(-0.5, 1.5, size=3 * L), [7e4, -7e4, 1e-8]])
+    preds = torch.as_tensor(rng.choice(vals, size=(L, 3)).astype(np.float32), device=cuda)
+    valid = torch.as_tensor(rng.uniform(size=L) < 0.8, device=cuda)
+    slot = torch.as_tensor(rng.integers(-1, L + 3, size=P).astype(np.int32), device=cuda)
+    for wire_u8 in (True, False):
+        for bg in (1.0, 0.0):
+            got = WI.compose_wire(preds, valid, slot, bg, wire_u8, True)
+            want = WI.compose_wire_plain(preds, valid, slot, bg, wire_u8, True)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (wire_u8, bg)
+
+
+def test_wire_kernel_rejects_bad_operands_and_launch_errors(cuda):
+    """Each operand the kernel does not take raises before a launch; a
+    launch the C entry refuses (an output not 8-byte aligned) raises and
+    counts nothing."""
+    from intrinsic_neural_fields_tpu_torch.ops import wire as WI
+
+    preds = torch.zeros(6, 3, device=cuda)
+    valid = torch.zeros(6, dtype=torch.bool, device=cuda)
+    slot = torch.full((10,), -1, dtype=torch.int32, device=cuda)
+    bad = [(preds.half(), valid, slot), (torch.zeros(6, 4, device=cuda), valid, slot),
+           (torch.zeros(3, 6, device=cuda).t(), valid, slot), (preds.cpu(), valid, slot),
+           (preds, valid.to(torch.uint8), slot), (preds, valid[:5], slot),
+           (preds, valid.cpu(), slot), (preds, valid, slot.long()),
+           (preds, valid, slot.reshape(2, 5)), (preds, valid, slot.cpu()),
+           (preds, valid, torch.zeros(20, dtype=torch.int32, device=cuda)[::2])]
+    for args in bad:
+        with pytest.raises(ValueError, match="must be contiguous"):
+            WI.compose_wire(*args, 1.0, True, True)
+    before = kernel_launches()["render_wire"]
+    out = torch.empty(31, dtype=torch.uint8, device=cuda)[1:]
+    with pytest.raises(RuntimeError, match="render_wire launch failed"):
+        WI._launch(preds, valid, slot, 1.0, True, out, None)
+    assert kernel_launches()["render_wire"] == before
 
 
 def test_neutex_eager_step_on_card_tracks_cpu(cuda):

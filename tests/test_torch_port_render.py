@@ -242,3 +242,165 @@ def test_renderer_keeps_its_face_table_until_the_mesh_changes():
     before, (img, hit) = img, render()
     assert hit == [0] and render()[1] == [1] and not np.array_equal(img, before)
     np.testing.assert_array_equal(img, fresh())
+
+
+def _numpy_scatter(preds, valid, mask, bg, wire_u8, eval_render, H, W):
+    """The image (and hit indices) as the renderer made them before its
+    wire image left the device in raster order: the composite on the
+    device, then the host's u8 -> f32 pass and its scatter through the
+    Morton permutation (and the mask)."""
+    from intrinsic_neural_fields_tpu_torch.ops.morton import pixel_morton_order
+
+    pix_idx = np.nonzero(mask)[0] if mask is not None else np.arange(H * W)
+    morton = pixel_morton_order(np.stack([pix_idx % W, pix_idx // W], axis=-1))
+    rgb = torch.where(valid[:, None], preds.to(torch.float16),
+                      torch.tensor(bg, dtype=torch.float16))
+    if wire_u8:
+        rgb = torch.round(rgb.to(torch.float32).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    rgb_m, valid_m = rgb.numpy(), valid.numpy()
+    L = len(pix_idx)
+    if rgb_m.dtype == np.uint8:
+        rgb_m = rgb_m.astype(np.float32) / 255.0
+    img_masked = np.empty((L, 3), dtype=np.float32)
+    img_masked[morton] = np.float32(rgb_m)
+    if mask is not None:
+        img = np.full((H * W, 3), bg, dtype=np.float32)
+        img[mask] = img_masked
+    else:
+        img = img_masked
+    img = img.reshape(H, W, 3)
+    if eval_render:
+        hit = np.empty_like(valid_m)
+        hit[morton] = valid_m
+        return img, np.nonzero(hit)[0]
+    return img
+
+
+def _wire_mask(kind, H, W):
+    if kind == "none":
+        return None
+    mask = np.zeros(H * W, bool)
+    if kind == "single":
+        mask[(H // 2) * W + W // 2] = True  # on the sphere
+    else:
+        mask[np.random.default_rng(3).uniform(size=H * W) < 0.6] = True
+        mask[: W * 4] = True  # rows of background the mask keeps
+    return mask
+
+
+@pytest.mark.parametrize("devices", ["one", "two"])
+@pytest.mark.parametrize("background", ["white", "black"])
+@pytest.mark.parametrize("eval_render", [False, True], ids=["image", "eval"])
+@pytest.mark.parametrize("mask_kind", ["none", "partial", "single"])
+@pytest.mark.parametrize("wire_u8", [True, False], ids=["u8", "f16"])
+def test_wire_image_equals_the_numpy_scatter(monkeypatch, wire_u8, mask_kind, eval_render,
+                                             background, devices):
+    """The raster-order wire image and its one host conversion give, to
+    the bit, the image and hit indices that the numpy scatter gave from the
+    same colours: every wire, mask, background and D. With two CPU devices
+    the inference chunk is cut so that the view really is two shards."""
+    from intrinsic_neural_fields_tpu_torch.render import renderer as RM
+
+    H = W = 48
+    if devices == "two":
+        monkeypatch.setattr(RM, "_INFER_CHUNK", 256)
+    base = _port_renderer(H, W)
+    r = Renderer(base.model, base.mesh, base.features.numpy(), background=background, H=H, W=W,
+                 wire_u8=wire_u8, device="cpu",
+                 devices=["cpu", "cpu"] if devices == "two" else None)
+    seen, inner = [], RM.compose_wire
+
+    def spy(preds, valid, *args):
+        seen.append((preds.clone(), valid.clone()))
+        return inner(preds, valid, *args)
+
+    monkeypatch.setattr(RM, "compose_wire", spy)
+    mask = _wire_mask(mask_kind, H, W)
+    cam = _look_at_cam(np.array([0.4, -2.8, 0.7]))
+    out = r.render(cam, _simple_K(H, W), obj_mask_1d=mask, eval_render=eval_render)
+    (preds, valid), = seen
+    if devices == "two" and mask_kind != "single":
+        assert len(r._shards(preds.shape[0])) == 2
+    assert valid.any() and (mask_kind == "single" or not valid.all())
+    bg = 1.0 if background == "white" else 0.0
+    want = _numpy_scatter(preds, valid, mask, bg, wire_u8, eval_render, H, W)
+    img, want_img = (out[0], want[0]) if eval_render else (out, want)
+    assert img.dtype == want_img.dtype == np.float32 and img.shape == (H, W, 3)
+    np.testing.assert_array_equal(img.view(np.uint32), want_img.view(np.uint32))
+    if eval_render:
+        assert out[1].dtype == want[1].dtype
+        np.testing.assert_array_equal(out[1], want[1])
+
+
+def test_compose_wire_plain_on_hand_built_slot_maps():
+    """compose_wire_plain against values worked out by hand: rows reach
+    their raster pixels through the slot map; a miss, a pixel outside the
+    mask (-1) and a slot past the rows show the background; the u8 wire
+    rounds half to even after the f16 rounding and clamps; the hit plane
+    is 1 only where a hit reached its pixel."""
+    from intrinsic_neural_fields_tpu_torch.ops.wire import compose_wire, compose_wire_plain
+
+    preds = torch.tensor([[0.5, -0.25, 1.5],
+                          [0.3, 0.7, 0.9],      # not hit
+                          [2.5 / 255, 3.5 / 255, 1.0],
+                          [0.1, 0.2, 0.3]], dtype=torch.float32)
+    valid = torch.tensor([True, False, True, True])
+    slot = torch.tensor([2, -1, 0, 1, 4, 3, 0], dtype=torch.int32)
+    rgb, plane = compose_wire_plain(preds, valid, slot, 1.0, True, True)
+    # In f16, 2.5/255 and 3.5/255 times 255 are 2.49996 and 3.49995, and 0.1
+    # and 0.3 are 25.494 and 76.512: the f16 rounding decides before the
+    # rounding to an integer; 0.5 gives 127.5, rounded to 128.
+    want = [[2, 3, 255], [255, 255, 255], [128, 0, 255], [255, 255, 255], [255, 255, 255],
+            [25, 51, 77], [128, 0, 255]]
+    assert rgb.dtype == torch.uint8 and rgb.tolist() == want
+    assert plane.dtype == torch.uint8 and plane.tolist() == [1, 0, 1, 0, 0, 1, 1]
+    rgb16, none = compose_wire_plain(preds, valid, slot, 0.0, False, False)
+    assert none is None and rgb16.dtype == torch.float16
+    f16 = preds.to(torch.float16)
+    want16 = torch.stack([f16[2], torch.zeros(3), f16[0], torch.zeros(3), torch.zeros(3),
+                          f16[3], f16[0]]).to(torch.float16)
+    assert torch.equal(rgb16, want16)
+    assert all(torch.equal(a, b) for a, b in zip(
+        compose_wire(preds, valid, slot, 1.0, True, True), (rgb, plane)))
+    empty = torch.zeros(0, dtype=torch.int32)
+    assert compose_wire_plain(preds, valid, empty, 1.0, True, True)[0].shape == (0, 3)
+
+
+def _bad_wire_operands(case):
+    preds = torch.zeros(6, 3)
+    valid = torch.zeros(6, dtype=torch.bool)
+    slot = torch.full((10,), -1, dtype=torch.int32)
+    if case == "preds_f16":
+        preds = preds.half()
+    elif case == "preds_width":
+        preds = torch.zeros(6, 4)
+    elif case == "preds_strided":
+        preds = torch.zeros(3, 6).t()
+    elif case == "valid_u8":
+        valid = valid.to(torch.uint8)
+    elif case == "valid_length":
+        valid = valid[:5]
+    elif case == "slot_i64":
+        slot = slot.long()
+    elif case == "slot_2d":
+        slot = slot.reshape(2, 5)
+    elif case == "slot_strided":
+        slot = torch.zeros(20, dtype=torch.int32)[::2]
+    elif case == "slot_device":
+        slot = torch.empty(10, dtype=torch.int32, device="meta")
+    elif case == "meta_device":
+        preds, valid, slot = (t.to("meta") for t in (preds, valid, slot))
+    return preds, valid, slot
+
+
+@pytest.mark.parametrize("case", ["preds_f16", "preds_width", "preds_strided", "valid_u8",
+                                  "valid_length", "slot_i64", "slot_2d", "slot_strided",
+                                  "slot_device", "meta_device"])
+def test_compose_wire_refuses_bad_operands(case):
+    """The wrapper checks every operand's type, shape, contiguity and
+    device, and the device itself, before any launch."""
+    from intrinsic_neural_fields_tpu_torch.ops.wire import compose_wire
+
+    match = "unsupported device" if case == "meta_device" else "must be contiguous"
+    with pytest.raises(ValueError, match=match):
+        compose_wire(*_bad_wire_operands(case), 1.0, True, False)

@@ -158,7 +158,7 @@ def test_render_frames_carry_their_spans():
     for name, parent in (("render.trace", "render.async"), ("render.infer", "render.async"),
                          ("raster.bin", "render.trace"), ("raster.sync", "render.trace"),
                          ("render.fetch.copy", "render.fetch"),
-                         ("render.fetch.scatter", "render.fetch")):
+                         ("render.fetch.convert", "render.fetch")):
         assert len(by[name]) == len(cams), name
         assert all(ids[rec["parent"]]["name"] == parent for rec in by[name]), name
     frame_of = {d["id"]: i for i, d in enumerate(sorted(dispatches, key=lambda d: d["start_ns"]))}
