@@ -1,6 +1,7 @@
 """render.fetch_ms: the median over the orbit's views of the host clock
-around render_fetch: the u8 wire's copy to the host and the scatter into
-the image; each view is split into its stages after the window."""
+around render_fetch: the copy of the u8 wire image, already in raster
+order, to the host and its one conversion to f32 there; each view is split
+into its stages after the window."""
 import statistics
 
 

@@ -1,7 +1,7 @@
 """render.idle_in_fetch_share: the share of the traced render window in
 which no device operation runs while the host is inside
-Renderer.render_fetch (span render.fetch: the copy to the host, the
-scatter into the image)."""
+Renderer.render_fetch (span render.fetch: the copy of the raster-order
+wire image to the host, its one conversion to f32)."""
 from benchmark.metrics import _spans
 
 

@@ -16,6 +16,7 @@ from benchmark.run import run_cell
 
 TRAIN = ["intrinsic_cat.train_blocks", "viewdep_intrinsic_blob.train_blocks"]
 RENDER = "intrinsic_cat.render_orbit"
+GATHERED = "intrinsic_cat.train_full_shuffle"
 
 
 def _state_unchanged(orig):
@@ -100,7 +101,7 @@ def _ctx(reg, workload, seed):
                device=torch.device("cpu"))
 
 
-@pytest.mark.parametrize("workload", TRAIN + [RENDER])
+@pytest.mark.parametrize("workload", TRAIN + [RENDER, GATHERED])
 def test_control_and_planted_faults_are_not_correct(small_bench, workload):
     _, reg = small_bench
     ctx = _ctx(reg, workload, 23)

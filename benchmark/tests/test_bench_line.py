@@ -11,7 +11,8 @@ SEED = 2**31 + 11
 
 @pytest.mark.parametrize("workload", ["intrinsic_cat.train_blocks",
                                       "viewdep_intrinsic_blob.train_blocks",
-                                      "intrinsic_cat.render_orbit"])
+                                      "intrinsic_cat.render_orbit",
+                                      "intrinsic_cat.train_full_shuffle"])
 @pytest.mark.parametrize("trace", [0, 1])
 def test_last_line_shape(small_bench, workload, trace):
     _, reg = small_bench

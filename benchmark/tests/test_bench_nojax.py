@@ -23,7 +23,8 @@ def test_harness_imports_no_jax():
 
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     code = ("import benchmark.run, benchmark.train_cell, benchmark.render_cell, "
-            "benchmark.control, intrinsic_neural_fields_tpu_torch.train.steps, "
+            "benchmark.train_gathered_cell, benchmark.control, "
+            "intrinsic_neural_fields_tpu_torch.train.steps, "
             "intrinsic_neural_fields_tpu_torch.render.renderer\n"
             "from benchmark.registry import Registry\n"
             "r = Registry()\n"

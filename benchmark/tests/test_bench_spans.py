@@ -118,11 +118,9 @@ def test_render_readers(program):
         rec(9, "render.infer", 50, 59, 5, rays=100, hits=50),
         rec(10, "render.fetch", 60, 100),
     ]
-    assert read("render.trace_wait_ms", run) == pytest.approx(3.0)
     assert read("render.idle_in_dispatch_share", run) == pytest.approx(20.0)
     assert read("render.idle_in_fetch_share", run) == pytest.approx(40.0)
     assert read("render.hit_share", run) == pytest.approx(40.0)
-    assert read("render.chunk_steps_per_frame", run) == pytest.approx(30.0)
     for metric in ("train.turn_ms", "train.graph_launch_ms"):
         assert read(metric, run) is None
 
@@ -140,10 +138,9 @@ def test_train_readers(program):
     assert read("render.hit_share", run) is None
 
 
-@pytest.mark.parametrize("metric", ["render.trace_wait_ms", "render.idle_in_dispatch_share",
+@pytest.mark.parametrize("metric", ["render.idle_in_dispatch_share",
                                     "render.idle_in_fetch_share", "render.hit_share",
-                                    "render.chunk_steps_per_frame", "train.turn_ms",
-                                    "train.graph_launch_ms"])
+                                    "train.turn_ms", "train.graph_launch_ms"])
 def test_nothing_to_read(program, monkeypatch, metric):
     """None for an untraced run, a window with no span, a ring that dropped
     records and a program without spans."""

@@ -34,13 +34,16 @@ def model_config(cfg):
 
 
 class TrainCell:
+    SHUFFLE = "blocks"  # the walk this generator drives: an order of blocks
+    RATE = "train_rays_per_s"  # the end-to-end metric of its window
+
     def __init__(self, ctx):
         self.ctx = ctx
         self.cfg = cfg = ctx.cfg
         self.vd = cfg["model"].get("view_dependence")
         self.B = cfg["training"]["batch_size"]
-        if ctx.traffic["shuffle"] != "blocks":
-            raise ValueError("train_cell drives the blocks shuffle (an order of blocks)")
+        if ctx.traffic["shuffle"] != self.SHUFFLE:
+            raise ValueError(f"{type(self).__name__} drives the {self.SHUFFLE} shuffle")
         self.n_check = ctx.traffic["check_steps"]
         self.ref = None
 
@@ -61,8 +64,7 @@ class TrainCell:
         from intrinsic_neural_fields_tpu_torch.data.sampler import (
             RayData, parse_precompute_dtype, precompute_hit_features, precompute_hit_vencs)
         from intrinsic_neural_fields_tpu_torch.models.texture_field import view_encoder_apply
-        from intrinsic_neural_fields_tpu_torch.train.steps import (
-            AdamHyper, create_train_state, make_epoch_fns)
+        from intrinsic_neural_fields_tpu_torch.train.steps import AdamHyper, create_train_state
 
         ctx, cfg, dev = self.ctx, self.cfg, self.ctx.device
         ctx.phase("imports")
@@ -83,14 +85,21 @@ class TrainCell:
         self.data = data
         ctx.sync()
         ctx.phase("tables")
-        self.train_epoch, _ = make_epoch_fns(model, cfg["training"]["loss_type"],
-                                             shuffle="blocks",
-                                             fused=cfg["training"]["fused_mlp"])
+        self.train_epoch = self.epoch_fn(model)
         self.check_steps()
         ctx.phase("check_steps")
         self.check_epoch()
         ctx.sync()
         ctx.phase("check_epoch")
+
+    def epoch_fn(self, model):
+        """The program's train_epoch for the configuration on this
+        generator's walk (``make_epoch_fns``)."""
+        from intrinsic_neural_fields_tpu_torch.train.steps import make_epoch_fns
+
+        t = self.cfg["training"]
+        return make_epoch_fns(model, t["loss_type"], shuffle=self.SHUFFLE,
+                              fused=t["fused_mlp"])[0]
 
     def program_model(self, device):
         """The program's field for the configuration (its mesh: the
@@ -123,13 +132,17 @@ class TrainCell:
         st = self.state
         prog = {"params0": st.state_dict(), "losses": []}
         for j, b in enumerate(self.blocks):
-            st, m = self.train_epoch(st, np.array([0]), self.block_view(b), 1, self.B)
+            st, m = self.train_epoch(st, self.check_order(j), self.block_view(b), 1, self.B)
             prog["losses"].append(float(m["loss"]))
             if j == 0:
                 prog["mu1"] = st.layout.state_dict(st.mu)
         prog["params_check"] = st.state_dict()
         self.prog = prog
         self.state = st
+
+    def check_order(self, j):
+        """The order check step j gives its one-step epoch: its one block."""
+        return np.array([0])
 
     def check_epoch(self):
         """The window's epoch over the whole table in the seed's order (the
@@ -245,8 +258,8 @@ class TrainCell:
         return train_numbers(prog, self.ref, n)
 
 
-def run(ctx):
-    cell = TrainCell(ctx)
+def run(ctx, cell_class=TrainCell):
+    cell = cell_class(ctx)
     cell.setup()
     setup_s = ctx.setup_done()
     cell.window(ctx.seconds)
@@ -258,7 +271,7 @@ def run(ctx):
     record = {"kind": "train", "cfg": ctx.cfg, "batch": cell.B, "steps": steps,
               "window_s": cell.wall, "launches": cell.launches,
               "device_kind": device_kind(ctx.device)}
-    out = Outcome(e2e={"train_rays_per_s": rays / cell.wall, "setup_s": setup_s},
+    out = Outcome(e2e={cell.RATE: rays / cell.wall, "setup_s": setup_s},
                   attempted=epochs, failed=failed, checks={}, record=record,
                   memory_peak_bytes=mem)
     if cell.tracer is not None:
@@ -271,13 +284,13 @@ def run(ctx):
     return out
 
 
-def readings(ctx, program=True):
+def readings(ctx, program=True, cell_class=TrainCell):
     """The readings a limit is set from (benchmark/control.py): the
     program's numbers after a window of ctx.seconds, or those of the control
     (the reference in the precision below the configuration's) and of each
     fault a train cell can have, planted in the reference put in the
     program's place."""
-    cell = TrainCell(ctx)
+    cell = cell_class(ctx)
     if program:
         cell.setup()
         cell.window(ctx.seconds)
