@@ -41,6 +41,11 @@ The paths (``EpochPath``: the step, and whether the epoch walks blocks):
     train/steps.py:591-601), then the Adam kernel (``eager_step``). On the
     CPU every kernel call runs its plain twin.
 
+Under the profiler a gathered step's ``batch_at`` is span train.gather, and
+an eager step's forward and backward span train.autograd (attribute rows:
+the batch's rows of nonzero weight) and its Adam kernel span train.adam,
+each inside the epoch's train.epoch.
+
 The kernels take a field as it is only when it is ``fused_mlp_eligible``
 (or ``fused_viewdep_eligible``): relu, no encoder. The Trainer makes an
 xyz / ff / rff field eligible by pre-embedding its splits and training
@@ -284,12 +289,15 @@ def eager_step(state, hyper_row, loss_and_pred, gt, w):
     in the squared error. Returns (loss, sum over rows of w times the
     per-sample squared error, sum of w)."""
     p = state.params.detach().requires_grad_()
-    loss, pred = loss_and_pred(p)
-    loss.backward()
-    fused_adam_apply(state.params, state.mu, state.nu, hyper_row, p.grad)
+    n_w = w.sum()
+    with span("train.autograd", rows=n_w):
+        loss, pred = loss_and_pred(p)
+        loss.backward()
+    with span("train.adam"):
+        fused_adam_apply(state.params, state.mu, state.nu, hyper_row, p.grad)
     eager_step.launches += 1
     sq = (((pred.detach() - gt) ** 2).sum(-1) * w).sum()
-    return loss.detach(), sq, w.sum()
+    return loss.detach(), sq, n_w
 
 
 eager_step.launches = 0  # eager steps since the last reset
@@ -497,8 +505,9 @@ def batch_at(data, order, i, batch_size, blocks, start=0):
     if blocks:
         return (slice_batch(data, int(order[i]) * B, B),
                 torch.ones(B, dtype=torch.float32, device=dev))
-    pos = start + i * B + torch.arange(B, device=dev)
-    return gather_batch(data, order[i * B:(i + 1) * B]), (pos < data.n).to(torch.float32)
+    with span("train.gather"):
+        pos = start + i * B + torch.arange(B, device=dev)
+        return gather_batch(data, order[i * B:(i + 1) * B]), (pos < data.n).to(torch.float32)
 
 
 def val_sums(forward, state, data, start, stop, batch_size, num_batches, loss_elem):

@@ -5,12 +5,14 @@ import contextlib
 import time
 
 import numpy as np
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from intrinsic_neural_fields_tpu_torch.data.sampler import RayData, precompute_hit_features
 from intrinsic_neural_fields_tpu_torch.geometry.primitives import icosphere
 from intrinsic_neural_fields_tpu_torch.models import make_model
+from intrinsic_neural_fields_tpu_torch.models.neutex import NeuTexTrainWrapper
 from intrinsic_neural_fields_tpu_torch.ops import launches
 from intrinsic_neural_fields_tpu_torch.ops.launches import add, reset_kernel_launches, span, spans
 from intrinsic_neural_fields_tpu_torch.render.renderer import Renderer
@@ -184,6 +186,43 @@ def test_blocks_epoch_and_prefetch_spans():
     (epoch,), (rows,), (pre,) = by["train.epoch"], by["train.hyper_rows"], by["train.prefetch"]
     assert epoch["attrs"] == {"steps": nb} and rows["parent"] == epoch["id"]
     assert pre["parent"] is None and pre["end_ns"] <= epoch["start_ns"]
+
+
+def _xyz_model(kind):
+    if kind == "neutex":
+        return NeuTexTrainWrapper(num_freqs=4, use_logspace=False, max_freq=2)
+    return make_model({"k": 3, "feature_strategy": "xyz", "num_layers": 3, "mlp_hidden_dim": 32,
+                       "skip_layer_idx": 1}, seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["neutex", "xyz_field"])
+def test_eager_gathered_epoch_spans(kind):
+    """A CPU full-shuffle epoch of a model the kernels do not take (NeuTex,
+    and an xyz field without fused_mlp): per step one train.gather, one
+    train.autograd with rows = B and one train.adam, each a child of the
+    epoch's train.epoch."""
+    m = icosphere(2)
+    rng = np.random.default_rng(1)
+    n, B = 512, 128
+    faces = np.asarray(m.faces)[rng.integers(0, m.num_faces, n)]
+    data = precompute_hit_features(RayData(
+        features=torch.as_tensor(np.asarray(m.vertices, np.float32)), feature_strategy="xyz",
+        vertex_idxs_of_hit_faces=torch.as_tensor(faces),
+        barycentric_coords=torch.from_numpy(rng.dirichlet(np.ones(3), size=n).astype(np.float32)),
+        expected_rgbs=torch.from_numpy(rng.uniform(size=(n, 3)).astype(np.float32))))
+    model = _xyz_model(kind)
+    train_epoch, _ = make_epoch_fns(model, "L1", shuffle="full", fused=False)
+    state = create_train_state(model, AdamHyper(1e-3), "cpu")
+    reset_kernel_launches()
+    with _profiled():
+        train_epoch(state, fold_in(PRNGKey(0), 2), data, n // B, B)
+    by = _by_name(spans(*ALL)[0])
+    (epoch,) = by["train.epoch"]
+    for name in ("train.gather", "train.autograd", "train.adam"):
+        assert len(by[name]) == n // B, name
+        assert all(r["parent"] == epoch["id"] for r in by[name]), name
+    assert [r["attrs"] for r in by["train.autograd"]] == [{"rows": B}] * (n // B)
+    assert "train.replay" not in by
 
 
 def test_no_span_among_the_profiler_events():
